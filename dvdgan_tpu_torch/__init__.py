@@ -1,5 +1,5 @@
-"""dvdgan_tpu_torch — the DVD-GAN generator of `dvdgan_tpu` in PyTorch, for
-an NVIDIA H100.
+"""dvdgan_tpu_torch — the DVD-GAN of `dvdgan_tpu` in PyTorch, for an NVIDIA
+H100.
 
 The JAX package `dvdgan_tpu` is the reference; this package keeps its module
 names, its parameter paths ("levels/0/gru/gates_x/w") and its layouts
@@ -10,5 +10,6 @@ It imports torch and never jax.
 Every Pallas kernel on a ported path is a CUDA kernel written by hand for
 sm_90a (`kernels/`), built with nvcc at first use. What is ported so far is
 EMA-G sampling (`train.step.sample`, `python -m dvdgan_tpu_torch --mode
-sample`); ROADMAP.md lists the rest.
+sample`) and the alternating G/D train step with DS, DT, Adam and EMA
+(`train.step.train_step`, `--mode train`); ROADMAP.md lists the rest.
 """

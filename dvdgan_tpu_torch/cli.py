@@ -1,24 +1,47 @@
-"""CLI: `python -m dvdgan_tpu_torch --mode sample --preset ucf101_64
---n_samples 16 --bf16 1 --out_dir DIR [--weights state.npz]`.
+"""CLI: `python -m dvdgan_tpu_torch --mode sample|train --preset ucf101_64
+[--device cuda] [--weights state.npz] --out_dir DIR ...`.
+
+Both modes run on `--device` (default `cuda`); without a CUDA device the CLI
+raises, unless `--device cpu` asks for the CPU.
 
 Sample mode draws z ∼ N(0, 1) and uniform class ids from a torch.Generator
 seeded with --seed + 777 (the reference CLI's offset), runs EMA-G sampling
-(`train.step.sample`) on the GPU when there is one, and writes the clips as
-float32 (N, T, H, W, 3) in [-1, 1] to DIR/samples.npy. Without --weights the
-weights are the port's seeded init (--seed).
+(`train.step.sample`) and writes the clips as float32 (N, T, H, W, 3) in
+[-1, 1] to DIR/samples.npy. Without --weights the weights are the port's
+seeded init (--seed).
+
+Train mode builds the train state from --seed (or --weights, a train-state
+npz, resuming at its step), takes --total_step steps of `train.step.
+train_step` on the reference's synthetic clips (`dvdgan_tpu.data`'s
+SyntheticVideoDataset and Loader, which import only numpy: the same batches
+the reference trainer draws for --seed), prints one line per step with the
+four losses and the step's kernel launches, and writes the final state to
+DIR/train_state.npz (`interop` layout). The step's own draws come from a
+torch.Generator on the device seeded with --seed.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 
 import numpy as np
 import torch
 
-from dvdgan_tpu_torch import interop
+from dvdgan_tpu_torch import interop, kernels
 from dvdgan_tpu_torch.models.generator import GeneratorState
+from dvdgan_tpu_torch.train import state as train_state
 from dvdgan_tpu_torch.train import step
 from dvdgan_tpu_torch.utils.config import Config, parse_config
+
+
+def resolve_device(name: str) -> torch.device:
+    """The torch device `name` names; a CUDA device must exist."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available "
+                           f"(pass --device cpu to run on the CPU)")
+    return device
 
 
 def run_sample(cfg: Config, device: torch.device) -> torch.Tensor:
@@ -39,13 +62,78 @@ def run_sample(cfg: Config, device: torch.device) -> torch.Tensor:
                        g_cfg)
 
 
-def main(argv=None) -> np.ndarray:
-    cfg = parse_config(argv)
-    if cfg.mode != "sample":
+def _launch_counts() -> tuple[int, int]:
+    return (kernels.gru_sequence_fused.launches,
+            kernels.convgru_bwd.gru_sequence_bwd.launches)
+
+
+def run_train(cfg: Config, device: torch.device) -> dict:
+    """Takes cfg.total_step train steps on `device`; returns the state."""
+    if cfg.pretrained_model is not None:
         raise NotImplementedError(
-            f"--mode {cfg.mode}: train is ROADMAP Queue 1 items 6-8 and eval "
-            f"item 11; this port runs --mode sample")
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+            "resuming from a dvdgan_tpu Orbax checkpoint is ROADMAP Queue 1 "
+            "item 8; pass the state as an interop npz with --weights")
+    if cfg.time_shards > 1:
+        raise NotImplementedError(
+            "time-axis context parallelism (--time_shards) is ROADMAP "
+            "Queue 1 item 9")
+    if cfg.dataset != "synthetic":
+        raise NotImplementedError(
+            f"--dataset {cfg.dataset}: the port trains on synthetic clips; "
+            f"the frames pipeline is ROADMAP Queue 1 item 8")
+    # numpy-only modules of the reference (no jax)
+    from dvdgan_tpu.data.loader import Loader
+    from dvdgan_tpu.data.synthetic import SyntheticVideoDataset
+
+    g_cfg, ds_cfg, dt_cfg = cfg.g_config(), cfg.ds_config(), cfg.dt_config()
+    tc = cfg.train_config()
+    state = (interop.load_train_state_npz(cfg.weights) if cfg.weights
+             else train_state.create(cfg.seed, g_cfg, ds_cfg, dt_cfg))
+    state = train_state.to_device(state, device)
+    dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+    draws = step.TorchDraws(
+        torch.Generator(device).manual_seed(cfg.seed), cfg.batch_size,
+        g_cfg.z_dim, g_cfg.n_frames, ds_cfg.k_frames, dtype)
+
+    dataset = SyntheticVideoDataset(
+        n_items=max(cfg.batch_size * 8, 64), n_frames=cfg.n_frames,
+        img_size=cfg.img_size, n_classes=cfg.n_classes, seed=cfg.seed)
+    loader = Loader(dataset, cfg.batch_size, seed=cfg.seed, num_threads=1)
+    start = int(state["step"])
+    per_epoch = loader.batches_per_epoch()
+    batches = loader.forever(start // per_epoch, start % per_epoch)
+    try:
+        for clips, labels in itertools.islice(batches, cfg.total_step):
+            real = torch.from_numpy(clips).to(device, dtype)
+            y = torch.from_numpy(labels).to(device).long()
+            before = _launch_counts()
+            state, metrics = step.train_step(state, real, y, draws, g_cfg,
+                                             ds_cfg, dt_cfg, tc)
+            k1, k2 = (a - b for a, b in zip(_launch_counts(), before))
+            losses = " ".join(f"{k} {float(v):.6f}"
+                              for k, v in metrics.items())
+            print(f"step {int(state['step'])} {losses} "
+                  f"k1_launches {k1} k2_launches {k2}", flush=True)
+    finally:
+        batches.close()
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    out = os.path.join(cfg.out_dir, "train_state.npz")
+    interop.save_train_state_npz(out, state)
+    print(f"wrote the train state at step {int(state['step'])} to {out}")
+    return state
+
+
+def main(argv=None):
+    """Runs the mode; returns the clips (sample) or the final state
+    (train)."""
+    cfg = parse_config(argv)
+    if cfg.mode not in ("sample", "train"):
+        raise NotImplementedError(
+            f"--mode {cfg.mode}: eval is ROADMAP Queue 1 item 11; this port "
+            f"runs --mode sample and --mode train")
+    device = resolve_device(cfg.device)
+    if cfg.mode == "train":
+        return run_train(cfg, device)
     videos = run_sample(cfg, device).float().cpu().numpy()
     os.makedirs(cfg.out_dir, exist_ok=True)
     out = os.path.join(cfg.out_dir, "samples.npy")

@@ -64,6 +64,17 @@ def map_with_path(fn: Callable[[str, Any], Any], tree: Any, prefix: str = ""
     return fn(prefix, tree)
 
 
+def tree_map(fn: Callable[..., Any], *trees: Any) -> Any:
+    """fn over the leaves of trees of one structure (dicts and lists)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [tree_map(fn, *(t[i] for t in trees))
+                for i in range(len(first))]
+    return fn(*trees)
+
+
 def tree_path(attr: str) -> str:
     """'levels.0.gru.gates_x.w' -> 'levels/0/gru/gates_x/w'."""
     return attr.replace(".", "/")

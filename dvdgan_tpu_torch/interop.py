@@ -1,16 +1,23 @@
-"""Carrying generator weights between `dvdgan_tpu` and the port.
+"""Carrying state between `dvdgan_tpu` and the port.
 
 The exchange format is a flat {path: numpy array} dict under the paths the
 reference's `core/tree.flatten_with_paths` gives its train state:
 
-    g_ema/<param path>      EMA-G parameters (e.g. g_ema/levels/0/gru/gates_x/w)
-    g/stats/<stats path>    G's BN running moments (g/stats/out_bn/mean)
-    g/sn_u/<param path>     G's SN u vectors (g/sn_u/seed/w)
+    step                     int32 scalar
+    g/params/<param path>    G's parameters (g/params/levels/0/gru/gates_x/w)
+    g/stats/<stats path>     G's BN running moments (g/stats/out_bn/mean)
+    g/sn_u/<param path>      G's SN u vectors (g/sn_u/seed/w)
+    g/opt/0/count            optax Adam state (ScaleByAdamState is element
+    g/opt/0/mu/<param path>  0 of the (scale_by_adam, scale) chain state;
+    g/opt/0/nu/<param path>  the scale's EmptyState has no leaves)
+    ds/{params,sn_u,opt}/…   DS, likewise; dt/… DT
+    g_ema/<param path>       EMA-G parameters
 
-The port keeps the reference's layouts in its trees (HWIO conv kernels,
-(in, out) linears), so the arrays cross unchanged; `ops.layers.conv2d`
-reorders to OIHW at the `F.conv2d` call. Written as an npz, the same dict
-holds the port's own checkpoints of the sampling state.
+The sampling state is the g_ema, g/stats and g/sn_u part of it. The port
+keeps the reference's layouts in its trees (HWIO and DHWIO conv kernels,
+(in, out) linears), so the arrays cross unchanged; `ops.layers` reorders at
+the `F.conv2d`/`F.conv3d` call. Written as an npz, the same dict holds the
+port's own checkpoints.
 """
 
 from __future__ import annotations
@@ -22,14 +29,22 @@ from dvdgan_tpu_torch.core import tree as tru
 from dvdgan_tpu_torch.models.generator import GeneratorState
 
 _PARAMS, _STATS, _SN_U = "g_ema/", "g/stats/", "g/sn_u/"
+_MODELS = ("g", "ds", "dt")
+_ADAM = "opt/0/"
 
 
 def _subtree(flat: dict, prefix: str) -> dict[str, torch.Tensor]:
     out = {k[len(prefix):]: torch.from_numpy(np.array(v, np.float32))
            for k, v in flat.items() if k.startswith(prefix)}
     if not out:
-        raise KeyError(f"no '{prefix}*' arrays in the generator state")
+        raise KeyError(f"no '{prefix}*' arrays in the state")
     return out
+
+
+def _int32(flat: dict, key: str) -> torch.Tensor:
+    if key not in flat:
+        raise KeyError(f"no '{key}' array in the train state")
+    return torch.from_numpy(np.array(flat[key], np.int32))
 
 
 def load_generator_state(flat: dict[str, np.ndarray]) -> GeneratorState:
@@ -58,3 +73,44 @@ def save_state_npz(path: str, state: GeneratorState) -> None:
 def load_state_npz(path: str) -> GeneratorState:
     with np.load(path) as f:
         return load_generator_state({k: f[k] for k in f.files})
+
+
+def load_train_state(flat: dict[str, np.ndarray]) -> dict:
+    """The port's train state (`train.state`, on the CPU) from the
+    reference's flat numpy leaves."""
+    state: dict = {"step": _int32(flat, "step"),
+                   "g_ema": tru.unflatten(_subtree(flat, _PARAMS))}
+    for m in _MODELS:
+        opt = f"{m}/{_ADAM}"
+        state[m] = {
+            "params": tru.unflatten(_subtree(flat, f"{m}/params/")),
+            "sn_u": _subtree(flat, f"{m}/sn_u/"),
+            "opt": {"count": _int32(flat, opt + "count"),
+                    "mu": tru.unflatten(_subtree(flat, opt + "mu/")),
+                    "nu": tru.unflatten(_subtree(flat, opt + "nu/"))},
+        }
+    state["g"]["stats"] = tru.unflatten(_subtree(flat, _STATS))
+    return state
+
+
+def train_state_to_flat(state: dict) -> dict[str, np.ndarray]:
+    """Inverse of load_train_state: float leaves as float32, step and the
+    Adam counts as int32."""
+    tree = dict(state)
+    for m in _MODELS:
+        tree[m] = dict(state[m], opt=[state[m]["opt"]])  # opt/0/...
+    out = {}
+    for path, v in tru.flatten_with_paths(tree).items():
+        a = v.detach().cpu()
+        out[path] = (a.float().numpy() if a.is_floating_point()
+                     else a.numpy().astype(np.int32))
+    return out
+
+
+def save_train_state_npz(path: str, state: dict) -> None:
+    np.savez(path, **train_state_to_flat(state))
+
+
+def load_train_state_npz(path: str) -> dict:
+    with np.load(path) as f:
+        return load_train_state({k: f[k] for k in f.files})

@@ -2,8 +2,9 @@
 with ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
-`build/lib<name>-<digest>.so` beside this file (the digest covers the source
-and the flags, so an edited source is rebuilt). The build directory can be
+`build/lib<name>-<digest>.so` beside this file (the digest covers the source,
+the shared headers `csrc/*.cuh` and the flags, so an edited source or header
+is rebuilt). The build directory can be
 moved with DVDGAN_TORCH_KERNEL_DIR. PyTorch's headers are not included, so
 one source builds in seconds. `build()` starts one nvcc per source, all at
 once, and waits for them.
@@ -18,7 +19,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCES = ("convgru_seq",)
+SOURCES = ("convgru_seq", "convgru_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -37,9 +38,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return build_dir() / f"lib{name}-{digest}.so"
 
 

@@ -14,8 +14,12 @@ accumulated in f32 and gx added in f32; r⊙h is formed in f32 and rounded
 to the activation dtype before the candidate conv; the blend is f32 and the
 output is rounded once.
 
-Sampling only: the backward (an autograd.Function over the saved hs) lands
-with the training slice, so an input that requires grad is refused.
+Under autograd it is a `torch.autograd.Function` with the reference's
+`custom_vjp` policy: the forward saves its inputs and the hidden sequence
+hs it produced, and the backward is the reverse-time BPTT kernel K2
+(`convgru_bwd.gru_sequence_bwd`) on CUDA tensors, its plain version on CPU
+tensors. The reference takes K2 only at T ≥ 32 (a TPU v5e verdict); here
+it is K2 at every T.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from dvdgan_tpu_torch.kernels import _build
 
@@ -91,46 +96,63 @@ def _pixel_strides(x: torch.Tensor, name: str) -> tuple[int, int]:
     return s_b, s_w
 
 
-def gru_sequence_fused(gx, cx, h0, wg, wc):
-    """K1 forward. gx (T,B,H,W,2C), cx (T,B,H,W,C), h0 (B,H,W,C),
-    wg (3,3,C,2C), wc (3,3,C,C) -> hs (T,B,H,W,C)."""
-    args = {"gx": gx, "cx": cx, "h0": h0, "wg": wg, "wc": wc}
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args.values()):
-        raise NotImplementedError(
-            "gru_sequence_fused: backward lands with the training slice; "
-            "call under torch.no_grad()")
+def validate(args: dict[str, torch.Tensor],
+             contiguous: tuple[str, ...]) -> torch.device:
+    """Shape, device and dtype checks shared by K1's and K2's wrappers.
+    `args` holds gx, cx, h0, wg, wc and any (T, B, H, W, C) sequences (hs,
+    g). Returns the one device; on CUDA also checks the dtype and that the
+    `contiguous` inputs are."""
+    gx, h0 = args["gx"], args["h0"]
     if h0.dim() != 4 or gx.dim() != 5:
-        raise ValueError(f"convgru_seq: want h0 (B,H,W,C) and gx (T,B,H,W,2C),"
-                         f" got {tuple(h0.shape)} and {tuple(gx.shape)}")
+        raise ValueError(f"convgru: want h0 (B,H,W,C) and gx (T,B,H,W,2C), "
+                         f"got {tuple(h0.shape)} and {tuple(gx.shape)}")
     b, hh, ww, c = h0.shape
     t = gx.shape[0]
-    want = {"gx": (t, b, hh, ww, 2 * c), "cx": (t, b, hh, ww, c),
-            "wg": (3, 3, c, 2 * c), "wc": (3, 3, c, c)}
-    for name, shape in want.items():
-        if tuple(args[name].shape) != shape:
-            raise ValueError(f"convgru_seq: {name} has shape "
-                             f"{tuple(args[name].shape)}, want {shape}")
+    want = {"gx": (t, b, hh, ww, 2 * c), "wg": (3, 3, c, 2 * c),
+            "wc": (3, 3, c, c)}
+    for name, a in args.items():
+        shape = want.get(name, (t, b, hh, ww, c) if a.dim() == 5
+                         else (b, hh, ww, c))
+        if tuple(a.shape) != shape:
+            raise ValueError(f"convgru: {name} has shape {tuple(a.shape)}, "
+                             f"want {shape}")
     devices = {a.device for a in args.values()}
     if len(devices) != 1:
-        raise ValueError(f"convgru_seq: inputs on several devices {devices}")
+        raise ValueError(f"convgru: inputs on several devices {devices}")
     device = devices.pop()
     if device.type == "cpu":
-        return gru_sequence_reference(gx, cx, h0, wg, wc)
+        return device
     if device.type != "cuda":
-        raise ValueError(f"convgru_seq: no kernel for device {device}")
+        raise ValueError(f"convgru: no kernel for device {device}")
     dtypes = {a.dtype for a in args.values()}
     if len(dtypes) != 1 or h0.dtype not in _DTYPE_CODES:
-        raise TypeError(f"convgru_seq: inputs must share one dtype of "
+        raise TypeError(f"convgru: inputs must share one dtype of "
                         f"{list(_DTYPE_CODES)}, got {dtypes}")
-    for name in ("h0", "wg", "wc"):
+    for name in contiguous:
         if not args[name].is_contiguous():
-            raise ValueError(f"convgru_seq: {name} must be contiguous")
+            raise ValueError(f"convgru: {name} must be contiguous")
+    return device
+
+
+def device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else (
+        torch.cuda.current_device())
+
+
+def _forward(gx, cx, h0, wg, wc):
+    """K1 on CUDA tensors, its plain version on CPU tensors."""
+    device = validate({"gx": gx, "cx": cx, "h0": h0, "wg": wg, "wc": wc},
+                      contiguous=("h0", "wg", "wc"))
+    if device.type == "cpu":
+        return gru_sequence_reference(gx, cx, h0, wg, wc)
     gx_b, gx_pix = _pixel_strides(gx, "gx")
     cx_b, cx_pix = _pixel_strides(cx, "cx")
+    t = gx.shape[0]
+    b, hh, ww, c = h0.shape
 
     lib = _lib()
     code = _DTYPE_CODES[h0.dtype]
-    dev = device.index if device.index is not None else torch.cuda.current_device()
+    dev = device_index(device)
     hs = torch.empty((t, b, hh, ww, c), dtype=h0.dtype, device=device)
     rh = torch.empty((b, hh, ww, c), dtype=h0.dtype, device=device)
     z = torch.empty((b, hh, ww, c), dtype=torch.float32, device=device)
@@ -151,6 +173,36 @@ def gru_sequence_fused(gx, cx, h0, wg, wc):
         _check(lib, err, "candidate")
         gru_sequence_fused.launches += 1
     return hs
+
+
+class _GruSequence(torch.autograd.Function):
+    """K1 forward, saved-hs backward through K2 (`_fwd`/`_bwd` of the
+    reference's custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, gx, cx, h0, wg, wc):
+        hs = _forward(gx, cx, h0, wg, wc)
+        ctx.save_for_backward(gx, cx, h0, wg, wc, hs)
+        return hs
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        # convgru_bwd imports this module's helpers, so it is imported here
+        from dvdgan_tpu_torch.kernels import convgru_bwd
+        return convgru_bwd.gru_sequence_bwd(*ctx.saved_tensors,
+                                            g.contiguous())
+
+
+def gru_sequence_fused(gx, cx, h0, wg, wc):
+    """K1 forward. gx (T,B,H,W,2C), cx (T,B,H,W,C), h0 (B,H,W,C),
+    wg (3,3,C,2C), wc (3,3,C,C) -> hs (T,B,H,W,C). Differentiable in all
+    five inputs; without a graph to build (torch.no_grad(), or no input
+    that requires grad) nothing is saved."""
+    args = (gx, cx, h0, wg, wc)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _GruSequence.apply(*args)
+    return _forward(*args)
 
 
 # kernel launches made by gru_sequence_fused (two per time step)

@@ -1,3 +1,3 @@
-from dvdgan_tpu_torch.models.config import GConfig
+from dvdgan_tpu_torch.models.config import DSConfig, DTConfig, GConfig
 
-__all__ = ["GConfig"]
+__all__ = ["DSConfig", "DTConfig", "GConfig"]

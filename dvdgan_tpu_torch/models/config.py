@@ -1,7 +1,7 @@
-"""Generator topology — the counterpart of `dvdgan_tpu/models/config.py`.
+"""Model topologies — the counterpart of `dvdgan_tpu/models/config.py`.
 
-A frozen dataclass whose derived topology (level count, latent chunking,
-channel schedule) is computed once in Python, with the reference's values.
+Frozen dataclasses whose derived topology (level count, latent chunking,
+channel schedules) is computed once in Python, with the reference's values.
 """
 
 from __future__ import annotations
@@ -17,6 +17,16 @@ _G_MULTS = {
     64: (8, 8, 4, 2, 1),
     128: (16, 16, 8, 4, 2, 1),
     256: (16, 16, 8, 8, 4, 2, 1),
+}
+# D width multipliers per input resolution: the channel multiplier after
+# each downsampling block, from the from-RGB block's output; the final
+# entry is the non-downsampling block.
+_D_MULTS = {
+    16: (2, 2, 2),
+    32: (2, 2, 2, 2),
+    64: (1, 2, 4, 8, 16),
+    128: (1, 2, 4, 8, 16, 16),
+    256: (1, 2, 4, 8, 8, 16, 16),
 }
 
 
@@ -59,3 +69,43 @@ class GConfig:
     def level_channels(self, i: int) -> Tuple[int, int]:
         m = self.mults
         return self.ch * m[i], self.ch * m[i + 1]
+
+
+@dataclasses.dataclass(frozen=True)
+class DSConfig:
+    """Spatial discriminator: k random full-resolution frames per clip."""
+    img_size: int = 64
+    ch: int = 32
+    n_classes: int = 101
+    k_frames: int = 8
+
+    @property
+    def mults(self) -> Tuple[int, ...]:
+        return _D_MULTS[self.img_size]
+
+    @property
+    def feat_dim(self) -> int:
+        return self.ch * self.mults[-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class DTConfig:
+    """Temporal discriminator: the whole clip at half spatial resolution;
+    the first `n_3d_blocks` residual blocks are 3-D convs."""
+    img_size: int = 64            # full-res; DT consumes img_size // 2
+    n_frames: int = 8
+    ch: int = 32
+    n_classes: int = 101
+    n_3d_blocks: int = 2
+
+    @property
+    def input_size(self) -> int:
+        return self.img_size // 2
+
+    @property
+    def mults(self) -> Tuple[int, ...]:
+        return _D_MULTS[self.input_size]
+
+    @property
+    def feat_dim(self) -> int:
+        return self.ch * self.mults[-1]

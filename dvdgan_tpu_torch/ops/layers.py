@@ -1,11 +1,16 @@
 """Primitive layers — the counterpart of `dvdgan_tpu/ops/layers.py`.
 
 Pure functions over explicit param dicts with the reference's conventions:
-activations channels-last (N, H, W, C); conv kernels HWIO, linears (in, out).
-The compute dtype follows the activation dtype; a bias is added after the
-conv's output is rounded to it, as on the reference. `conv2d` reorders to
-PyTorch's NCHW/OIHW views at the `F.conv2d` call only: an NHWC-contiguous
-tensor seen as NCHW is channels_last, so no copy is made.
+activations channels-last (N, H, W, C) and (N, T, H, W, C); conv kernels
+HWIO and DHWIO, linears (in, out). The compute dtype follows the activation
+dtype; a bias is added after the conv's output is rounded to it, as on the
+reference. `conv2d`/`conv3d` reorder to PyTorch's NCHW/OIHW (NCDHW/OIDHW)
+views at the `F.conv2d`/`F.conv3d` call only: a channels-last-contiguous
+tensor seen that way is channels_last, so no copy is made.
+
+The reference's TPU lowerings of the same convs (the stem conv's im2col
+weight-grad, the row-pair and temporal-pair/phase 3-D forms, `grad_barrier`)
+compute the same function and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -98,6 +103,33 @@ def upsample2x_conv3x3(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         out = out + p["b"].to(x.dtype)
     return out
+
+
+# ---------------------------------------------------------------- conv3d ----
+
+def conv3d_init(gen: torch.Generator, k: tuple[int, int, int], cin: int,
+                cout: int, use_bias: bool = True) -> Params:
+    kt, kh, kw = k
+    p = {"w": winit.orthogonal(gen, (kt, kh, kw, cin, cout))}
+    if use_bias:
+        p["b"] = winit.zeros((cout,))
+    return p
+
+
+def conv3d(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Stride-1 SAME conv. x: (N, T, H, W, C) -> (N, T, H, W, C_out),
+    contiguous; the kernel is DHWIO (odd in every dimension)."""
+    w = p["w"].to(x.dtype)
+    if any(k % 2 == 0 for k in w.shape[:3]):
+        raise ValueError(f"SAME padding needs an odd kernel, got "
+                         f"{tuple(w.shape[:3])}")
+    pad = tuple(k // 2 for k in w.shape[:3])
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2),
+                 padding=pad)
+    y = y.permute(0, 2, 3, 4, 1).contiguous()
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
 
 
 # ------------------------------------------------------------- embedding ----

@@ -1,10 +1,20 @@
-"""Generator residual block — the counterpart of
-`dvdgan_tpu/ops/resblocks.py:gresblock` (time folded into batch):
+"""Residual blocks — the counterpart of `dvdgan_tpu/ops/resblocks.py`.
+
+GResBlock (time folded into batch):
 
     main: CBN → ReLU → [upsample 2× → SNConv3×3, phase-decomposed]
           → CBN → ReLU → SNConv3×3
     skip: SNConv1×1 at LOW resolution (it commutes with nearest-up) → up 2×
           (identity conv when shape-preserving)
+
+DBlock (2-D) and DBlock3D (3×3×3 convs, spatial-only pooling), BigGAN-D
+pre-activation blocks:
+
+    main: [ReLU unless first] → SNConv3×3 → ReLU → SNConv3×3 → [avg-pool 2×]
+    skip: [avg-pool 2×] → SNConv1×1 (when first or the width changes)
+
+The skip pools before its 1×1 conv (the two commute exactly), in the
+reference's order, so the summation order matches too.
 """
 
 from __future__ import annotations
@@ -50,3 +60,57 @@ def gresblock(p: dict, stats: dict, x: torch.Tensor, cond: torch.Tensor,
     if upsample:
         sc = resize.upsample_nearest_2x(sc)
     return h + sc, {"bn1": s1, "bn2": s2}
+
+
+def dblock_init(gen: torch.Generator, cin: int, cout: int, first: bool = False
+                ) -> dict:
+    p = {
+        "conv1": layers.conv2d_init(gen, 3, cin, cout),
+        "conv2": layers.conv2d_init(gen, 3, cout, cout),
+    }
+    if first or cin != cout:
+        p["skip"] = layers.conv2d_init(gen, 1, cin, cout)
+    return p
+
+
+def dblock(p: dict, x: torch.Tensor, down: bool, first: bool = False
+           ) -> torch.Tensor:
+    """x: (N, H, W, Cin) -> (N, H', W', Cout)."""
+    h = x if first else torch.relu(x)
+    h = layers.conv2d(p["conv1"], h)
+    h = torch.relu(h)
+    h = layers.conv2d(p["conv2"], h)
+    sc = x
+    if down:
+        h = resize.avg_pool_2x(h)
+        sc = resize.avg_pool_2x(sc)
+    if "skip" in p:
+        sc = layers.conv2d(p["skip"], sc)
+    return h + sc
+
+
+def dblock3d_init(gen: torch.Generator, cin: int, cout: int,
+                  first: bool = False) -> dict:
+    p = {
+        "conv1": layers.conv3d_init(gen, (3, 3, 3), cin, cout),
+        "conv2": layers.conv3d_init(gen, (3, 3, 3), cout, cout),
+    }
+    if first or cin != cout:
+        p["skip"] = layers.conv3d_init(gen, (1, 1, 1), cin, cout)
+    return p
+
+
+def dblock3d(p: dict, x: torch.Tensor, down: bool, first: bool = False
+             ) -> torch.Tensor:
+    """x: (N, T, H, W, Cin) -> (N, T, H', W', Cout)."""
+    h = x if first else torch.relu(x)
+    h = layers.conv3d(p["conv1"], h)
+    h = torch.relu(h)
+    h = layers.conv3d(p["conv2"], h)
+    sc = x
+    if down:
+        h = resize.avg_pool_2x_video(h)
+        sc = resize.avg_pool_2x_video(sc)
+    if "skip" in p:
+        sc = layers.conv3d(p["skip"], sc)
+    return h + sc

@@ -1,13 +1,194 @@
-"""Sampling — the counterpart of `dvdgan_tpu/train/step.py:sample`.
-The train step lands with the training slice (ROADMAP Queue 1 item 6)."""
+"""The alternating G/D train step and sampling — the counterpart of
+`dvdgan_tpu/train/step.py` (`train_step` and `sample`).
+
+One `train_step` = d_steps discriminator updates + one generator update +
+EMA, with the reference's contracts:
+
+  * G's σ-normalization runs once for the whole D phase (`update=False`),
+    and ONE G forward at batch d_steps·B makes every D step's fakes
+    ("pooled" fake generation: their CBN statistics pool over all d_steps
+    batches), without grad; its BN running-stat write is discarded;
+  * the real clip and all the fakes are φ-pooled (2× spatial mean) once,
+    and DT takes them with `pooled=True`;
+  * each D step scores real and fake in ONE shared forward through DS and
+    through DT (D has no batch-coupled ops), takes the hinge losses, and
+    advances DS's and DT's SN `u` and Adam;
+  * the G update goes back through DS and DT (their σ from frozen u); G's
+    SN `u` and BN running stats advance only here;
+  * EMA of G's params, then step + 1.
+
+Randomness goes through one hook, `draws` (an object with `z(stream)` and
+`idx(stream)`): stream i in the reference's
+key-split order (`dvdgan_tpu/train/step.py:152-178`) is, for D step i,
+3i → z, 3i+1 → real frame indices, 3i+2 → fake frame indices, and then
+3·d_steps → G's z, 3·d_steps+1 → G's frame indices. Frame indices are per
+clip, uniform without replacement. `TorchDraws` draws them from a
+torch.Generator on the device; a test feeds the reference's own draws.
+
+Gradients are `torch.autograd.grad` of the loss with respect to detached
+copies of the f32 master params; the step builds a new state tree and
+leaves the old one as it was.
+"""
 
 from __future__ import annotations
 
+from typing import Any, Callable
+
 import torch
 
-from dvdgan_tpu_torch.models import GConfig
-from dvdgan_tpu_torch.models import generator
+from dvdgan_tpu_torch.core import tree as tru
+from dvdgan_tpu_torch.models import DSConfig, DTConfig, GConfig
+from dvdgan_tpu_torch.models import discriminator, generator
+from dvdgan_tpu_torch.ops import losses, resize
 from dvdgan_tpu_torch.ops import spectral_norm as sn
+from dvdgan_tpu_torch.train import state as train_state
+from dvdgan_tpu_torch.train.state import TrainConfig
+
+
+class TorchDraws:
+    """The step's draws from a torch.Generator on the device: z ∼ N(0, 1)
+    in the compute dtype, frame indices as the first k of a per-clip
+    random permutation of T. Draws come from the one generator in call
+    order; `stream` only names the draw (a replaying hook keys on it)."""
+
+    def __init__(self, gen: torch.Generator, batch: int, z_dim: int,
+                 n_frames: int, k: int, dtype: torch.dtype):
+        self.gen, self.b, self.z_dim = gen, batch, z_dim
+        self.t, self.k, self.dtype = n_frames, k, dtype
+
+    def z(self, stream: int) -> torch.Tensor:
+        return torch.randn(self.b, self.z_dim, generator=self.gen,
+                           device=self.gen.device, dtype=self.dtype)
+
+    def idx(self, stream: int) -> torch.Tensor:
+        u = torch.rand(self.b, self.t, generator=self.gen,
+                       device=self.gen.device)
+        return u.argsort(dim=1)[:, :self.k]
+
+
+def take_frames(video: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """video: (B, T, H, W, C), idx: (B, k) -> (B, k, H, W, C)."""
+    rows = torch.arange(video.shape[0], device=video.device)[:, None]
+    return video[rows, idx]
+
+
+def _value_and_grad(loss_fn: Callable[[Any], tuple[torch.Tensor, Any]],
+                    params: Any) -> tuple[torch.Tensor, Any, Any]:
+    """(loss, aux, d loss / d params) with params a tree of tensors; a
+    leaf the loss does not reach gets a zero gradient, as under jax.grad."""
+    leaves = tru.tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, aux = loss_fn(leaves)
+    flat = tru.flatten_with_paths(leaves)
+    grads = torch.autograd.grad(loss, list(flat.values()), allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), aux, tru.unflatten(dict(zip(flat, grads)))
+
+
+def _adam(grads: Any, model: dict, lr: float, tc: TrainConfig
+          ) -> tuple[Any, dict]:
+    return train_state.adam_update(grads, model["opt"], model["params"], lr,
+                                   tc.beta1, tc.beta2)
+
+
+def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
+               g_cfg: GConfig, ds_cfg: DSConfig, dt_cfg: DTConfig,
+               tc: TrainConfig) -> tuple[dict, dict[str, torch.Tensor]]:
+    """(state, real (B, T, H, W, 3) in [-1, 1] in the compute dtype, y (B,)
+    class ids, draws) -> (new state, metrics {d_loss, d_loss_s, d_loss_t,
+    g_loss} as f32 scalars on the device; the D losses are the last D
+    step's)."""
+    if tc.grad_accum != 1:
+        raise NotImplementedError(
+            "grad_accum > 1 lands with the long-clip slice (ROADMAP Queue 1 "
+            "item 7)")
+    if tc.fake_gen != "pooled":
+        raise NotImplementedError(
+            f"fake_gen={tc.fake_gen!r}: only the pooled fake generation is "
+            f"ported (per_step is ROADMAP Queue 1 item 6)")
+    b, t = real.shape[:2]
+    if t != g_cfg.n_frames:
+        raise ValueError(f"clip length {t} != n_frames {g_cfg.n_frames}")
+    dtype = real.dtype
+    d_steps = tc.d_steps
+
+    # ---- fakes for every D step: one G forward, no grad -------------------
+    with torch.no_grad():
+        g_sn, _ = sn.sn_normalize(state["g"]["params"], state["g"]["sn_u"],
+                                  update=False, compute_dtype=dtype)
+        z_all = torch.cat([draws.z(3 * i) for i in range(d_steps)])
+        fake_all, _ = generator.apply(g_sn, state["g"]["stats"], z_all,
+                                      y.repeat(d_steps), g_cfg, train=True)
+        real_dt = resize.avg_pool_2x_video(real)
+        fake_all_dt = resize.avg_pool_2x_video(fake_all)
+
+    # ---- D phase × d_steps ------------------------------------------------
+    ds, dt = state["ds"], state["dt"]
+    yy = torch.cat([y, y])
+    metrics: dict[str, torch.Tensor] = {}
+    for i in range(d_steps):
+        real_frames = take_frames(real, draws.idx(3 * i + 1))
+        fake_frames = take_frames(fake_all[i * b:(i + 1) * b],
+                                  draws.idx(3 * i + 2))
+        frames = torch.cat([real_frames, fake_frames])
+        dt_in = torch.cat([real_dt, fake_all_dt[i * b:(i + 1) * b]])
+
+        # called right away, so the loop variables it reads are this step's
+        def d_loss_fn(d_params):
+            ds_sn, ds_u = sn.sn_normalize(d_params["ds"], ds["sn_u"],
+                                          update=True, compute_dtype=dtype)
+            dt_sn, dt_u = sn.sn_normalize(d_params["dt"], dt["sn_u"],
+                                          update=True, compute_dtype=dtype)
+            ds_both = discriminator.ds_apply(ds_sn, frames, yy, ds_cfg)
+            dt_both = discriminator.dt_apply(dt_sn, dt_in, yy, dt_cfg,
+                                             pooled=True)
+            l_ds = losses.d_hinge(ds_both[:b], ds_both[b:])
+            l_dt = losses.d_hinge(dt_both[:b], dt_both[b:])
+            return l_ds + l_dt, (l_ds.detach(), l_dt.detach(), ds_u, dt_u)
+
+        d_loss, (l_ds, l_dt, ds_u, dt_u), grads = _value_and_grad(
+            d_loss_fn, {"ds": ds["params"], "dt": dt["params"]})
+        ds_params, ds_opt = _adam(grads["ds"], ds, tc.lr_d, tc)
+        dt_params, dt_opt = _adam(grads["dt"], dt, tc.lr_d, tc)
+        ds = {"params": ds_params, "sn_u": ds_u, "opt": ds_opt}
+        dt = {"params": dt_params, "sn_u": dt_u, "opt": dt_opt}
+        metrics.update(d_loss=d_loss, d_loss_s=l_ds, d_loss_t=l_dt)
+
+    # ---- G phase × 1 ------------------------------------------------------
+    z_g = draws.z(3 * d_steps)
+    idx_g = draws.idx(3 * d_steps + 1)
+    with torch.no_grad():
+        ds_sn, _ = sn.sn_normalize(ds["params"], ds["sn_u"], update=False,
+                                   compute_dtype=dtype)
+        dt_sn, _ = sn.sn_normalize(dt["params"], dt["sn_u"], update=False,
+                                   compute_dtype=dtype)
+    g = state["g"]
+
+    def g_loss_fn(g_params):
+        g_sn, g_u = sn.sn_normalize(g_params, g["sn_u"], update=True,
+                                    compute_dtype=dtype)
+        fake, g_stats = generator.apply(g_sn, g["stats"], z_g, y, g_cfg,
+                                        train=True)
+        s_ds = discriminator.ds_apply(ds_sn, take_frames(fake, idx_g), y,
+                                      ds_cfg)
+        s_dt = discriminator.dt_apply(dt_sn, fake, y, dt_cfg)
+        g_loss = losses.g_hinge(s_ds) + losses.g_hinge(s_dt)
+        return g_loss, (g_u, tru.tree_map(torch.Tensor.detach, g_stats))
+
+    g_loss, (g_u, g_stats), g_grads = _value_and_grad(g_loss_fn, g["params"])
+    g_params, g_opt = _adam(g_grads, g, tc.lr_g, tc)
+    step = state["step"]
+    new_state = {
+        "step": step + 1,
+        "g": {"params": g_params, "stats": g_stats, "sn_u": g_u,
+              "opt": g_opt},
+        "ds": ds,
+        "dt": dt,
+        "g_ema": train_state.ema_update(state["g_ema"], g_params,
+                                        tc.ema_decay, step, tc.ema_start),
+    }
+    metrics["g_loss"] = g_loss
+    return new_state, metrics
 
 
 @torch.no_grad()

@@ -1,9 +1,13 @@
 """Config / CLI — the counterpart of `dvdgan_tpu/utils/config.py`.
 
 The flag names, defaults and PRESETS are the reference's. `Config` carries
-the fields the sample mode reads and every field a preset sets; the train
-and eval fields arrive with the slices that port those modes. `--weights`
-is the port's own: an npz written by `interop.save_state_npz`.
+the fields the sample and train modes read and every field a preset sets;
+the eval fields, the checkpoint schedule and the loader's knobs arrive with
+the slices that port them. `--weights` and `--device` are the port's own:
+`--weights` is an npz written by `interop` (sample: any state holding the
+EMA-G part; train: a whole train state to start from), and `--device` names
+the torch device, `cuda` by default; without a CUDA device the CLI raises
+rather than run elsewhere, unless `--device cpu` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -12,7 +16,8 @@ import argparse
 import dataclasses
 from typing import Optional
 
-from dvdgan_tpu_torch.models import GConfig
+from dvdgan_tpu_torch.models import DSConfig, DTConfig, GConfig
+from dvdgan_tpu_torch.train.state import TrainConfig
 
 
 @dataclasses.dataclass
@@ -20,8 +25,8 @@ class Config:
     # mode
     mode: str = "train"               # train | sample | eval
     n_samples: int = 16               # clips to generate in sample mode
-    weights: str = ""                 # sample: EMA-G state npz (interop);
-    #                                   empty = the seeded init
+    weights: str = ""                 # state npz (interop); empty = the
+    #                                   seeded init
     # data
     dataset: str = "synthetic"        # synthetic | frames
     n_classes: int = 101
@@ -38,7 +43,14 @@ class Config:
     k_frames: int = 8
     # optimization
     batch_size: int = 32
+    lr_g: float = 1e-4
+    lr_d: float = 5e-4
+    beta1: float = 0.0
+    beta2: float = 0.999
     d_steps: int = 2
+    grad_accum: int = 1               # micro-batches per update
+    fake_gen: str = "pooled"          # pooled | per_step
+    ema_decay: float = 0.9999
     ema_start: int = 1000
     total_step: int = 100000
     pretrained_model: Optional[int] = None   # resume from this step
@@ -47,6 +59,8 @@ class Config:
     bf16: bool = True
     out_dir: str = "runs/default"
     remat: bool = False               # rematerialize G levels (long clips)
+    time_shards: int = 1              # >1: DT context-parallel over time
+    device: str = "cuda"              # torch device (cuda | cuda:N | cpu)
 
     def g_config(self) -> GConfig:
         attn = self.attn_res if self.attn_res <= self.img_size // 2 else None
@@ -56,6 +70,24 @@ class Config:
                        n_classes=self.n_classes, emb_dim=self.emb_dim,
                        attn_res=attn, remat=self.remat,
                        cond_frames=self.cond_frames)
+
+    def ds_config(self) -> DSConfig:
+        return DSConfig(img_size=self.img_size, ch=self.d_ch,
+                        n_classes=self.n_classes,
+                        k_frames=min(self.k_frames,
+                                     self.n_frames - self.cond_frames))
+
+    def dt_config(self) -> DTConfig:
+        return DTConfig(img_size=self.img_size, n_frames=self.n_frames,
+                        ch=self.d_ch, n_classes=self.n_classes)
+
+    def train_config(self) -> TrainConfig:
+        return TrainConfig(lr_g=self.lr_g, lr_d=self.lr_d, beta1=self.beta1,
+                           beta2=self.beta2, d_steps=self.d_steps,
+                           ema_decay=self.ema_decay,
+                           ema_start=self.ema_start,
+                           grad_accum=self.grad_accum,
+                           fake_gen=self.fake_gen)
 
 
 # The reference's five named configs, unchanged.

@@ -74,6 +74,13 @@ def test_presets_and_flags_match_reference():
                 == dataclass_dict(ref.g_config()))
         assert (ours.seed, ours.bf16, ours.n_samples) == (
             ref.seed, ref.bf16, ref.n_samples)
+        # the train mode's D and loop configs: every field the port has
+        assert (dataclass_dict(ours.ds_config())
+                == dataclass_dict(ref.ds_config()))
+        assert (dataclass_dict(ours.dt_config())
+                == dataclass_dict(ref.dt_config()))
+        tc, ref_tc = (dataclass_dict(c.train_config()) for c in (ours, ref))
+        assert tc == {k: ref_tc[k] for k in tc}
 
 
 def dataclass_dict(c):

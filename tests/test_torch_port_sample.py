@@ -32,7 +32,7 @@ TINY = dict(img_size=32, n_frames=4, ch=8, z_dim=120, n_classes=5,
             emb_dim=16, attn_res=16)
 TINY_FLAGS = ["--img_size", "32", "--n_frames", "4", "--ch", "8",
               "--n_classes", "5", "--emb_dim", "16", "--attn_res", "16",
-              "--n_samples", "2", "--bf16", "0"]
+              "--n_samples", "2", "--bf16", "0", "--device", "cpu"]
 
 
 def reference_state(kw: dict, seed: int) -> dict[str, np.ndarray]:
@@ -133,7 +133,19 @@ def test_sample_cli_writes_clips_on_cpu(tmp_path):
                       str(tmp_path / "w.npz")])
     np.testing.assert_allclose(again, clips, atol=1e-6)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--mode", "train", "--out_dir", str(tmp_path / "t")])
+        cli.main(["--mode", "eval", "--out_dir", str(tmp_path / "t")])
+
+
+@pytest.mark.parametrize("mode", ["sample", "train"])
+def test_cli_default_device_refuses_without_a_card(mode, tmp_path,
+                                                    monkeypatch):
+    """The default device is the card: without one the CLI raises rather
+    than run on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    flags = [f for f in TINY_FLAGS if f not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["--mode", mode, *flags, "--out_dir", str(tmp_path)])
+    assert not os.listdir(tmp_path)
 
 
 def test_port_imports_no_jax():
@@ -145,9 +157,14 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dvdgan_tpu')]\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules "
-        "if m.startswith('dvdgan_tpu_torch')]))\n")
+        "print(' '.join(m for m in sys.modules "
+        "if m.startswith('dvdgan_tpu_torch')))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15
+    imported = set(proc.stdout.split())
+    assert len(imported) >= 20
+    # the training slice's modules are inside the boundary too
+    assert {f"dvdgan_tpu_torch.{m}" for m in (
+        "kernels.convgru_bwd", "models.discriminator", "ops.losses",
+        "train.state", "train.step", "cli", "interop")} <= imported
