@@ -22,22 +22,43 @@
    K1's plain version;
 5. drives the train entry (`python -m dvdgan_tpu_torch --mode train
    --preset ucf101_64 --dataset synthetic --batch_size 8 --bf16 1
-   --total_step 5`) in a child
+   --total_step 3`) in a child
    process, whose launch counters start at 0 and which prints each step's
    launches: checks the losses are finite, that G/DS/DT params, the three
    SN u trees and G's BN stats moved, and that each step launched K1
    2·levels·T·2 times and K2 levels·T·4 times; then times train steps/s in
-   bf16 (median of 7 after 2 warm-ups) and reads the device idle share and
+   bf16 (median of 5 after 2 warm-ups) and reads the device idle share and
    the time by kernel from torch.profiler;
 6. holds one f32 train step at the flagship widths, batch 2, on the card
    against the CPU from the same state and draws (losses atol 1e-3; Adam
    mu, the gradient, within 1e-3 × max|mu| of each model);
-7. prints one JSON line of the kernels, then the result line.
+7. holds K3 against its plain version at the three large level shapes of
+   the long-clip preset kinetics_256_48f (32²×256, 64²×128, 128²×64; T=48,
+   B=2: one G micro-batch), f32 atol 1e-4 and bf16 3e-2, and in bf16 at
+   the fake pass's B=8, timed beside its plain version and K1's kernel at
+   the same shape (the numbers that place the K1/K3 boundary); and K1 (the
+   levels `ops/convgru.py` gives it, at B=2 and B=8) and K2 (all six
+   levels, B=2) at that preset's shapes against their plain versions, at
+   the tolerances of phases 2 and 4;
+8. drives the long-clip train entry (`--preset kinetics_256_48f --dataset
+   synthetic --batch_size 4 --grad_accum 2 --total_step 2`: 256 px, 48
+   frames, per-level remat, two micro-batches of 2) in a child process:
+   finite losses, every tree moved, and on every step K1, K2 and K3
+   launched exactly as often as one fake pass plus grad_accum G forwards
+   and grad_accum backwards need (the backward reruns no sequence), peak
+   memory printed; then times the long-clip step (median of 3 after 1
+   warm-up) with the profiler's idle share and the ConvGRU kernels' share;
+9. holds one f32 long-clip-shaped step (the 256 px schedules at ch 8, T 4,
+   batch 2, grad_accum 2, remat on; its 64² and 128² levels go to K3) on
+   the card against the CPU, at phase 6's limits;
+10. prints one JSON line of the kernels, each with its launches on the
+    driven paths and its bound (the larger of bytes over 3.35 TB/s and
+    operations over the peak rate of its type), then the result line.
 
 Any failing phase raises, so the script exits non-zero without the result
 line; so does a machine without a CUDA device. Imports nothing of JAX or
-of the JAX package (the train CLI's child process reads the reference's
-numpy-only synthetic clips, `dvdgan_tpu.data`).
+of the JAX package (the train CLI reads the port's own numpy-only synthetic
+clips, `dvdgan_tpu_torch.data`).
 """
 
 from __future__ import annotations
@@ -61,7 +82,24 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # dh carry flip with the summation order and compound over 16 steps
 K2_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 SAMPLE_TOL = 2e-3   # f32 clip, card vs CPU: cuDNN vs CPU conv sum order
-TRAIN_STEPS = 5
+TRAIN_STEPS = 3
+# the long-clip path: kinetics_256_48f's GRU levels (H, W, C), its frames,
+# one G micro-batch, the fake pass's batch. K3 is held to its plain version
+# at the three planes the reference's split gives its blocked kernel,
+# whichever of them `ops/convgru.py` gives K3.
+LONG_LEVELS = [(4, 4, 512), (8, 8, 512), (16, 16, 256), (32, 32, 256),
+               (64, 64, 128), (128, 128, 64)]
+K3_LEVELS = LONG_LEVELS[3:]
+LONG_T, LONG_B, LONG_B_FAKE = 48, 2, 8
+LONG_ARGV = ["--mode", "train", "--preset", "kinetics_256_48f", "--dataset",
+             "synthetic", "--batch_size", "4", "--grad_accum", "2"]
+LONG_STEPS = 2
+# published peaks of one H100 SXM at its 700 W limit: HBM bytes/s, dense
+# FLOP/s by operand type (bf16 tensor cores; f32 outside the tensor cores)
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+CONVGRU_KERNELS = ("gate_kernel", "cand_kernel", "cand_bwd_kernel",
+                   "drh_kernel", "dh_kernel", "blocked_step_kernel")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -89,35 +127,65 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def k1_inputs(h: int, w: int, c: int, dtype, device, seed: int, b: int = B):
+def bound(flops: float, n_bytes: float, dtype) -> dict:
+    """The least time the card could take: the larger of bytes over its
+    memory rate and operations over its peak rate for the operand type."""
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    by_bytes = n_bytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+
+
+def fwd_bound(t, b, h, w, c, dtype) -> dict:
+    """K1's and K3's function: the two hidden-side 3×3 convs per step;
+    gx, cx, h0 and the weights read once, hs written once."""
+    px = t * b * h * w
+    n_el = px * 3 * c + b * h * w * c + 27 * c * c + px * c
+    return bound(2 * 9 * px * c * 3 * c, n_el * dtype.itemsize, dtype)
+
+
+def bwd_bound(t, b, h, w, c, dtype) -> dict:
+    """K2's function: the gate and candidate recompute (3C), the two
+    transposed convs (C + 2C) and the two weight gradients (2C + C) per
+    step; gx, cx, h0, weights, hs and g read, dgx, dcx, dh0, dW written."""
+    px = t * b * h * w
+    n_el = (px * 3 * c + b * h * w * c + 27 * c * c + 2 * px * c
+            + px * 3 * c + b * h * w * c + 27 * c * c)
+    return bound(2 * 9 * px * c * 9 * c, n_el * dtype.itemsize, dtype)
+
+
+def k1_inputs(h: int, w: int, c: int, dtype, device, seed: int, b: int = B,
+              t: int = T):
     g = torch.Generator().manual_seed(seed)
     scale = (9 * c) ** -0.5          # unit-gain 3×3 convs, as SN leaves them
 
     def rand(*shape, s=1.0):
         return (s * torch.randn(shape, generator=g)).to(device, dtype)
 
-    return (rand(T, b, h, w, 2 * c), rand(T, b, h, w, c),
+    return (rand(t, b, h, w, 2 * c), rand(t, b, h, w, c),
             torch.tanh(rand(b, h, w, c)).contiguous(),
             rand(3, 3, c, 2 * c, s=scale), rand(3, 3, c, c, s=scale))
 
 
-def check_k1(device) -> dict:
+def check_k1(device, levels=LEVELS, t: int = T, b: int = B,
+             reps: int = 10) -> list[dict]:
     from dvdgan_tpu_torch.kernels import convgru_seq as k1
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (h, w, c) in enumerate(LEVELS):
-            args = k1_inputs(h, w, c, dtype, device, seed=i)
+        for i, (h, w, c) in enumerate(levels):
+            args = k1_inputs(h, w, c, dtype, device, seed=i, b=b, t=t)
             ref = k1.gru_sequence_reference(*args)
             out = k1.gru_sequence_fused(*args)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs()
             row = {"dtype": str(dtype).replace("torch.", ""),
-                   "shape": [T, B, h, w, c],
+                   "shape": [t, b, h, w, c],
                    "max_abs_err": float(err.max()),
                    "mean_abs_err": float(err.mean()),
-                   "ms": cuda_ms(lambda: k1.gru_sequence_fused(*args)),
+                   "ms": cuda_ms(lambda: k1.gru_sequence_fused(*args), reps),
                    "plain_ms": cuda_ms(
-                       lambda: k1.gru_sequence_reference(*args))}
+                       lambda: k1.gru_sequence_reference(*args), reps),
+                   **fwd_bound(t, b, h, w, c, dtype)}
             print("K1 " + json.dumps(row), flush=True)
             if not row["max_abs_err"] <= TOL[dtype]:
                 raise AssertionError(f"K1 disagrees with its plain version: "
@@ -190,14 +258,17 @@ def drive_sample(device) -> tuple[int, dict]:
     return launches, clips
 
 
-def check_k2(device) -> list[dict]:
+def check_k2(device, levels=LEVELS, t: int = T, b: int = B_TRAIN,
+             reps: int = 10, autograd: bool = True) -> list[dict]:
+    """`autograd=False` leaves out the timing of the plain autograd
+    backward (its graph holds every f32 intermediate of the sequence)."""
     from dvdgan_tpu_torch.kernels import convgru_bwd as k2
     from dvdgan_tpu_torch.kernels import convgru_seq as k1
     names = ("dgx", "dcx", "dh0", "dwg", "dwc")
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (h, w, c) in enumerate(LEVELS):
-            args = k1_inputs(h, w, c, dtype, device, seed=10 + i, b=B_TRAIN)
+        for i, (h, w, c) in enumerate(levels):
+            args = k1_inputs(h, w, c, dtype, device, seed=10 + i, b=b, t=t)
             hs = k1.gru_sequence_fused(*args)
             g = torch.randn(hs.shape, generator=torch.Generator().manual_seed(
                 20 + i)).to(device, dtype)
@@ -208,19 +279,26 @@ def check_k2(device) -> list[dict]:
                     for n, o, r in zip(names, out, ref)}
             scales = {n: float(r.float().abs().max())
                       for n, r in zip(names, ref)}
-            # the plain autograd backward through K1's plain version
-            leaves = [a.detach().clone().requires_grad_(True) for a in args]
-            hs_plain = k1.gru_sequence_reference(*leaves)
+            del ref, out
             row = {"dtype": str(dtype).replace("torch.", ""),
-                   "shape": [T, B_TRAIN, h, w, c],
+                   "shape": [t, b, h, w, c],
                    "max_abs_err": max(errs.values()),
                    "max_rel_err": max(errs[n] / scales[n] for n in names),
-                   "ms": cuda_ms(lambda: k2.gru_sequence_bwd(*args, hs, g)),
+                   "ms": cuda_ms(lambda: k2.gru_sequence_bwd(*args, hs, g),
+                                 reps),
                    "plain_ms": cuda_ms(
-                       lambda: k2.gru_sequence_bwd_reference(*args, hs, g)),
-                   "plain_autograd_ms": cuda_ms(lambda: torch.autograd.grad(
-                       hs_plain, leaves, g, retain_graph=True))}
-            del hs_plain, leaves
+                       lambda: k2.gru_sequence_bwd_reference(*args, hs, g),
+                       reps),
+                   **bwd_bound(t, b, h, w, c, dtype)}
+            if autograd:
+                # the plain autograd backward through K1's plain version
+                leaves = [a.detach().clone().requires_grad_(True)
+                          for a in args]
+                hs_plain = k1.gru_sequence_reference(*leaves)
+                row["plain_autograd_ms"] = cuda_ms(
+                    lambda: torch.autograd.grad(hs_plain, leaves, g,
+                                                retain_graph=True), reps)
+                del hs_plain, leaves
             print("K2 " + json.dumps(row), flush=True)
             bad = [n for n in names if not errs[n] <= K2_TOL[dtype] * scales[n]]
             if bad:
@@ -231,33 +309,88 @@ def check_k2(device) -> list[dict]:
     return rows
 
 
+def check_k3(device, reps: int = 10) -> list[dict]:
+    """K3 against its plain version (K1's) at the long-clip preset's three
+    large planes, timed beside the plain version and K1's kernel: in f32
+    and bf16 at one G micro-batch, and in bf16 at the fake pass's batch."""
+    from dvdgan_tpu_torch.kernels import convgru_blocked as k3
+    from dvdgan_tpu_torch.kernels import convgru_seq as k1
+    rows = []
+    for dtype, b in ((torch.float32, LONG_B), (torch.bfloat16, LONG_B),
+                     (torch.bfloat16, LONG_B_FAKE)):
+        for i, (h, w, c) in enumerate(K3_LEVELS):
+            args = k1_inputs(h, w, c, dtype, device, seed=30 + b + i, b=b,
+                             t=LONG_T)
+            ref = k3.gru_sequence_blocked_reference(*args)
+            out = k3.gru_sequence_blocked(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            row = {"dtype": str(dtype).replace("torch.", ""),
+                   "shape": [LONG_T, b, h, w, c],
+                   "max_abs_err": float(err.max()),
+                   "mean_abs_err": float(err.mean()),
+                   "ms": cuda_ms(lambda: k3.gru_sequence_blocked(*args), reps),
+                   "plain_ms": cuda_ms(
+                       lambda: k3.gru_sequence_blocked_reference(*args), reps),
+                   "k1_ms": cuda_ms(lambda: k1.gru_sequence_fused(*args),
+                                    reps),
+                   **fwd_bound(LONG_T, b, h, w, c, dtype)}
+            del ref, out, err, args
+            print("K3 " + json.dumps(row), flush=True)
+            if not row["max_abs_err"] <= TOL[dtype]:
+                raise AssertionError(f"K3 disagrees with its plain version: "
+                                     f"{row} (atol {TOL[dtype]})")
+            rows.append(row)
+    return rows
+
+
 def _tree_moved(before, after) -> tuple[int, int]:
     """(leaves that changed, leaves) of two flat {path: array} dicts."""
     moved = sum(not np.array_equal(before[k], after[k]) for k in before)
     return moved, len(before)
 
 
-def drive_train() -> dict:
-    """The train CLI in a child process; returns the run's K1 and K2
-    launches and its wall seconds."""
-    from dvdgan_tpu_torch import interop
+FLAGSHIP_ARGV = ["--mode", "train", "--preset", "ucf101_64", "--dataset",
+                 "synthetic", "--batch_size", str(B_TRAIN), "--bf16", "1"]
+
+
+def launches_per_step(cfg) -> dict[str, int]:
+    """Kernel launches of one train step of `cfg`: the fake pass and one G
+    forward per micro-batch run each level's sequence kernel (K3 where
+    `ops/convgru.py` sends the plane, else K1) over T steps, and one K2 per
+    level and micro-batch goes back over them."""
+    from dvdgan_tpu_torch.kernels import convgru_blocked as k3
     from dvdgan_tpu_torch.kernels import convgru_bwd as k2
     from dvdgan_tpu_torch.kernels import convgru_seq as k1
+    from dvdgan_tpu_torch.ops import convgru
+    g_cfg = cfg.g_config()
+    planes = [(g_cfg.base_res * 2 ** i, g_cfg.level_channels(i)[0])
+              for i in range(g_cfg.n_levels)]
+    n_k3 = sum(convgru.uses_blocked(r, r) for r, _ in planes)
+    t, ka = g_cfg.n_frames, cfg.grad_accum
+    return {"k1_launches": (g_cfg.n_levels - n_k3) * t * (1 + ka)
+            * k1.LAUNCHES_PER_STEP,
+            "k2_launches": g_cfg.n_levels * t * ka * k2.LAUNCHES_PER_STEP,
+            "k3_launches": n_k3 * t * (1 + ka) * k3.LAUNCHES_PER_STEP}
+
+
+def drive_train(argv=FLAGSHIP_ARGV, n_steps: int = TRAIN_STEPS) -> dict:
+    """The train CLI in a child process; returns the run's K1, K2 and K3
+    launches, its wall seconds and its peak device memory."""
+    from dvdgan_tpu_torch import interop
     from dvdgan_tpu_torch.train import state as train_state
     from dvdgan_tpu_torch.utils.config import parse_config
 
-    # the preset reads frame folders; the port trains on the reference's
-    # synthetic clips (the frames pipeline is not ported yet)
-    argv = ["--mode", "train", "--preset", "ucf101_64", "--dataset",
-            "synthetic", "--batch_size", str(B_TRAIN), "--bf16", "1",
-            "--total_step", str(TRAIN_STEPS)]
+    # the presets read frame folders; the port trains on synthetic clips
+    # (the frames pipeline is not ported yet)
+    argv = [*argv, "--total_step", str(n_steps)]
     cfg = parse_config(argv)
     g_cfg = cfg.g_config()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "dvdgan_tpu_torch", *argv, "--out_dir",
-             tmp], cwd=REPO, capture_output=True, text=True, timeout=600)
+             tmp], cwd=REPO, capture_output=True, text=True, timeout=900)
         secs = time.perf_counter() - t0
         print(proc.stdout, end="", flush=True)
         if proc.returncode != 0:
@@ -267,11 +400,9 @@ def drive_train() -> dict:
             after = {k: f[k] for k in f.files}
     steps = [dict(zip(ln.split()[2::2], ln.split()[3::2]))
              for ln in proc.stdout.splitlines() if ln.startswith("step ")]
-    if len(steps) != TRAIN_STEPS:
-        raise AssertionError(f"{len(steps)} step lines, want {TRAIN_STEPS}")
-    per_step = g_cfg.n_levels * g_cfg.n_frames
-    want = {"k1_launches": 2 * per_step * k1.LAUNCHES_PER_STEP,
-            "k2_launches": per_step * k2.LAUNCHES_PER_STEP}
+    if len(steps) != n_steps:
+        raise AssertionError(f"{len(steps)} step lines, want {n_steps}")
+    want = launches_per_step(cfg)
     for s in steps:
         losses = [float(s[k]) for k in ("d_loss", "d_loss_s", "d_loss_t",
                                         "g_loss")]
@@ -280,7 +411,7 @@ def drive_train() -> dict:
         got = {k: int(s[k]) for k in want}
         if got != want:
             raise AssertionError(f"launches per train step {got}, want {want}")
-    if int(after["step"]) != TRAIN_STEPS:
+    if int(after["step"]) != n_steps:
         raise AssertionError(f"final step {after['step']}")
     if not all(np.isfinite(v).all() for v in after.values()):
         raise AssertionError("non-finite values in the final train state")
@@ -299,8 +430,12 @@ def drive_train() -> dict:
         least = 0.9 * n if "/params/" in prefix else 1
         if n_moved < least:
             raise AssertionError(f"{prefix}: {n_moved} of {n} leaves moved")
-    return {"k1": TRAIN_STEPS * want["k1_launches"],
-            "k2": TRAIN_STEPS * want["k2_launches"], "cli_s": secs}
+    peak = [float(ln.split()[3]) for ln in proc.stdout.splitlines()
+            if ln.startswith("peak device memory ")]
+    return {"k1": n_steps * want["k1_launches"],
+            "k2": n_steps * want["k2_launches"],
+            "k3": n_steps * want["k3_launches"], "cli_s": secs,
+            "peak_mem_gib": peak[0]}
 
 
 class Replay:
@@ -316,32 +451,36 @@ class Replay:
         return self.ids[i].to(self.device)
 
 
-def flagship(batch: int):
+def step_configs(argv):
+    """(batch, seed, G, DS, DT and train configs) of the CLI flags `argv`."""
     from dvdgan_tpu_torch.utils.config import parse_config
-    cfg = parse_config(["--preset", "ucf101_64", "--batch_size", str(batch)])
-    return (cfg.seed, cfg.g_config(), cfg.ds_config(), cfg.dt_config(),
-            cfg.train_config())
+    cfg = parse_config(argv)
+    return (cfg.batch_size, cfg.seed, cfg.g_config(), cfg.ds_config(),
+            cfg.dt_config(), cfg.train_config())
 
 
-def time_train(device) -> dict:
-    """bf16 flagship train steps/s (batch 8), and the profiler's view."""
+def time_train(device, name: str = "train_rate", argv=FLAGSHIP_ARGV,
+               n_warm: int = 2, n_steps: int = 5, n_prof: int = 2) -> dict:
+    """bf16 train steps/s of the configuration `argv` names (the flagship
+    at batch 8 by default), and the profiler's view."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from dvdgan_tpu_torch.train import state as train_state
     from dvdgan_tpu_torch.train import step
 
-    seed, g_cfg, ds_cfg, dt_cfg, tc = flagship(B_TRAIN)
+    batch, seed, g_cfg, ds_cfg, dt_cfg, tc = step_configs(argv)
     state = train_state.to_device(
         train_state.create(seed, g_cfg, ds_cfg, dt_cfg), device)
     gen = torch.Generator(device).manual_seed(seed)
-    real = torch.tanh(torch.randn(B_TRAIN, g_cfg.n_frames, g_cfg.img_size,
+    real = torch.tanh(torch.randn(batch, g_cfg.n_frames, g_cfg.img_size,
                                   g_cfg.img_size, 3, generator=gen,
                                   device=device)).to(torch.bfloat16)
-    y = torch.randint(0, g_cfg.n_classes, (B_TRAIN,), generator=gen,
+    y = torch.randint(0, g_cfg.n_classes, (batch,), generator=gen,
                       device=device)
-    draws = step.TorchDraws(gen, B_TRAIN, g_cfg.z_dim, g_cfg.n_frames,
+    draws = step.TorchDraws(gen, batch, g_cfg.z_dim, g_cfg.n_frames,
                             ds_cfg.k_frames, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
 
     def one():
         nonlocal state
@@ -349,18 +488,17 @@ def time_train(device) -> dict:
                                          ds_cfg, dt_cfg, tc)
         return metrics
 
-    for _ in range(2):
+    for _ in range(n_warm):
         one()
     torch.cuda.synchronize()
     secs = []
-    for _ in range(7):
+    for _ in range(n_steps):
         t0 = time.perf_counter()
         one()
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     sec = statistics.median(secs)
 
-    n_prof = 3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -380,31 +518,44 @@ def time_train(device) -> dict:
                        getattr(e, "self_cuda_time_total", 0.0))
 
     busy_us = sum(dev_us(e) for e in kernels)
+    gru_us = sum(dev_us(e) for e in kernels
+                 if any(k in e.key for k in CONVGRU_KERNELS))
     top = sorted(kernels, key=dev_us, reverse=True)[:15]
-    out = {"batch": B_TRAIN, "dtype": "bfloat16",
+    out = {"batch": batch, "grad_accum": tc.grad_accum, "dtype": "bfloat16",
+           "frames": g_cfg.n_frames, "img_size": g_cfg.img_size,
            "ms_per_step": sec * 1e3, "steps_per_s": 1.0 / sec,
            "step_ms_all": [x * 1e3 for x in secs],
            "profiled_ms_per_step": wall_us / n_prof / 1e3,
            "device_busy_ms_per_step": busy_us / n_prof / 1e3,
+           "convgru_kernels_ms_per_step": gru_us / n_prof / 1e3,
+           "convgru_kernels_share": gru_us / busy_us,
            # against the unprofiled step (the profiler slows the host)
            "device_idle_share": 1.0 - busy_us / n_prof / 1e6 / sec,
            "device_idle_share_profiled": 1.0 - busy_us / wall_us,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
-    print("train_rate " + json.dumps(out), flush=True)
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(name + " " + json.dumps(out), flush=True)
     for e in top:
         print(f"  device {dev_us(e) / n_prof / 1e3:9.3f} ms/step "
               f"x{e.count // n_prof:<5d} {e.key[:90]}", flush=True)
     return out
 
 
-def check_train_f32(device) -> dict:
-    """One f32 flagship-width step at batch 2, card against CPU."""
+LONG_F32_ARGV = ["--preset", "kinetics_256_48f", "--ch", "8", "--d_ch", "8",
+                 "--n_frames", "4", "--k_frames", "2", "--batch_size", "2",
+                 "--grad_accum", "2"]
+
+
+def check_train_f32(device, name: str = "train f32",
+                    argv=("--preset", "ucf101_64", "--batch_size", "2")
+                    ) -> dict:
+    """One f32 step of the configuration `argv` names (the flagship widths
+    at batch 2 by default), card against CPU."""
     from dvdgan_tpu_torch.core import tree
+    from dvdgan_tpu_torch.kernels import convgru_blocked as k3
     from dvdgan_tpu_torch.train import state as train_state
     from dvdgan_tpu_torch.train import step
 
-    b = 2
-    seed, g_cfg, ds_cfg, dt_cfg, tc = flagship(b)
+    b, seed, g_cfg, ds_cfg, dt_cfg, tc = step_configs(list(argv))
     gen = torch.Generator().manual_seed(seed + 1)
     real = torch.tanh(torch.randn(b, g_cfg.n_frames, g_cfg.img_size,
                                   g_cfg.img_size, 3, generator=gen))
@@ -419,6 +570,7 @@ def check_train_f32(device) -> dict:
     ref_state, ref_m = step.train_step(state, real, y, Replay(zs, ids, "cpu"),
                                        g_cfg, ds_cfg, dt_cfg, tc)
     cpu_s = time.perf_counter() - t0
+    k3_before = k3.gru_sequence_blocked.launches
     out_state, out_m = step.train_step(
         train_state.to_device(state, device), real.to(device), y.to(device),
         Replay(zs, ids, device), g_cfg, ds_cfg, dt_cfg, tc)
@@ -432,8 +584,9 @@ def check_train_f32(device) -> dict:
                         for k, v in ref_mu.items()) / scale
     res = {"losses": {k: float(v) for k, v in ref_m.items()},
            "loss_abs_err": loss_err, "mu_err_over_max_mu": mu_err,
-           "cpu_step_s": cpu_s}
-    print("train f32 card vs cpu " + json.dumps(res), flush=True)
+           "cpu_step_s": cpu_s,
+           "k3_launches": k3.gru_sequence_blocked.launches - k3_before}
+    print(name + " card vs cpu " + json.dumps(res), flush=True)
     if not max(loss_err.values()) <= 1e-3:
         raise AssertionError(f"f32 train losses, card vs CPU: {loss_err}")
     if not max(mu_err.values()) <= 1e-3:
@@ -447,6 +600,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from dvdgan_tpu_torch.kernels import _build
+    from dvdgan_tpu_torch.ops import convgru
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -471,29 +625,72 @@ def main() -> int:
     time_train(device)
     check_train_f32(device)
 
-    bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
-    bf16_k2 = [r for r in rows_k2 if r["dtype"] == "bfloat16"]
-    kernels = [{
-        "name": "convgru_seq (K1, bf16, sum of the 4 ucf101_64 levels, B=16)",
-        "route": "cuda",
-        "source": "dvdgan_tpu_torch/kernels/csrc/convgru_seq.cu",
-        "replaces": "dvdgan_tpu/kernels/convgru_seq.py:104",
-        "launches": launches + train["k1"],
-        "launches_by_path": {"sample": launches, "train": train["k1"]},
-        "max_abs_err": max(r["max_abs_err"] for r in bf16),
-        "ms": sum(r["ms"] for r in bf16),
-        "plain_ms": sum(r["plain_ms"] for r in bf16),
-    }, {
-        "name": "convgru_bwd (K2, bf16, sum of the 4 ucf101_64 levels, B=8)",
-        "route": "cuda",
-        "source": "dvdgan_tpu_torch/kernels/csrc/convgru_bwd.cu",
-        "replaces": "dvdgan_tpu/kernels/convgru_bwd.py:194",
-        "launches": train["k2"],
-        "launches_by_path": {"sample": 0, "train": train["k2"]},
-        "max_abs_err": max(r["max_abs_err"] for r in bf16_k2),
-        "ms": sum(r["ms"] for r in bf16_k2),
-        "plain_ms": sum(r["plain_ms"] for r in bf16_k2),
-    }]
+    # the long-clip path
+    rows_k3 = check_k3(device)
+    k1_levels = [lv for lv in LONG_LEVELS
+                 if not convgru.uses_blocked(*lv[:2])]
+    rows_long = check_k1(device, k1_levels, LONG_T, LONG_B, reps=5)
+    rows_long_fake = check_k1(device, k1_levels, LONG_T, LONG_B_FAKE, reps=3)
+    on_path = [r for r in rows_k3
+               if convgru.uses_blocked(*r["shape"][2:4])]
+    rows_k3_path = [r for r in on_path if r["shape"][1] == LONG_B]
+    rows_k3_fake = [r for r in on_path if r["shape"][1] == LONG_B_FAKE]
+    rows_k2_long = check_k2(device, LONG_LEVELS, LONG_T, LONG_B, reps=5,
+                            autograd=False)
+    long_run = drive_train(LONG_ARGV, LONG_STEPS)
+    print(f"long-clip CLI: {long_run['cli_s']:.1f} s for {LONG_STEPS} steps, "
+          f"peak device memory {long_run['peak_mem_gib']:.3f} GiB",
+          flush=True)
+    time_train(device, "longclip_rate", LONG_ARGV, n_warm=1, n_steps=3,
+               n_prof=1)
+    res = check_train_f32(device, "long-clip-shaped f32", LONG_F32_ARGV)
+    if res["k3_launches"] <= 0:
+        raise AssertionError("the long-clip-shaped f32 step launched no K3")
+
+    def entry(name, source, replaces, rows, by_path, also=(), **extra):
+        """`also`: the same kernel's rows at the path's other batch; their
+        errors count, their times are given apart."""
+        bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+        also = [r for r in also if r["dtype"] == "bfloat16"]
+        if also:
+            extra["ms_fake_batch"] = sum(r["ms"] for r in also)
+        by = {r["bound_by"] for r in bf16}
+        return {"name": name, "route": "cuda",
+                "source": f"dvdgan_tpu_torch/kernels/csrc/{source}",
+                "replaces": f"dvdgan_tpu/kernels/{replaces}",
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": max(r["max_abs_err"] for r in bf16 + also),
+                "ms": sum(r["ms"] for r in bf16),
+                "plain_ms": sum(r["plain_ms"] for r in bf16),
+                "bound_ms": sum(r["bound_ms"] for r in bf16),
+                "bound_by": by.pop() if len(by) == 1 else "operations",
+                # no single PyTorch call computes a T-step recurrence
+                "library_ms": None, **extra}
+
+    k1_src, k2_src = "convgru_seq.cu", "convgru_bwd.cu"
+    k1_at, k2_at = "convgru_seq.py:104", "convgru_bwd.py:194"
+    long_shapes = "kinetics_256_48f levels, T=48, B=2"
+    kernels = [
+        entry("convgru_seq (K1, bf16, sum of the 4 ucf101_64 levels, B=16)",
+              k1_src, k1_at, rows,
+              {"sample": launches, "train": train["k1"]}),
+        entry(f"convgru_seq (K1, bf16, sum of its {len(k1_levels)} "
+              f"{long_shapes})",
+              k1_src, k1_at, rows_long, {"longclip": long_run["k1"]},
+              also=rows_long_fake),
+        entry("convgru_bwd (K2, bf16, sum of the 4 ucf101_64 levels, B=8)",
+              k2_src, k2_at, rows_k2, {"sample": 0, "train": train["k2"]}),
+        entry(f"convgru_bwd (K2, bf16, sum of the 6 {long_shapes})",
+              k2_src, k2_at, rows_k2_long, {"longclip": long_run["k2"]}),
+        entry(f"convgru_blocked (K3, bf16, sum of its "
+              f"{len(rows_k3_path) // 2} {long_shapes})",
+              "convgru_blocked.cu", "convgru_blocked.py:182", rows_k3_path,
+              {"longclip": long_run["k3"]}, also=rows_k3_fake,
+              k1_ms_same_shapes=sum(r["k1_ms"] for r in rows_k3_path
+                                    if r["dtype"] == "bfloat16")),
+    ]
+    print(gpu_line(), flush=True)    # again, beside the numbers it goes with
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,12 +12,14 @@ seeded init (--seed).
 
 Train mode builds the train state from --seed (or --weights, a train-state
 npz, resuming at its step), takes --total_step steps of `train.step.
-train_step` on the reference's synthetic clips (`dvdgan_tpu.data`'s
-SyntheticVideoDataset and Loader, which import only numpy: the same batches
-the reference trainer draws for --seed), prints one line per step with the
-four losses and the step's kernel launches, and writes the final state to
-DIR/train_state.npz (`interop` layout). The step's own draws come from a
-torch.Generator on the device seeded with --seed.
+train_step` on synthetic clips (`dvdgan_tpu_torch.data`'s
+SyntheticVideoDataset and Loader, numpy-only copies of the reference's: the
+same batches the reference trainer draws for --seed), prints one line per
+step with the four losses and the step's kernel launches (K1, K2, K3), and
+writes the final state to DIR/train_state.npz (`interop` layout). The
+step's own draws come from a torch.Generator on the device seeded with
+--seed. `--grad_accum k` splits the batch into k micro-batches per update,
+and a preset with `remat` (kinetics_256_48f) rematerializes G's levels.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from dvdgan_tpu_torch import interop, kernels
+from dvdgan_tpu_torch.data import Loader, SyntheticVideoDataset
 from dvdgan_tpu_torch.models.generator import GeneratorState
 from dvdgan_tpu_torch.train import state as train_state
 from dvdgan_tpu_torch.train import step
@@ -62,9 +65,10 @@ def run_sample(cfg: Config, device: torch.device) -> torch.Tensor:
                        g_cfg)
 
 
-def _launch_counts() -> tuple[int, int]:
+def _launch_counts() -> tuple[int, int, int]:
     return (kernels.gru_sequence_fused.launches,
-            kernels.convgru_bwd.gru_sequence_bwd.launches)
+            kernels.convgru_bwd.gru_sequence_bwd.launches,
+            kernels.gru_sequence_blocked.launches)
 
 
 def run_train(cfg: Config, device: torch.device) -> dict:
@@ -81,10 +85,6 @@ def run_train(cfg: Config, device: torch.device) -> dict:
         raise NotImplementedError(
             f"--dataset {cfg.dataset}: the port trains on synthetic clips; "
             f"the frames pipeline is ROADMAP Queue 1 item 8")
-    # numpy-only modules of the reference (no jax)
-    from dvdgan_tpu.data.loader import Loader
-    from dvdgan_tpu.data.synthetic import SyntheticVideoDataset
-
     g_cfg, ds_cfg, dt_cfg = cfg.g_config(), cfg.ds_config(), cfg.dt_config()
     tc = cfg.train_config()
     state = (interop.load_train_state_npz(cfg.weights) if cfg.weights
@@ -109,13 +109,17 @@ def run_train(cfg: Config, device: torch.device) -> dict:
             before = _launch_counts()
             state, metrics = step.train_step(state, real, y, draws, g_cfg,
                                              ds_cfg, dt_cfg, tc)
-            k1, k2 = (a - b for a, b in zip(_launch_counts(), before))
+            k1, k2, k3 = (a - b for a, b in zip(_launch_counts(), before))
             losses = " ".join(f"{k} {float(v):.6f}"
                               for k, v in metrics.items())
             print(f"step {int(state['step'])} {losses} "
-                  f"k1_launches {k1} k2_launches {k2}", flush=True)
+                  f"k1_launches {k1} k2_launches {k2} k3_launches {k3}",
+                  flush=True)
     finally:
         batches.close()
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        print(f"peak device memory {peak:.3f} GiB", flush=True)
     os.makedirs(cfg.out_dir, exist_ok=True)
     out = os.path.join(cfg.out_dir, "train_state.npz")
     interop.save_train_state_npz(out, state)

@@ -175,34 +175,45 @@ def _forward(gx, cx, h0, wg, wc):
     return hs
 
 
-class _GruSequence(torch.autograd.Function):
-    """K1 forward, saved-hs backward through K2 (`_fwd`/`_bwd` of the
-    reference's custom_vjp)."""
+def differentiable(forward):
+    """`forward(gx, cx, h0, wg, wc) -> hs` under the reference's custom_vjp
+    policy (`_fwd`/`_bwd`, shared by K1 and K3): the forward saves its
+    inputs and hs, the backward is K2. Differentiable in all five inputs;
+    without a graph to build (torch.no_grad(), or no input that requires
+    grad) nothing is saved."""
 
-    @staticmethod
-    def forward(ctx, gx, cx, h0, wg, wc):
-        hs = _forward(gx, cx, h0, wg, wc)
-        ctx.save_for_backward(gx, cx, h0, wg, wc, hs)
-        return hs
+    class GruSequence(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, gx, cx, h0, wg, wc):
+            hs = forward(gx, cx, h0, wg, wc)
+            ctx.save_for_backward(gx, cx, h0, wg, wc, hs)
+            return hs
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        # convgru_bwd imports this module's helpers, so it is imported here
-        from dvdgan_tpu_torch.kernels import convgru_bwd
-        return convgru_bwd.gru_sequence_bwd(*ctx.saved_tensors,
-                                            g.contiguous())
+        @staticmethod
+        @once_differentiable
+        def backward(ctx, g):
+            # convgru_bwd imports this module's helpers: imported here
+            from dvdgan_tpu_torch.kernels import convgru_bwd
+            return convgru_bwd.gru_sequence_bwd(*ctx.saved_tensors,
+                                                g.contiguous())
+
+    def entry(gx, cx, h0, wg, wc):
+        args = (gx, cx, h0, wg, wc)
+        if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+            return GruSequence.apply(*args)
+        return forward(*args)
+
+    return entry
+
+
+_differentiable_forward = differentiable(_forward)
 
 
 def gru_sequence_fused(gx, cx, h0, wg, wc):
     """K1 forward. gx (T,B,H,W,2C), cx (T,B,H,W,C), h0 (B,H,W,C),
-    wg (3,3,C,2C), wc (3,3,C,C) -> hs (T,B,H,W,C). Differentiable in all
-    five inputs; without a graph to build (torch.no_grad(), or no input
-    that requires grad) nothing is saved."""
-    args = (gx, cx, h0, wg, wc)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        return _GruSequence.apply(*args)
-    return _forward(*args)
+    wg (3,3,C,2C), wc (3,3,C,C) -> hs (T,B,H,W,C), differentiable
+    (`differentiable`)."""
+    return _differentiable_forward(gx, cx, h0, wg, wc)
 
 
 # kernel launches made by gru_sequence_fused (two per time step)

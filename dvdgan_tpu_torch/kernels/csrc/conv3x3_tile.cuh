@@ -1,7 +1,8 @@
 // Shared pieces of the ConvGRU kernels (K1 forward, convgru_seq.cu; K2
-// backward, convgru_bwd.cu): f32/bf16 conversion, the CTA tile shapes, a
-// SAME 3x3 conv over one CTA's tile accumulated in registers, and the gate
-// launch that both the forward and the backward's recompute run.
+// backward, convgru_bwd.cu; K3 blocked forward, convgru_blocked.cu):
+// f32/bf16 conversion, the CTA tile shapes, a SAME 3x3 conv over one CTA's
+// tile accumulated in registers, and the gate launch that both K1 and K2's
+// recompute run.
 //
 // Layouts (channels-last, as the reference): a plane is (H, W, Ch) with
 // pixel stride `pix` (>= Ch) and unit channel stride; weights are HWIO
@@ -42,7 +43,7 @@ struct Tile {
   static constexpr int IN_SMEM = CIC * HH * HW;  // floats
   static constexpr int W_SMEM = 9 * CIC * OCB;   // floats
   static_assert(TW % PM == 0, "tile width must be a multiple of PM");
-  static_assert(THREADS % 32 == 0 && THREADS <= 256, "whole warps, <= 256");
+  static_assert(THREADS <= 256, "at most 256 threads");
   static_assert((IN_SMEM + W_SMEM) * 4 <= 48 * 1024, "static smem limit");
 };
 
@@ -58,8 +59,10 @@ inline bool small_plane(int H, int W) {
 // acc[p][j] += sum_{dy,dx,ci} src[y0+py+dy-1, x0+px+p+dx-1, ci] *
 //              w[dy, dx, ci, oc0+og*OM+j]   (zero outside the plane)
 // src points at one batch element's plane; pixel (y, x) starts at
-// src + (y*W + x)*pix.
-template <class TL, typename T>
+// src + (y*W + x)*pix. It may lie in shared memory (K3's r*h tile). NT is
+// the CTA's thread count: all NT threads stage and meet the barriers, the
+// first TL::THREADS of them accumulate.
+template <class TL, typename T, int NT = TL::THREADS>
 __device__ __forceinline__ void conv3x3_tile(
     const T* __restrict__ src, int64_t pix, int H, int W, int Cin,
     const T* __restrict__ w, int Cout, int y0, int x0, int oc0,
@@ -76,10 +79,11 @@ __device__ __forceinline__ void conv3x3_tile(
   // so that many loads are in flight: a load-convert-store loop waits out
   // each load's L2 latency in turn, which cost more than the FMAs at every
   // flagship level.
-  constexpr int IN_ITERS = (TL::IN_SMEM + TL::THREADS - 1) / TL::THREADS;
-  constexpr int W_ITERS = TL::W_SMEM / TL::THREADS;
-  constexpr int W_BATCH = 12;
-  static_assert(TL::W_SMEM % TL::THREADS == 0 && W_ITERS % W_BATCH == 0,
+  static_assert(NT % 32 == 0 && TL::THREADS <= NT, "whole warps");
+  constexpr int IN_ITERS = (TL::IN_SMEM + NT - 1) / NT;
+  constexpr int W_ITERS = TL::W_SMEM / NT;
+  constexpr int W_BATCH = W_ITERS % 12 == 0 ? 12 : 9;
+  static_assert(TL::W_SMEM % NT == 0 && W_ITERS % W_BATCH == 0,
                 "weight staging splits evenly into batches");
 
   for (int ci0 = 0; ci0 < Cin; ci0 += TL::CIC) {
@@ -88,7 +92,7 @@ __device__ __forceinline__ void conv3x3_tile(
     bool xok[IN_ITERS];
 #pragma unroll
     for (int k = 0; k < IN_ITERS; ++k) {
-      const int i = tid + k * TL::THREADS;
+      const int i = tid + k * NT;
       const int hp = i / TL::CIC;
       const int y = y0 - 1 + hp / TL::HW, x = x0 - 1 + hp % TL::HW;
       const int ci = ci0 + i % TL::CIC;
@@ -97,7 +101,7 @@ __device__ __forceinline__ void conv3x3_tile(
     }
 #pragma unroll
     for (int k = 0; k < IN_ITERS; ++k) {
-      const int i = tid + k * TL::THREADS;
+      const int i = tid + k * NT;
       const int hp = i / TL::CIC;
       if (i < TL::IN_SMEM)
         in_s[((i % TL::CIC) * TL::HH + hp / TL::HW) * TL::HW + hp % TL::HW] =
@@ -109,7 +113,7 @@ __device__ __forceinline__ void conv3x3_tile(
       bool wok[W_BATCH];
 #pragma unroll
       for (int k = 0; k < W_BATCH; ++k) {
-        const int i = tid + (k0 + k) * TL::THREADS;
+        const int i = tid + (k0 + k) * NT;
         const int r = i / TL::OCB;
         const int ci = ci0 + r % TL::CIC, tap = r / TL::CIC;
         const int oc = oc0 + i % TL::OCB;
@@ -118,10 +122,11 @@ __device__ __forceinline__ void conv3x3_tile(
       }
 #pragma unroll
       for (int k = 0; k < W_BATCH; ++k)  // layout [tap][cil][ocl]
-        w_s[tid + (k0 + k) * TL::THREADS] = wok[k] ? to_f(wr[k]) : 0.f;
+        w_s[tid + (k0 + k) * NT] = wok[k] ? to_f(wr[k]) : 0.f;
     }
     __syncthreads();
 
+    if (NT > TL::THREADS && tid >= TL::THREADS) continue;
     const int cmax = min(TL::CIC, Cin - ci0);
     for (int cil = 0; cil < cmax; ++cil) {
 #pragma unroll

@@ -11,14 +11,25 @@ layout is time-major (T, B, H, W, C); folded rows are t·B + b.
 Parameters, BN running stats and SN `u` vectors are separate trees
 (`core/tree.py`); `apply` is a pure function of them. `GeneratorState`
 holds the three on one nn.Module for device moves and checkpoints.
+
+`cfg.remat` (the long-clip presets) rematerializes each level under a
+backward, with the reference's default policy (`_remat_save() ==
+"gru+ups"`): a level keeps its GRU hidden sequence (`gru_hs`; the sequence
+kernels never rerun) and its upsample conv's output (`ups_out`), and
+recomputes the rest of its GResBlock, and the attention after it, when the
+backward reaches the level. Remat changes what is recomputed, never a
+value: outputs, gradients and BN statistics (taken from the first forward)
+are those of the plain forward. Unlike the reference, the GRU's hoisted
+input conv is kept as well (the sequence Function saves its gx and cx).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from dvdgan_tpu_torch.core import tree as tru
 from dvdgan_tpu_torch.models.config import GConfig
@@ -67,6 +78,48 @@ def _attn_level_index(cfg: GConfig) -> int:
     raise ValueError(f"attn_res={cfg.attn_res} not on the resolution path")
 
 
+def _save_conv_outputs(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of a region whose one conv is the
+    upsample conv: keep its output, recompute everything else."""
+    if op is torch.ops.aten.convolution.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _block(lvl: dict, lvl_stats: dict, h: torch.Tensor, cond_tb: torch.Tensor,
+           t: int, attn: dict | None, train: bool, remat: bool):
+    """One level after its GRU: the upsampling GResBlock on the folded
+    (T·B, H, W, C) sequence, then attention where `attn` is given.
+    -> (x_seq (T, B, 2H, 2W, C'), block stats). With `remat`, two
+    checkpointed regions split at the upsample conv's output, which the
+    first one keeps."""
+    p, b = lvl["block"], h.shape[0] // t
+
+    def head():
+        return resblocks.gresblock_head(p, lvl_stats, h, cond_tb, train,
+                                        upsample=True)
+
+    def tail(u):
+        out, s2 = resblocks.gresblock_tail(p, lvl_stats, u, h, cond_tb, train,
+                                           upsample=True)
+        x_seq = out.reshape(t, b, *out.shape[1:])
+        if attn is not None:
+            x_seq = attention.separable_attn(attn, x_seq, time_major=True)
+        return x_seq, s2
+
+    if remat:
+        # nothing in a level draws random numbers
+        run = functools.partial(ckpt.checkpoint, use_reentrant=False,
+                                preserve_rng_state=False)
+        u, s1 = run(head, context_fn=functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_conv_outputs))
+        x_seq, s2 = run(tail, u)
+    else:
+        u, s1 = head()
+        x_seq, s2 = tail(u)
+    return x_seq, {"bn1": s1, "bn2": s2}
+
+
 def apply(params: dict, stats: dict, z: torch.Tensor, y: torch.Tensor,
           cfg: GConfig, train: bool, time_major_out: bool = False
           ) -> tuple[torch.Tensor, dict]:
@@ -77,12 +130,6 @@ def apply(params: dict, stats: dict, z: torch.Tensor, y: torch.Tensor,
     if cfg.cond_frames > 0:
         raise NotImplementedError(
             "DVD-GAN-FP (cond_frames > 0) is ROADMAP Queue 1 item 12")
-    if cfg.remat and torch.is_grad_enabled():
-        # remat changes only what a backward recomputes; forward values
-        # are the same with or without it
-        raise NotImplementedError(
-            "per-level remat lands with the long-clip slice "
-            "(ROADMAP Queue 1 item 7)")
     b = z.shape[0]
     t = cfg.n_frames
     n = cfg.n_levels
@@ -96,6 +143,8 @@ def apply(params: dict, stats: dict, z: torch.Tensor, y: torch.Tensor,
     x = x.reshape(b, cfg.base_res, cfg.base_res, c0)
     x_seq = x[None].expand((t,) + x.shape)                     # (T, B, ...)
     attn_idx = _attn_level_index(cfg) if "attn" in params else -1
+    # remat only matters where a backward will follow
+    remat = cfg.remat and torch.is_grad_enabled()
 
     new_stats_levels = []
     for i in range(n):
@@ -108,12 +157,9 @@ def apply(params: dict, stats: dict, z: torch.Tensor, y: torch.Tensor,
                                 x_static=(i == 0))             # (T,B,H,W,C)
         hw = h_seq.shape[2]
         h = h_seq.reshape(t * b, hw, hw, h_seq.shape[-1])      # fold time
-        h, s = resblocks.gresblock(lvl["block"], stats["levels"][i], h,
-                                   cond_tb, train=train, upsample=True)
-        x_seq = h.reshape(t, b, 2 * hw, 2 * hw, h.shape[-1])
-        if i == attn_idx:
-            x_seq = attention.separable_attn(params["attn"], x_seq,
-                                             time_major=True)
+        x_seq, s = _block(lvl, stats["levels"][i], h, cond_tb, t,
+                          params["attn"] if i == attn_idx else None, train,
+                          remat)
         new_stats_levels.append(s)
 
     hw = x_seq.shape[2]

@@ -7,8 +7,10 @@
 As on the reference, the input halves (`gates_x`, `cand_x`) are hoisted out
 of the recurrence into ONE C→3C conv over the folded (T·B) batch (a plain
 `F.conv2d`: the reference computes it outside any Pallas kernel too), and the
-hidden-dependent halves run in the whole-sequence kernel K1
-(`kernels.gru_sequence_fused`). The initial hidden state is zero.
+hidden-dependent halves run in a whole-sequence kernel: K1
+(`kernels.gru_sequence_fused`) for small planes, K3
+(`kernels.gru_sequence_blocked`) for large ones (`uses_blocked`). The
+initial hidden state is zero.
 """
 
 from __future__ import annotations
@@ -17,6 +19,26 @@ import torch
 
 from dvdgan_tpu_torch import kernels
 from dvdgan_tpu_torch.ops import layers
+
+
+# The K1/K3 choice is a function of the plane's shape alone, at every T and
+# in both dtypes: K3 takes planes of at least K3_MIN_PIXELS pixels, K1 the
+# rest. The reference splits at 65 536 elements per sample (its whole-plane
+# kernel holds 16²×256 and 32²×64 and nothing larger), which also sends the
+# 32²-pixel planes of the large presets (32²×256 at 256 px, 32²×128 at
+# 128 px) to its blocked kernel; here they stay with K1. That line was drawn
+# on H100 measurements (PERF.md §6): K3 gives a launch one CTA per 8×8 tile
+# and sample, 32 CTAs for a 32² plane at batch 2 on 132 SMs, and ran 5×
+# slower than K1 there. In every preset a plane of 64² pixels or more is
+# over the reference's 65 536 elements, so K3 takes no plane that the
+# reference gives K1, and it takes the 128²×64 plane that the reference
+# could only scan.
+K3_MIN_PIXELS = 64 * 64
+
+
+def uses_blocked(h: int, w: int) -> bool:
+    """True where a plane of h × w pixels goes to K3 instead of K1."""
+    return h * w >= K3_MIN_PIXELS
 
 
 def convgru_init(gen: torch.Generator, c: int, k: int = 3) -> dict:
@@ -64,5 +86,8 @@ def convgru(p: dict, x_seq: torch.Tensor, h0: torch.Tensor | None = None,
 
     wg = p["gates_h"]["w"].to(x_seq.dtype).contiguous()
     wc = p["cand_h"]["w"].to(x_seq.dtype).contiguous()
-    hs = kernels.gru_sequence_fused(gx, cx, h0, wg, wc)
+    if uses_blocked(h, w):
+        hs = kernels.gru_sequence_blocked(gx, cx, h0, wg, wc)
+    else:
+        hs = kernels.gru_sequence_fused(gx, cx, h0, wg, wc)
     return hs if time_major else hs.movedim(0, 1)

@@ -41,15 +41,24 @@ def gresblock_stats_init(cin: int, cout: int) -> dict:
     return {"bn1": norm.stats_init(cin), "bn2": norm.stats_init(cout)}
 
 
-def gresblock(p: dict, stats: dict, x: torch.Tensor, cond: torch.Tensor,
-              train: bool, upsample: bool):
-    """x: (N, H, W, Cin), cond: (N, cond_dim) -> ((N, H', W', Cout), stats)."""
+def gresblock_head(p: dict, stats: dict, x: torch.Tensor, cond: torch.Tensor,
+                   train: bool, upsample: bool):
+    """The block up to its first conv's output (the reference's `ups_out`
+    when upsampling): CBN → ReLU → conv1. -> ((N, H', W', Cout), bn1 stats)."""
     h, s1 = norm.cbn(p["cbn1"], stats["bn1"], x, cond, train)
     h = torch.relu(h)
     if upsample:
         h = layers.upsample2x_conv3x3(p["conv1"], h)
     else:
         h = layers.conv2d(p["conv1"], h)
+    return h, s1
+
+
+def gresblock_tail(p: dict, stats: dict, h: torch.Tensor, x: torch.Tensor,
+                   cond: torch.Tensor, train: bool, upsample: bool):
+    """The rest of the block, from conv1's output `h` and the block input
+    `x`: CBN → ReLU → conv2, plus the skip. -> ((N, H', W', Cout), bn2
+    stats)."""
     h, s2 = norm.cbn(p["cbn2"], stats["bn2"], h, cond, train)
     h = torch.relu(h)
     h = layers.conv2d(p["conv2"], h)
@@ -59,7 +68,17 @@ def gresblock(p: dict, stats: dict, x: torch.Tensor, cond: torch.Tensor,
         sc = layers.conv2d(p["skip"], sc)
     if upsample:
         sc = resize.upsample_nearest_2x(sc)
-    return h + sc, {"bn1": s1, "bn2": s2}
+    return h + sc, s2
+
+
+def gresblock(p: dict, stats: dict, x: torch.Tensor, cond: torch.Tensor,
+              train: bool, upsample: bool):
+    """x: (N, H, W, Cin), cond: (N, cond_dim) -> ((N, H', W', Cout), stats).
+    Head and tail are separate functions so that a rematerializing caller
+    can keep conv1's output and recompute the rest (`models/generator.py`)."""
+    h, s1 = gresblock_head(p, stats, x, cond, train, upsample)
+    out, s2 = gresblock_tail(p, stats, h, x, cond, train, upsample)
+    return out, {"bn1": s1, "bn2": s2}
 
 
 def dblock_init(gen: torch.Generator, cin: int, cout: int, first: bool = False

@@ -44,7 +44,7 @@ class TrainConfig:
     d_steps: int = 2
     ema_decay: float = 0.9999
     ema_start: int = 1000
-    grad_accum: int = 1           # only 1 is ported (ROADMAP Queue 1 item 7)
+    grad_accum: int = 1           # micro-batches per optimizer update
     fake_gen: str = "pooled"      # only "pooled" is ported
 
 

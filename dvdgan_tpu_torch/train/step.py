@@ -17,6 +17,17 @@ EMA, with the reference's contracts:
     SN `u` and BN running stats advance only here;
   * EMA of G's params, then step + 1.
 
+Gradient accumulation (`tc.grad_accum` = k > 1, the reference's contract):
+the batch splits into k equal micro-batches and each optimizer update takes
+the MEAN of the k micro-gradients, one micro-batch's activations alive at a
+time. Every draw is made at full batch and sliced, so k never changes the z
+or frame-index streams. The D-phase fakes stay ONE full-batch G forward, so
+the D updates are the full-batch ones up to float reassociation of the
+mean; SN `u` depends on the params only and is taken from the last micro.
+The G phase recomputes G per micro-batch, so its CBN normalizes over
+micro-batch statistics (the one deviation from k = 1), and G's new running
+stats are the mean of the micro updates. Losses are means over the micros.
+
 Randomness goes through one hook, `draws` (an object with `z(stream)` and
 `idx(stream)`): stream i in the reference's
 key-split order (`dvdgan_tpu/train/step.py:152-178`) is, for D step i,
@@ -85,6 +96,24 @@ def _value_and_grad(loss_fn: Callable[[Any], tuple[torch.Tensor, Any]],
     return loss.detach(), aux, tru.unflatten(dict(zip(flat, grads)))
 
 
+def _accum_grads(loss_fn: Callable[..., tuple[torch.Tensor, Any]], params: Any,
+                 args: tuple, k: int) -> tuple[torch.Tensor, list, Any]:
+    """`loss_fn(params, *args)` over k micro-batches (each of `args` sliced
+    along its batch axis), one after the other. -> (mean loss, the k aux
+    values, mean gradient)."""
+    m = args[0].shape[0] // k
+    losses_, auxes, acc = [], [], None
+    for j in range(k):
+        part = tuple(a[j * m:(j + 1) * m] for a in args)
+        loss, aux, g = _value_and_grad(lambda p: loss_fn(p, *part), params)
+        acc = g if acc is None else tru.tree_map(torch.add, acc, g)
+        losses_.append(loss)
+        auxes.append(aux)
+    if k > 1:
+        acc = tru.tree_map(lambda a: a / k, acc)
+    return torch.stack(losses_).mean(), auxes, acc
+
+
 def _adam(grads: Any, model: dict, lr: float, tc: TrainConfig
           ) -> tuple[Any, dict]:
     return train_state.adam_update(grads, model["opt"], model["params"], lr,
@@ -98,10 +127,6 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
     class ids, draws) -> (new state, metrics {d_loss, d_loss_s, d_loss_t,
     g_loss} as f32 scalars on the device; the D losses are the last D
     step's)."""
-    if tc.grad_accum != 1:
-        raise NotImplementedError(
-            "grad_accum > 1 lands with the long-clip slice (ROADMAP Queue 1 "
-            "item 7)")
     if tc.fake_gen != "pooled":
         raise NotImplementedError(
             f"fake_gen={tc.fake_gen!r}: only the pooled fake generation is "
@@ -109,6 +134,9 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
     b, t = real.shape[:2]
     if t != g_cfg.n_frames:
         raise ValueError(f"clip length {t} != n_frames {g_cfg.n_frames}")
+    ka = tc.grad_accum
+    if b % ka:
+        raise ValueError(f"batch {b} not divisible by grad_accum {ka}")
     dtype = real.dtype
     d_steps = tc.d_steps
 
@@ -124,30 +152,35 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
 
     # ---- D phase × d_steps ------------------------------------------------
     ds, dt = state["ds"], state["dt"]
-    yy = torch.cat([y, y])
     metrics: dict[str, torch.Tensor] = {}
     for i in range(d_steps):
         real_frames = take_frames(real, draws.idx(3 * i + 1))
         fake_frames = take_frames(fake_all[i * b:(i + 1) * b],
                                   draws.idx(3 * i + 2))
-        frames = torch.cat([real_frames, fake_frames])
-        dt_in = torch.cat([real_dt, fake_all_dt[i * b:(i + 1) * b]])
+        fake_dt = fake_all_dt[i * b:(i + 1) * b]
 
-        # called right away, so the loop variables it reads are this step's
-        def d_loss_fn(d_params):
+        # called right away, so the models it reads are this D step's
+        def d_loss_fn(d_params, rf, ff, rh, fh, yj):
             ds_sn, ds_u = sn.sn_normalize(d_params["ds"], ds["sn_u"],
                                           update=True, compute_dtype=dtype)
             dt_sn, dt_u = sn.sn_normalize(d_params["dt"], dt["sn_u"],
                                           update=True, compute_dtype=dtype)
-            ds_both = discriminator.ds_apply(ds_sn, frames, yy, ds_cfg)
-            dt_both = discriminator.dt_apply(dt_sn, dt_in, yy, dt_cfg,
-                                             pooled=True)
-            l_ds = losses.d_hinge(ds_both[:b], ds_both[b:])
-            l_dt = losses.d_hinge(dt_both[:b], dt_both[b:])
+            n = rf.shape[0]
+            yy = torch.cat([yj, yj])
+            ds_both = discriminator.ds_apply(ds_sn, torch.cat([rf, ff]), yy,
+                                             ds_cfg)
+            dt_both = discriminator.dt_apply(dt_sn, torch.cat([rh, fh]), yy,
+                                             dt_cfg, pooled=True)
+            l_ds = losses.d_hinge(ds_both[:n], ds_both[n:])
+            l_dt = losses.d_hinge(dt_both[:n], dt_both[n:])
             return l_ds + l_dt, (l_ds.detach(), l_dt.detach(), ds_u, dt_u)
 
-        d_loss, (l_ds, l_dt, ds_u, dt_u), grads = _value_and_grad(
-            d_loss_fn, {"ds": ds["params"], "dt": dt["params"]})
+        d_loss, auxes, grads = _accum_grads(
+            d_loss_fn, {"ds": ds["params"], "dt": dt["params"]},
+            (real_frames, fake_frames, real_dt, fake_dt, y), ka)
+        l_ds = torch.stack([a[0] for a in auxes]).mean()
+        l_dt = torch.stack([a[1] for a in auxes]).mean()
+        ds_u, dt_u = auxes[-1][2:]
         ds_params, ds_opt = _adam(grads["ds"], ds, tc.lr_d, tc)
         dt_params, dt_opt = _adam(grads["dt"], dt, tc.lr_d, tc)
         ds = {"params": ds_params, "sn_u": ds_u, "opt": ds_opt}
@@ -164,18 +197,24 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
                                    compute_dtype=dtype)
     g = state["g"]
 
-    def g_loss_fn(g_params):
+    def g_loss_fn(g_params, z_j, idx_j, y_j):
         g_sn, g_u = sn.sn_normalize(g_params, g["sn_u"], update=True,
                                     compute_dtype=dtype)
-        fake, g_stats = generator.apply(g_sn, g["stats"], z_g, y, g_cfg,
+        fake, g_stats = generator.apply(g_sn, g["stats"], z_j, y_j, g_cfg,
                                         train=True)
-        s_ds = discriminator.ds_apply(ds_sn, take_frames(fake, idx_g), y,
+        s_ds = discriminator.ds_apply(ds_sn, take_frames(fake, idx_j), y_j,
                                       ds_cfg)
-        s_dt = discriminator.dt_apply(dt_sn, fake, y, dt_cfg)
+        s_dt = discriminator.dt_apply(dt_sn, fake, y_j, dt_cfg)
         g_loss = losses.g_hinge(s_ds) + losses.g_hinge(s_dt)
         return g_loss, (g_u, tru.tree_map(torch.Tensor.detach, g_stats))
 
-    g_loss, (g_u, g_stats), g_grads = _value_and_grad(g_loss_fn, g["params"])
+    g_loss, auxes, g_grads = _accum_grads(g_loss_fn, g["params"],
+                                          (z_g, idx_g, y), ka)
+    g_u = auxes[-1][0]
+    # the running-stat update is linear in the batch moments: the mean over
+    # the micros is one update with the mean micro-moment
+    g_stats = auxes[0][1] if ka == 1 else tru.tree_map(
+        lambda *s: torch.stack(s).mean(0), *(a[1] for a in auxes))
     g_params, g_opt = _adam(g_grads, g, tc.lr_g, tc)
     step = state["step"]
     new_state = {

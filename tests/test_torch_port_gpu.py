@@ -13,13 +13,17 @@ relative to the largest reference value for K2's outputs.
 
 from __future__ import annotations
 
+import dataclasses
+
 import pytest
 import torch
 
 from dvdgan_tpu_torch.core import tree
+from dvdgan_tpu_torch.kernels import convgru_blocked as k3
 from dvdgan_tpu_torch.kernels import convgru_bwd as k2
 from dvdgan_tpu_torch.kernels import convgru_seq as k1
-from dvdgan_tpu_torch.models import DSConfig, DTConfig, GConfig
+from dvdgan_tpu_torch.models import (DSConfig, DTConfig, GConfig,
+                                     generator)
 from dvdgan_tpu_torch.models.generator import GeneratorState
 from dvdgan_tpu_torch.ops import convgru
 from dvdgan_tpu_torch.train import state as train_state
@@ -233,3 +237,257 @@ def test_train_step_on_card_matches_cpu(cuda):
         for k, r in ref_mu.items():
             torch.testing.assert_close(out_mu[k].cpu(), r, rtol=0,
                                        atol=1e-4 * scale, msg=f"{m} mu {k}")
+
+
+# ---------------------------------------------------------------- K3 -------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h,w,c", [(3, 2, 4, 4, 8),     # one ragged tile
+                                       (3, 2, 5, 6, 8),     # ragged tile
+                                       (2, 3, 9, 17, 6),    # partial ch groups
+                                       (2, 2, 16, 16, 40),  # several ci chunks
+                                       (2, 1, 24, 16, 72),  # > 1 oc block
+                                       # the long-clip path's 64² level
+                                       # at more CTAs (192) than the card
+                                       # has SMs: two share one
+                                       (2, 3, 64, 64, 128)])
+def test_k3_kernel_matches_plain(cuda, dtype, t, b, h, w, c):
+    args = _inputs(t, b, h, w, c, dtype, cuda)
+    before = k3.gru_sequence_blocked.launches
+    out = k3.gru_sequence_blocked(*args)
+    torch.cuda.synchronize()
+    assert k3.gru_sequence_blocked.launches - before == (
+        t * k3.LAUNCHES_PER_STEP)
+    ref = k3.gru_sequence_blocked_reference(*args)
+    assert out.dtype == dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=TOL[dtype])
+    # K1 computes the same function on its own tiles
+    torch.testing.assert_close(out.float(),
+                               k1.gru_sequence_fused(*args).float(), rtol=0,
+                               atol=TOL[dtype])
+
+
+def test_k3_kernel_reads_strided_inputs(cuda):
+    gx, cx, h0, wg, wc = _inputs(3, 2, 16, 16, 16, torch.float32, cuda)
+    gcx = torch.cat([gx, cx], dim=-1)
+    sliced = k3.gru_sequence_blocked(gcx[..., :32], gcx[..., 32:], h0, wg, wc)
+    bgx, bcx = (a[:1].expand(3, -1, -1, -1, -1) for a in (gx, cx))
+    bcast = k3.gru_sequence_blocked(bgx, bcx, h0, wg, wc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(sliced, k3.gru_sequence_blocked_reference(
+        gx, cx, h0, wg, wc), rtol=0, atol=1e-5)
+    torch.testing.assert_close(bcast, k3.gru_sequence_blocked_reference(
+        bgx.contiguous(), bcx.contiguous(), h0, wg, wc), rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.gru_sequence_blocked(gx, cx, h0.transpose(1, 2), wg, wc)
+    with pytest.raises(TypeError, match="dtype"):
+        k3.gru_sequence_blocked(gx.half(), cx.half(), h0.half(), wg.half(),
+                                wc.half())
+
+
+def test_k3_refuses_more_channels_than_shared_memory_holds(cuda):
+    args = _inputs(1, 1, 8, 8, 512, torch.float32, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        k3.gru_sequence_blocked(*args)
+
+
+def test_convgru_large_plane_grads_on_card_match_cpu(cuda):
+    """A plane over the K1/K3 boundary through ops/convgru: K3 forward and
+    K2 backward on the card against the plain versions on the CPU."""
+    c, hw = 20, 64
+    assert convgru.uses_blocked(hw, hw)
+    gen = torch.Generator().manual_seed(0)
+    p = convgru.convgru_init(gen, c)
+    x = torch.randn(2, 1, hw, hw, c, generator=gen)
+    up = torch.randn(2, 1, hw, hw, c, generator=gen)
+
+    def grads(p, x, up):
+        leaves = {k: {n: v.clone().requires_grad_(True) for n, v in d.items()}
+                  for k, d in p.items()}
+        x = x.clone().requires_grad_(True)
+        hs = convgru.convgru(leaves, x, time_major=True)
+        flat = [x] + [v for d in leaves.values() for v in d.values()]
+        return [hs] + list(torch.autograd.grad((hs * up).sum(), flat))
+
+    ref = grads(p, x, up)
+    before = (k1.gru_sequence_fused.launches, k2.gru_sequence_bwd.launches,
+              k3.gru_sequence_blocked.launches)
+    dev = {k: {n: v.to(cuda) for n, v in d.items()} for k, d in p.items()}
+    out = grads(dev, x.to(cuda), up.to(cuda))
+    assert (k1.gru_sequence_fused.launches - before[0],
+            k2.gru_sequence_bwd.launches - before[1],
+            k3.gru_sequence_blocked.launches - before[2]) == (
+        0, 2 * k2.LAUNCHES_PER_STEP, 2 * k3.LAUNCHES_PER_STEP)
+    for o, r in zip(out, ref):
+        scale = max(1.0, float(r.detach().abs().max()))
+        torch.testing.assert_close(o.cpu(), r, rtol=0, atol=1e-4 * scale)
+
+
+def _accum_case():
+    """A 128 px step at a width the CPU takes: (configs, state, real, y,
+    draws by stream). Its last GRU level, a 64² plane, goes to K3."""
+    g_cfg = GConfig(img_size=128, n_frames=2, ch=12, z_dim=120, n_classes=5,
+                    emb_dim=16, attn_res=16, remat=True)
+    ds_cfg = DSConfig(img_size=128, ch=8, n_classes=5, k_frames=2)
+    dt_cfg = DTConfig(img_size=128, n_frames=2, ch=8, n_classes=5)
+    state = train_state.create(0, g_cfg, ds_cfg, dt_cfg)
+    gen = torch.Generator().manual_seed(1)
+    real = torch.tanh(torch.randn(2, 2, 128, 128, 3, generator=gen))
+    y = torch.tensor([1, 3])
+    draws = step.TorchDraws(gen, 2, 120, 2, 2, torch.float32)
+    z = {i: draws.z(i) for i in (0, 3)}
+    idx = {i: draws.idx(i) for i in (1, 2, 4)}
+    return (g_cfg, ds_cfg, dt_cfg), state, real, y, z, idx
+
+
+def _run_step(case, device, grad_accum=2, remat=True):
+    (g_cfg, ds_cfg, dt_cfg), state, real, y, z, idx = case
+
+    class Replay:
+        def z(self, i):
+            return z[i].to(device)
+
+        def idx(self, i):
+            return idx[i].to(device)
+
+    tc = train_state.TrainConfig(d_steps=1, ema_start=0,
+                                 grad_accum=grad_accum)
+    return step.train_step(
+        train_state.to_device(state, device), real.to(device), y.to(device),
+        Replay(), dataclasses.replace(g_cfg, remat=remat), ds_cfg, dt_cfg,
+        tc)
+
+
+def _mu_gap(out, ref) -> dict:
+    """Per model, the largest |Adam mu difference| over max|mu| (mu is the
+    gradient: β1 = 0), and the leaf it is at."""
+    gaps = {}
+    for m in ("g", "ds", "dt"):
+        ref_mu = tree.flatten_with_paths(ref[0][m]["opt"]["mu"])
+        out_mu = tree.flatten_with_paths(out[0][m]["opt"]["mu"])
+        scale = max(float(v.abs().max()) for v in ref_mu.values())
+        err = {k: float((out_mu[k].cpu() - r.cpu()).abs().max()) / scale
+               for k, r in ref_mu.items()}
+        worst = max(err, key=err.get)
+        gaps[m] = (err[worst], worst)
+    return gaps
+
+
+def test_accum_remat_train_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One step with grad_accum=2 and remat at a width whose last level
+    goes to K3, card against CPU; the backward reruns no sequence kernel.
+
+    The card is held twice. Against itself: the same step with every plane
+    sent to K1 and remat off differs only by K3's f32 summation order
+    (remat changes no value): 2.0e-6 × max|mu| measured on an H100, held
+    at 1e-5. Against the CPU at 6e-4 × max|mu|, twice the 3.0e-4 measured
+    (G's first layer, `seed/w`; DS 9.7e-6, DT 4.0e-7). That gap is f32
+    summation order and not this step's accumulation, remat or K3: two
+    witnesses are printed beside it. The step without any of the three
+    reads 1.1e-4 card against CPU at the same leaf; and the CPU against
+    itself with its convolutions summed in another order (oneDNN off) reads
+    4.0–4.3e-4 for this step and 1.1–1.2e-4 for the plain one. Accumulation
+    triples the gap on either pair of devices because G's BN then takes
+    its moments over one clip, not two."""
+    case = _accum_case()
+    g_cfg = case[0][0]
+    planes = [g_cfg.base_res * 2 ** i for i in range(g_cfg.n_levels)]
+    n_k3 = sum(convgru.uses_blocked(r, r) for r in planes)
+    assert n_k3 == 1
+    ref = _run_step(case, "cpu")
+    before = (k1.gru_sequence_fused.launches, k2.gru_sequence_bwd.launches,
+              k3.gru_sequence_blocked.launches)
+    out = _run_step(case, cuda)
+    t, n, ka = g_cfg.n_frames, g_cfg.n_levels, 2
+    assert (k1.gru_sequence_fused.launches - before[0],
+            k2.gru_sequence_bwd.launches - before[1],
+            k3.gru_sequence_blocked.launches - before[2]) == (
+        (n - n_k3) * t * (1 + ka) * k1.LAUNCHES_PER_STEP,
+        n * t * ka * k2.LAUNCHES_PER_STEP,
+        n_k3 * t * (1 + ka) * k3.LAUNCHES_PER_STEP)
+    for k in ref[1]:
+        torch.testing.assert_close(out[1][k].cpu(), ref[1][k], rtol=0,
+                                   atol=1e-4)
+
+    # the witnesses: K1 everywhere and no remat on the card; and the step
+    # without accumulation, remat or K3 on both
+    plain_ref = _run_step(case, "cpu", grad_accum=1, remat=False)
+    monkeypatch.setattr(convgru, "uses_blocked", lambda h, w: False)
+    before = k3.gru_sequence_blocked.launches
+    k1_out = _run_step(case, cuda, remat=False)
+    plain_out = _run_step(case, cuda, grad_accum=1, remat=False)
+    assert k3.gru_sequence_blocked.launches == before
+    gaps = {"card vs cpu": _mu_gap(out, ref),
+            "card vs card with K1, no remat": _mu_gap(out, k1_out),
+            "plain, card vs cpu": _mu_gap(plain_out, plain_ref)}
+    with torch.backends.mkldnn.flags(enabled=False):
+        gaps["cpu vs cpu without oneDNN"] = _mu_gap(
+            _run_step(case, "cpu"), ref)
+        gaps["plain, cpu vs cpu without oneDNN"] = _mu_gap(
+            _run_step(case, "cpu", grad_accum=1, remat=False), plain_ref)
+    print("\nmu gaps over max|mu|:", gaps)
+    for m, (err, leaf) in gaps["card vs card with K1, no remat"].items():
+        assert err <= 1e-5, f"{m} mu {leaf}: {err:.3e}"
+    for m, (err, leaf) in gaps["card vs cpu"].items():
+        assert err <= 6e-4, f"{m} mu {leaf}: {err:.3e}"
+
+
+def test_remat_on_card_keeps_upsample_outputs_and_sequences(cuda):
+    """G forward + backward with remat on the card: the gradients are the
+    plain ones, the upsample conv (the one 2×2 kernel) runs once per level
+    (its output is kept, not recomputed) while 3×3 convs of the blocks are
+    recomputed, and no sequence kernel reruns."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class ConvCount(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.convolution.default:
+                k = tuple(args[1].shape[-2:])
+                self.n[k] = self.n.get(k, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    cfg = GConfig(img_size=128, n_frames=2, ch=12, z_dim=120, n_classes=5,
+                  emb_dim=16, attn_res=16)
+    gen = torch.Generator().manual_seed(0)
+    params, stats = generator.init(gen, cfg)
+    params = tree.tree_map(
+        lambda p: (p + 0.05 * torch.randn(p.shape, generator=gen)).to(cuda),
+        params)
+    stats = tree.tree_map(lambda s: s.to(cuda), stats)
+    z = torch.randn(2, cfg.z_dim, generator=gen).to(cuda)
+    y = torch.tensor([1, 3]).to(cuda)
+
+    def run(cfg):
+        leaves = tree.tree_map(lambda p: p.detach().requires_grad_(True),
+                               params)
+        flat = tree.flatten_with_paths(leaves)
+        before = (k1.gru_sequence_fused.launches
+                  + k3.gru_sequence_blocked.launches)
+        with ConvCount() as convs:
+            video, _ = generator.apply(leaves, stats, z, y, cfg, train=True)
+            grads = torch.autograd.grad((video ** 2).mean(),
+                                        list(flat.values()))
+        launched = (k1.gru_sequence_fused.launches
+                    + k3.gru_sequence_blocked.launches - before)
+        return dict(zip(flat, grads)), convs.n, launched
+
+    plain = run(cfg)
+    remat = run(dataclasses.replace(cfg, remat=True))
+    n_k3 = sum(convgru.uses_blocked(cfg.base_res * 2 ** i,
+                                    cfg.base_res * 2 ** i)
+               for i in range(cfg.n_levels))
+    assert plain[2] == remat[2] == cfg.n_frames * (
+        (cfg.n_levels - n_k3) * k1.LAUNCHES_PER_STEP
+        + n_k3 * k3.LAUNCHES_PER_STEP)
+    assert plain[1][(2, 2)] == remat[1][(2, 2)] == cfg.n_levels
+    assert remat[1][(3, 3)] > plain[1][(3, 3)]
+    scale = max(float(g.abs().max()) for g in plain[0].values())
+    worst = max(float((g - remat[0][k]).abs().max())
+                for k, g in plain[0].items()) / scale
+    print("\nremat vs plain on the card, over max|grad|:", worst)
+    assert worst <= 2e-6     # 3.9e-7 measured on an H100

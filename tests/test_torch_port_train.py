@@ -266,7 +266,7 @@ def test_port_state_paths_match_reference():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(grad_accum=2), "item 7"), (dict(fake_gen="per_step"), "item 6")])
+    (dict(fake_gen="per_step"), "item 6")])
 def test_train_step_refuses_what_is_not_ported(change, match):
     state = train_state.create(0, GConfig(**G_KW), DSConfig(**DS_KW),
                                DTConfig(**DT_KW))
@@ -293,11 +293,12 @@ def test_train_cli_on_cpu_writes_state(tmp_path):
     for ln in lines:
         fields = dict(zip(ln[2::2], ln[3::2]))
         assert set(fields) == {"d_loss", "d_loss_s", "d_loss_t", "g_loss",
-                               "k1_launches", "k2_launches"}
+                               "k1_launches", "k2_launches", "k3_launches"}
         assert all(np.isfinite(float(fields[k])) for k in (
             "d_loss", "d_loss_s", "d_loss_t", "g_loss"))
         # CPU tensors take the plain versions: no kernel launches
-        assert fields["k1_launches"] == fields["k2_launches"] == "0"
+        assert (fields["k1_launches"] == fields["k2_launches"]
+                == fields["k3_launches"] == "0")
     state = interop.load_train_state_npz(str(out / "train_state.npz"))
     assert int(state["step"]) == 2
     with np.load(out / "train_state.npz") as f:
