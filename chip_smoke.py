@@ -51,7 +51,30 @@
 9. holds one f32 long-clip-shaped step (the 256 px schedules at ch 8, T 4,
    batch 2, grad_accum 2, remat on; its 64² and 128² levels go to K3) on
    the card against the CPU, at phase 6's limits;
-10. prints one JSON line of the kernels, each with its launches on the
+10. holds K5a and K5b (the fused upsample conv and its backward) against
+    their plain versions at the four ucf101_64 levels (N = T·B = 128, and
+    256 as the fake pass and sampling give it) and the six kinetics_256_48f
+    levels (N = 96; K5a also at the fake pass's 384): f32 atol 1e-4 (K5b:
+    1e-4 × max|ref| per output), bf16 3e-2 (K5b 5e-2 × max|ref|), two K5b
+    runs bitwise equal; timed beside the plain versions and the unfused
+    route (cuDNN phase conv + interleave, and autograd through it) on the
+    same inputs;
+11. holds K4 (the single GRU step) against its plain version at the ten
+    level shapes (B 16 for ucf101_64, B 2 for kinetics_256_48f), and drives
+    the single-step entry `ops.convgru.convgru_cell` over the T steps of
+    both presets' levels (bf16; 16 steps at B 16, 48 steps at B 2; launch
+    counter zeroed just before):
+    K4 unrolled on K1's own gx/cx equals K1 bit for bit, and the entry's
+    sequence agrees with `ops.convgru.convgru`;
+12. drives the three paths with `--ups_fused full`: the sample CLI (4 K5a
+    launches, clip within 0.05 of the unfused clip in bf16, an f32 batch-2
+    sample card vs CPU), the flagship train CLI (K5a 8 and K5b 8 launches
+    per step; steps/s as in phase 5) with an f32 step card vs CPU, and the
+    long-clip train CLI
+    (K5a 18, K5b 24 per step: none from the remat backward; K1, K2 and K3
+    as in phase 8); then times the long-clip step with `full` and `off` in
+    turns (off, full, full, off) with peak memory and the profiler's view;
+13. prints one JSON line of the kernels, each with its launches on the
     driven paths and its bound (the larger of bytes over 3.35 TB/s and
     operations over the peak rate of its type), then the result line.
 
@@ -100,6 +123,15 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 CONVGRU_KERNELS = ("gate_kernel", "cand_kernel", "cand_bwd_kernel",
                    "drh_kernel", "dh_kernel", "blocked_step_kernel")
+UPS_KERNELS = ("ups2x_fwd_kernel", "ups2x_dx_kernel", "ups2x_dw_kernel")
+# the upsample conv of each G level: (H, W, Cin, Cout) of its source plane
+UPS_LEVELS = [(4, 4, 256, 256), (8, 8, 256, 128), (16, 16, 128, 64),
+              (32, 32, 64, 32)]
+LONG_UPS_LEVELS = [(4, 4, 512, 512), (8, 8, 512, 256), (16, 16, 256, 256),
+                   (32, 32, 256, 128), (64, 64, 128, 64), (128, 128, 64, 32)]
+FUSED_CLIP_TOL = 0.05   # bf16 clip, fused vs unfused route: both round each
+#                         level's conv once, from f32 sums in another order
+FULL = ["--ups_fused", "full"]
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -194,21 +226,26 @@ def check_k1(device, levels=LEVELS, t: int = T, b: int = B,
     return rows
 
 
-def drive_sample(device) -> tuple[int, dict]:
+def drive_sample(device, route=()) -> tuple[dict, dict, np.ndarray]:
+    """The sample CLI with the flags `route` (none: the unfused upsample
+    route; FULL: the fused one). -> (launches of K1 and K5a, the serving
+    rate, the clips)."""
     from dvdgan_tpu_torch import cli
     from dvdgan_tpu_torch.kernels import convgru_seq as k1
+    from dvdgan_tpu_torch.kernels import ups2x_fused as k5
     from dvdgan_tpu_torch.models.generator import GeneratorState
     from dvdgan_tpu_torch.train import step
     from dvdgan_tpu_torch.utils.config import parse_config
 
     argv = ["--mode", "sample", "--preset", "ucf101_64", "--n_samples",
-            str(B), "--bf16", "1"]
+            str(B), "--bf16", "1", *route]
     cfg = parse_config(argv)
     g_cfg = cfg.g_config()
     with tempfile.TemporaryDirectory() as tmp:
-        k1.gru_sequence_fused.launches = 0
+        k1.gru_sequence_fused.launches = k5.ups2x.launches = 0
         videos = cli.main(argv + ["--out_dir", tmp])
         launches = k1.gru_sequence_fused.launches
+        k5a = k5.ups2x.launches
         saved = np.load(os.path.join(tmp, "samples.npy"))
     want_shape = (B, g_cfg.n_frames, g_cfg.img_size, g_cfg.img_size, 3)
     if videos.shape != want_shape or saved.shape != want_shape:
@@ -221,8 +258,15 @@ def drive_sample(device) -> tuple[int, dict]:
     if launches != want:
         raise AssertionError(f"K1 launched {launches} times in the sample "
                              f"run, want {want}")
-    print(f"sample: shape {videos.shape} range [{videos.min():.4f}, "
-          f"{videos.max():.4f}] K1 launches {launches}", flush=True)
+    want_k5a = 0 if cfg.ups_fused == "off" else (
+        g_cfg.n_levels * k5.LAUNCHES_PER_CALL)
+    if k5a != want_k5a:
+        raise AssertionError(f"K5a launched {k5a} times in the sample run "
+                             f"with --ups_fused {cfg.ups_fused}, want "
+                             f"{want_k5a}")
+    print(f"sample {cfg.ups_fused}: shape {videos.shape} range "
+          f"[{videos.min():.4f}, {videos.max():.4f}] K1 launches {launches} "
+          f"K5a launches {k5a}", flush=True)
 
     # steady-state serving rate, bf16 batch B (weights already on the card)
     state = GeneratorState.create(g_cfg, cfg.seed).to(device)
@@ -240,8 +284,8 @@ def drive_sample(device) -> tuple[int, dict]:
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     sec = statistics.median(secs)
-    clips = {"batch": B, "dtype": "bfloat16", "ms_per_batch": sec * 1e3,
-             "clips_per_s": B / sec}
+    clips = {"batch": B, "dtype": "bfloat16", "ups_fused": cfg.ups_fused,
+             "ms_per_batch": sec * 1e3, "clips_per_s": B / sec}
     print("sample_rate " + json.dumps(clips), flush=True)
 
     # a small f32 sample: card (K1) against the CPU (plain K1 version)
@@ -250,12 +294,12 @@ def drive_sample(device) -> tuple[int, dict]:
     cpu_trees = GeneratorState.create(g_cfg, cfg.seed).trees()
     on_cpu = step.sample(*cpu_trees, z2.cpu(), y2.cpu(), g_cfg)
     err = float((on_card - on_cpu).abs().max())
-    print(f"sample f32 card vs cpu: max_abs_err {err:.3e} "
+    print(f"sample {cfg.ups_fused} f32 card vs cpu: max_abs_err {err:.3e} "
           f"(atol {SAMPLE_TOL})", flush=True)
     if not err <= SAMPLE_TOL:
         raise AssertionError(f"f32 sample on the card disagrees with the "
                              f"CPU path: {err}")
-    return launches, clips
+    return {"k1": launches, "k5a": k5a}, clips, videos
 
 
 def check_k2(device, levels=LEVELS, t: int = T, b: int = B_TRAIN,
@@ -344,6 +388,195 @@ def check_k3(device, reps: int = 10) -> list[dict]:
     return rows
 
 
+def k5_inputs(n, h, w, cin, cout, dtype, device, seed: int):
+    """(wall, xp, g): unit-gain phase kernels, a ReLU'd input zero-padded as
+    the layer pads it, and an output cotangent."""
+    gen = torch.Generator().manual_seed(seed)
+    wall = ((4 * cin) ** -0.5 * torch.randn(4 * cin, 4 * cout, generator=gen)
+            ).to(device, dtype)
+    x = torch.relu(torch.randn(n, h, w, cin, generator=gen)).to(device, dtype)
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1)).contiguous()
+    g = torch.randn(n, 2 * h, 2 * w, cout, generator=gen).to(device, dtype)
+    return wall, xp, g
+
+
+def ups_bounds(n, h, w, cin, cout, dtype) -> tuple[dict, dict]:
+    """(K5a's, K5b's) bound. K5a: the four useful phases, 16·Cin·Cout MACs
+    per source pixel; xp and wall read, out written. K5b: the same product
+    twice (dxp, dwall); wall, xp and g read, dxp and dwall written in f32."""
+    flops = 2 * n * h * w * 16 * cin * cout
+    n_xp, n_wall = n * (h + 2) * (w + 2) * cin, 16 * cin * cout
+    n_out = n * 4 * h * w * cout
+    return (bound(flops, (n_xp + n_wall + n_out) * dtype.itemsize, dtype),
+            bound(2 * flops, (n_xp + n_wall + n_out) * dtype.itemsize
+                  + (n_xp + n_wall) * 4, dtype))
+
+
+def check_k5(device, levels, n: int, dtypes, reps: int = 5,
+             bwd: bool = True) -> tuple[list[dict], list[dict]]:
+    """K5a and K5b against their plain versions at the upsample convs of
+    `levels` with N = `n` frames, timed beside the plain versions and the
+    unfused route on the same inputs (cuDNN phase conv + interleave;
+    autograd through it). -> (K5a rows, K5b rows)."""
+    from dvdgan_tpu_torch.kernels import ups2x_fused as k5
+    from dvdgan_tpu_torch.ops import layers
+    rows_a, rows_b = [], []
+    for dtype in dtypes:
+        for i, (h, w, cin, cout) in enumerate(levels):
+            wall, xp, g = k5_inputs(n, h, w, cin, cout, dtype, device,
+                                    seed=40 + i)
+            wall4 = wall.reshape(2, 2, cin, 4 * cout)
+            bound_a, bound_b = ups_bounds(n, h, w, cin, cout, dtype)
+            ref = k5.ups2x_reference(wall, xp)
+            out = k5.ups2x(wall, xp)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            row = {"dtype": str(dtype).replace("torch.", ""),
+                   "shape": [n, h, w, cin, cout],
+                   "max_abs_err": float(err.max()),
+                   "mean_abs_err": float(err.mean()),
+                   "ms": cuda_ms(lambda: k5.ups2x(wall, xp), reps),
+                   "plain_ms": cuda_ms(lambda: k5.ups2x_reference(wall, xp),
+                                       reps),
+                   "library_ms": cuda_ms(
+                       lambda: layers.phase_conv_interleave(wall4, xp), reps),
+                   **bound_a}
+            del ref, out, err
+            print("K5a " + json.dumps(row), flush=True)
+            if not row["max_abs_err"] <= TOL[dtype]:
+                raise AssertionError(f"K5a disagrees with its plain version: "
+                                     f"{row} (atol {TOL[dtype]})")
+            rows_a.append(row)
+            if not bwd:
+                continue
+
+            names = ("dwall", "dxp")
+            ref = k5.ups2x_bwd_reference(wall, xp, g)
+            out = k5.ups2x_bwd(wall, xp, g)
+            again = k5.ups2x_bwd(wall, xp, g)
+            torch.cuda.synchronize()
+            errs = {k: float((o - r).abs().max())
+                    for k, o, r in zip(names, out, ref)}
+            scales = {k: float(r.abs().max()) for k, r in zip(names, ref)}
+            same = all(torch.equal(a, b) for a, b in zip(out, again))
+            del ref, out, again
+            leaves = [a.detach().clone().requires_grad_(True)
+                      for a in (wall4, xp)]
+            unfused = layers.phase_conv_interleave(*leaves)
+            row = {"dtype": str(dtype).replace("torch.", ""),
+                   "shape": [n, h, w, cin, cout],
+                   "max_abs_err": max(errs.values()),
+                   "max_rel_err": max(errs[k] / scales[k] for k in names),
+                   "two_runs_bitwise_equal": same,
+                   "ms": cuda_ms(lambda: k5.ups2x_bwd(wall, xp, g), reps),
+                   "plain_ms": cuda_ms(
+                       lambda: k5.ups2x_bwd_reference(wall, xp, g), reps),
+                   "library_ms": cuda_ms(
+                       lambda: torch.autograd.grad(unfused, leaves, g,
+                                                   retain_graph=True), reps),
+                   **bound_b}
+            del unfused, leaves
+            print("K5b " + json.dumps(row), flush=True)
+            bad = [k for k in names if not errs[k] <= K2_TOL[dtype] * scales[k]]
+            if bad or not same:
+                raise AssertionError(
+                    f"K5b disagrees with its plain version on {bad} or with "
+                    f"itself: {row} (atol {K2_TOL[dtype]} x {scales})")
+            rows_b.append(row)
+    return rows_a, rows_b
+
+
+def check_k4(device, levels, b: int, reps: int = 10) -> list[dict]:
+    """K4 against its plain version (one step of K1's) at the GRU planes
+    `levels` with batch `b`; `launches` is per call (1 or 2). Where K4 takes
+    its one-launch form, `k1_pair_ms` is the other form at the same shape:
+    K1's gate + candidate launches (K1 at T = 1)."""
+    from dvdgan_tpu_torch.kernels import convgru_cell as k4
+    from dvdgan_tpu_torch.kernels import convgru_seq as k1
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (h, w, c) in enumerate(levels):
+            gx, cx, h0, wg, wc = k1_inputs(h, w, c, dtype, device,
+                                           seed=50 + i, b=b, t=1)
+            args = (gx[0], cx[0], h0, wg, wc)
+            ref = k4.gru_cell_reference(*args)
+            before = k4.gru_cell_fused.launches
+            out = k4.gru_cell_fused(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            row = {"dtype": str(dtype).replace("torch.", ""),
+                   "shape": [b, h, w, c],
+                   "launches_per_call": k4.gru_cell_fused.launches - before,
+                   "max_abs_err": float(err.max()),
+                   "mean_abs_err": float(err.mean()),
+                   "ms": cuda_ms(lambda: k4.gru_cell_fused(*args), reps),
+                   "plain_ms": cuda_ms(lambda: k4.gru_cell_reference(*args),
+                                       reps),
+                   **fwd_bound(1, b, h, w, c, dtype)}
+            if row["launches_per_call"] == 1:
+                row["k1_pair_ms"] = cuda_ms(
+                    lambda: k1.gru_sequence_fused(gx, cx, h0, wg, wc), reps)
+            print("K4 " + json.dumps(row), flush=True)
+            if not row["max_abs_err"] <= TOL[dtype]:
+                raise AssertionError(f"K4 disagrees with its plain version: "
+                                     f"{row} (atol {TOL[dtype]})")
+            rows.append(row)
+    return rows
+
+
+def drive_cell(device, levels=LEVELS, t: int = T, b: int = B) -> int:
+    """The single-step entry over `t` steps at the GRU planes `levels`
+    (bf16, batch `b`): K4 unrolled on K1's own gx/cx must equal K1 bit for bit,
+    and `ops.convgru.convgru_cell` unrolled must agree with
+    `ops.convgru.convgru` (their input convs run at other batch sizes, so
+    cuDNN may sum them in another order: atol as K1's). -> K4's launches
+    in the unroll through the entry."""
+    from dvdgan_tpu_torch.kernels import convgru_cell as k4
+    from dvdgan_tpu_torch.kernels import convgru_seq as k1
+    from dvdgan_tpu_torch.ops import convgru
+    dtype = torch.bfloat16
+    launches = 0
+    for i, (h, w, c) in enumerate(levels):
+        gx, cx, h0, wg, wc = k1_inputs(h, w, c, dtype, device, seed=60 + i,
+                                       b=b, t=t)
+        hs = k1.gru_sequence_fused(gx, cx, h0, wg, wc)
+        hid = h0
+        for k in range(t):
+            hid = k4.gru_cell_fused(gx[k], cx[k], hid, wg, wc)
+            if not torch.equal(hid, hs[k]):
+                raise AssertionError(f"K4 unrolled differs from K1 at level "
+                                     f"{(h, w, c)}, step {k}")
+
+        gen = torch.Generator().manual_seed(70 + i)
+        p = convgru.convgru_init(gen, c)
+        p = {k: {n: ((9 * c) ** -0.5 * v).to(device, dtype)
+                 for n, v in d.items()} for k, d in p.items()}
+        x = torch.randn(t, b, h, w, c, generator=gen).to(device, dtype)
+        seq = convgru.convgru(p, x, time_major=True)
+        hid = torch.zeros(b, h, w, c, dtype=dtype, device=device)
+        k4.gru_cell_fused.launches = 0
+        outs = []
+        for k in range(t):
+            hid = convgru.convgru_cell(p, x[k], hid)
+            outs.append(hid)
+        torch.cuda.synchronize()
+        n = k4.gru_cell_fused.launches
+        want = t * (1 if max(h, w) <= k4.PLANE_MAX else 2)
+        if n != want:
+            raise AssertionError(f"K4 launched {n} times over {t} steps at "
+                                 f"{(h, w, c)}, want {want}")
+        launches += n
+        err = float((torch.stack(outs).float() - seq.float()).abs().max())
+        print(f"cell unroll {(t, b, h, w, c)}: K4 on K1's gx/cx bitwise "
+              f"equal; convgru_cell vs convgru max_abs_err {err:.3e}, "
+              f"bitwise {torch.equal(torch.stack(outs), seq)}; K4 launches "
+              f"{n}", flush=True)
+        if not err <= TOL[dtype]:
+            raise AssertionError(f"convgru_cell unrolled disagrees with "
+                                 f"convgru at {(h, w, c)}: {err}")
+    return launches
+
+
 def _tree_moved(before, after) -> tuple[int, int]:
     """(leaves that changed, leaves) of two flat {path: array} dicts."""
     moved = sum(not np.array_equal(before[k], after[k]) for k in before)
@@ -362,21 +595,30 @@ def launches_per_step(cfg) -> dict[str, int]:
     from dvdgan_tpu_torch.kernels import convgru_blocked as k3
     from dvdgan_tpu_torch.kernels import convgru_bwd as k2
     from dvdgan_tpu_torch.kernels import convgru_seq as k1
+    from dvdgan_tpu_torch.kernels import ups2x_fused as k5
     from dvdgan_tpu_torch.ops import convgru
     g_cfg = cfg.g_config()
     planes = [(g_cfg.base_res * 2 ** i, g_cfg.level_channels(i)[0])
               for i in range(g_cfg.n_levels)]
     n_k3 = sum(convgru.uses_blocked(r, r) for r, _ in planes)
     t, ka = g_cfg.n_frames, cfg.grad_accum
+    # the fused upsample conv: K5a once per level in every G forward (none
+    # from a remat backward), K5b once per level in every G backward
+    k5a = cfg.ups_fused != "off"
+    k5b = cfg.ups_fused == "full"
     return {"k1_launches": (g_cfg.n_levels - n_k3) * t * (1 + ka)
             * k1.LAUNCHES_PER_STEP,
             "k2_launches": g_cfg.n_levels * t * ka * k2.LAUNCHES_PER_STEP,
-            "k3_launches": n_k3 * t * (1 + ka) * k3.LAUNCHES_PER_STEP}
+            "k3_launches": n_k3 * t * (1 + ka) * k3.LAUNCHES_PER_STEP,
+            "k5a_launches": k5a * g_cfg.n_levels * (1 + ka)
+            * k5.LAUNCHES_PER_CALL,
+            "k5b_launches": k5b * g_cfg.n_levels * ka
+            * k5.BWD_LAUNCHES_PER_CALL}
 
 
 def drive_train(argv=FLAGSHIP_ARGV, n_steps: int = TRAIN_STEPS) -> dict:
-    """The train CLI in a child process; returns the run's K1, K2 and K3
-    launches, its wall seconds and its peak device memory."""
+    """The train CLI in a child process; returns the run's K1, K2, K3, K5a
+    and K5b launches, its wall seconds and its peak device memory."""
     from dvdgan_tpu_torch import interop
     from dvdgan_tpu_torch.train import state as train_state
     from dvdgan_tpu_torch.utils.config import parse_config
@@ -432,10 +674,8 @@ def drive_train(argv=FLAGSHIP_ARGV, n_steps: int = TRAIN_STEPS) -> dict:
             raise AssertionError(f"{prefix}: {n_moved} of {n} leaves moved")
     peak = [float(ln.split()[3]) for ln in proc.stdout.splitlines()
             if ln.startswith("peak device memory ")]
-    return {"k1": n_steps * want["k1_launches"],
-            "k2": n_steps * want["k2_launches"],
-            "k3": n_steps * want["k3_launches"], "cli_s": secs,
-            "peak_mem_gib": peak[0]}
+    return {**{k[:-len("_launches")]: n_steps * n for k, n in want.items()},
+            "per_step": want, "cli_s": secs, "peak_mem_gib": peak[0]}
 
 
 class Replay:
@@ -460,7 +700,8 @@ def step_configs(argv):
 
 
 def time_train(device, name: str = "train_rate", argv=FLAGSHIP_ARGV,
-               n_warm: int = 2, n_steps: int = 5, n_prof: int = 2) -> dict:
+               n_warm: int = 2, n_steps: int = 5, n_prof: int = 2,
+               n_top: int = 15) -> dict:
     """bf16 train steps/s of the configuration `argv` names (the flagship
     at batch 8 by default), and the profiler's view."""
     from torch.autograd import DeviceType
@@ -520,8 +761,12 @@ def time_train(device, name: str = "train_rate", argv=FLAGSHIP_ARGV,
     busy_us = sum(dev_us(e) for e in kernels)
     gru_us = sum(dev_us(e) for e in kernels
                  if any(k in e.key for k in CONVGRU_KERNELS))
+    ups_us = sum(dev_us(e) for e in kernels
+                 if any(k in e.key for k in UPS_KERNELS))
     top = sorted(kernels, key=dev_us, reverse=True)[:15]
     out = {"batch": batch, "grad_accum": tc.grad_accum, "dtype": "bfloat16",
+           "ups_fused": g_cfg.ups_fused,
+           "ups2x_kernels_ms_per_step": ups_us / n_prof / 1e3,
            "frames": g_cfg.n_frames, "img_size": g_cfg.img_size,
            "ms_per_step": sec * 1e3, "steps_per_s": 1.0 / sec,
            "step_ms_all": [x * 1e3 for x in secs],
@@ -534,7 +779,7 @@ def time_train(device, name: str = "train_rate", argv=FLAGSHIP_ARGV,
            "device_idle_share_profiled": 1.0 - busy_us / wall_us,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     print(name + " " + json.dumps(out), flush=True)
-    for e in top:
+    for e in top[:n_top]:
         print(f"  device {dev_us(e) / n_prof / 1e3:9.3f} ms/step "
               f"x{e.count // n_prof:<5d} {e.key[:90]}", flush=True)
     return out
@@ -582,7 +827,8 @@ def check_train_f32(device, name: str = "train f32",
         scale = max(float(v.abs().max()) for v in ref_mu.values())
         mu_err[m] = max(float((out_mu[k].cpu() - v).abs().max())
                         for k, v in ref_mu.items()) / scale
-    res = {"losses": {k: float(v) for k, v in ref_m.items()},
+    res = {"ups_fused": g_cfg.ups_fused,
+           "losses": {k: float(v) for k, v in ref_m.items()},
            "loss_abs_err": loss_err, "mu_err_over_max_mu": mu_err,
            "cpu_step_s": cpu_s,
            "k3_launches": k3.gru_sequence_blocked.launches - k3_before}
@@ -619,7 +865,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     rows = check_k1(device)
-    launches, _ = drive_sample(device)
+    sample_run, _, clips_off = drive_sample(device)
     rows_k2 = check_k2(device)
     train = drive_train()
     time_train(device)
@@ -641,55 +887,150 @@ def main() -> int:
     print(f"long-clip CLI: {long_run['cli_s']:.1f} s for {LONG_STEPS} steps, "
           f"peak device memory {long_run['peak_mem_gib']:.3f} GiB",
           flush=True)
-    time_train(device, "longclip_rate", LONG_ARGV, n_warm=1, n_steps=3,
-               n_prof=1)
+    long_rates = [time_train(device, "longclip_rate", LONG_ARGV, n_warm=1,
+                             n_steps=3, n_prof=1)]
     res = check_train_f32(device, "long-clip-shaped f32", LONG_F32_ARGV)
     if res["k3_launches"] <= 0:
         raise AssertionError("the long-clip-shaped f32 step launched no K3")
 
-    def entry(name, source, replaces, rows, by_path, also=(), **extra):
-        """`also`: the same kernel's rows at the path's other batch; their
-        errors count, their times are given apart."""
+    # the fused-upsample route (K5a, K5b) and the single-step entry (K4)
+    bf16, both = (torch.bfloat16,), (torch.float32, torch.bfloat16)
+    k5a_flag, k5b_flag = check_k5(device, UPS_LEVELS, T * B_TRAIN, both)
+    k5a_flag_fake, _ = check_k5(device, UPS_LEVELS, T * B, bf16, bwd=False)
+    k5a_long, k5b_long = check_k5(device, LONG_UPS_LEVELS, LONG_T * LONG_B,
+                                  both)
+    k5a_long_fake, _ = check_k5(device, LONG_UPS_LEVELS,
+                                LONG_T * LONG_B_FAKE, bf16, reps=3, bwd=False)
+    k4_flag = check_k4(device, LEVELS, B)
+    k4_long = check_k4(device, LONG_LEVELS, LONG_B)
+    cell_launches = drive_cell(device)
+    cell_launches_long = drive_cell(device, LONG_LEVELS, LONG_T, LONG_B)
+
+    sample_full, _, clips_full = drive_sample(device, FULL)
+    gap = np.abs(clips_full - clips_off)
+    print(f"sample full vs off (bf16, same z): max_abs {gap.max():.3e} "
+          f"mean_abs {gap.mean():.3e} (limit {FUSED_CLIP_TOL})", flush=True)
+    if not gap.max() <= FUSED_CLIP_TOL:
+        raise AssertionError(f"the fused route's clips differ from the "
+                             f"unfused route's by {gap.max()}")
+    train_full = drive_train(FLAGSHIP_ARGV + FULL)
+    time_train(device, argv=FLAGSHIP_ARGV + FULL, n_top=6)
+    check_train_f32(device, "train f32 full",
+                    ("--preset", "ucf101_64", "--batch_size", "2", *FULL))
+    long_full = drive_train(LONG_ARGV + FULL, LONG_STEPS)
+    print(f"long-clip CLI full: {long_full['cli_s']:.1f} s for {LONG_STEPS} "
+          f"steps, peak device memory {long_full['peak_mem_gib']:.3f} GiB",
+          flush=True)
+    # full and off in turns, in this one call: off (above), full, full, off
+    for argv in (LONG_ARGV + FULL, LONG_ARGV + FULL, LONG_ARGV):
+        long_rates.append(time_train(device, "longclip_rate", argv, n_warm=1,
+                                     n_steps=3, n_prof=1, n_top=6))
+    print("longclip_pairs " + json.dumps([
+        {k: r[k] for k in ("ups_fused", "ms_per_step", "steps_per_s",
+                           "device_busy_ms_per_step",
+                           "ups2x_kernels_ms_per_step", "peak_mem_gib")}
+        for r in long_rates]), flush=True)
+
+    def entry(name, source, replaces, rows, by_path, per_step, also=(),
+              **extra):
+        """`by_path`: launches in each driven run; `per_step`: launches per
+        train step (per call for the sample and cell entries). `also`: the
+        same kernel's rows at the path's other batch; their
+        errors count, their times are given apart. `library_ms` is the sum
+        of the rows' where they have one (no single PyTorch call computes a
+        GRU step or a T-step recurrence)."""
         bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
         also = [r for r in also if r["dtype"] == "bfloat16"]
         if also:
             extra["ms_fake_batch"] = sum(r["ms"] for r in also)
-        by = {r["bound_by"] for r in bf16}
+        library = [r["library_ms"] for r in bf16 if "library_ms" in r]
+        by = {kind: sum(r["bound_ms"] for r in bf16 if r["bound_by"] == kind)
+              for kind in ("operations", "bytes")}
         return {"name": name, "route": "cuda",
                 "source": f"dvdgan_tpu_torch/kernels/csrc/{source}",
                 "replaces": f"dvdgan_tpu/kernels/{replaces}",
                 "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
+                "launches_per_step": per_step,
                 "max_abs_err": max(r["max_abs_err"] for r in bf16 + also),
                 "ms": sum(r["ms"] for r in bf16),
                 "plain_ms": sum(r["plain_ms"] for r in bf16),
                 "bound_ms": sum(r["bound_ms"] for r in bf16),
-                "bound_by": by.pop() if len(by) == 1 else "operations",
-                # no single PyTorch call computes a T-step recurrence
-                "library_ms": None, **extra}
+                # of a sum over levels: the kind that bounds most of it
+                "bound_by": max(by, key=by.get),
+                "library_ms": sum(library) if library else None, **extra}
 
-    k1_src, k2_src = "convgru_seq.cu", "convgru_bwd.cu"
+    def k4_per_call(rows):
+        return {"x".join(map(str, r["shape"][1:])): r["launches_per_call"]
+                for r in rows if r["dtype"] == "bfloat16"}
+
+    k1_src, k2_src, k5_src = ("convgru_seq.cu", "convgru_bwd.cu",
+                              "ups2x_fused.cu")
     k1_at, k2_at = "convgru_seq.py:104", "convgru_bwd.py:194"
     long_shapes = "kinetics_256_48f levels, T=48, B=2"
     kernels = [
         entry("convgru_seq (K1, bf16, sum of the 4 ucf101_64 levels, B=16)",
               k1_src, k1_at, rows,
-              {"sample": launches, "train": train["k1"]}),
+              {"sample": sample_run["k1"], "train": train["k1"],
+               "sample_full": sample_full["k1"], "train_full":
+               train_full["k1"]},
+              {"sample": sample_run["k1"],
+               "train": train["per_step"]["k1_launches"]}),
         entry(f"convgru_seq (K1, bf16, sum of its {len(k1_levels)} "
               f"{long_shapes})",
-              k1_src, k1_at, rows_long, {"longclip": long_run["k1"]},
+              k1_src, k1_at, rows_long,
+              {"longclip": long_run["k1"], "longclip_full": long_full["k1"]},
+              {"longclip": long_run["per_step"]["k1_launches"]},
               also=rows_long_fake),
         entry("convgru_bwd (K2, bf16, sum of the 4 ucf101_64 levels, B=8)",
-              k2_src, k2_at, rows_k2, {"sample": 0, "train": train["k2"]}),
+              k2_src, k2_at, rows_k2,
+              {"sample": 0, "train": train["k2"],
+               "train_full": train_full["k2"]},
+              {"train": train["per_step"]["k2_launches"]}),
         entry(f"convgru_bwd (K2, bf16, sum of the 6 {long_shapes})",
-              k2_src, k2_at, rows_k2_long, {"longclip": long_run["k2"]}),
+              k2_src, k2_at, rows_k2_long,
+              {"longclip": long_run["k2"], "longclip_full": long_full["k2"]},
+              {"longclip": long_run["per_step"]["k2_launches"]}),
         entry(f"convgru_blocked (K3, bf16, sum of its "
               f"{len(rows_k3_path) // 2} {long_shapes})",
               "convgru_blocked.cu", "convgru_blocked.py:182", rows_k3_path,
-              {"longclip": long_run["k3"]}, also=rows_k3_fake,
+              {"longclip": long_run["k3"], "longclip_full": long_full["k3"]},
+              {"longclip": long_run["per_step"]["k3_launches"]},
+              also=rows_k3_fake,
               k1_ms_same_shapes=sum(r["k1_ms"] for r in rows_k3_path
                                     if r["dtype"] == "bfloat16")),
+        entry("convgru_cell (K4, bf16, one step at the 4 ucf101_64 levels, "
+              "B=16)", "convgru_cell.cu", "convgru_cell.py:162", k4_flag,
+              {"cell_unroll": cell_launches}, k4_per_call(k4_flag)),
+        entry("convgru_cell (K4, bf16, one step at the 6 kinetics_256_48f "
+              "levels, B=2)", "convgru_cell.cu", "convgru_cell.py:162",
+              k4_long, {"cell_unroll": cell_launches_long},
+              k4_per_call(k4_long)),
+        entry("ups2x_fused fwd (K5a, bf16, sum of the 4 ucf101_64 levels, "
+              "N=128; fake pass and sampling N=256)", k5_src,
+              "ups2x_fused.py:195", k5a_flag,
+              {"sample_full": sample_full["k5a"],
+               "train_full": train_full["k5a"]},
+              {"sample_full": sample_full["k5a"],
+               "train_full": train_full["per_step"]["k5a_launches"]},
+              also=k5a_flag_fake),
+        entry("ups2x_fused fwd (K5a, bf16, sum of the 6 kinetics_256_48f "
+              "levels, N=96; fake pass N=384)", k5_src, "ups2x_fused.py:195",
+              k5a_long, {"longclip_full": long_full["k5a"]},
+              {"longclip_full": long_full["per_step"]["k5a_launches"]},
+              also=k5a_long_fake),
+        entry("ups2x_fused bwd (K5b, bf16, sum of the 4 ucf101_64 levels, "
+              "N=128)", k5_src, "ups2x_fused.py:290", k5b_flag,
+              {"train_full": train_full["k5b"]},
+              {"train_full": train_full["per_step"]["k5b_launches"]}),
+        entry("ups2x_fused bwd (K5b, bf16, sum of the 6 kinetics_256_48f "
+              "levels, N=96)", k5_src, "ups2x_fused.py:290", k5b_long,
+              {"longclip_full": long_full["k5b"]},
+              {"longclip_full": long_full["per_step"]["k5b_launches"]}),
     ]
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"kernels that no driven path launched: {idle}")
     print(gpu_line(), flush=True)    # again, beside the numbers it goes with
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,9 @@ npz, resuming at its step), takes --total_step steps of `train.step.
 train_step` on synthetic clips (`dvdgan_tpu_torch.data`'s
 SyntheticVideoDataset and Loader, numpy-only copies of the reference's: the
 same batches the reference trainer draws for --seed), prints one line per
-step with the four losses and the step's kernel launches (K1, K2, K3), and
+step with the four losses and the step's kernel launches (K1, K2, K3, K5a,
+K5b; the last two only with `--ups_fused fwd|full`, which sends G's
+upsample convs through the fused kernel), and
 writes the final state to DIR/train_state.npz (`interop` layout). The
 step's own draws come from a torch.Generator on the device seeded with
 --seed. `--grad_accum k` splits the batch into k micro-batches per update,
@@ -65,10 +67,12 @@ def run_sample(cfg: Config, device: torch.device) -> torch.Tensor:
                        g_cfg)
 
 
-def _launch_counts() -> tuple[int, int, int]:
-    return (kernels.gru_sequence_fused.launches,
-            kernels.convgru_bwd.gru_sequence_bwd.launches,
-            kernels.gru_sequence_blocked.launches)
+def _launch_counts() -> dict[str, int]:
+    return {"k1": kernels.gru_sequence_fused.launches,
+            "k2": kernels.convgru_bwd.gru_sequence_bwd.launches,
+            "k3": kernels.gru_sequence_blocked.launches,
+            "k5a": kernels.ups2x_fused.ups2x.launches,
+            "k5b": kernels.ups2x_fused.ups2x_bwd.launches}
 
 
 def run_train(cfg: Config, device: torch.device) -> dict:
@@ -109,11 +113,11 @@ def run_train(cfg: Config, device: torch.device) -> dict:
             before = _launch_counts()
             state, metrics = step.train_step(state, real, y, draws, g_cfg,
                                              ds_cfg, dt_cfg, tc)
-            k1, k2, k3 = (a - b for a, b in zip(_launch_counts(), before))
+            launches = " ".join(f"{k}_launches {n - before[k]}"
+                                for k, n in _launch_counts().items())
             losses = " ".join(f"{k} {float(v):.6f}"
                               for k, v in metrics.items())
-            print(f"step {int(state['step'])} {losses} "
-                  f"k1_launches {k1} k2_launches {k2} k3_launches {k3}",
+            print(f"step {int(state['step'])} {losses} {launches}",
                   flush=True)
     finally:
         batches.close()

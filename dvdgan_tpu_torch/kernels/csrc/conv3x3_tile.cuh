@@ -1,8 +1,8 @@
 // Shared pieces of the ConvGRU kernels (K1 forward, convgru_seq.cu; K2
-// backward, convgru_bwd.cu; K3 blocked forward, convgru_blocked.cu):
-// f32/bf16 conversion, the CTA tile shapes, a SAME 3x3 conv over one CTA's
-// tile accumulated in registers, and the gate launch that both K1 and K2's
-// recompute run.
+// backward, convgru_bwd.cu; K3 blocked forward, convgru_blocked.cu; K4
+// single step, convgru_cell.cu): f32/bf16 conversion, the CTA tile shapes, a
+// SAME 3x3 conv over one CTA's tile accumulated in registers, the gate launch
+// that K1, K4 and K2's recompute run, and the candidate launch of K1 and K4.
 //
 // Layouts (channels-last, as the reference): a plane is (H, W, Ch) with
 // pixel stride `pix` (>= Ch) and unit channel stride; weights are HWIO
@@ -26,6 +26,13 @@ template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// h' = (1 - z) h + z cand, each operation rounded where written (no
+// contraction chosen per kernel by the compiler): every kernel that blends
+// gives the same bits for the same z, h and cand.
+__device__ __forceinline__ float blend(float z, float h, float cand) {
+  return __fmaf_rn(z, cand, __fmul_rn(__fsub_rn(1.f, z), h));
 }
 
 // A CTA's tile: TH x TW pixels, OCB output channels, CIC input channels
@@ -236,6 +243,44 @@ int gate_launch(const void* h, const void* gx, int64_t gx_bstride,
   gate_kernel<TL, T><<<grid_for<TL>(B, H, W, 2 * C), TL::THREADS, 0, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(gx), gx_bstride, gx_pix,
       static_cast<const T*>(wg), static_cast<T*>(rh), z, r, H, W, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Candidate step: ch = conv3x3(rh, wc) (f32 accumulate), cand = tanh(cx +
+// ch), h' = (1 - z) h + z cand in f32, rounded once to T.
+// grid: grid_for<TL>(B, H, W, C)
+template <class TL, typename T>
+__global__ void __launch_bounds__(TL::THREADS)
+cand_kernel(const T* __restrict__ rh, const T* __restrict__ cx,
+            int64_t cx_bstride, int64_t cx_pix, const T* __restrict__ wc,
+            const float* __restrict__ z, const T* __restrict__ h_prev,
+            T* __restrict__ h_out, int H, int W, int C) {
+  __shared__ __align__(16) float in_s[TL::IN_SMEM];
+  __shared__ __align__(16) float w_s[TL::W_SMEM];
+  const TilePos<TL> at(H, W);
+
+  float acc[TL::PM][TL::OM] = {};
+  conv3x3_tile<TL, T>(rh + at.plane * C, C, H, W, C, wc, C, at.y0, at.x0,
+                      at.oc0, in_s, w_s, acc);
+
+  const T* cxb = cx + (int64_t)at.b * cx_bstride;
+  for_each_output<TL>(H, W, C, at.y0, at.x0, at.oc0, acc,
+                      [&](int64_t q, int oc, float a) {
+    const int64_t o = (at.plane + q) * C + oc;
+    const float cand = tanhf(to_f(cxb[q * cx_pix + oc]) + a);
+    h_out[o] = from_f<T>(blend(z[o], to_f(h_prev[o]), cand));
+  });
+}
+
+template <class TL, typename T>
+int cand_launch(const void* rh, const void* cx, int64_t cx_bstride,
+                int64_t cx_pix, const void* wc, const float* z,
+                const void* h_prev, void* h_out, int B, int H, int W, int C,
+                cudaStream_t stream) {
+  cand_kernel<TL, T><<<grid_for<TL>(B, H, W, C), TL::THREADS, 0, stream>>>(
+      static_cast<const T*>(rh), static_cast<const T*>(cx), cx_bstride, cx_pix,
+      static_cast<const T*>(wc), z, static_cast<const T*>(h_prev),
+      static_cast<T*>(h_out), H, W, C);
   return static_cast<int>(cudaGetLastError());
 }
 

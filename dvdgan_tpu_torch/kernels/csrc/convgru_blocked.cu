@@ -160,7 +160,7 @@ blocked_step_kernel(const T* __restrict__ h_prev, const T* __restrict__ gx,
                                                acc_z[p][j])));
           const float cand = tanhf(to_f(cxb[q * cx_pix + oc]) + acc_c[p][j]);
           const int64_t o = (plane + q) * C + oc;
-          h_out[o] = from_f<T>((1.f - z) * to_f(hb[q * C + oc]) + z * cand);
+          h_out[o] = from_f<T>(blend(z, to_f(hb[q * C + oc]), cand));
         }
       }
     }

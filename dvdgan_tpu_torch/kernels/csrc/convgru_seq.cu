@@ -22,7 +22,8 @@
 // channels of the weights in shared memory (as f32), and each of its
 // threads accumulates 4 neighbouring pixels x 4 neighbouring output
 // channels in registers (CUDA-core FMAs). The tile and the gate launch are
-// shared with the backward (K2) in conv3x3_tile.cuh.
+// shared with the backward (K2), and both launches with the single-step
+// entry (K4, convgru_cell.cu), in conv3x3_tile.cuh.
 //
 // What bounds it on the H100: per level and step the two convs do
 // 9*C*3C MACs per pixel. At B=16 the 4x4x256 and 8x8x256 levels give
@@ -42,49 +43,6 @@
 
 #include "conv3x3_tile.cuh"
 
-namespace {
-
-using namespace convgru;
-
-// grid: grid_for<TL>(B, H, W, C)
-template <class TL, typename T>
-__global__ void __launch_bounds__(TL::THREADS)
-cand_kernel(const T* __restrict__ rh, const T* __restrict__ cx,
-            int64_t cx_bstride, int64_t cx_pix, const T* __restrict__ wc,
-            const float* __restrict__ z, const T* __restrict__ h_prev,
-            T* __restrict__ h_out, int H, int W, int C) {
-  __shared__ __align__(16) float in_s[TL::IN_SMEM];
-  __shared__ __align__(16) float w_s[TL::W_SMEM];
-  const TilePos<TL> at(H, W);
-
-  float acc[TL::PM][TL::OM] = {};
-  conv3x3_tile<TL, T>(rh + at.plane * C, C, H, W, C, wc, C, at.y0, at.x0,
-                      at.oc0, in_s, w_s, acc);
-
-  const T* cxb = cx + (int64_t)at.b * cx_bstride;
-  for_each_output<TL>(H, W, C, at.y0, at.x0, at.oc0, acc,
-                      [&](int64_t q, int oc, float a) {
-    const int64_t o = (at.plane + q) * C + oc;
-    const float cand = tanhf(to_f(cxb[q * cx_pix + oc]) + a);
-    const float zz = z[o];
-    h_out[o] = from_f<T>((1.f - zz) * to_f(h_prev[o]) + zz * cand);
-  });
-}
-
-template <class TL, typename T>
-int cand_launch(const void* rh, const void* cx, int64_t cx_bstride,
-                int64_t cx_pix, const void* wc, const float* z,
-                const void* h_prev, void* h_out, int B, int H, int W, int C,
-                cudaStream_t stream) {
-  cand_kernel<TL, T><<<grid_for<TL>(B, H, W, C), TL::THREADS, 0, stream>>>(
-      static_cast<const T*>(rh), static_cast<const T*>(cx), cx_bstride, cx_pix,
-      static_cast<const T*>(wc), z, static_cast<const T*>(h_prev),
-      static_cast<T*>(h_out), H, W, C);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
 // Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
 // Each function makes ONE launch on `stream` (a cudaStream_t) and returns
 // cudaGetLastError() right after it (0 = launched).
@@ -103,8 +61,8 @@ int convgru_cand_step(int dtype, int device, const void* rh, const void* cx,
                       int64_t cx_bstride, int64_t cx_pix, const void* wc,
                       const float* z, const void* h_prev, void* h_out, int B,
                       int H, int W, int C, void* stream) {
-  CONVGRU_DISPATCH(dtype, device, H, W, cand_launch, rh, cx, cx_bstride,
-                   cx_pix, wc, z, h_prev, h_out, B, H, W, C,
+  CONVGRU_DISPATCH(dtype, device, H, W, convgru::cand_launch, rh, cx,
+                   cx_bstride, cx_pix, wc, z, h_prev, h_out, B, H, W, C,
                    static_cast<cudaStream_t>(stream));
 }
 

@@ -43,6 +43,9 @@ class GConfig:
     base_res: int = 4
     remat: bool = False
     cond_frames: int = 0         # DVD-GAN-FP prefix length; 0 = synthesis
+    # route of the levels' upsample conv (`ops/layers.upsample2x_conv3x3`):
+    # off | fwd | full. The reference reads it from DVDGAN_UPS_PALLAS.
+    ups_fused: str = "off"
 
     @property
     def mults(self) -> Tuple[int, ...]:

@@ -21,6 +21,14 @@ backward reaches the level. Remat changes what is recomputed, never a
 value: outputs, gradients and BN statistics (taken from the first forward)
 are those of the plain forward. Unlike the reference, the GRU's hoisted
 input conv is kept as well (the sequence Function saves its gx and cx).
+
+`cfg.ups_fused` is the route of every level's upsample conv
+(`ops/layers.py:upsample2x_conv3x3`; the reference reads it from the
+environment, `_ups_pallas`). With the fused route ("fwd", "full") and
+remat, the fused conv runs outside both checkpoint regions, as the GRU
+does: its kernel launches once per level and forward, never from a
+backward, and its Function keeps its padded input (which the "off" route
+recomputes); the CBN → ReLU before it is a region of its own.
 """
 
 from __future__ import annotations
@@ -87,17 +95,22 @@ def _save_conv_outputs(ctx, op, *args, **kwargs):
 
 
 def _block(lvl: dict, lvl_stats: dict, h: torch.Tensor, cond_tb: torch.Tensor,
-           t: int, attn: dict | None, train: bool, remat: bool):
+           t: int, attn: dict | None, train: bool, remat: bool,
+           ups_fused: str):
     """One level after its GRU: the upsampling GResBlock on the folded
     (T·B, H, W, C) sequence, then attention where `attn` is given.
     -> (x_seq (T, B, 2H, 2W, C'), block stats). With `remat`, two
-    checkpointed regions split at the upsample conv's output, which the
-    first one keeps."""
+    checkpointed regions split at the upsample conv's output: the first
+    one keeps it (route "off"), or ends before the fused conv, which then
+    runs between the two."""
     p, b = lvl["block"], h.shape[0] // t
+
+    def pre():
+        return resblocks.gresblock_pre(p, lvl_stats, h, cond_tb, train)
 
     def head():
         return resblocks.gresblock_head(p, lvl_stats, h, cond_tb, train,
-                                        upsample=True)
+                                        upsample=True, ups_fused=ups_fused)
 
     def tail(u):
         out, s2 = resblocks.gresblock_tail(p, lvl_stats, u, h, cond_tb, train,
@@ -111,8 +124,14 @@ def _block(lvl: dict, lvl_stats: dict, h: torch.Tensor, cond_tb: torch.Tensor,
         # nothing in a level draws random numbers
         run = functools.partial(ckpt.checkpoint, use_reentrant=False,
                                 preserve_rng_state=False)
-        u, s1 = run(head, context_fn=functools.partial(
-            ckpt.create_selective_checkpoint_contexts, _save_conv_outputs))
+        if ups_fused == "off":
+            u, s1 = run(head, context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts,
+                _save_conv_outputs))
+        else:
+            a, s1 = run(pre)
+            u = resblocks.gresblock_conv1(p, a, upsample=True,
+                                          ups_fused=ups_fused)
         x_seq, s2 = run(tail, u)
     else:
         u, s1 = head()
@@ -159,7 +178,7 @@ def apply(params: dict, stats: dict, z: torch.Tensor, y: torch.Tensor,
         h = h_seq.reshape(t * b, hw, hw, h_seq.shape[-1])      # fold time
         x_seq, s = _block(lvl, stats["levels"][i], h, cond_tb, t,
                           params["attn"] if i == attn_idx else None, train,
-                          remat)
+                          remat, cfg.ups_fused)
         new_stats_levels.append(s)
 
     hw = x_seq.shape[2]

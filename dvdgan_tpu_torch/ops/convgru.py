@@ -11,6 +11,11 @@ hidden-dependent halves run in a whole-sequence kernel: K1
 (`kernels.gru_sequence_fused`) for small planes, K3
 (`kernels.gru_sequence_blocked`) for large ones (`uses_blocked`). The
 initial hidden state is zero.
+
+`convgru_cell` is the single-step entry (the reference's `convgru_cell`,
+`dvdgan_tpu/ops/convgru.py:58`): the input convs as a plain conv (the same
+C→3C conv, so that T calls of it give the hidden sequence `convgru` gives)
+and the hidden-dependent part in K4 (`kernels.gru_cell_fused`).
 """
 
 from __future__ import annotations
@@ -50,6 +55,25 @@ def convgru_init(gen: torch.Generator, c: int, k: int = 3) -> dict:
     }
 
 
+def _input_conv(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The gate and candidate input convs as ONE C→3C conv (each output
+    channel's dot product is that of the separate convs).
+    x: (N, H, W, C) -> (N, H, W, 3C): gx = [..., :2C], cx = [..., 2C:]."""
+    wcat = torch.cat([p["gates_x"]["w"], p["cand_x"]["w"]], dim=-1)
+    bcat = torch.cat([p["gates_x"]["b"], p["cand_x"]["b"]])
+    return layers.conv2d({"w": wcat, "b": bcat}, x)
+
+
+def convgru_cell(p: dict, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """One GRU step from raw x. x, h: (B, H, W, C) -> (B, H, W, C)."""
+    c = x.shape[-1]
+    gcx = _input_conv(p, x)
+    wg = p["gates_h"]["w"].to(x.dtype).contiguous()
+    wc = p["cand_h"]["w"].to(x.dtype).contiguous()
+    return kernels.gru_cell_fused(gcx[..., :2 * c], gcx[..., 2 * c:],
+                                  h.contiguous(), wg, wc)
+
+
 def convgru(p: dict, x_seq: torch.Tensor, h0: torch.Tensor | None = None,
             time_major: bool = False, x_static: bool = False) -> torch.Tensor:
     """Unroll over time. x_seq: (B, T, H, W, C) — or (T, B, H, W, C) with
@@ -66,16 +90,14 @@ def convgru(p: dict, x_seq: torch.Tensor, h0: torch.Tensor | None = None,
     if h0 is None:
         h0 = torch.zeros((b, h, w, c), dtype=x_seq.dtype, device=x_seq.device)
 
-    wcat = torch.cat([p["gates_x"]["w"], p["cand_x"]["w"]], dim=-1)
-    bcat = torch.cat([p["gates_x"]["b"], p["cand_x"]["b"]])
     if x_static:
         x0 = x_seq[0] if time_major else x_seq[:, 0]
-        gcx0 = layers.conv2d({"w": wcat, "b": bcat}, x0)   # (B, H, W, 3C)
+        gcx0 = _input_conv(p, x0)                          # (B, H, W, 3C)
         gx = gcx0[None, ..., :2 * c].expand(t, b, h, w, 2 * c)
         cx = gcx0[None, ..., 2 * c:].expand(t, b, h, w, c)
     else:
         xf = x_seq.reshape(b * t, h, w, c)   # fold order matches layout
-        gcx = layers.conv2d({"w": wcat, "b": bcat}, xf)
+        gcx = _input_conv(p, xf)
         gx, cx = gcx[..., :2 * c], gcx[..., 2 * c:]
         if time_major:
             gx = gx.reshape(t, b, h, w, 2 * c)

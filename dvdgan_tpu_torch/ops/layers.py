@@ -8,6 +8,12 @@ reference. `conv2d`/`conv3d` reorder to PyTorch's NCHW/OIHW (NCDHW/OIDHW)
 views at the `F.conv2d`/`F.conv3d` call only: a channels-last-contiguous
 tensor seen that way is channels_last, so no copy is made.
 
+`upsample2x_conv3x3(p, x, fused)` carries the reference's choice of route
+for the upsample conv (`dvdgan_tpu/ops/layers.py:_ups_pallas`, there the
+environment variable DVDGAN_UPS_PALLAS) as an argument: "off" is the phase
+conv (cuDNN) and a stack interleave, "fwd" and "full" go through the fused
+kernel `kernels.ups2x_fused.ups2x` (K5a; "full" with K5b as its backward).
+
 The reference's TPU lowerings of the same convs (the stem conv's im2col
 weight-grad, the row-pair and temporal-pair/phase 3-D forms, `grad_barrier`)
 compute the same function and have no counterpart here.
@@ -19,8 +25,10 @@ import torch
 import torch.nn.functional as F
 
 from dvdgan_tpu_torch.core import init as winit
+from dvdgan_tpu_torch.kernels import ups2x_fused
 
 Params = dict
+UPS_FUSED_MODES = ("off", "fwd", "full")
 
 
 # ---------------------------------------------------------------- linear ----
@@ -69,14 +77,25 @@ def conv2d(p: Params, x: torch.Tensor, padding: str = "SAME") -> torch.Tensor:
     return y
 
 
-def upsample2x_conv3x3(p: Params, x: torch.Tensor) -> torch.Tensor:
+def upsample2x_conv3x3(p: Params, x: torch.Tensor, fused: str = "off"
+                       ) -> torch.Tensor:
     """Nearest-upsample-2× then a SAME 3×3 conv, computed as ONE 2×2-kernel
     VALID conv with 4 output phases and an interleave (the reference's
     phase decomposition). Per output phase the 3 taps of each dimension
     collapse to 2 source taps whose kernels are sums of the original taps:
     rows p=0: [w0, w1+w2], rows p=1: [w0+w1, w2] (the same per column).
     The sums are formed in the weights' own dtype (the compute dtype after
-    `sn_normalize`), so in bf16 they round as the reference's do."""
+    `sn_normalize`), so in bf16 they round as the reference's do, and
+    outside any kernel, so that d(wall) → d(w) is plain autograd.
+
+    `fused`: "off" runs the phase conv and interleaves its four slices;
+    "fwd" and "full" run both in the fused kernel (`ups2x_fused.ups2x`),
+    whose backward is its own kernel under "full" and the plain version,
+    recomputed, under "fwd". The bias is added after the rounded output
+    either way."""
+    if fused not in UPS_FUSED_MODES:
+        raise ValueError(f"fused must be one of {UPS_FUSED_MODES}, got "
+                         f"{fused!r}")
     w = p["w"]                                        # (3, 3, Cin, Cout)
     cout = w.shape[-1]
     r0 = torch.stack([w[0], w[1] + w[2]])             # (2, 3, Cin, Cout)
@@ -90,6 +109,24 @@ def upsample2x_conv3x3(p: Params, x: torch.Tensor) -> torch.Tensor:
     w10, w11 = cols(r1)                               # each (2, 2, Cin, Cout)
     wall = torch.cat([w00, w01, w10, w11], dim=-1)
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    if fused == "off":
+        out = phase_conv_interleave(wall, xp)
+    else:
+        cin = x.shape[-1]
+        out = ups2x_fused.ups2x(
+            wall.to(x.dtype).reshape(4 * cin, 4 * cout), xp, fused == "full")
+    if "b" in p:
+        out = out + p["b"].to(x.dtype)
+    return out
+
+
+def phase_conv_interleave(wall: torch.Tensor, xp: torch.Tensor
+                          ) -> torch.Tensor:
+    """The unfused route of `upsample2x_conv3x3`: one VALID conv with the
+    four phase kernels wall (2, 2, Cin, 4·Cout) over the padded input xp
+    (N, H+2, W+2, Cin), then the interleave of its four phase slices.
+    -> (N, 2H, 2W, Cout)."""
+    cout = wall.shape[-1] // 4
     y = conv2d({"w": wall}, xp, padding="VALID")      # (N, H+1, W+1, 4Cout)
     n, hp1, wp1, _ = y.shape
     h, wd = hp1 - 1, wp1 - 1
@@ -99,10 +136,7 @@ def upsample2x_conv3x3(p: Params, x: torch.Tensor) -> torch.Tensor:
     y11 = y[:, 1:, 1:, 3 * cout:4 * cout]
     top = torch.stack([y00, y01], dim=3)              # (N, H, W, 2, Cout)
     bot = torch.stack([y10, y11], dim=3)
-    out = torch.stack([top, bot], dim=2).reshape(n, 2 * h, 2 * wd, cout)
-    if "b" in p:
-        out = out + p["b"].to(x.dtype)
-    return out
+    return torch.stack([top, bot], dim=2).reshape(n, 2 * h, 2 * wd, cout)
 
 
 # ---------------------------------------------------------------- conv3d ----

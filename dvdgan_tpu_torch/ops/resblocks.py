@@ -41,17 +41,29 @@ def gresblock_stats_init(cin: int, cout: int) -> dict:
     return {"bn1": norm.stats_init(cin), "bn2": norm.stats_init(cout)}
 
 
-def gresblock_head(p: dict, stats: dict, x: torch.Tensor, cond: torch.Tensor,
-                   train: bool, upsample: bool):
-    """The block up to its first conv's output (the reference's `ups_out`
-    when upsampling): CBN → ReLU → conv1. -> ((N, H', W', Cout), bn1 stats)."""
+def gresblock_pre(p: dict, stats: dict, x: torch.Tensor, cond: torch.Tensor,
+                  train: bool):
+    """The block before its first conv: CBN → ReLU.
+    -> ((N, H, W, Cin), bn1 stats)."""
     h, s1 = norm.cbn(p["cbn1"], stats["bn1"], x, cond, train)
-    h = torch.relu(h)
+    return torch.relu(h), s1
+
+
+def gresblock_conv1(p: dict, h: torch.Tensor, upsample: bool,
+                    ups_fused: str = "off") -> torch.Tensor:
+    """The block's first conv (the reference's `ups_out` when upsampling);
+    `ups_fused` is the upsample conv's route (`layers.upsample2x_conv3x3`)."""
     if upsample:
-        h = layers.upsample2x_conv3x3(p["conv1"], h)
-    else:
-        h = layers.conv2d(p["conv1"], h)
-    return h, s1
+        return layers.upsample2x_conv3x3(p["conv1"], h, ups_fused)
+    return layers.conv2d(p["conv1"], h)
+
+
+def gresblock_head(p: dict, stats: dict, x: torch.Tensor, cond: torch.Tensor,
+                   train: bool, upsample: bool, ups_fused: str = "off"):
+    """The block up to its first conv's output: CBN → ReLU → conv1.
+    -> ((N, H', W', Cout), bn1 stats)."""
+    h, s1 = gresblock_pre(p, stats, x, cond, train)
+    return gresblock_conv1(p, h, upsample, ups_fused), s1
 
 
 def gresblock_tail(p: dict, stats: dict, h: torch.Tensor, x: torch.Tensor,
@@ -72,11 +84,11 @@ def gresblock_tail(p: dict, stats: dict, h: torch.Tensor, x: torch.Tensor,
 
 
 def gresblock(p: dict, stats: dict, x: torch.Tensor, cond: torch.Tensor,
-              train: bool, upsample: bool):
+              train: bool, upsample: bool, ups_fused: str = "off"):
     """x: (N, H, W, Cin), cond: (N, cond_dim) -> ((N, H', W', Cout), stats).
     Head and tail are separate functions so that a rematerializing caller
     can keep conv1's output and recompute the rest (`models/generator.py`)."""
-    h, s1 = gresblock_head(p, stats, x, cond, train, upsample)
+    h, s1 = gresblock_head(p, stats, x, cond, train, upsample, ups_fused)
     out, s2 = gresblock_tail(p, stats, h, x, cond, train, upsample)
     return out, {"bn1": s1, "bn2": s2}
 

@@ -3,7 +3,9 @@
 The flag names, defaults and PRESETS are the reference's. `Config` carries
 the fields the sample and train modes read and every field a preset sets;
 the eval fields, the checkpoint schedule and the loader's knobs arrive with
-the slices that port them. `--weights` and `--device` are the port's own:
+the slices that port them. `--ups_fused {off,fwd,full}` is the reference's
+environment variable DVDGAN_UPS_PALLAS as a flag (the route of G's upsample
+convs, `ops/layers.py`). `--weights` and `--device` are the port's own:
 `--weights` is an npz written by `interop` (sample: any state holding the
 EMA-G part; train: a whole train state to start from), and `--device` names
 the torch device, `cuda` by default; without a CUDA device the CLI raises
@@ -17,6 +19,7 @@ import dataclasses
 from typing import Optional
 
 from dvdgan_tpu_torch.models import DSConfig, DTConfig, GConfig
+from dvdgan_tpu_torch.ops.layers import UPS_FUSED_MODES
 from dvdgan_tpu_torch.train.state import TrainConfig
 
 
@@ -61,6 +64,7 @@ class Config:
     remat: bool = False               # rematerialize G levels (long clips)
     time_shards: int = 1              # >1: DT context-parallel over time
     device: str = "cuda"              # torch device (cuda | cuda:N | cpu)
+    ups_fused: str = "off"            # G's upsample convs: off | fwd | full
 
     def g_config(self) -> GConfig:
         attn = self.attn_res if self.attn_res <= self.img_size // 2 else None
@@ -69,7 +73,8 @@ class Config:
                        ch=self.ch, z_dim=self.z_dim,
                        n_classes=self.n_classes, emb_dim=self.emb_dim,
                        attn_res=attn, remat=self.remat,
-                       cond_frames=self.cond_frames)
+                       cond_frames=self.cond_frames,
+                       ups_fused=self.ups_fused)
 
     def ds_config(self) -> DSConfig:
         return DSConfig(img_size=self.img_size, ch=self.d_ch,
@@ -120,6 +125,8 @@ def build_parser() -> argparse.ArgumentParser:
                            default=None)
         elif f.name == "pretrained_model":
             p.add_argument(arg, type=int, default=None)
+        elif f.name == "ups_fused":
+            p.add_argument(arg, choices=UPS_FUSED_MODES, default=None)
         else:
             typ = {int: int, float: float, str: str}.get(type(f.default), str)
             p.add_argument(arg, type=typ, default=None)

@@ -1,8 +1,8 @@
 """dvdgan_tpu_torch kernels on the card: each CUDA kernel against its plain
 PyTorch version on the same CUDA tensors, and the paths through them (the
-sample, K1's autograd.Function, one train step) on the card against the
-CPU. Marked `gpu`; each test skips (inside the `cuda` fixture) where there
-is no CUDA device. Run them on a machine with one:
+sample, K1's autograd.Function, one train step, the single-step GRU entry,
+the fused upsample route) on the card against the CPU. Marked `gpu`; each
+test skips (inside the `cuda` fixture) where there is no CUDA device. Run them on a machine with one:
 `python -m pytest tests/test_torch_port_gpu.py -q --noconftest`.
 
 f32 with TF32 off: atol 1e-5 at these small shapes (1e-4 for whole paths
@@ -21,11 +21,13 @@ import torch
 from dvdgan_tpu_torch.core import tree
 from dvdgan_tpu_torch.kernels import convgru_blocked as k3
 from dvdgan_tpu_torch.kernels import convgru_bwd as k2
+from dvdgan_tpu_torch.kernels import convgru_cell as k4
 from dvdgan_tpu_torch.kernels import convgru_seq as k1
+from dvdgan_tpu_torch.kernels import ups2x_fused as k5
 from dvdgan_tpu_torch.models import (DSConfig, DTConfig, GConfig,
                                      generator)
 from dvdgan_tpu_torch.models.generator import GeneratorState
-from dvdgan_tpu_torch.ops import convgru
+from dvdgan_tpu_torch.ops import convgru, layers
 from dvdgan_tpu_torch.train import state as train_state
 from dvdgan_tpu_torch.train import step
 
@@ -491,3 +493,293 @@ def test_remat_on_card_keeps_upsample_outputs_and_sequences(cuda):
                 for k, g in plain[0].items()) / scale
     print("\nremat vs plain on the card, over max|grad|:", worst)
     assert worst <= 2e-6     # 3.9e-7 measured on an H100
+
+
+# ---------------------------------------------------------------- K4 -------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,launches", [
+    (2, 4, 4, 8, 1),      # the 4x4 plane tile
+    (3, 5, 7, 12, 1),     # a ragged plane in the 8x8 tile, partial groups
+    (2, 8, 8, 72, 1),     # > 1 output-channel block, several ci chunks
+    (2, 9, 17, 6, 2),     # over the one-launch tile: gate + candidate
+    (1, 32, 32, 40, 2)])
+def test_k4_kernel_matches_plain(cuda, dtype, b, h, w, c, launches):
+    gx, cx, h0, wg, wc = _inputs(1, b, h, w, c, dtype, cuda)
+    args = (gx[0], cx[0], h0, wg, wc)
+    before = k4.gru_cell_fused.launches
+    out = k4.gru_cell_fused(*args)
+    torch.cuda.synchronize()
+    assert k4.gru_cell_fused.launches - before == launches
+    ref = k4.gru_cell_reference(*args)
+    assert out.dtype == dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=TOL[dtype])
+    # K1's step sums in the same order and blends with the same roundings
+    assert torch.equal(out, k1.gru_sequence_fused(gx, cx, h0, wg, wc)[0])
+
+
+def test_k4_kernel_reads_strided_inputs(cuda):
+    for h in (8, 16):       # one launch; gate + candidate
+        gx, cx, h0, wg, wc = _inputs(1, 2, h, h, 16, torch.float32, cuda)
+        gcx = torch.cat([gx[0], cx[0]], dim=-1)
+        out = k4.gru_cell_fused(gcx[..., :32], gcx[..., 32:], h0, wg, wc)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, k4.gru_cell_reference(
+            gx[0], cx[0], h0, wg, wc), rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.gru_cell_fused(gx[0], cx[0], h0.transpose(1, 2), wg, wc)
+    with pytest.raises(TypeError, match="dtype"):
+        k4.gru_cell_fused(gx[0].half(), cx[0].half(), h0.half(), wg.half(),
+                          wc.half())
+
+
+def test_k4_takes_two_launches_where_shared_memory_is_short(cuda):
+    """An 8x8 plane of 1024 f32 channels (262 KB of r*h) is over a CTA's
+    227 KB: the entry takes the gate + candidate pair, not another route."""
+    gx, cx, h0, wg, wc = _inputs(1, 1, 8, 8, 1024, torch.float32, cuda)
+    before = k4.gru_cell_fused.launches
+    out = k4.gru_cell_fused(gx[0], cx[0], h0, wg, wc)
+    torch.cuda.synchronize()
+    assert k4.gru_cell_fused.launches - before == 2
+    torch.testing.assert_close(out, k4.gru_cell_reference(
+        gx[0], cx[0], h0, wg, wc), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("hw", [8, 16])
+def test_convgru_cell_grads_on_card_match_cpu(cuda, hw):
+    """K4 forward and K2 (T = 1) backward on the card, through
+    ops/convgru.convgru_cell, against the plain versions on the CPU."""
+    gen = torch.Generator().manual_seed(0)
+    p = convgru.convgru_init(gen, 8)
+    x = torch.randn(2, hw, hw, 8, generator=gen)
+    h = torch.randn(2, hw, hw, 8, generator=gen)
+    up = torch.randn(2, hw, hw, 8, generator=gen)
+
+    def grads(p, x, h, up):
+        leaves = {k: {n: v.clone().requires_grad_(True) for n, v in d.items()}
+                  for k, d in p.items()}
+        x, h = x.clone().requires_grad_(True), h.clone().requires_grad_(True)
+        out = convgru.convgru_cell(leaves, x, h)
+        flat = [x, h] + [v for d in leaves.values() for v in d.values()]
+        return [out] + list(torch.autograd.grad((out * up).sum(), flat))
+
+    ref = grads(p, x, h, up)
+    before = (k4.gru_cell_fused.launches, k2.gru_sequence_bwd.launches)
+    dev = {k: {n: v.to(cuda) for n, v in d.items()} for k, d in p.items()}
+    out = grads(dev, x.to(cuda), h.to(cuda), up.to(cuda))
+    assert (k4.gru_cell_fused.launches - before[0],
+            k2.gru_sequence_bwd.launches - before[1]) == (
+        1 if hw <= k4.PLANE_MAX else 2, k2.LAUNCHES_PER_STEP)
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o.cpu(), r, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------- K5a, K5b -------
+
+def _ups_inputs(n, h, w, cin, cout, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    wall = (0.3 * torch.randn(4 * cin, 4 * cout, generator=g)).to(device,
+                                                                   dtype)
+    x = torch.randn(n, h, w, cin, generator=g).to(device, dtype)
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1)).contiguous()
+    up = torch.randn(n, 2 * h, 2 * w, cout, generator=g).to(device, dtype)
+    return wall, xp, up
+
+
+UPS_SHAPES = [(3, 4, 4, 8, 4),       # the 4x4 tile, a ragged frame group
+              (11, 3, 4, 5, 3),      # odd channels: no whole chunk or group
+              (3, 5, 7, 12, 20),     # H != W, the two-frame tile
+              (2, 9, 17, 6, 36),     # ragged 8x16 tiles, 2 channel blocks
+              (2, 16, 24, 40, 8)]    # several Cin chunks, 2 blocks of ci
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cin,cout", UPS_SHAPES)
+def test_k5a_kernel_matches_plain(cuda, dtype, n, h, w, cin, cout):
+    wall, xp, _ = _ups_inputs(n, h, w, cin, cout, dtype, cuda)
+    before = k5.ups2x.launches
+    out = k5.ups2x(wall, xp)
+    torch.cuda.synchronize()
+    assert k5.ups2x.launches - before == k5.LAUNCHES_PER_CALL
+    ref = k5.ups2x_reference(wall, xp)
+    assert out.dtype == dtype and out.shape == ref.shape
+    # bf16: one ulp at |out| < 8
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=1e-5 if dtype == torch.float32 else 4e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,cin,cout", UPS_SHAPES)
+def test_k5b_kernel_matches_plain_and_repeats_bitwise(cuda, dtype, n, h, w,
+                                                      cin, cout):
+    wall, xp, up = _ups_inputs(n, h, w, cin, cout, dtype, cuda)
+    before = k5.ups2x_bwd.launches
+    out = k5.ups2x_bwd(wall, xp, up)
+    torch.cuda.synchronize()
+    assert k5.ups2x_bwd.launches - before == k5.BWD_LAUNCHES_PER_CALL
+    again = k5.ups2x_bwd(wall, xp, up)
+    ref = k5.ups2x_bwd_reference(wall, xp, up)
+    for name, o, a, r in zip(("dwall", "dxp"), out, again, ref):
+        assert o.dtype == torch.float32 and o.shape == r.shape, name
+        assert torch.equal(o, a), name      # fixed-order reduction
+        torch.testing.assert_close(o, r, rtol=0, msg=name,
+                                   atol=1e-5 * max(1.0, float(r.abs().max())))
+
+
+def test_k5b_many_slices_repeat_bitwise(cuda):
+    """A long reduction (many frames, one block of channels: the dwall
+    launch splits it over ~264 slices) gives the same bits twice."""
+    wall, xp, up = _ups_inputs(64, 32, 32, 16, 8, torch.bfloat16, cuda)
+    first = k5.ups2x_bwd(wall, xp, up)
+    second = k5.ups2x_bwd(wall, xp, up)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    ref = k5.ups2x_bwd_reference(wall, xp, up)
+    for o, r in zip(first, ref):
+        torch.testing.assert_close(o, r, rtol=0,
+                                   atol=1e-5 * float(r.abs().max()))
+
+
+def test_ups2x_refuses_what_the_kernel_does_not_take(cuda):
+    wall, xp, up = _ups_inputs(2, 4, 4, 8, 4, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.ups2x(wall.t().contiguous().t(), xp)
+    with pytest.raises(TypeError, match="dtype"):
+        k5.ups2x(wall.half(), xp.half())
+    with pytest.raises(TypeError, match="dtype"):
+        k5.ups2x(wall.bfloat16(), xp)
+    with pytest.raises(ValueError, match="several devices"):
+        k5.ups2x(wall.cpu(), xp)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.ups2x_bwd(wall, xp, up.transpose(1, 2))
+
+
+@pytest.mark.parametrize("mode", ["fwd", "full"])
+def test_upsample_layer_fused_on_card_matches_cpu(cuda, mode):
+    """`upsample2x_conv3x3(fused=mode)` on the card (K5a; K5b under "full")
+    against the CPU's plain versions, values and gradients."""
+    gen = torch.Generator().manual_seed(0)
+    p = {"w": 0.2 * torch.randn(3, 3, 12, 20, generator=gen),
+         "b": 0.1 * torch.randn(20, generator=gen)}
+    x = torch.randn(3, 9, 17, 12, generator=gen)
+    up = torch.randn(3, 18, 34, 20, generator=gen)
+
+    def run(device):
+        leaves = {k: v.to(device).requires_grad_(True) for k, v in p.items()}
+        xx = x.to(device).requires_grad_(True)
+        out = layers.upsample2x_conv3x3(leaves, xx, mode)
+        return [out] + list(torch.autograd.grad(
+            (out * up.to(device)).sum(), (leaves["w"], leaves["b"], xx)))
+
+    ref = run("cpu")
+    before = (k5.ups2x.launches, k5.ups2x_bwd.launches)
+    out = run(cuda)
+    assert (k5.ups2x.launches - before[0],
+            k5.ups2x_bwd.launches - before[1]) == (
+        1, k5.BWD_LAUNCHES_PER_CALL if mode == "full" else 0)
+    for o, r in zip(out, ref):
+        o, r = o.detach().cpu(), r.detach()
+        torch.testing.assert_close(o, r, rtol=0,
+                                   atol=1e-5 * max(1.0, float(r.abs().max())))
+
+
+def test_remat_with_fused_route_on_card_launches_k5a_once_per_level(cuda):
+    """G forward + backward with remat and `ups_fused="full"` on the card:
+    K5a launches once per level (none from the backward), K5b once per
+    level, and the gradients are the plain forward's."""
+    cfg = GConfig(img_size=128, n_frames=2, ch=12, z_dim=120, n_classes=5,
+                  emb_dim=16, attn_res=16, ups_fused="full")
+    gen = torch.Generator().manual_seed(0)
+    params, stats = generator.init(gen, cfg)
+    params = tree.tree_map(
+        lambda p: (p + 0.05 * torch.randn(p.shape, generator=gen)).to(cuda),
+        params)
+    stats = tree.tree_map(lambda s: s.to(cuda), stats)
+    z = torch.randn(2, cfg.z_dim, generator=gen).to(cuda)
+    y = torch.tensor([1, 3]).to(cuda)
+
+    def run(cfg, device=cuda):
+        leaves = tree.tree_map(
+            lambda p: p.detach().to(device).requires_grad_(True), params)
+        flat = tree.flatten_with_paths(leaves)
+        before = (k5.ups2x.launches, k5.ups2x_bwd.launches)
+        video, new_stats = generator.apply(
+            leaves, tree.tree_map(lambda s: s.to(device), stats),
+            z.to(device), y.to(device), cfg, train=True)
+        fwd = k5.ups2x.launches - before[0]
+        grads = torch.autograd.grad((video ** 2).mean(), list(flat.values()))
+        return (dict(zip(flat, grads)), tree.flatten_with_paths(new_stats),
+                fwd, k5.ups2x.launches - before[0],
+                k5.ups2x_bwd.launches - before[1])
+
+    plain = run(cfg)
+    remat = run(dataclasses.replace(cfg, remat=True))
+    for r in (plain, remat):
+        assert r[2] == r[3] == cfg.n_levels * k5.LAUNCHES_PER_CALL
+        assert r[4] == cfg.n_levels * k5.BWD_LAUNCHES_PER_CALL
+    for k, s in plain[1].items():
+        assert torch.equal(s, remat[1][k]), k
+    scale = max(float(g.abs().max()) for g in plain[0].values())
+    worst = max(float((g - remat[0][k]).abs().max())
+                for k, g in plain[0].items()) / scale
+    print("\nremat vs plain with the fused route, over max|grad|:", worst)
+    assert worst <= 2e-6
+    # and the route changes no value beyond f32 summation order: 4.4e-4
+    # measured on an H100, at the deepest leaf (seed/w), where the unfused
+    # route on the card against itself on the CPU reads 7.5e-4 and the two
+    # routes on the CPU 2.4e-4 (printed beside it as witnesses)
+    off_cfg = dataclasses.replace(cfg, ups_fused="off")
+    off = run(off_cfg)
+    assert off[3] == off[4] == 0
+
+    def gap(a, b):
+        return max(float((g.cpu() - b[0][k].cpu()).abs().max())
+                   for k, g in a[0].items()) / scale
+
+    print("full vs off on the card, over max|grad|:", gap(plain, off))
+    off_cpu = run(off_cfg, "cpu")
+    print("off, card vs CPU:", gap(off, off_cpu))
+    print("full vs off on the CPU:", gap(run(cfg, "cpu"), off_cpu))
+    assert gap(plain, off) <= 1.5e-3
+
+
+def test_train_step_fused_on_card_matches_cpu(cuda):
+    g_cfg = GConfig(img_size=32, n_frames=4, ch=8, z_dim=120, n_classes=5,
+                    emb_dim=16, attn_res=16, ups_fused="full")
+    ds_cfg = DSConfig(img_size=32, ch=8, n_classes=5, k_frames=2)
+    dt_cfg = DTConfig(img_size=32, n_frames=4, ch=8, n_classes=5)
+    tc = train_state.TrainConfig(d_steps=2, ema_start=0)
+    state = train_state.create(0, g_cfg, ds_cfg, dt_cfg)
+    gen = torch.Generator().manual_seed(1)
+    real = torch.tanh(torch.randn(2, 4, 32, 32, 3, generator=gen))
+    y = torch.tensor([1, 3])
+    draws = step.TorchDraws(gen, 2, 120, 4, 2, torch.float32)
+    z = {i: draws.z(i) for i in (0, 3, 6)}
+    idx = {i: draws.idx(i) for i in (1, 2, 4, 5, 7)}
+
+    class Replay:
+        def __init__(self, device):
+            self.device = device
+
+        def z(self, i):
+            return z[i].to(self.device)
+
+        def idx(self, i):
+            return idx[i].to(self.device)
+
+    ref_state, ref_m = step.train_step(state, real, y, Replay("cpu"), g_cfg,
+                                       ds_cfg, dt_cfg, tc)
+    before = (k5.ups2x.launches, k5.ups2x_bwd.launches)
+    out_state, out_m = step.train_step(
+        train_state.to_device(state, cuda), real.to(cuda), y.to(cuda),
+        Replay(cuda), g_cfg, ds_cfg, dt_cfg, tc)
+    # the fake pass and the G forward; the G backward
+    assert (k5.ups2x.launches - before[0],
+            k5.ups2x_bwd.launches - before[1]) == (
+        2 * g_cfg.n_levels, g_cfg.n_levels * k5.BWD_LAUNCHES_PER_CALL)
+    for k in ref_m:
+        torch.testing.assert_close(out_m[k].cpu(), ref_m[k], rtol=0,
+                                   atol=1e-4)
+    for m, (err, leaf) in _mu_gap((out_state,), (ref_state,)).items():
+        assert err <= 1e-4, f"{m} mu {leaf}: {err:.3e}"
