@@ -15,20 +15,31 @@
    zeroed just before, checks the clip (shape, finite, in [-1, 1]) and that
    every kernel of the path launched, then times sampling in clips/s and
    holds a small f32 sample on the card against the CPU (plain) path;
-4. holds K2 against its plain version at the shapes the flagship train
-   step's G update gives it (the four levels, T=16, B=8), in f32 with TF32
-   off (atol 1e-4 × max|ref| per output) and in bf16 (5e-2 × max|ref|),
-   timed beside its plain version and the plain autograd backward through
-   K1's plain version;
-5. drives the train entry (`python -m dvdgan_tpu_torch --mode train
-   --preset ucf101_64 --dataset synthetic --batch_size 8 --bf16 1
-   --total_step 3`) in a child
-   process, whose launch counters start at 0 and which prints each step's
-   launches: checks the losses are finite, that G/DS/DT params, the three
-   SN u trees and G's BN stats moved, and that each step launched K1
-   2·levels·T·2 times and K2 levels·T·4 times; then times train steps/s in
-   bf16 (median of 5 after 2 warm-ups) and reads the device idle share and
-   the time by kernel from torch.profiler;
+4. drives the train entry (`python -m dvdgan_tpu_torch --mode train
+   --dataset synthetic ...`) six times, each in a child process whose
+   launch counters start at 0 and which prints each step's launches, the
+   six side by side (a run spends most of its time starting up):
+   - the flagship step, `--preset ucf101_64 --batch_size 8 --bf16 1`, 3
+     steps, with the unfused routes and with `--ups_fused full
+     --attn_fused on` (per step K1 256, K2 256; fused: K5a 8, K5b 8, K6a 4);
+   - the long-clip step, `--preset kinetics_256_48f --batch_size 4
+     --grad_accum 2` (256 px, 48 frames, per-level remat, two micro-batches
+     of 2), 2 steps, unfused and fused (K1, K2 and K3 exactly as often as
+     one fake pass plus grad_accum G forwards and backwards need: the remat
+     backward reruns no sequence; fused: K5a 18, K5b 24, K6a 6, none from
+     the remat backward);
+   - the 128 px step whose attention sits at 64², `--preset kinetics_128
+     --batch_size 8 --attn_res 64 --remat 1`, 2 steps, with `--attn_fused`
+     off and on (K6b 4 per step; K1, K2, K3 at its own five levels);
+   each run: finite losses, G/DS/DT params, the three SN u trees and G's BN
+   stats moved, launches per step as predicted, peak memory printed;
+5. holds K2 against its plain version at the shapes the flagship step's G
+   update gives it (the four levels, T=16, B=8), in f32 with TF32 off (atol
+   1e-4 × max|ref| per output) and in bf16 (5e-2 × max|ref|), timed beside
+   its plain version and the plain autograd backward through K1's plain
+   version; times flagship train steps/s in bf16 (median of 5 after 2
+   warm-ups) and reads the device idle share and the time by kernel from
+   torch.profiler;
 6. holds one f32 train step at the flagship widths, batch 2, on the card
    against the CPU from the same state and draws (losses atol 1e-3; Adam
    mu, the gradient, within 1e-3 × max|mu| of each model);
@@ -39,44 +50,55 @@
    the same shape (the numbers that place the K1/K3 boundary); and K1 (the
    levels `ops/convgru.py` gives it, at B=2 and B=8) and K2 (all six
    levels, B=2) at that preset's shapes against their plain versions, at
-   the tolerances of phases 2 and 4;
-8. drives the long-clip train entry (`--preset kinetics_256_48f --dataset
-   synthetic --batch_size 4 --grad_accum 2 --total_step 2`: 256 px, 48
-   frames, per-level remat, two micro-batches of 2) in a child process:
-   finite losses, every tree moved, and on every step K1, K2 and K3
-   launched exactly as often as one fake pass plus grad_accum G forwards
-   and grad_accum backwards need (the backward reruns no sequence), peak
-   memory printed; then times the long-clip step (median of 3 after 1
-   warm-up) with the profiler's idle share and the ConvGRU kernels' share;
-9. holds one f32 long-clip-shaped step (the 256 px schedules at ch 8, T 4,
+   the tolerances of phases 2 and 5;
+8. holds one f32 long-clip-shaped step (the 256 px schedules at ch 8, T 4,
    batch 2, grad_accum 2, remat on; its 64² and 128² levels go to K3) on
    the card against the CPU, at phase 6's limits;
-10. holds K5a and K5b (the fused upsample conv and its backward) against
-    their plain versions at the four ucf101_64 levels (N = T·B = 128, and
-    256 as the fake pass and sampling give it) and the six kinetics_256_48f
-    levels (N = 96; K5a also at the fake pass's 384): f32 atol 1e-4 (K5b:
-    1e-4 × max|ref| per output), bf16 3e-2 (K5b 5e-2 × max|ref|), two K5b
-    runs bitwise equal; timed beside the plain versions and the unfused
-    route (cuDNN phase conv + interleave, and autograd through it) on the
-    same inputs;
-11. holds K4 (the single GRU step) against its plain version at the ten
+9. holds K5a and K5b (the fused upsample conv and its backward) against
+   their plain versions at the four ucf101_64 levels (N = T·B = 128, and
+   256 as the fake pass and sampling give it) and the six kinetics_256_48f
+   levels (N = 96; K5a also at the fake pass's 384): f32 atol 1e-4 (K5b:
+   1e-4 × max|ref| per output), bf16 3e-2 (K5b 5e-2 × max|ref|), two K5b
+   runs bitwise equal; timed beside the plain versions and the unfused
+   route (cuDNN phase conv + interleave, and autograd through it) on the
+   same inputs;
+10. holds K4 (the single GRU step) against its plain version at the ten
     level shapes (B 16 for ucf101_64, B 2 for kinetics_256_48f), and drives
     the single-step entry `ops.convgru.convgru_cell` over the T steps of
     both presets' levels (bf16; 16 steps at B 16, 48 steps at B 2; launch
-    counter zeroed just before):
-    K4 unrolled on K1's own gx/cx equals K1 bit for bit, and the entry's
-    sequence agrees with `ops.convgru.convgru`;
-12. drives the three paths with `--ups_fused full`: the sample CLI (4 K5a
-    launches, clip within 0.05 of the unfused clip in bf16, an f32 batch-2
-    sample card vs CPU), the flagship train CLI (K5a 8 and K5b 8 launches
-    per step; steps/s as in phase 5) with an f32 step card vs CPU, and the
-    long-clip train CLI
-    (K5a 18, K5b 24 per step: none from the remat backward; K1, K2 and K3
-    as in phase 8); then times the long-clip step with `full` and `off` in
-    turns (off, full, full, off) with peak memory and the profiler's view;
-13. prints one JSON line of the kernels, each with its launches on the
+    counter zeroed just before): K4 unrolled on K1's own gx/cx equals K1
+    bit for bit, and the entry's sequence agrees with `ops.convgru.convgru`;
+11. holds K6a and K6b (the fused spatial attention through its two
+    entries) against their plain version at every call of the driven paths
+    (K6a: 32²×64 at N = 256 and 128, 32²×256 at N = 384 and 96; K6b: 64²×64
+    at N = 192 and 96): f32 atol 1e-4, bf16 one bf16 ulp at the output's
+    scale with the count of differing elements, γ = 0 bitwise; timed beside
+    the plain version and the unfused route's spatial pass on the same
+    inputs; and K1, K2, K3 at the shapes the 128 px path gives them (the
+    kinetics_128 levels, T = 12, B = 8 and 16);
+12. drives the sample CLI with both fused routes (4 K5a and 2 K6a launches,
+    the bf16 clip within 0.05 of the unfused one, an f32 batch-2 sample
+    card vs CPU); with both attention γ off their zero init, the bf16 clips
+    of `--attn_fused on` within 0.05 of `off`'s and an f32 sample card vs
+    CPU; flagship steps/s with both fused routes; and one f32 flagship step
+    with them (d_steps 1, γ off zero) card vs CPU and against the unfused
+    attention on the card;
+13. times the routes in turns in this one call: the long-clip step off,
+    full, on, on, full, off and the 128 px step off, on, on, off (median of
+    2 steps after 1 warm-up, with peak memory; the profiler's view with a
+    route's first reading), and sampling off, on, on, off;
+14. prints one JSON line of the kernels, each with its launches on the
     driven paths and its bound (the larger of bytes over 3.35 TB/s and
     operations over the peak rate of its type), then the result line.
+
+Cut against earlier versions of this script to stay inside its time limit:
+the train CLI runs share the card instead of running one after the other;
+the flagship and long-clip runs with a fused route carry both fused routes
+at once (as do the fused sample run, the fused flagship steps/s and the
+fused f32 step, which takes d_steps 1); the long-clip step is timed over 2
+steps per reading instead of 3, its `off` reading is shared between the
+`--ups_fused` and the `--attn_fused` pair, and a route's repeat reading
+skips the profiler.
 
 Any failing phase raises, so the script exits non-zero without the result
 line; so does a machine without a CUDA device. Imports nothing of JAX or
@@ -86,6 +108,7 @@ clips, `dvdgan_tpu_torch.data`).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -132,6 +155,27 @@ LONG_UPS_LEVELS = [(4, 4, 512, 512), (8, 8, 512, 256), (16, 16, 256, 256),
 FUSED_CLIP_TOL = 0.05   # bf16 clip, fused vs unfused route: both round each
 #                         level's conv once, from f32 sums in another order
 FULL = ["--ups_fused", "full"]
+# the fused spatial attention: (N frames, H, W, C) of every call on the
+# driven paths. K6a: sampling and the flagship fake pass (N 256), the
+# flagship G update (128), the long-clip fake pass (384) and micro-batch
+# (96); K6b: the 128 px / attn-64 fake pass (192) and G update (96)
+K6A_SHAPES = [(256, 32, 32, 64), (128, 32, 32, 64), (384, 32, 32, 256),
+              (96, 32, 32, 256)]
+K6B_SHAPES = [(192, 64, 64, 64), (96, 64, 64, 64)]
+ATTN_KERNELS = ("attn_kv_kernel", "attn_fwd_kernel")
+ON = ["--attn_fused", "on"]
+FUSED = FULL + ON       # both fused routes of G at once
+ATTN_CLIP_TOL = 0.05    # bf16 clip, fused vs unfused attention with γ ≠ 0:
+#                         the routes round q, k, v and the logits elsewhere
+# the 128 px step whose attention sits at 64² (the reference's own A/B of
+# its tiled kernel): kinetics_128 at full width, the batch cut to 8
+PX128_ARGV = ["--mode", "train", "--preset", "kinetics_128", "--dataset",
+              "synthetic", "--batch_size", "8", "--attn_res", "64", "--remat",
+              "1"]
+PX128_STEPS = 2
+PX128_LEVELS = [(4, 4, 512), (8, 8, 512), (16, 16, 256), (32, 32, 128),
+                (64, 64, 64)]
+PX128_T, PX128_B, PX128_B_FAKE = 12, 8, 16
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -226,11 +270,39 @@ def check_k1(device, levels=LEVELS, t: int = T, b: int = B,
     return rows
 
 
+def time_sample(device, g_cfg, seed: int = 0):
+    """Steady-state serving rate of `g_cfg`, bf16 batch B, weights already
+    on the card: median of 5 after 2 warm-ups. -> (the rate, the state's
+    trees, z, y)."""
+    from dvdgan_tpu_torch.models.generator import GeneratorState
+    from dvdgan_tpu_torch.train import step
+    trees = GeneratorState.create(g_cfg, seed).to(device).trees()
+    gen = torch.Generator().manual_seed(1)
+    z = torch.randn(B, g_cfg.z_dim, generator=gen).to(device, torch.bfloat16)
+    y = torch.randint(0, g_cfg.n_classes, (B,), generator=gen).to(device)
+    for _ in range(2):
+        step.sample(*trees, z, y, g_cfg)
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step.sample(*trees, z, y, g_cfg)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    sec = statistics.median(secs)
+    clips = {"batch": B, "dtype": "bfloat16", "ups_fused": g_cfg.ups_fused,
+             "attn_fused": g_cfg.attn_fused, "ms_per_batch": sec * 1e3,
+             "clips_per_s": B / sec}
+    print("sample_rate " + json.dumps(clips), flush=True)
+    return clips, trees, z, y
+
+
 def drive_sample(device, route=()) -> tuple[dict, dict, np.ndarray]:
-    """The sample CLI with the flags `route` (none: the unfused upsample
-    route; FULL: the fused one). -> (launches of K1 and K5a, the serving
-    rate, the clips)."""
+    """The sample CLI with the flags `route` (none: the unfused routes;
+    FULL: the fused upsample; ON: the fused attention). -> (launches of K1,
+    K5a and K6a, the serving rate, the clips)."""
     from dvdgan_tpu_torch import cli
+    from dvdgan_tpu_torch.kernels import attention_spatial as k6
     from dvdgan_tpu_torch.kernels import convgru_seq as k1
     from dvdgan_tpu_torch.kernels import ups2x_fused as k5
     from dvdgan_tpu_torch.models.generator import GeneratorState
@@ -243,9 +315,12 @@ def drive_sample(device, route=()) -> tuple[dict, dict, np.ndarray]:
     g_cfg = cfg.g_config()
     with tempfile.TemporaryDirectory() as tmp:
         k1.gru_sequence_fused.launches = k5.ups2x.launches = 0
+        k6.spatial_attn_fused.launches = k6.spatial_attn_tiled.launches = 0
         videos = cli.main(argv + ["--out_dir", tmp])
         launches = k1.gru_sequence_fused.launches
         k5a = k5.ups2x.launches
+        k6a = k6.spatial_attn_fused.launches
+        k6b = k6.spatial_attn_tiled.launches
         saved = np.load(os.path.join(tmp, "samples.npy"))
     want_shape = (B, g_cfg.n_frames, g_cfg.img_size, g_cfg.img_size, 3)
     if videos.shape != want_shape or saved.shape != want_shape:
@@ -264,29 +339,17 @@ def drive_sample(device, route=()) -> tuple[dict, dict, np.ndarray]:
         raise AssertionError(f"K5a launched {k5a} times in the sample run "
                              f"with --ups_fused {cfg.ups_fused}, want "
                              f"{want_k5a}")
-    print(f"sample {cfg.ups_fused}: shape {videos.shape} range "
-          f"[{videos.min():.4f}, {videos.max():.4f}] K1 launches {launches} "
-          f"K5a launches {k5a}", flush=True)
+    want_k6a = (cfg.attn_fused == "on") * k6.LAUNCHES_PER_CALL
+    if (k6a, k6b) != (want_k6a, 0):
+        raise AssertionError(f"K6a, K6b launched {(k6a, k6b)} times in the "
+                             f"sample run with --attn_fused {cfg.attn_fused}, "
+                             f"want {(want_k6a, 0)}")
+    print(f"sample ups {cfg.ups_fused} attn {cfg.attn_fused}: shape "
+          f"{videos.shape} range [{videos.min():.4f}, {videos.max():.4f}] "
+          f"K1 launches {launches} K5a launches {k5a} K6a launches {k6a}",
+          flush=True)
 
-    # steady-state serving rate, bf16 batch B (weights already on the card)
-    state = GeneratorState.create(g_cfg, cfg.seed).to(device)
-    trees = state.trees()
-    gen = torch.Generator().manual_seed(1)
-    z = torch.randn(B, g_cfg.z_dim, generator=gen).to(device, torch.bfloat16)
-    y = torch.randint(0, g_cfg.n_classes, (B,), generator=gen).to(device)
-    for _ in range(2):
-        step.sample(*trees, z, y, g_cfg)
-    torch.cuda.synchronize()
-    secs = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        step.sample(*trees, z, y, g_cfg)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-    sec = statistics.median(secs)
-    clips = {"batch": B, "dtype": "bfloat16", "ups_fused": cfg.ups_fused,
-             "ms_per_batch": sec * 1e3, "clips_per_s": B / sec}
-    print("sample_rate " + json.dumps(clips), flush=True)
+    clips, trees, z, y = time_sample(device, g_cfg, cfg.seed)
 
     # a small f32 sample: card (K1) against the CPU (plain K1 version)
     z2, y2 = z[:2].float(), y[:2]
@@ -294,12 +357,13 @@ def drive_sample(device, route=()) -> tuple[dict, dict, np.ndarray]:
     cpu_trees = GeneratorState.create(g_cfg, cfg.seed).trees()
     on_cpu = step.sample(*cpu_trees, z2.cpu(), y2.cpu(), g_cfg)
     err = float((on_card - on_cpu).abs().max())
-    print(f"sample {cfg.ups_fused} f32 card vs cpu: max_abs_err {err:.3e} "
+    print(f"sample ups {cfg.ups_fused} attn {cfg.attn_fused} f32 card vs "
+          f"cpu: max_abs_err {err:.3e} "
           f"(atol {SAMPLE_TOL})", flush=True)
     if not err <= SAMPLE_TOL:
         raise AssertionError(f"f32 sample on the card disagrees with the "
                              f"CPU path: {err}")
-    return {"k1": launches, "k5a": k5a}, clips, videos
+    return {"k1": launches, "k5a": k5a, "k6a": k6a}, clips, videos
 
 
 def check_k2(device, levels=LEVELS, t: int = T, b: int = B_TRAIN,
@@ -353,24 +417,26 @@ def check_k2(device, levels=LEVELS, t: int = T, b: int = B_TRAIN,
     return rows
 
 
-def check_k3(device, reps: int = 10) -> list[dict]:
-    """K3 against its plain version (K1's) at the long-clip preset's three
-    large planes, timed beside the plain version and K1's kernel: in f32
-    and bf16 at one G micro-batch, and in bf16 at the fake pass's batch."""
+def check_k3(device, reps: int = 10, levels=K3_LEVELS, t: int = LONG_T,
+             b: int = LONG_B, b_fake: int = LONG_B_FAKE) -> list[dict]:
+    """K3 against its plain version (K1's) at the planes `levels` (the
+    long-clip preset's three large ones), timed beside the plain version
+    and K1's kernel: in f32 and bf16 at one G micro-batch, and in bf16 at
+    the fake pass's batch."""
     from dvdgan_tpu_torch.kernels import convgru_blocked as k3
     from dvdgan_tpu_torch.kernels import convgru_seq as k1
     rows = []
-    for dtype, b in ((torch.float32, LONG_B), (torch.bfloat16, LONG_B),
-                     (torch.bfloat16, LONG_B_FAKE)):
-        for i, (h, w, c) in enumerate(K3_LEVELS):
-            args = k1_inputs(h, w, c, dtype, device, seed=30 + b + i, b=b,
-                             t=LONG_T)
+    for dtype, nb in ((torch.float32, b), (torch.bfloat16, b),
+                      (torch.bfloat16, b_fake)):
+        for i, (h, w, c) in enumerate(levels):
+            args = k1_inputs(h, w, c, dtype, device, seed=30 + nb + i, b=nb,
+                             t=t)
             ref = k3.gru_sequence_blocked_reference(*args)
             out = k3.gru_sequence_blocked(*args)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs()
             row = {"dtype": str(dtype).replace("torch.", ""),
-                   "shape": [LONG_T, b, h, w, c],
+                   "shape": [t, nb, h, w, c],
                    "max_abs_err": float(err.max()),
                    "mean_abs_err": float(err.mean()),
                    "ms": cuda_ms(lambda: k3.gru_sequence_blocked(*args), reps),
@@ -378,7 +444,7 @@ def check_k3(device, reps: int = 10) -> list[dict]:
                        lambda: k3.gru_sequence_blocked_reference(*args), reps),
                    "k1_ms": cuda_ms(lambda: k1.gru_sequence_fused(*args),
                                     reps),
-                   **fwd_bound(LONG_T, b, h, w, c, dtype)}
+                   **fwd_bound(t, nb, h, w, c, dtype)}
             del ref, out, err, args
             print("K3 " + json.dumps(row), flush=True)
             if not row["max_abs_err"] <= TOL[dtype]:
@@ -484,6 +550,134 @@ def check_k5(device, levels, n: int, dtypes, reps: int = 5,
                     f"itself: {row} (atol {K2_TOL[dtype]} x {scales})")
             rows_b.append(row)
     return rows_a, rows_b
+
+
+def k6_inputs(n, h, w, c, dtype, device, seed: int, gamma: float = 0.7):
+    """(x, wq, wk, wv, wo, γ): unit-gain projections, as SN leaves them."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return (shape[0] ** -0.5 * torch.randn(shape, generator=gen)
+                ).to(device, dtype)
+
+    x = torch.randn(n, h, w, c, generator=gen).to(device, dtype)
+    return (x, rand(c, c // 8), rand(c, c // 8), rand(c, c // 2),
+            rand(c // 2, c), torch.tensor(gamma, device=device))
+
+
+def k6_bound(n, h, w, c, dtype) -> dict:
+    """K6's function: x read and out written once; the operations of the
+    reference's `cost_estimate` (q, k and v once per frame, logits, attn·v,
+    o·Wo), each at the peak rate of its operands' type: the logits' are f32
+    whatever the activation type."""
+    hw, kvn, c8, c2 = h * w, h * w // 4, c // 8, c // 2
+    logits = 2 * n * hw * kvn * c8
+    rest = 2 * n * (hw * c * c8 + kvn * c * (c8 + c2) + hw * kvn * c2
+                    + hw * c2 * c)
+    by_ops = (logits / PEAK_FLOPS[torch.float32]
+              + rest / PEAK_FLOPS[dtype]) * 1e3
+    by_bytes = 2 * n * hw * c * dtype.itemsize / PEAK_BYTES * 1e3
+    return {"bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+
+
+def bf16_ulp(scale: float) -> float:
+    """One bf16 ulp (8 significand bits) at magnitude `scale`."""
+    return 2.0 ** (int(np.floor(np.log2(scale))) - 7)
+
+
+def check_k6(device, name: str, shapes, reps_of) -> list[dict]:
+    """K6a or K6b against its plain version at the (N, H, W, C) `shapes`,
+    through the entry `ops/attention.py` picks for the map, timed beside
+    the plain version and the `off` route's spatial pass on the same
+    inputs (`library_ms`: cuBLAS products, a softmax kernel, the logits and
+    attn through device memory). f32 (TF32 off): atol 1e-4. bf16: one bf16
+    ulp at the output's scale, the count of differing elements printed.
+    γ = 0 must give x back bit for bit."""
+    from dvdgan_tpu_torch.kernels import attention_spatial as k6
+    from dvdgan_tpu_torch.ops import attention
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (n, h, w, c) in enumerate(shapes):
+            args = k6_inputs(n, h, w, c, dtype, device, seed=80 + i)
+            entry = (k6.spatial_attn_tiled if attention.uses_tiled(h, w)
+                     else k6.spatial_attn_fused)
+            p = {"spatial": dict(zip(("theta", "phi", "g", "out"),
+                                     ({"w": a} for a in args[1:5])),
+                                 gamma=args[5])}
+            ref = k6.spatial_attn_kernel_reference(*args)
+            out = entry(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            scale = float(ref.float().abs().max())
+            limit = TOL[dtype] if dtype == torch.float32 else bf16_ulp(scale)
+            same = torch.equal(entry(*args[:5], torch.zeros_like(args[5])),
+                               args[0])
+            reps = reps_of(n)
+            row = {"dtype": str(dtype).replace("torch.", ""),
+                   "shape": [n, h, w, c], "entry": entry.__name__,
+                   "max_abs_err": float(err.max()),
+                   "mean_abs_err": float(err.mean()), "limit": limit,
+                   "n_differ": int((out != ref).sum()), "n": out.numel(),
+                   "max_abs_ref": scale, "gamma0_bitwise": same,
+                   "ms": cuda_ms(lambda: entry(*args), reps),
+                   "plain_ms": cuda_ms(
+                       lambda: k6.spatial_attn_kernel_reference(*args), reps),
+                   "library_ms": cuda_ms(
+                       lambda: attention.spatial_attn(p, args[0]), reps),
+                   **k6_bound(n, h, w, c, dtype)}
+            del ref, out, err
+            print(f"{name} " + json.dumps(row), flush=True)
+            if not row["max_abs_err"] <= limit or not same:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version, or γ = 0 moved x: {row}")
+            rows.append(row)
+    return rows
+
+
+def sample_route_gap(device) -> dict:
+    """EMA-G sampling with `--attn_fused on` against `off` with both
+    attention γ off their zero init (at γ = 0 the spatial pass returns x on
+    either route): the bf16 batch-16 clips of the two routes on the card,
+    and an f32 batch-2 sample with `on`, card against CPU."""
+    from dvdgan_tpu_torch.models.generator import GeneratorState
+    from dvdgan_tpu_torch.train import step
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    argv = ["--preset", "ucf101_64"]
+    cfgs = {m: parse_config(argv + ["--attn_fused", m]).g_config()
+            for m in ("off", "on")}
+
+    def trees(dev):
+        state = GeneratorState.create(cfgs["on"], 0).to(dev)
+        params, stats, sn_u = state.trees()
+        for name, g in (("spatial", 0.6), ("temporal", -0.5)):
+            params["attn"][name]["gamma"] = torch.tensor(g, device=dev)
+        return params, stats, sn_u
+
+    gen = torch.Generator().manual_seed(3)
+    z = torch.randn(B, cfgs["on"].z_dim, generator=gen).to(device)
+    y = torch.randint(0, cfgs["on"].n_classes, (B,), generator=gen).to(device)
+    card = trees(device)
+    clips = {m: step.sample(*card, z.bfloat16(), y, cfg).float()
+             for m, cfg in cfgs.items()}
+    gap = (clips["on"] - clips["off"]).abs()
+    on_card = step.sample(*card, z[:2], y[:2], cfgs["on"]).cpu()
+    on_cpu = step.sample(*trees("cpu"), z[:2].cpu(), y[:2].cpu(), cfgs["on"])
+    res = {"bf16_on_vs_off_max_abs": float(gap.max()),
+           "bf16_on_vs_off_mean_abs": float(gap.mean()),
+           "limit": ATTN_CLIP_TOL,
+           "f32_on_card_vs_cpu_max_abs": float((on_card - on_cpu).abs().max()),
+           "f32_limit": SAMPLE_TOL}
+    print("sample attn on vs off (gamma 0.6, -0.5) " + json.dumps(res),
+          flush=True)
+    if not res["bf16_on_vs_off_max_abs"] <= ATTN_CLIP_TOL:
+        raise AssertionError(f"the fused attention's clips differ from the "
+                             f"unfused route's: {res}")
+    if not res["f32_on_card_vs_cpu_max_abs"] <= SAMPLE_TOL:
+        raise AssertionError(f"f32 sample with the fused attention, card vs "
+                             f"CPU: {res}")
+    return res
 
 
 def check_k4(device, levels, b: int, reps: int = 10) -> list[dict]:
@@ -595,8 +789,9 @@ def launches_per_step(cfg) -> dict[str, int]:
     from dvdgan_tpu_torch.kernels import convgru_blocked as k3
     from dvdgan_tpu_torch.kernels import convgru_bwd as k2
     from dvdgan_tpu_torch.kernels import convgru_seq as k1
+    from dvdgan_tpu_torch.kernels import attention_spatial as k6
     from dvdgan_tpu_torch.kernels import ups2x_fused as k5
-    from dvdgan_tpu_torch.ops import convgru
+    from dvdgan_tpu_torch.ops import attention, convgru
     g_cfg = cfg.g_config()
     planes = [(g_cfg.base_res * 2 ** i, g_cfg.level_channels(i)[0])
               for i in range(g_cfg.n_levels)]
@@ -606,6 +801,14 @@ def launches_per_step(cfg) -> dict[str, int]:
     # from a remat backward), K5b once per level in every G backward
     k5a = cfg.ups_fused != "off"
     k5b = cfg.ups_fused == "full"
+    # the fused spatial attention: one call (two launches) per G forward,
+    # through the entry the map's size picks; none from a backward (the
+    # backward recomputes the unfused math, and under remat the fused pass
+    # runs outside the checkpoint regions)
+    n_k6 = (cfg.attn_fused == "on" and g_cfg.attn_res is not None) * (
+        1 + ka) * k6.LAUNCHES_PER_CALL
+    tiled = g_cfg.attn_res is not None and attention.uses_tiled(
+        g_cfg.attn_res, g_cfg.attn_res)
     return {"k1_launches": (g_cfg.n_levels - n_k3) * t * (1 + ka)
             * k1.LAUNCHES_PER_STEP,
             "k2_launches": g_cfg.n_levels * t * ka * k2.LAUNCHES_PER_STEP,
@@ -613,35 +816,51 @@ def launches_per_step(cfg) -> dict[str, int]:
             "k5a_launches": k5a * g_cfg.n_levels * (1 + ka)
             * k5.LAUNCHES_PER_CALL,
             "k5b_launches": k5b * g_cfg.n_levels * ka
-            * k5.BWD_LAUNCHES_PER_CALL}
+            * k5.BWD_LAUNCHES_PER_CALL,
+            "k6a_launches": 0 if tiled else n_k6,
+            "k6b_launches": n_k6 if tiled else 0}
 
 
-def drive_train(argv=FLAGSHIP_ARGV, n_steps: int = TRAIN_STEPS) -> dict:
-    """The train CLI in a child process; returns the run's K1, K2, K3, K5a
-    and K5b launches, its wall seconds and its peak device memory."""
-    from dvdgan_tpu_torch import interop
-    from dvdgan_tpu_torch.train import state as train_state
+def start_train(argv, n_steps: int) -> dict:
+    """Starts the train CLI in a child process (its launch counters start
+    at 0); `finish_train` waits for it and checks the run."""
     from dvdgan_tpu_torch.utils.config import parse_config
 
     # the presets read frame folders; the port trains on synthetic clips
     # (the frames pipeline is not ported yet)
     argv = [*argv, "--total_step", str(n_steps)]
-    cfg = parse_config(argv)
+    tmp = tempfile.TemporaryDirectory()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dvdgan_tpu_torch", *argv, "--out_dir",
+         tmp.name], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return {"proc": proc, "tmp": tmp, "cfg": parse_config(argv),
+            "n_steps": n_steps, "t0": time.perf_counter()}
+
+
+def finish_train(run: dict) -> dict:
+    """Waits for a `start_train` run; returns its K1 … K6b launches, its
+    wall seconds and its peak device memory."""
+    from dvdgan_tpu_torch import interop
+    from dvdgan_tpu_torch.train import state as train_state
+
+    proc, cfg, n_steps = run["proc"], run["cfg"], run["n_steps"]
     g_cfg = cfg.g_config()
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "dvdgan_tpu_torch", *argv, "--out_dir",
-             tmp], cwd=REPO, capture_output=True, text=True, timeout=900)
-        secs = time.perf_counter() - t0
-        print(proc.stdout, end="", flush=True)
+    with run["tmp"] as tmp:
+        try:
+            stdout, stderr = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise
+        secs = time.perf_counter() - run["t0"]
+        print(stdout, end="", flush=True)
         if proc.returncode != 0:
             raise AssertionError(f"train CLI exited {proc.returncode}:\n"
-                                 f"{proc.stderr[-4000:]}")
+                                 f"{stderr[-4000:]}")
         with np.load(os.path.join(tmp, "train_state.npz")) as f:
             after = {k: f[k] for k in f.files}
     steps = [dict(zip(ln.split()[2::2], ln.split()[3::2]))
-             for ln in proc.stdout.splitlines() if ln.startswith("step ")]
+             for ln in stdout.splitlines() if ln.startswith("step ")]
     if len(steps) != n_steps:
         raise AssertionError(f"{len(steps)} step lines, want {n_steps}")
     want = launches_per_step(cfg)
@@ -672,10 +891,33 @@ def drive_train(argv=FLAGSHIP_ARGV, n_steps: int = TRAIN_STEPS) -> dict:
         least = 0.9 * n if "/params/" in prefix else 1
         if n_moved < least:
             raise AssertionError(f"{prefix}: {n_moved} of {n} leaves moved")
-    peak = [float(ln.split()[3]) for ln in proc.stdout.splitlines()
+    peak = [float(ln.split()[3]) for ln in stdout.splitlines()
             if ln.startswith("peak device memory ")]
     return {**{k[:-len("_launches")]: n_steps * n for k, n in want.items()},
             "per_step": want, "cli_s": secs, "peak_mem_gib": peak[0]}
+
+
+def drive_trains(runs: dict[str, tuple]) -> dict[str, dict]:
+    """The train CLI once per entry of `runs` ({name: (flags, steps)}), the
+    child processes side by side on the one card (each takes most of its
+    time to start: the interpreter, CUDA, the seeded init), each checked
+    when it ends. The parent launches nothing meanwhile."""
+    started = {name: start_train(*run) for name, run in runs.items()}
+    done = {}
+    try:
+        for name, run in started.items():
+            print(f"--- train CLI run {name!r}: "
+                  f"{' '.join(runs[name][0][2:])}", flush=True)
+            done[name] = finish_train(run)
+            print(f"train CLI run {name!r}: ended {done[name]['cli_s']:.1f} s "
+                  f"after the {len(runs)} runs began, peak device memory "
+                  f"{done[name]['peak_mem_gib']:.3f} GiB", flush=True)
+    finally:
+        for run in started.values():        # stop whatever still runs
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+                run["proc"].communicate()
+    return done
 
 
 class Replay:
@@ -703,7 +945,8 @@ def time_train(device, name: str = "train_rate", argv=FLAGSHIP_ARGV,
                n_warm: int = 2, n_steps: int = 5, n_prof: int = 2,
                n_top: int = 15) -> dict:
     """bf16 train steps/s of the configuration `argv` names (the flagship
-    at batch 8 by default), and the profiler's view."""
+    at batch 8 by default), and the profiler's view over `n_prof` further
+    steps (none with `n_prof=0`: the repeat reading of a pair)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -739,6 +982,15 @@ def time_train(device, name: str = "train_rate", argv=FLAGSHIP_ARGV,
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     sec = statistics.median(secs)
+    out = {"batch": batch, "grad_accum": tc.grad_accum, "dtype": "bfloat16",
+           "ups_fused": g_cfg.ups_fused, "attn_fused": g_cfg.attn_fused,
+           "frames": g_cfg.n_frames, "img_size": g_cfg.img_size,
+           "ms_per_step": sec * 1e3, "steps_per_s": 1.0 / sec,
+           "step_ms_all": [x * 1e3 for x in secs],
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if n_prof == 0:
+        print(name + " " + json.dumps(out), flush=True)
+        return out
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -763,21 +1015,24 @@ def time_train(device, name: str = "train_rate", argv=FLAGSHIP_ARGV,
                  if any(k in e.key for k in CONVGRU_KERNELS))
     ups_us = sum(dev_us(e) for e in kernels
                  if any(k in e.key for k in UPS_KERNELS))
+    attn_us = sum(dev_us(e) for e in kernels
+                  if any(k in e.key for k in ATTN_KERNELS))
+    softmax_us = sum(dev_us(e) for e in kernels if "softmax" in e.key.lower())
     top = sorted(kernels, key=dev_us, reverse=True)[:15]
-    out = {"batch": batch, "grad_accum": tc.grad_accum, "dtype": "bfloat16",
-           "ups_fused": g_cfg.ups_fused,
+    out = {**out,
            "ups2x_kernels_ms_per_step": ups_us / n_prof / 1e3,
-           "frames": g_cfg.n_frames, "img_size": g_cfg.img_size,
-           "ms_per_step": sec * 1e3, "steps_per_s": 1.0 / sec,
-           "step_ms_all": [x * 1e3 for x in secs],
+           # K6's two kernels; and every softmax kernel of the step (both
+           # routes' temporal pass and backward, the `off` route's spatial
+           # pass): the part of the unfused attention that has a name
+           "attn_kernels_ms_per_step": attn_us / n_prof / 1e3,
+           "softmax_kernels_ms_per_step": softmax_us / n_prof / 1e3,
            "profiled_ms_per_step": wall_us / n_prof / 1e3,
            "device_busy_ms_per_step": busy_us / n_prof / 1e3,
            "convgru_kernels_ms_per_step": gru_us / n_prof / 1e3,
            "convgru_kernels_share": gru_us / busy_us,
            # against the unprofiled step (the profiler slows the host)
            "device_idle_share": 1.0 - busy_us / n_prof / 1e6 / sec,
-           "device_idle_share_profiled": 1.0 - busy_us / wall_us,
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+           "device_idle_share_profiled": 1.0 - busy_us / wall_us}
     print(name + " " + json.dumps(out), flush=True)
     for e in top[:n_top]:
         print(f"  device {dev_us(e) / n_prof / 1e3:9.3f} ms/step "
@@ -794,7 +1049,20 @@ def check_train_f32(device, name: str = "train f32",
                     argv=("--preset", "ucf101_64", "--batch_size", "2")
                     ) -> dict:
     """One f32 step of the configuration `argv` names (the flagship widths
-    at batch 2 by default), card against CPU."""
+    at batch 2 by default), card against CPU: losses atol 1e-3, Adam mu
+    within 1e-3 x max|mu|.
+
+    With `--attn_fused on` both attention γ are set off their zero init (at
+    γ = 0 the spatial pass returns x on either route), and the step also
+    runs on the card with the route off: `on` is held to `off` on the same
+    card as well (losses 1e-3, mu 1e-4 x max|mu|: the kernel's own
+    difference), and `off` against the CPU is printed as the witness. Run
+    such a step with `--d_steps 1`: a second D step starts from Adam's
+    first update, which is sign-like (every weight moves by ±lr), so a
+    gradient entry near zero that differs by one f32 ulp between two routes
+    moves its weight apart by 2·lr. Measured on an H100 at these widths,
+    `on` against `off` on the card: mu 6.3e-4 x max|mu| and g_loss 1e-2
+    apart with d_steps 2, 1.2e-5 and 1.5e-5 with d_steps 1."""
     from dvdgan_tpu_torch.core import tree
     from dvdgan_tpu_torch.kernels import convgru_blocked as k3
     from dvdgan_tpu_torch.train import state as train_state
@@ -811,28 +1079,49 @@ def check_train_f32(device, name: str = "train f32",
     zs = {i: draws.z(i) for i in range(0, n_streams, 3)}
     ids = {i: draws.idx(i) for i in range(n_streams) if i % 3}
     state = train_state.create(seed, g_cfg, ds_cfg, dt_cfg)
+    fused_attn = g_cfg.attn_fused == "on"
+    if fused_attn:
+        for part, gamma in (("spatial", 0.6), ("temporal", -0.5)):
+            state["g"]["params"]["attn"][part]["gamma"] = torch.tensor(gamma)
+
+    def run(dev, cfg):
+        return step.train_step(
+            train_state.to_device(state, dev), real.to(dev), y.to(dev),
+            Replay(zs, ids, dev), cfg, ds_cfg, dt_cfg, tc)
+
+    def gaps(out, ref):
+        """(loss |differences|, per model max |mu difference| / max|mu|)."""
+        loss = {k: abs(float(out[1][k]) - float(ref[1][k])) for k in ref[1]}
+        mu = {}
+        for m in ("g", "ds", "dt"):
+            ref_mu = tree.flatten_with_paths(ref[0][m]["opt"]["mu"])
+            out_mu = tree.flatten_with_paths(out[0][m]["opt"]["mu"])
+            scale = max(float(v.abs().max()) for v in ref_mu.values())
+            mu[m] = max(float((out_mu[k].cpu() - v.cpu()).abs().max())
+                        for k, v in ref_mu.items()) / scale
+        return loss, mu
+
     t0 = time.perf_counter()
-    ref_state, ref_m = step.train_step(state, real, y, Replay(zs, ids, "cpu"),
-                                       g_cfg, ds_cfg, dt_cfg, tc)
+    ref = run("cpu", g_cfg)
     cpu_s = time.perf_counter() - t0
     k3_before = k3.gru_sequence_blocked.launches
-    out_state, out_m = step.train_step(
-        train_state.to_device(state, device), real.to(device), y.to(device),
-        Replay(zs, ids, device), g_cfg, ds_cfg, dt_cfg, tc)
-    loss_err = {k: abs(float(out_m[k]) - float(ref_m[k])) for k in ref_m}
-    mu_err = {}
-    for m in ("g", "ds", "dt"):
-        ref_mu = tree.flatten_with_paths(ref_state[m]["opt"]["mu"])
-        out_mu = tree.flatten_with_paths(out_state[m]["opt"]["mu"])
-        scale = max(float(v.abs().max()) for v in ref_mu.values())
-        mu_err[m] = max(float((out_mu[k].cpu() - v).abs().max())
-                        for k, v in ref_mu.items()) / scale
-    res = {"ups_fused": g_cfg.ups_fused,
-           "losses": {k: float(v) for k, v in ref_m.items()},
+    out = run(device, g_cfg)
+    k3_launches = k3.gru_sequence_blocked.launches - k3_before
+    loss_err, mu_err = gaps(out, ref)
+    res = {"ups_fused": g_cfg.ups_fused, "attn_fused": g_cfg.attn_fused,
+           "losses": {k: float(v) for k, v in ref[1].items()},
            "loss_abs_err": loss_err, "mu_err_over_max_mu": mu_err,
-           "cpu_step_s": cpu_s,
-           "k3_launches": k3.gru_sequence_blocked.launches - k3_before}
+           "cpu_step_s": cpu_s, "k3_launches": k3_launches}
+    if fused_attn:
+        off = run(device, dataclasses.replace(g_cfg, attn_fused="off"))
+        res["off_card_vs_cpu"] = gaps(off, ref)
+        res["on_vs_off_on_card"] = gaps(out, off)
     print(name + " card vs cpu " + json.dumps(res), flush=True)
+    if fused_attn and not (
+            max(res["on_vs_off_on_card"][0].values()) <= 1e-3
+            and max(res["on_vs_off_on_card"][1].values()) <= 1e-4):
+        raise AssertionError(f"f32 train step, fused attention vs unfused on "
+                             f"the card: {res['on_vs_off_on_card']}")
     if not max(loss_err.values()) <= 1e-3:
         raise AssertionError(f"f32 train losses, card vs CPU: {loss_err}")
     if not max(mu_err.values()) <= 1e-3:
@@ -847,6 +1136,13 @@ def main() -> int:
         return 1
     from dvdgan_tpu_torch.kernels import _build
     from dvdgan_tpu_torch.ops import convgru
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    t_start = time.perf_counter()
+
+    def phase(name: str) -> None:
+        print(f"[{time.perf_counter() - t_start:7.1f} s] done: {name}",
+              flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -866,10 +1162,22 @@ def main() -> int:
 
     rows = check_k1(device)
     sample_run, _, clips_off = drive_sample(device)
+    # every train CLI run of this script, side by side
+    runs = drive_trains({
+        "train": (FLAGSHIP_ARGV, TRAIN_STEPS),
+        "train_fused": (FLAGSHIP_ARGV + FUSED, TRAIN_STEPS),
+        "longclip": (LONG_ARGV, LONG_STEPS),
+        "longclip_fused": (LONG_ARGV + FUSED, LONG_STEPS),
+        "px128": (PX128_ARGV, PX128_STEPS),
+        "px128_on": (PX128_ARGV + ON, PX128_STEPS)})
+    train, train_fused = runs["train"], runs["train_fused"]
+    long_run, long_fused = runs["longclip"], runs["longclip_fused"]
+    px_off, px_on = runs["px128"], runs["px128_on"]
+    phase("sampling and the six train CLI runs")
     rows_k2 = check_k2(device)
-    train = drive_train()
     time_train(device)
     check_train_f32(device)
+    phase("the flagship step")
 
     # the long-clip path
     rows_k3 = check_k3(device)
@@ -883,15 +1191,10 @@ def main() -> int:
     rows_k3_fake = [r for r in on_path if r["shape"][1] == LONG_B_FAKE]
     rows_k2_long = check_k2(device, LONG_LEVELS, LONG_T, LONG_B, reps=5,
                             autograd=False)
-    long_run = drive_train(LONG_ARGV, LONG_STEPS)
-    print(f"long-clip CLI: {long_run['cli_s']:.1f} s for {LONG_STEPS} steps, "
-          f"peak device memory {long_run['peak_mem_gib']:.3f} GiB",
-          flush=True)
-    long_rates = [time_train(device, "longclip_rate", LONG_ARGV, n_warm=1,
-                             n_steps=3, n_prof=1)]
     res = check_train_f32(device, "long-clip-shaped f32", LONG_F32_ARGV)
     if res["k3_launches"] <= 0:
         raise AssertionError("the long-clip-shaped f32 step launched no K3")
+    phase("the long-clip step")
 
     # the fused-upsample route (K5a, K5b) and the single-step entry (K4)
     bf16, both = (torch.bfloat16,), (torch.float32, torch.bfloat16)
@@ -905,31 +1208,64 @@ def main() -> int:
     k4_long = check_k4(device, LONG_LEVELS, LONG_B)
     cell_launches = drive_cell(device)
     cell_launches_long = drive_cell(device, LONG_LEVELS, LONG_T, LONG_B)
+    phase("K5a/K5b and K4 against their plain versions")
 
-    sample_full, _, clips_full = drive_sample(device, FULL)
-    gap = np.abs(clips_full - clips_off)
-    print(f"sample full vs off (bf16, same z): max_abs {gap.max():.3e} "
+    # the fused spatial attention (K6a, K6b) and the 128 px path's GRU shapes
+    def reps_k6(n):
+        return 5 if n >= 192 else 10
+    rows_k6a = check_k6(device, "K6a", K6A_SHAPES, reps_k6)
+    rows_k6b = check_k6(device, "K6b", K6B_SHAPES, reps_k6)
+    px_k1_levels = [lv for lv in PX128_LEVELS
+                    if not convgru.uses_blocked(*lv[:2])]
+    px_k3_levels = [lv for lv in PX128_LEVELS if convgru.uses_blocked(*lv[:2])]
+    rows_px_k1 = check_k1(device, px_k1_levels, PX128_T, PX128_B, reps=3)
+    rows_px_k1_fake = check_k1(device, px_k1_levels, PX128_T, PX128_B_FAKE,
+                               reps=3)
+    rows_px_k3 = check_k3(device, 3, px_k3_levels, PX128_T, PX128_B,
+                          PX128_B_FAKE)
+    rows_px_k2 = check_k2(device, PX128_LEVELS, PX128_T, PX128_B, reps=3,
+                          autograd=False)
+    phase("K6a/K6b and the 128 px GRU shapes against their plain versions")
+
+    # sampling and the flagship step with both fused routes of G
+    sample_fused, _, clips_fused = drive_sample(device, FUSED)
+    gap = np.abs(clips_fused - clips_off)
+    print(f"sample fused vs off (bf16, same z): max_abs {gap.max():.3e} "
           f"mean_abs {gap.mean():.3e} (limit {FUSED_CLIP_TOL})", flush=True)
     if not gap.max() <= FUSED_CLIP_TOL:
-        raise AssertionError(f"the fused route's clips differ from the "
-                             f"unfused route's by {gap.max()}")
-    train_full = drive_train(FLAGSHIP_ARGV + FULL)
-    time_train(device, argv=FLAGSHIP_ARGV + FULL, n_top=6)
-    check_train_f32(device, "train f32 full",
-                    ("--preset", "ucf101_64", "--batch_size", "2", *FULL))
-    long_full = drive_train(LONG_ARGV + FULL, LONG_STEPS)
-    print(f"long-clip CLI full: {long_full['cli_s']:.1f} s for {LONG_STEPS} "
-          f"steps, peak device memory {long_full['peak_mem_gib']:.3f} GiB",
-          flush=True)
-    # full and off in turns, in this one call: off (above), full, full, off
-    for argv in (LONG_ARGV + FULL, LONG_ARGV + FULL, LONG_ARGV):
-        long_rates.append(time_train(device, "longclip_rate", argv, n_warm=1,
-                                     n_steps=3, n_prof=1, n_top=6))
-    print("longclip_pairs " + json.dumps([
-        {k: r[k] for k in ("ups_fused", "ms_per_step", "steps_per_s",
-                           "device_busy_ms_per_step",
-                           "ups2x_kernels_ms_per_step", "peak_mem_gib")}
-        for r in long_rates]), flush=True)
+        raise AssertionError(f"the fused routes' clips differ from the "
+                             f"unfused routes' by {gap.max()}")
+    sample_route_gap(device)
+    time_train(device, argv=FLAGSHIP_ARGV + FUSED, n_top=6)
+    check_train_f32(device, "train f32 fused",
+                    ("--preset", "ucf101_64", "--batch_size", "2",
+                     "--d_steps", "1", *FUSED))
+    phase("sampling and the flagship step with the fused routes")
+
+    # the routes in turns, in this one call
+    keys = ("ups_fused", "attn_fused", "ms_per_step", "steps_per_s",
+            "device_busy_ms_per_step", "ups2x_kernels_ms_per_step",
+            "attn_kernels_ms_per_step", "softmax_kernels_ms_per_step",
+            "peak_mem_gib")
+    # (the profiler's view with a route's first reading only)
+    long_rates = [
+        time_train(device, "longclip_rate", LONG_ARGV + route, n_warm=1,
+                   n_steps=2, n_prof=int(i < 3), n_top=15 if i == 0 else 6)
+        for i, route in enumerate(([], FULL, ON, ON, FULL, []))]
+    print("longclip_pairs " + json.dumps(
+        [{k: r.get(k) for k in keys} for r in long_rates]), flush=True)
+    px_rates = [
+        time_train(device, "px128_rate", PX128_ARGV + route, n_warm=1,
+                   n_steps=2, n_prof=int(i < 2), n_top=15)
+        for i, route in enumerate(([], ON, ON, []))]
+    print("px128_pairs " + json.dumps(
+        [{k: r.get(k) for k in keys} for r in px_rates]), flush=True)
+    g_cfgs = {m: parse_config(["--preset", "ucf101_64", "--attn_fused", m]
+                              ).g_config() for m in ("off", "on")}
+    serve = [time_sample(device, g_cfgs[m])[0]
+             for m in ("off", "on", "on", "off")]
+    print("sample_pairs " + json.dumps(serve), flush=True)
+    phase("the in-call pairs")
 
     def entry(name, source, replaces, rows, by_path, per_step, also=(),
               **extra):
@@ -968,33 +1304,35 @@ def main() -> int:
                               "ups2x_fused.cu")
     k1_at, k2_at = "convgru_seq.py:104", "convgru_bwd.py:194"
     long_shapes = "kinetics_256_48f levels, T=48, B=2"
+    px_shapes = "kinetics_128 levels, T=12, B=8"
     kernels = [
         entry("convgru_seq (K1, bf16, sum of the 4 ucf101_64 levels, B=16)",
               k1_src, k1_at, rows,
               {"sample": sample_run["k1"], "train": train["k1"],
-               "sample_full": sample_full["k1"], "train_full":
-               train_full["k1"]},
+               "sample_fused": sample_fused["k1"],
+               "train_fused": train_fused["k1"]},
               {"sample": sample_run["k1"],
                "train": train["per_step"]["k1_launches"]}),
         entry(f"convgru_seq (K1, bf16, sum of its {len(k1_levels)} "
               f"{long_shapes})",
               k1_src, k1_at, rows_long,
-              {"longclip": long_run["k1"], "longclip_full": long_full["k1"]},
+              {"longclip": long_run["k1"],
+               "longclip_fused": long_fused["k1"]},
               {"longclip": long_run["per_step"]["k1_launches"]},
               also=rows_long_fake),
         entry("convgru_bwd (K2, bf16, sum of the 4 ucf101_64 levels, B=8)",
               k2_src, k2_at, rows_k2,
               {"sample": 0, "train": train["k2"],
-               "train_full": train_full["k2"]},
+               "train_fused": train_fused["k2"]},
               {"train": train["per_step"]["k2_launches"]}),
         entry(f"convgru_bwd (K2, bf16, sum of the 6 {long_shapes})",
               k2_src, k2_at, rows_k2_long,
-              {"longclip": long_run["k2"], "longclip_full": long_full["k2"]},
+              {"longclip": long_run["k2"], "longclip_fused": long_fused["k2"]},
               {"longclip": long_run["per_step"]["k2_launches"]}),
         entry(f"convgru_blocked (K3, bf16, sum of its "
               f"{len(rows_k3_path) // 2} {long_shapes})",
               "convgru_blocked.cu", "convgru_blocked.py:182", rows_k3_path,
-              {"longclip": long_run["k3"], "longclip_full": long_full["k3"]},
+              {"longclip": long_run["k3"], "longclip_fused": long_fused["k3"]},
               {"longclip": long_run["per_step"]["k3_launches"]},
               also=rows_k3_fake,
               k1_ms_same_shapes=sum(r["k1_ms"] for r in rows_k3_path
@@ -1009,24 +1347,52 @@ def main() -> int:
         entry("ups2x_fused fwd (K5a, bf16, sum of the 4 ucf101_64 levels, "
               "N=128; fake pass and sampling N=256)", k5_src,
               "ups2x_fused.py:195", k5a_flag,
-              {"sample_full": sample_full["k5a"],
-               "train_full": train_full["k5a"]},
-              {"sample_full": sample_full["k5a"],
-               "train_full": train_full["per_step"]["k5a_launches"]},
+              {"sample_fused": sample_fused["k5a"],
+               "train_fused": train_fused["k5a"]},
+              {"sample_fused": sample_fused["k5a"],
+               "train_fused": train_fused["per_step"]["k5a_launches"]},
               also=k5a_flag_fake),
         entry("ups2x_fused fwd (K5a, bf16, sum of the 6 kinetics_256_48f "
               "levels, N=96; fake pass N=384)", k5_src, "ups2x_fused.py:195",
-              k5a_long, {"longclip_full": long_full["k5a"]},
-              {"longclip_full": long_full["per_step"]["k5a_launches"]},
+              k5a_long, {"longclip_fused": long_fused["k5a"]},
+              {"longclip_fused": long_fused["per_step"]["k5a_launches"]},
               also=k5a_long_fake),
         entry("ups2x_fused bwd (K5b, bf16, sum of the 4 ucf101_64 levels, "
               "N=128)", k5_src, "ups2x_fused.py:290", k5b_flag,
-              {"train_full": train_full["k5b"]},
-              {"train_full": train_full["per_step"]["k5b_launches"]}),
+              {"train_fused": train_fused["k5b"]},
+              {"train_fused": train_fused["per_step"]["k5b_launches"]}),
         entry("ups2x_fused bwd (K5b, bf16, sum of the 6 kinetics_256_48f "
               "levels, N=96)", k5_src, "ups2x_fused.py:290", k5b_long,
-              {"longclip_full": long_full["k5b"]},
-              {"longclip_full": long_full["per_step"]["k5b_launches"]}),
+              {"longclip_fused": long_fused["k5b"]},
+              {"longclip_fused": long_fused["per_step"]["k5b_launches"]}),
+        entry("attention_spatial (K6a, the fused entry, bf16, sum of its 4 "
+              "calls: 32x32x64 at N=256 and 128, 32x32x256 at N=384 and 96)",
+              "attention_spatial.cu", "attention_spatial.py:104", rows_k6a,
+              {"sample_fused": sample_fused["k6a"], "train_fused": train_fused["k6a"],
+               "longclip_fused": long_fused["k6a"]},
+              {"sample_fused": sample_fused["k6a"],
+               "train_fused": train_fused["per_step"]["k6a_launches"],
+               "longclip_fused": long_fused["per_step"]["k6a_launches"]}),
+        entry("attention_spatial (K6b, the tiled entry, bf16, sum of its 2 "
+              "calls: 64x64x64 at N=192 and 96)",
+              "attention_spatial.cu", "attention_spatial.py:217", rows_k6b,
+              {"px128_on": px_on["k6b"]},
+              {"px128_on": px_on["per_step"]["k6b_launches"]}),
+        entry(f"convgru_seq (K1, bf16, sum of its {len(px_k1_levels)} "
+              f"{px_shapes})", k1_src, k1_at, rows_px_k1,
+              {"px128": px_off["k1"], "px128_on": px_on["k1"]},
+              {"px128": px_off["per_step"]["k1_launches"]},
+              also=rows_px_k1_fake),
+        entry(f"convgru_bwd (K2, bf16, sum of the 5 {px_shapes})",
+              k2_src, k2_at, rows_px_k2,
+              {"px128": px_off["k2"], "px128_on": px_on["k2"]},
+              {"px128": px_off["per_step"]["k2_launches"]}),
+        entry(f"convgru_blocked (K3, bf16, its {len(px_k3_levels)} "
+              f"{px_shapes})", "convgru_blocked.cu", "convgru_blocked.py:182",
+              [r for r in rows_px_k3 if r["shape"][1] == PX128_B],
+              {"px128": px_off["k3"], "px128_on": px_on["k3"]},
+              {"px128": px_off["per_step"]["k3_launches"]},
+              also=[r for r in rows_px_k3 if r["shape"][1] == PX128_B_FAKE]),
     ]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:

@@ -16,8 +16,9 @@ train_step` on synthetic clips (`dvdgan_tpu_torch.data`'s
 SyntheticVideoDataset and Loader, numpy-only copies of the reference's: the
 same batches the reference trainer draws for --seed), prints one line per
 step with the four losses and the step's kernel launches (K1, K2, K3, K5a,
-K5b; the last two only with `--ups_fused fwd|full`, which sends G's
-upsample convs through the fused kernel), and
+K5b, K6a, K6b; K5a/K5b only with `--ups_fused fwd|full`, which sends G's
+upsample convs through the fused kernel, K6a/K6b only with `--attn_fused
+on`, which sends the attention's spatial pass through its), and
 writes the final state to DIR/train_state.npz (`interop` layout). The
 step's own draws come from a torch.Generator on the device seeded with
 --seed. `--grad_accum k` splits the batch into k micro-batches per update,
@@ -53,7 +54,7 @@ def run_sample(cfg: Config, device: torch.device) -> torch.Tensor:
     """EMA-G clips for cfg on `device`: (n_samples, T, H, W, 3)."""
     if cfg.pretrained_model is not None:
         raise NotImplementedError(
-            "reading a dvdgan_tpu Orbax checkpoint is ROADMAP Queue 1 item 8; "
+            "reading a dvdgan_tpu Orbax checkpoint is ROADMAP Queue 1 item 2; "
             "restore it with dvdgan_tpu, np.savez its flattened g_ema, "
             "g/stats and g/sn_u leaves (see interop.py) and pass --weights")
     g_cfg = cfg.g_config()
@@ -72,7 +73,9 @@ def _launch_counts() -> dict[str, int]:
             "k2": kernels.convgru_bwd.gru_sequence_bwd.launches,
             "k3": kernels.gru_sequence_blocked.launches,
             "k5a": kernels.ups2x_fused.ups2x.launches,
-            "k5b": kernels.ups2x_fused.ups2x_bwd.launches}
+            "k5b": kernels.ups2x_fused.ups2x_bwd.launches,
+            "k6a": kernels.spatial_attn_fused.launches,
+            "k6b": kernels.spatial_attn_tiled.launches}
 
 
 def run_train(cfg: Config, device: torch.device) -> dict:
@@ -80,15 +83,15 @@ def run_train(cfg: Config, device: torch.device) -> dict:
     if cfg.pretrained_model is not None:
         raise NotImplementedError(
             "resuming from a dvdgan_tpu Orbax checkpoint is ROADMAP Queue 1 "
-            "item 8; pass the state as an interop npz with --weights")
+            "item 2; pass the state as an interop npz with --weights")
     if cfg.time_shards > 1:
         raise NotImplementedError(
             "time-axis context parallelism (--time_shards) is ROADMAP "
-            "Queue 1 item 9")
+            "Queue 1 item 6")
     if cfg.dataset != "synthetic":
         raise NotImplementedError(
             f"--dataset {cfg.dataset}: the port trains on synthetic clips; "
-            f"the frames pipeline is ROADMAP Queue 1 item 8")
+            f"the frames pipeline is ROADMAP Queue 1 item 3")
     g_cfg, ds_cfg, dt_cfg = cfg.g_config(), cfg.ds_config(), cfg.dt_config()
     tc = cfg.train_config()
     state = (interop.load_train_state_npz(cfg.weights) if cfg.weights
@@ -137,7 +140,7 @@ def main(argv=None):
     cfg = parse_config(argv)
     if cfg.mode not in ("sample", "train"):
         raise NotImplementedError(
-            f"--mode {cfg.mode}: eval is ROADMAP Queue 1 item 11; this port "
+            f"--mode {cfg.mode}: eval is ROADMAP Queue 1 item 5; this port "
             f"runs --mode sample and --mode train")
     device = resolve_device(cfg.device)
     if cfg.mode == "train":

@@ -46,6 +46,9 @@ class GConfig:
     # route of the levels' upsample conv (`ops/layers.upsample2x_conv3x3`):
     # off | fwd | full. The reference reads it from DVDGAN_UPS_PALLAS.
     ups_fused: str = "off"
+    # route of the attention's spatial pass (`ops/attention.spatial_attn`):
+    # off | on. The reference reads it from DVDGAN_ATTN_PALLAS.
+    attn_fused: str = "off"
 
     @property
     def mults(self) -> Tuple[int, ...]:

@@ -29,6 +29,14 @@ remat, the fused conv runs outside both checkpoint regions, as the GRU
 does: its kernel launches once per level and forward, never from a
 backward, and its Function keeps its padded input (which the "off" route
 recomputes); the CBN → ReLU before it is a region of its own.
+
+`cfg.attn_fused` is the route of the attention's spatial pass
+(`ops/attention.py`; the reference reads it from the environment,
+`_pallas_default`). With "on" and remat the fused pass runs outside the
+checkpoint regions for the same reason: the tail region ends before it, its
+kernel launches once per forward and never from a backward (its Function
+keeps only its input, which is the tail region's output, and five small
+tensors), and the temporal pass after it is a region of its own.
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ def init(gen: torch.Generator, cfg: GConfig) -> tuple[dict, dict]:
     everywhere, as the reference; the draws differ from jax.random's."""
     if cfg.cond_frames > 0:
         raise NotImplementedError(
-            "DVD-GAN-FP (cond_frames > 0) is ROADMAP Queue 1 item 12")
+            "DVD-GAN-FP (cond_frames > 0) is ROADMAP Queue 1 item 4")
     levels, stats_levels = [], []
     for i in range(cfg.n_levels):
         cin, cout = cfg.level_channels(i)
@@ -96,13 +104,14 @@ def _save_conv_outputs(ctx, op, *args, **kwargs):
 
 def _block(lvl: dict, lvl_stats: dict, h: torch.Tensor, cond_tb: torch.Tensor,
            t: int, attn: dict | None, train: bool, remat: bool,
-           ups_fused: str):
+           ups_fused: str, attn_fused: str):
     """One level after its GRU: the upsampling GResBlock on the folded
     (T·B, H, W, C) sequence, then attention where `attn` is given.
     -> (x_seq (T, B, 2H, 2W, C'), block stats). With `remat`, two
     checkpointed regions split at the upsample conv's output: the first
     one keeps it (route "off"), or ends before the fused conv, which then
-    runs between the two."""
+    runs between the two; a fused spatial attention pass runs after the
+    second, and the temporal pass is a third."""
     p, b = lvl["block"], h.shape[0] // t
 
     def pre():
@@ -116,9 +125,13 @@ def _block(lvl: dict, lvl_stats: dict, h: torch.Tensor, cond_tb: torch.Tensor,
         out, s2 = resblocks.gresblock_tail(p, lvl_stats, u, h, cond_tb, train,
                                            upsample=True)
         x_seq = out.reshape(t, b, *out.shape[1:])
-        if attn is not None:
-            x_seq = attention.separable_attn(attn, x_seq, time_major=True)
+        if attn is not None and not split_attn:
+            x_seq = attention.separable_attn(attn, x_seq, attn_fused,
+                                             time_major=True)
         return x_seq, s2
+
+    # under remat a fused spatial pass leaves the tail region
+    split_attn = remat and attn is not None and attn_fused != "off"
 
     if remat:
         # nothing in a level draws random numbers
@@ -133,6 +146,9 @@ def _block(lvl: dict, lvl_stats: dict, h: torch.Tensor, cond_tb: torch.Tensor,
             u = resblocks.gresblock_conv1(p, a, upsample=True,
                                           ups_fused=ups_fused)
         x_seq, s2 = run(tail, u)
+        if split_attn:
+            x_seq = attention.spatial_attn(attn, x_seq, attn_fused)
+            x_seq = run(attention.temporal_attn, attn, x_seq, time_major=True)
     else:
         u, s1 = head()
         x_seq, s2 = tail(u)
@@ -148,7 +164,7 @@ def apply(params: dict, stats: dict, z: torch.Tensor, y: torch.Tensor,
     ids. time_major_out=True returns the internal (T, B, H, W, 3) layout."""
     if cfg.cond_frames > 0:
         raise NotImplementedError(
-            "DVD-GAN-FP (cond_frames > 0) is ROADMAP Queue 1 item 12")
+            "DVD-GAN-FP (cond_frames > 0) is ROADMAP Queue 1 item 4")
     b = z.shape[0]
     t = cfg.n_frames
     n = cfg.n_levels
@@ -178,7 +194,7 @@ def apply(params: dict, stats: dict, z: torch.Tensor, y: torch.Tensor,
         h = h_seq.reshape(t * b, hw, hw, h_seq.shape[-1])      # fold time
         x_seq, s = _block(lvl, stats["levels"][i], h, cond_tb, t,
                           params["attn"] if i == attn_idx else None, train,
-                          remat, cfg.ups_fused)
+                          remat, cfg.ups_fused, cfg.attn_fused)
         new_stats_levels.append(s)
 
     hw = x_seq.shape[2]

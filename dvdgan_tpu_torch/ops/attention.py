@@ -7,15 +7,33 @@ and reshaped to (B·H·W, T, C) token batches). Each pass projects q = θ(x):
 C→C/8, k = φ(x): C→C/8, v = g(x): C→C/2, out: C/2→C ("pair" mode), with an
 f32 softmax and no 1/√d, and adds the result scaled by its own γ.
 
-The reference's fused Pallas spatial kernels (K6) are off on that path; this
-is plain PyTorch, as the reference's is plain XLA.
+`fused` is the route of the spatial pass (the reference's `use_pallas`,
+carried here by `GConfig.attn_fused`, no environment variable): "off" is
+plain PyTorch, as the reference's default is plain XLA; "on" sends it to the
+hand-written kernel, through `kernels.spatial_attn_tiled` for maps of 64×64
+and up and `kernels.spatial_attn_fused` below (`uses_tiled`, the line the
+reference's `fits_vmem`/`fits_tiled` pair draws for every preset width).
+Under "on" an odd H or W raises (the reference gives way to its XLA path;
+the port changes no route quietly). The temporal pass is always plain. The
+reference's projection mode "fused" and temporal mode "einsum" are TPU A/B
+knobs that lost there: no counterpart.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dvdgan_tpu_torch import kernels
 from dvdgan_tpu_torch.ops import layers
+
+ATTN_FUSED_MODES = ("off", "on")
+# maps of at least this many pixels go through the tiled entry (K6b)
+TILED_MIN_PIXELS = 64 * 64
+
+
+def uses_tiled(h: int, w: int) -> bool:
+    """True where the fused route takes `spatial_attn_tiled` (K6b)."""
+    return h * w >= TILED_MIN_PIXELS
 
 
 def _proj_init(gen: torch.Generator, c: int) -> dict:
@@ -53,25 +71,44 @@ def _maxpool2x_tokens(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return x.amax(dim=(2, 4)).reshape(n, (h // 2) * (w // 2), c)
 
 
-def separable_attn(p: dict, x: torch.Tensor, time_major: bool = False
-                   ) -> torch.Tensor:
-    """x: (B, T, H, W, C) — or (T, B, H, W, C) with `time_major=True` —
-    -> same layout; spatial pass then temporal pass."""
-    if time_major:
-        t, b, h, w, c = x.shape
-    else:
-        b, t, h, w, c = x.shape
-    n = b * t
+def spatial_attn(p: dict, x: torch.Tensor, fused: str = "off"
+                 ) -> torch.Tensor:
+    """The spatial pass on x (..., H, W, C), every leading axis a batch of
+    frames: x + γ·attention over the H×W grid, kv 2×2-max-pooled."""
+    if fused not in ATTN_FUSED_MODES:
+        raise ValueError(f"fused must be one of {ATTN_FUSED_MODES}, got "
+                         f"{fused!r}")
+    h, w, c = x.shape[-3:]
     pool_ok = h % 2 == 0 and w % 2 == 0
-
-    xs = x.reshape(n, h * w, c)
+    sp = p["spatial"]
+    if fused == "on":
+        if not pool_ok:
+            raise ValueError(f"attn_fused='on' needs even H and W, got "
+                             f"{(h, w)}")
+        entry = (kernels.spatial_attn_tiled if uses_tiled(h, w)
+                 else kernels.spatial_attn_fused)
+        out = entry(x.reshape(-1, h, w, c), sp["theta"]["w"], sp["phi"]["w"],
+                    sp["g"]["w"], sp["out"]["w"], sp["gamma"].float())
+        return out.reshape(x.shape)
+    xs = x.reshape(-1, h * w, c)
     kv = _maxpool2x_tokens(xs, h, w) if pool_ok else xs
-    xs = xs + _attend(p["spatial"], xs, kv)
-    x = xs.reshape(x.shape)
+    return (xs + _attend(sp, xs, kv)).reshape(x.shape)
 
+
+def temporal_attn(p: dict, x: torch.Tensor, time_major: bool = False
+                  ) -> torch.Tensor:
+    """The temporal pass on x (B, T, H, W, C) — (T, B, H, W, C) with
+    `time_major` — over T per spatial location."""
     time_src = 0 if time_major else 1
     xt = x.movedim(time_src, 3)                  # (B, H, W, T, C)
     tm_shape = xt.shape
-    xt = xt.reshape(b * h * w, t, c)
+    xt = xt.reshape(-1, *tm_shape[3:])
     xt = xt + _attend(p["temporal"], xt, xt)
     return xt.reshape(tm_shape).movedim(3, time_src)
+
+
+def separable_attn(p: dict, x: torch.Tensor, fused: str = "off",
+                   time_major: bool = False) -> torch.Tensor:
+    """x: (B, T, H, W, C) — or (T, B, H, W, C) with `time_major=True` —
+    -> same layout; spatial pass then temporal pass."""
+    return temporal_attn(p, spatial_attn(p, x, fused), time_major)

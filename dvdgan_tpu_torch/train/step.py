@@ -130,7 +130,7 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
     if tc.fake_gen != "pooled":
         raise NotImplementedError(
             f"fake_gen={tc.fake_gen!r}: only the pooled fake generation is "
-            f"ported (per_step is ROADMAP Queue 1 item 6)")
+            f"ported (per_step is ROADMAP Queue 1 item 7)")
     b, t = real.shape[:2]
     if t != g_cfg.n_frames:
         raise ValueError(f"clip length {t} != n_frames {g_cfg.n_frames}")

@@ -5,7 +5,8 @@ the fields the sample and train modes read and every field a preset sets;
 the eval fields, the checkpoint schedule and the loader's knobs arrive with
 the slices that port them. `--ups_fused {off,fwd,full}` is the reference's
 environment variable DVDGAN_UPS_PALLAS as a flag (the route of G's upsample
-convs, `ops/layers.py`). `--weights` and `--device` are the port's own:
+convs, `ops/layers.py`), and `--attn_fused {off,on}` its DVDGAN_ATTN_PALLAS
+(the route of the attention's spatial pass, `ops/attention.py`). `--weights` and `--device` are the port's own:
 `--weights` is an npz written by `interop` (sample: any state holding the
 EMA-G part; train: a whole train state to start from), and `--device` names
 the torch device, `cuda` by default; without a CUDA device the CLI raises
@@ -19,6 +20,7 @@ import dataclasses
 from typing import Optional
 
 from dvdgan_tpu_torch.models import DSConfig, DTConfig, GConfig
+from dvdgan_tpu_torch.ops.attention import ATTN_FUSED_MODES
 from dvdgan_tpu_torch.ops.layers import UPS_FUSED_MODES
 from dvdgan_tpu_torch.train.state import TrainConfig
 
@@ -65,6 +67,7 @@ class Config:
     time_shards: int = 1              # >1: DT context-parallel over time
     device: str = "cuda"              # torch device (cuda | cuda:N | cpu)
     ups_fused: str = "off"            # G's upsample convs: off | fwd | full
+    attn_fused: str = "off"           # G's spatial attention: off | on
 
     def g_config(self) -> GConfig:
         attn = self.attn_res if self.attn_res <= self.img_size // 2 else None
@@ -74,7 +77,8 @@ class Config:
                        n_classes=self.n_classes, emb_dim=self.emb_dim,
                        attn_res=attn, remat=self.remat,
                        cond_frames=self.cond_frames,
-                       ups_fused=self.ups_fused)
+                       ups_fused=self.ups_fused,
+                       attn_fused=self.attn_fused)
 
     def ds_config(self) -> DSConfig:
         return DSConfig(img_size=self.img_size, ch=self.d_ch,
@@ -127,6 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument(arg, type=int, default=None)
         elif f.name == "ups_fused":
             p.add_argument(arg, choices=UPS_FUSED_MODES, default=None)
+        elif f.name == "attn_fused":
+            p.add_argument(arg, choices=ATTN_FUSED_MODES, default=None)
         else:
             typ = {int: int, float: float, str: str}.get(type(f.default), str)
             p.add_argument(arg, type=typ, default=None)

@@ -1,24 +1,28 @@
 """dvdgan_tpu_torch kernels on the card: each CUDA kernel against its plain
 PyTorch version on the same CUDA tensors, and the paths through them (the
 sample, K1's autograd.Function, one train step, the single-step GRU entry,
-the fused upsample route) on the card against the CPU. Marked `gpu`; each
+the fused upsample route, the fused attention route) on the card against
+the CPU. Marked `gpu`; each
 test skips (inside the `cuda` fixture) where there is no CUDA device. Run them on a machine with one:
 `python -m pytest tests/test_torch_port_gpu.py -q --noconftest`.
 
 f32 with TF32 off: atol 1e-5 at these small shapes (1e-4 for whole paths
 and for K2's weight gradients, sums over T·B·H·W terms). bf16: atol 2e-2
 (the same bound as the CPU tests hold the plain version to against JAX),
-relative to the largest reference value for K2's outputs.
+relative to the largest reference value for K2's outputs; K6 in bf16: one
+bf16 ulp at the output's scale.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import pytest
 import torch
 
 from dvdgan_tpu_torch.core import tree
+from dvdgan_tpu_torch.kernels import attention_spatial as k6
 from dvdgan_tpu_torch.kernels import convgru_blocked as k3
 from dvdgan_tpu_torch.kernels import convgru_bwd as k2
 from dvdgan_tpu_torch.kernels import convgru_cell as k4
@@ -27,7 +31,7 @@ from dvdgan_tpu_torch.kernels import ups2x_fused as k5
 from dvdgan_tpu_torch.models import (DSConfig, DTConfig, GConfig,
                                      generator)
 from dvdgan_tpu_torch.models.generator import GeneratorState
-from dvdgan_tpu_torch.ops import convgru, layers
+from dvdgan_tpu_torch.ops import attention, convgru, layers
 from dvdgan_tpu_torch.train import state as train_state
 from dvdgan_tpu_torch.train import step
 
@@ -783,3 +787,231 @@ def test_train_step_fused_on_card_matches_cpu(cuda):
                                    atol=1e-4)
     for m, (err, leaf) in _mu_gap((out_state,), (ref_state,)).items():
         assert err <= 1e-4, f"{m} mu {leaf}: {err:.3e}"
+
+
+# ------------------------------------------- the fused spatial attention ---
+
+def _attn_inputs(n, h, w, c, dtype, device, seed=0, gamma=0.7):
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return (shape[0] ** -0.5 * torch.randn(shape, generator=gen)
+                ).to(device, dtype)
+
+    x = torch.randn(n, h, w, c, generator=gen).to(device, dtype)
+    return (x, rand(c, c // 8), rand(c, c // 8), rand(c, c // 2),
+            rand(c // 2, c), torch.tensor(gamma, device=device))
+
+
+def _attn_entry(h, w):
+    return (k6.spatial_attn_tiled if attention.uses_tiled(h, w)
+            else k6.spatial_attn_fused)
+
+
+def _bf16_ulp(scale: float) -> float:
+    return 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+ATTN_SHAPES = [(256, 32, 32, 64), (128, 32, 32, 64),    # ucf101_64
+               (384, 32, 32, 256), (96, 32, 32, 256),   # kinetics_256_48f
+               (192, 64, 64, 64), (96, 64, 64, 64),     # 128 px, attn 64
+               (3, 16, 8, 64),      # a wide map, 32 keys: a 64-query tile
+               (2, 8, 8, 128),      # 16 keys: half a warp's softmax step
+               (2, 24, 24, 64)]     # 576 queries, 144 keys: a 64-query tile
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c", ATTN_SHAPES)
+def test_k6_kernel_matches_plain(cuda, dtype, n, h, w, c):
+    args = _attn_inputs(n, h, w, c, dtype, cuda, seed=n + c)
+    entry = _attn_entry(h, w)
+    before = entry.launches
+    out = entry(*args)
+    torch.cuda.synchronize()
+    assert entry.launches - before == k6.LAUNCHES_PER_CALL
+    ref = k6.spatial_attn_kernel_reference(*args)
+    assert out.shape == ref.shape and out.dtype == dtype
+    scale = float(ref.float().abs().max())
+    atol = 1e-4 if dtype == torch.float32 else _bf16_ulp(scale)
+    print(f"\n{(n, h, w, c)} {dtype}: {int((out != ref).sum())} of "
+          f"{out.numel()} elements differ, max "
+          f"{float((out.float() - ref.float()).abs().max()):.3e} "
+          f"(limit {atol:.3e})")
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol)
+    # γ = 0: x back bit for bit
+    zero = entry(*args[:5], torch.zeros_like(args[5]))
+    assert torch.equal(zero, args[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_forced_tiles_compute_the_same_function(cuda, dtype):
+    args = _attn_inputs(4, 32, 32, 64, dtype, cuda, seed=1)
+    ref = k6.spatial_attn_kernel_reference(*args).float()
+    atol = 1e-4 if dtype == torch.float32 else _bf16_ulp(float(ref.abs().max()))
+    for bqr in (1, 2):                 # 32 and 64 queries per tile
+        out = k6.spatial_attn_tiled(*args, force_bqr=bqr)
+        torch.testing.assert_close(out.float(), ref, rtol=0, atol=atol)
+    with pytest.raises(ValueError, match="does not take"):
+        k6.spatial_attn_tiled(*args, force_bqr=32)      # 1024 queries: no fit
+    small = _attn_inputs(2, 8, 8, 64, dtype, cuda, seed=2)
+    with pytest.raises(ValueError, match="does not take"):
+        k6.spatial_attn_tiled(*small, force_bqr=1)      # 8 queries: not 16·k
+    with pytest.raises(ValueError, match="does not divide H"):
+        k6.spatial_attn_tiled(*small, force_bqr=3)
+
+
+def test_k6_refuses_what_the_kernel_does_not_take(cuda):
+    args = _attn_inputs(2, 8, 8, 64, torch.float32, cuda)
+    x = args[0]
+    for fn in (k6.spatial_attn_fused, k6.spatial_attn_tiled):
+        with pytest.raises(ValueError, match="does not take"):
+            fn(*_attn_inputs(2, 8, 8, 72, torch.float32, cuda))   # c8 = 9
+        with pytest.raises(ValueError, match="does not take"):
+            fn(*_attn_inputs(2, 4, 4, 64, torch.float32, cuda))   # 4 keys
+        with pytest.raises(ValueError, match="even H and W"):
+            fn(x[:, :7].contiguous(), *args[1:])
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(x.transpose(1, 2), *args[1:])
+        with pytest.raises(TypeError, match="dtype"):
+            fn(x.half(), *(a.half() for a in args[1:5]), args[5])
+        with pytest.raises(TypeError, match="dtype"):
+            fn(x.bfloat16(), *args[1:])
+        with pytest.raises(TypeError, match="gamma must be float32"):
+            fn(*args[:5], args[5].bfloat16())
+        with pytest.raises(ValueError, match="several devices"):
+            fn(x.cpu(), *args[1:])
+
+
+@pytest.mark.parametrize("n,h,w,c", [(3, 16, 16, 64), (2, 64, 64, 64)])
+def test_k6_grads_on_card_match_cpu(cuda, monkeypatch, n, h, w, c):
+    """The Function on the card (kernel forward, the oracle recomputed in
+    chunks of 2 frames for the backward) against the CPU's."""
+    args = _attn_inputs(n, h, w, c, torch.float32, "cpu", seed=3)
+    cot = torch.randn(n, h, w, c, generator=torch.Generator().manual_seed(4))
+    monkeypatch.setattr(k6, "BWD_CHUNK_ELEMS", 2 * h * w * h * w // 4)
+    entry = _attn_entry(h, w)
+
+    def run(device):
+        leaves = [a.to(device).requires_grad_(True) for a in args]
+        out = entry(*leaves)
+        return [out] + list(torch.autograd.grad(out, leaves, cot.to(device)))
+
+    ref = run("cpu")
+    before = entry.launches
+    out = run(cuda)
+    assert entry.launches - before == k6.LAUNCHES_PER_CALL   # none backward
+    for o, r in zip(out, ref):
+        o, r = o.detach().cpu(), r.detach()
+        torch.testing.assert_close(o, r, rtol=0,
+                                   atol=1e-5 * max(1.0, float(r.abs().max())))
+
+
+ATTN_G_KW = dict(img_size=32, n_frames=4, ch=16, z_dim=120, n_classes=5,
+                 emb_dim=16, attn_res=16)       # attention at 16×16×64
+
+
+def test_generator_with_fused_attention_on_card(cuda):
+    """G forward + backward on the card with `attn_fused="on"`, remat and
+    not: K6a launches once per forward (two launches, none from the
+    backward); against "off" on the card the clip and the gradients differ
+    by f32 summation order only."""
+    cfg = GConfig(**ATTN_G_KW, attn_fused="on")
+    gen = torch.Generator().manual_seed(0)
+    params, stats = generator.init(gen, cfg)
+    params = tree.tree_map(
+        lambda p: (p + 0.05 * torch.randn(p.shape, generator=gen)).to(cuda),
+        params)
+    stats = tree.tree_map(lambda s: s.to(cuda), stats)
+    z = torch.randn(2, cfg.z_dim, generator=gen).to(cuda)
+    y = torch.tensor([1, 3]).to(cuda)
+
+    def run(cfg):
+        leaves = tree.tree_map(lambda p: p.detach().requires_grad_(True),
+                               params)
+        flat = tree.flatten_with_paths(leaves)
+        before = k6.spatial_attn_fused.launches
+        video, new_stats = generator.apply(leaves, stats, z, y, cfg,
+                                           train=True)
+        grads = torch.autograd.grad((video ** 2).mean(), list(flat.values()))
+        return (video.detach(), dict(zip(flat, grads)),
+                tree.flatten_with_paths(new_stats),
+                k6.spatial_attn_fused.launches - before)
+
+    plain = run(cfg)
+    remat = run(dataclasses.replace(cfg, remat=True))
+    off = run(dataclasses.replace(cfg, attn_fused="off"))
+    assert plain[3] == remat[3] == k6.LAUNCHES_PER_CALL and off[3] == 0
+    for k, s in plain[2].items():
+        assert torch.equal(s, remat[2][k]), k
+    scale = max(float(g.abs().max()) for g in plain[1].values())
+
+    def gap(a, b):
+        return max(float((g - b[1][k]).abs().max())
+                   for k, g in a[1].items()) / scale
+
+    clip_gap = float((plain[0] - off[0]).abs().max())
+    print(f"\nremat vs plain with the fused attention, over max|grad|: "
+          f"{gap(plain, remat):.3e}; on vs off: clip {clip_gap:.3e}, "
+          f"gradients over max|grad| {gap(plain, off):.3e}")
+    assert gap(plain, remat) <= 2e-6
+    # measured on an H100: clip 2.3e-6, gradients 2.2e-7 x max|grad|
+    assert clip_gap <= 1e-5 and gap(plain, off) <= 2e-6
+
+
+def test_train_step_with_fused_attention_on_card_matches_cpu(cuda):
+    g_cfg = GConfig(**ATTN_G_KW, attn_fused="on")
+    ds_cfg = DSConfig(img_size=32, ch=8, n_classes=5, k_frames=2)
+    dt_cfg = DTConfig(img_size=32, n_frames=4, ch=8, n_classes=5)
+    tc = train_state.TrainConfig(d_steps=2, ema_start=0)
+    state = train_state.create(0, g_cfg, ds_cfg, dt_cfg)
+    for name, gamma in (("spatial", 0.6), ("temporal", -0.5)):
+        state["g"]["params"]["attn"][name]["gamma"] = torch.tensor(gamma)
+    gen = torch.Generator().manual_seed(1)
+    real = torch.tanh(torch.randn(2, 4, 32, 32, 3, generator=gen))
+    y = torch.tensor([1, 3])
+    draws = step.TorchDraws(gen, 2, 120, 4, 2, torch.float32)
+    z = {i: draws.z(i) for i in (0, 3, 6)}
+    idx = {i: draws.idx(i) for i in (1, 2, 4, 5, 7)}
+
+    class Replay:
+        def __init__(self, device):
+            self.device = device
+
+        def z(self, i):
+            return z[i].to(self.device)
+
+        def idx(self, i):
+            return idx[i].to(self.device)
+
+    ref_state, ref_m = step.train_step(state, real, y, Replay("cpu"), g_cfg,
+                                       ds_cfg, dt_cfg, tc)
+
+    def on_card(g_cfg):
+        return step.train_step(
+            train_state.to_device(state, cuda), real.to(cuda), y.to(cuda),
+            Replay(cuda), g_cfg, ds_cfg, dt_cfg, tc)
+
+    before = k6.spatial_attn_fused.launches
+    out_state, out_m = on_card(g_cfg)
+    # the fake pass and the G forward; nothing from the backward
+    assert (k6.spatial_attn_fused.launches - before
+            == 2 * k6.LAUNCHES_PER_CALL)
+    off_state, _ = on_card(dataclasses.replace(g_cfg, attn_fused="off"))
+    assert k6.spatial_attn_fused.launches - before == 2 * k6.LAUNCHES_PER_CALL
+    for k in ref_m:
+        torch.testing.assert_close(out_m[k].cpu(), ref_m[k], rtol=0,
+                                   atol=1e-4)
+    # with γ off zero the attention's softmaxes carry the card's other f32
+    # summation order through G: measured on an H100, G's Adam mu (the
+    # gradient) on the card is 8.46e-4 x max|mu| from the CPU's at its worst
+    # leaf with "on" AND with "off" (printed as the witness), and the two
+    # routes on the card are 4.4e-7 x max|mu| apart
+    gaps = {"on, card vs CPU": _mu_gap((out_state,), (ref_state,)),
+            "off, card vs CPU": _mu_gap((off_state,), (ref_state,)),
+            "on vs off on the card": _mu_gap((out_state,), (off_state,))}
+    for name, gap in gaps.items():
+        print(f"\n{name}: " + ", ".join(
+            f"{m} {err:.3e} at {leaf}" for m, (err, leaf) in gap.items()))
+    for m in ("g", "ds", "dt"):
+        assert gaps["on, card vs CPU"][m][0] <= 1.5e-3, m
+        assert gaps["on vs off on the card"][m][0] <= 5e-6, m

@@ -265,8 +265,9 @@ def test_port_state_paths_match_reference():
         assert v.shape == ref[k].shape and v.dtype == ref[k].dtype, k
 
 
+# (the ids are those the cases had before ROADMAP's queue was renumbered)
 @pytest.mark.parametrize("change,match", [
-    (dict(fake_gen="per_step"), "item 6")])
+    (dict(fake_gen="per_step"), "item 7")], ids=["change0-item 6"])
 def test_train_step_refuses_what_is_not_ported(change, match):
     state = train_state.create(0, GConfig(**G_KW), DSConfig(**DS_KW),
                                DTConfig(**DT_KW))
@@ -292,7 +293,8 @@ def test_train_cli_on_cpu_writes_state(tmp_path):
     assert [ln[1] for ln in lines] == ["1", "2"]
     for ln in lines:
         fields = dict(zip(ln[2::2], ln[3::2]))
-        launches = {f"{k}_launches" for k in ("k1", "k2", "k3", "k5a", "k5b")}
+        launches = {f"{k}_launches" for k in ("k1", "k2", "k3", "k5a", "k5b",
+                                              "k6a", "k6b")}
         assert set(fields) == {"d_loss", "d_loss_s", "d_loss_t",
                                "g_loss"} | launches
         assert all(np.isfinite(float(fields[k])) for k in (
@@ -313,10 +315,10 @@ def test_train_cli_on_cpu_writes_state(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--time_shards", "2"], "item 9"),          # time-axis CP
-    (["--pretrained_model", "100"], "item 8"),   # Orbax resume
-    (["--dataset", "frames"], "item 8"),         # frame folders
-])
+    (["--time_shards", "2"], "item 6"),          # time-axis CP
+    (["--pretrained_model", "100"], "item 2"),   # Orbax resume
+    (["--dataset", "frames"], "item 3"),         # frame folders
+], ids=["flags0-item 9", "flags1-item 8", "flags2-item 8"])
 def test_train_cli_refuses_what_is_not_ported(flags, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["--mode", "train", "--device", "cpu", *TRAIN_FLAGS, *flags,
