@@ -54,14 +54,15 @@
 8. holds one f32 long-clip-shaped step (the 256 px schedules at ch 8, T 4,
    batch 2, grad_accum 2, remat on; its 64² and 128² levels go to K3) on
    the card against the CPU, at phase 6's limits;
-9. holds K5a and K5b (the fused upsample conv and its backward) against
-   their plain versions at the four ucf101_64 levels (N = T·B = 128, and
-   256 as the fake pass and sampling give it) and the six kinetics_256_48f
-   levels (N = 96; K5a also at the fake pass's 384): f32 atol 1e-4 (K5b:
-   1e-4 × max|ref| per output), bf16 3e-2 (K5b 5e-2 × max|ref|), two K5b
-   runs bitwise equal; timed beside the plain versions and the unfused
-   route (cuDNN phase conv + interleave, and autograd through it) on the
-   same inputs;
+9. holds K5a and K5b (the fused upsample conv and its backward; bf16 on
+   the tensor cores, f32 on the CUDA cores) against their plain versions
+   at the four ucf101_64 levels (N = T·B = 128, and 256 as the fake pass
+   and sampling give it) and the six kinetics_256_48f levels (N = 96; K5a
+   also at the fake pass's 384): f32 atol 1e-4 (K5b: 1e-4 × max|ref| per
+   output), bf16 3e-2 (K5b 5e-2 × max|ref|), two K5b runs bitwise equal;
+   timed beside the plain versions and the unfused route (cuDNN phase conv
+   + interleave, and autograd through it) on the same inputs, each row
+   with its TFLOP/s and ms / library ms;
 10. holds K4 (the single GRU step) against its plain version at the ten
     level shapes (B 16 for ucf101_64, B 2 for kinetics_256_48f), and drives
     the single-step entry `ops.convgru.convgru_cell` over the T steps of
@@ -89,7 +90,8 @@
     route's first reading), and sampling off, on, on, off;
 14. prints one JSON line of the kernels, each with its launches on the
     driven paths and its bound (the larger of bytes over 3.35 TB/s and
-    operations over the peak rate of its type), then the result line.
+    operations over the peak rate of its type; K5a/K5b also their TFLOP/s
+    and ms / library ms over the levels), then the result line.
 
 Cut against earlier versions of this script to stay inside its time limit:
 the train CLI runs share the card instead of running one after the other;
@@ -478,12 +480,20 @@ def ups_bounds(n, h, w, cin, cout, dtype) -> tuple[dict, dict]:
                   + (n_xp + n_wall) * 4, dtype))
 
 
+def rates(row: dict, flops: float) -> dict:
+    """`row` with the kernel's achieved TFLOP/s and its time over the
+    library route's (below 1: the kernel is faster)."""
+    return {**row, "tflops": flops / row["ms"] / 1e9,
+            "vs_library": row["ms"] / row["library_ms"]}
+
+
 def check_k5(device, levels, n: int, dtypes, reps: int = 5,
              bwd: bool = True) -> tuple[list[dict], list[dict]]:
     """K5a and K5b against their plain versions at the upsample convs of
     `levels` with N = `n` frames, timed beside the plain versions and the
     unfused route on the same inputs (cuDNN phase conv + interleave;
-    autograd through it). -> (K5a rows, K5b rows)."""
+    autograd through it), each row with TFLOP/s and ms / library ms.
+    -> (K5a rows, K5b rows)."""
     from dvdgan_tpu_torch.kernels import ups2x_fused as k5
     from dvdgan_tpu_torch.ops import layers
     rows_a, rows_b = [], []
@@ -493,6 +503,7 @@ def check_k5(device, levels, n: int, dtypes, reps: int = 5,
                                     seed=40 + i)
             wall4 = wall.reshape(2, 2, cin, 4 * cout)
             bound_a, bound_b = ups_bounds(n, h, w, cin, cout, dtype)
+            flops = 2 * n * h * w * 16 * cin * cout      # K5a; K5b twice
             ref = k5.ups2x_reference(wall, xp)
             out = k5.ups2x(wall, xp)
             torch.cuda.synchronize()
@@ -507,6 +518,7 @@ def check_k5(device, levels, n: int, dtypes, reps: int = 5,
                    "library_ms": cuda_ms(
                        lambda: layers.phase_conv_interleave(wall4, xp), reps),
                    **bound_a}
+            row = rates(row, flops)
             del ref, out, err
             print("K5a " + json.dumps(row), flush=True)
             if not row["max_abs_err"] <= TOL[dtype]:
@@ -541,6 +553,7 @@ def check_k5(device, levels, n: int, dtypes, reps: int = 5,
                        lambda: torch.autograd.grad(unfused, leaves, g,
                                                    retain_graph=True), reps),
                    **bound_b}
+            row = rates(row, 2 * flops)
             del unfused, leaves
             print("K5b " + json.dumps(row), flush=True)
             bad = [k for k in names if not errs[k] <= K2_TOL[dtype] * scales[k]]
@@ -1282,6 +1295,11 @@ def main() -> int:
         library = [r["library_ms"] for r in bf16 if "library_ms" in r]
         by = {kind: sum(r["bound_ms"] for r in bf16 if r["bound_by"] == kind)
               for kind in ("operations", "bytes")}
+        if all("tflops" in r for r in bf16):
+            extra["tflops"] = (sum(r["tflops"] * r["ms"] for r in bf16)
+                               / sum(r["ms"] for r in bf16))
+            extra["vs_library"] = (sum(r["ms"] for r in bf16)
+                                   / sum(r["library_ms"] for r in bf16))
         return {"name": name, "route": "cuda",
                 "source": f"dvdgan_tpu_torch/kernels/csrc/{source}",
                 "replaces": f"dvdgan_tpu/kernels/{replaces}",
@@ -1344,25 +1362,28 @@ def main() -> int:
               "levels, B=2)", "convgru_cell.cu", "convgru_cell.py:162",
               k4_long, {"cell_unroll": cell_launches_long},
               k4_per_call(k4_long)),
-        entry("ups2x_fused fwd (K5a, bf16, sum of the 4 ucf101_64 levels, "
-              "N=128; fake pass and sampling N=256)", k5_src,
+        entry("ups2x_fused fwd (K5a, bf16 on mma.sync, sum of the 4 "
+              "ucf101_64 levels, N=128; fake pass and sampling N=256)", k5_src,
               "ups2x_fused.py:195", k5a_flag,
               {"sample_fused": sample_fused["k5a"],
                "train_fused": train_fused["k5a"]},
               {"sample_fused": sample_fused["k5a"],
                "train_fused": train_fused["per_step"]["k5a_launches"]},
               also=k5a_flag_fake),
-        entry("ups2x_fused fwd (K5a, bf16, sum of the 6 kinetics_256_48f "
-              "levels, N=96; fake pass N=384)", k5_src, "ups2x_fused.py:195",
+        entry("ups2x_fused fwd (K5a, bf16 on mma.sync, sum of the 6 "
+              "kinetics_256_48f levels, N=96; fake pass N=384)", k5_src,
+              "ups2x_fused.py:195",
               k5a_long, {"longclip_fused": long_fused["k5a"]},
               {"longclip_fused": long_fused["per_step"]["k5a_launches"]},
               also=k5a_long_fake),
-        entry("ups2x_fused bwd (K5b, bf16, sum of the 4 ucf101_64 levels, "
-              "N=128)", k5_src, "ups2x_fused.py:290", k5b_flag,
+        entry("ups2x_fused bwd (K5b, bf16 on mma.sync, sum of the 4 "
+              "ucf101_64 levels, N=128)", k5_src, "ups2x_fused.py:290",
+              k5b_flag,
               {"train_fused": train_fused["k5b"]},
               {"train_fused": train_fused["per_step"]["k5b_launches"]}),
-        entry("ups2x_fused bwd (K5b, bf16, sum of the 6 kinetics_256_48f "
-              "levels, N=96)", k5_src, "ups2x_fused.py:290", k5b_long,
+        entry("ups2x_fused bwd (K5b, bf16 on mma.sync, sum of the 6 "
+              "kinetics_256_48f levels, N=96)", k5_src, "ups2x_fused.py:290",
+              k5b_long,
               {"longclip_fused": long_fused["k5b"]},
               {"longclip_fused": long_fused["per_step"]["k5b_launches"]}),
         entry("attention_spatial (K6a, the fused entry, bf16, sum of its 4 "

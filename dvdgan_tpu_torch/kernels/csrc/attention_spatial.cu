@@ -44,7 +44,8 @@
 // In bf16 the five products with bf16 operands (x Wq, kv Wk, kv Wv, attn v,
 // o Wo) run on the tensor cores: mma.sync.m16n8k16, bf16 operands, f32
 // accumulators, fragments read with ldmatrix from padded shared-memory
-// tiles (row stride = 16 bytes mod 128, so a fragment load is conflict-free).
+// tiles (row stride = 16 bytes mod 128, so a fragment load is conflict-free);
+// the cp.async, ldmatrix and mma helpers are mma_bf16.cuh's (shared with K5).
 // Every B operand is kept "n-major" ([N][K], K contiguous), which is why the
 // wrapper hands over transposed weights and the first launch writes k and v
 // transposed. In f32 (the parity mode, not the fast one) every product is
@@ -66,14 +67,19 @@
 // fetch the next tile under the current one, and a v^T shared across a
 // cluster are left for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using tc::copy_rows_async;
+using tc::cp_async_wait;
+using tc::ldmatrix_x2;
+using tc::ldmatrix_x4;
+using tc::mma_16816;
 
 using bf16 = __nv_bfloat16;
 
@@ -124,28 +130,6 @@ __device__ __forceinline__ float2 load2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// Copies `rows` rows of `cols` elements (cols a multiple of the 16-byte
-// vector) from global src (row stride lsrc) to shared dst (row stride ldst)
-// with cp.async (16 bytes each, past L1). The copy is in flight until
-// cp_async_wait().
-template <typename T>
-__device__ __forceinline__ void copy_rows_async(T* dst, int ldst, const T* src,
-                                                int lsrc, int rows, int cols) {
-  constexpr int V = Traits<T>::kVec;
-  const int cv = cols / V;
-  for (int u = threadIdx.x; u < rows * cv; u += NT) {
-    const int r = u / cv, c = (u - r * cv) * V;
-    const uint32_t d = static_cast<uint32_t>(
-        __cvta_generic_to_shared(dst + (size_t)r * ldst + c));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src + (size_t)r * lsrc + c));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Elementwise max of two 16-byte vectors of T.
 template <typename T>
 __device__ __forceinline__ uint4 vmax(uint4 a, uint4 b) {
@@ -165,34 +149,6 @@ __device__ __forceinline__ uint4 vmax(uint4 a, uint4 b) {
 // (Bt[n][k], row stride ldb), f32 sums, and hands every pair of neighbouring
 // columns to epi(row, col, d[row][col], d[row][col + 1]) (col even), once.
 // M is a multiple of 16, N of 8, K of 16. No synchronisation inside.
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Four (two) 8x8 bf16 matrices from shared memory, one 16-byte row per lane
-// address: lanes 8i .. 8i + 7 give the rows of matrix i; lane l then holds
-// row l / 4, columns 2 (l % 4) and + 1 of each: an mma fragment register.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // One warp: rows [m0, m0 + 16) of D times the n-tiles (8 columns each)
 // nt0 .. nt0 + NB - 1 (those below n_tiles). A and Bt lie in shared memory
@@ -351,8 +307,8 @@ attn_kv_kernel(const T* __restrict__ x, const T* __restrict__ wk_t,
   if constexpr (Traits<T>::kBf16) {
     T* wk_s = kv + (size_t)KT * ld;                 // [c8][ld]
     T* wv_s = wk_s + (size_t)c8 * ld;               // [c2][ld]
-    copy_rows_async(wk_s, ld, wk_t, C, c8, C);
-    copy_rows_async(wv_s, ld, wv_t, C, c2, C);
+    copy_rows_async<NT>(wk_s, ld, wk_t, C, c8, C);
+    copy_rows_async<NT>(wv_s, ld, wv_t, C, c2, C);
     cp_async_wait();
     bk = wk_s;
     bv = wv_s;
@@ -604,7 +560,7 @@ attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wq_t,
   // stage the x tile; in bf16 also Wq^T, then (in flight until attn v needs
   // them) the frame's v^T and a small Wo^T
   K6_MARK_START();
-  copy_rows_async(xs, L.ldx, xq, C, TQ, C);
+  copy_rows_async<NT>(xs, L.ldx, xq, C, TQ, C);
   const T* bq = wq_t;
   const T* bv = vTn;
   const T* bo = wo_t;
@@ -613,10 +569,10 @@ attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wq_t,
     T* wq_s = reinterpret_cast<T*>(smem + L.u);
     T* v_s = reinterpret_cast<T*>(smem + L.v);
     T* wo_s = reinterpret_cast<T*>(smem + L.wo);
-    copy_rows_async(wq_s, L.ldx, wq_t, C, c8, C);
+    copy_rows_async<NT>(wq_s, L.ldx, wq_t, C, c8, C);
     cp_async_wait();
-    copy_rows_async(v_s, L.ldv, vTn, kvn, c2, kvn);
-    if (L.wo_apart) copy_rows_async(wo_s, L.ldo, wo_t, c2, C, c2);
+    copy_rows_async<NT>(v_s, L.ldv, vTn, kvn, c2, kvn);
+    if (L.wo_apart) copy_rows_async<NT>(wo_s, L.ldo, wo_t, c2, C, c2);
     bq = wq_s;
     bv = v_s;
     bo = wo_s;
@@ -671,7 +627,7 @@ attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wq_t,
   K6_MARK(5);
   if constexpr (B) {
     if (!L.wo_apart) {
-      copy_rows_async(const_cast<T*>(bo), L.ldo, wo_t, c2, C, c2);
+      copy_rows_async<NT>(const_cast<T*>(bo), L.ldo, wo_t, c2, C, c2);
       cp_async_wait();
       __syncthreads();
     }

@@ -15,11 +15,14 @@ d(wall) → d(w) is plain autograd); xp is (N, H+2, W+2, Cin); out is
 
 `ups2x(wall, xp, kernel_bwd)` launches the hand-written CUDA kernel K5a
 (`csrc/ups2x_fused.cu`, one launch) for CUDA tensors and takes the plain
-PyTorch version `ups2x_reference` only for CPU tensors. Under autograd it is
-a `torch.autograd.Function` with the reference's `custom_vjp` policy: the
-forward saves wall and xp; with `kernel_bwd` the backward is K5b
-(`ups2x_bwd`: two launches, dxp and dwall accumulated in f32 and cast once),
-without it the backward is autograd through the plain version, recomputed
+PyTorch version `ups2x_reference` only for CPU tensors. In bf16 the kernels
+run their products on the tensor cores, in f32 on the CUDA cores (the
+parity mode); each reads the weights in the layout its body wants
+(`kernel_weights`). Under autograd it is a `torch.autograd.Function` with
+the reference's `custom_vjp` policy: the forward saves wall and xp; with
+`kernel_bwd` the backward is K5b (`ups2x_bwd`: two launches, dxp and dwall
+accumulated in f32 and cast once), without it the backward is autograd
+through the plain version, recomputed
 (the reference's mode "fwd"). The reference gives way to its unfused route
 where a level does not fit the TPU's VMEM; these kernels take every shape,
 and the wrappers raise on what they cannot take.
@@ -98,6 +101,18 @@ def ups2x_bwd_reference(wall: torch.Tensor, xp: torch.Tensor, g: torch.Tensor
     return dwall, dxp
 
 
+def kernel_weights(wall: torch.Tensor, launch: str) -> torch.Tensor:
+    """The weight operand of `launch` ("fwd": K5a; "dx": K5b's dxp) for
+    `wall`'s dtype. The bf16 tensor-core bodies read B n-major ([n][k], k
+    contiguous): K5a wall_t = wall.t() (rows phase·Cout + co, columns
+    tap·Cin + ci), dxp wall itself (rows tap·Cin + ci, columns
+    phase·Cout + co). The f32 bodies read the other two: K5a wall, dxp
+    wall_t."""
+    if (launch == "fwd") == (wall.dtype == torch.bfloat16):
+        return wall.t().contiguous()
+    return wall
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ups2x_fused")
@@ -105,8 +120,8 @@ def _lib() -> ctypes.CDLL:
     lib.ups2x_fwd.argtypes = [i, i, p, p, p, i, i, i, i, i, p]
     lib.ups2x_bwd_dx.argtypes = [i, i, p, p, p, i, i, i, i, i, p]
     lib.ups2x_bwd_dw.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, p]
-    lib.ups2x_dw_blocks.argtypes = [i, i]
-    lib.ups2x_dw_slices.argtypes = [i, i, i, i, i]
+    lib.ups2x_dw_blocks.argtypes = [i, i, i]
+    lib.ups2x_dw_slices.argtypes = [i, i, i, i, i, i]
     for name in ("ups2x_fwd", "ups2x_bwd_dx", "ups2x_bwd_dw",
                  "ups2x_dw_blocks", "ups2x_dw_slices"):
         getattr(lib, name).restype = i
@@ -150,8 +165,9 @@ def _forward(wall: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
         return ups2x_reference(wall, xp)
     lib = _lib()
     out = torch.empty((n, 2 * h, 2 * w, cout), dtype=xp.dtype, device=device)
+    w_fwd = kernel_weights(wall, "fwd")
     err = lib.ups2x_fwd(_DTYPE_CODES[xp.dtype], device_index(device),
-                        xp.data_ptr(), wall.data_ptr(), out.data_ptr(), n, h,
+                        xp.data_ptr(), w_fwd.data_ptr(), out.data_ptr(), n, h,
                         w, cin, cout,
                         torch.cuda.current_stream(device).cuda_stream)
     _check(lib, err, "forward")
@@ -179,15 +195,15 @@ def ups2x_bwd(wall: torch.Tensor, xp: torch.Tensor, g: torch.Tensor
     f32 = dict(dtype=torch.float32, device=device)
     dxp = torch.empty(xp.shape, **f32)
     dwall = torch.empty(wall.shape, **f32)
-    wall_t = wall.t().contiguous()
-    err = lib.ups2x_bwd_dx(code, dev, g.data_ptr(), wall_t.data_ptr(),
+    w_dx = kernel_weights(wall, "dx")
+    err = lib.ups2x_bwd_dx(code, dev, g.data_ptr(), w_dx.data_ptr(),
                            dxp.data_ptr(), n, h, w, cin, cout, stream)
     _check(lib, err, "dxp")
     ups2x_bwd.launches += 1
-    partial = torch.empty((lib.ups2x_dw_slices(n, h, w, cin, cout),
+    partial = torch.empty((lib.ups2x_dw_slices(code, n, h, w, cin, cout),
                            *wall.shape), **f32)
-    counters = torch.zeros(lib.ups2x_dw_blocks(cin, cout), dtype=torch.int32,
-                           device=device)
+    counters = torch.zeros(lib.ups2x_dw_blocks(code, cin, cout),
+                           dtype=torch.int32, device=device)
     err = lib.ups2x_bwd_dw(code, dev, xp.data_ptr(), g.data_ptr(),
                            partial.data_ptr(), dwall.data_ptr(),
                            counters.data_ptr(), n, h, w, cin, cout, stream)

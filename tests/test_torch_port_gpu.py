@@ -583,8 +583,11 @@ def test_convgru_cell_grads_on_card_match_cpu(cuda, hw):
 
 def _ups_inputs(n, h, w, cin, cout, dtype, device, seed=0):
     g = torch.Generator().manual_seed(seed)
-    wall = (0.3 * torch.randn(4 * cin, 4 * cout, generator=g)).to(device,
-                                                                   dtype)
+    # wide levels: unit-gain phase kernels, so |out| stays below 8, where
+    # K5a's bf16 bound (4e-2) is one ulp
+    scale = 0.3 if cin <= 40 else (4 * cin) ** -0.5
+    wall = (scale * torch.randn(4 * cin, 4 * cout, generator=g)).to(device,
+                                                                     dtype)
     x = torch.randn(n, h, w, cin, generator=g).to(device, dtype)
     xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1)).contiguous()
     up = torch.randn(n, 2 * h, 2 * w, cout, generator=g).to(device, dtype)
@@ -595,7 +598,15 @@ UPS_SHAPES = [(3, 4, 4, 8, 4),       # the 4x4 tile, a ragged frame group
               (11, 3, 4, 5, 3),      # odd channels: no whole chunk or group
               (3, 5, 7, 12, 20),     # H != W, the two-frame tile
               (2, 9, 17, 6, 36),     # ragged 8x16 tiles, 2 channel blocks
-              (2, 16, 24, 40, 8)]    # several Cin chunks, 2 blocks of ci
+              (2, 16, 24, 40, 8),    # several Cin chunks, 2 blocks of ci
+              # tensor-core edges: Cin 24 and 40 are not multiples of the
+              # mma's k (16), Cout 12 not of its n (8); Cin and Cout above
+              # one CTA's block (dwall: 64 ci x 32 co; K5a 32 co, dxp 32 ci)
+              (3, 5, 6, 24, 12),
+              (2, 8, 10, 40, 16),
+              (2, 12, 20, 72, 40),
+              (4, 4, 4, 512, 512),   # the long clip's 4x4 512->512 level
+              (2, 128, 128, 64, 32)]  # and its 128x128 64->32 level
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -632,8 +643,8 @@ def test_k5b_kernel_matches_plain_and_repeats_bitwise(cuda, dtype, n, h, w,
 
 
 def test_k5b_many_slices_repeat_bitwise(cuda):
-    """A long reduction (many frames, one block of channels: the dwall
-    launch splits it over ~264 slices) gives the same bits twice."""
+    """A long reduction (many frames, one block of channels: the bf16
+    dwall launch splits it over ~100 slices) gives the same bits twice."""
     wall, xp, up = _ups_inputs(64, 32, 32, 16, 8, torch.bfloat16, cuda)
     first = k5.ups2x_bwd(wall, xp, up)
     second = k5.ups2x_bwd(wall, xp, up)
