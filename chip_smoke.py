@@ -8,8 +8,11 @@
    started together);
 2. holds K1 against its plain PyTorch version at the shapes EMA-G sampling
    gives it (the four ucf101_64 GRU levels, T=16, B=16), in f32 with TF32
-   off (atol 1e-4) and in bf16 (atol 3e-2), and times both (CUDA events,
-   median of 10 runs after warm-up);
+   off (atol 1e-4) and in bf16 (atol 3e-2; tensor cores), and times both
+   (CUDA events, median of 10 runs after warm-up); every K1 and K2 row of
+   this script also has its TFLOP/s, the profiler's device ms of one call
+   beside the event ms, the device µs of each kind of launch and the
+   host's µs per launch;
 3. drives the sample entry (`python -m dvdgan_tpu_torch --mode sample
    --preset ucf101_64 --n_samples 16 --bf16 1`) with the launch counters
    zeroed just before, checks the clip (shape, finite, in [-1, 1]) and that
@@ -35,7 +38,8 @@
    stats moved, launches per step as predicted, peak memory printed;
 5. holds K2 against its plain version at the shapes the flagship step's G
    update gives it (the four levels, T=16, B=8), in f32 with TF32 off (atol
-   1e-4 × max|ref| per output) and in bf16 (5e-2 × max|ref|), timed beside
+   1e-4 × max|ref| per output) and in bf16 (5e-2 × max|ref|), two runs
+   bitwise equal (dgx, dcx, dh0: the ordered split-K sums), timed beside
    its plain version and the plain autograd backward through K1's plain
    version; times flagship train steps/s in bf16 (median of 5 after 2
    warm-ups) and reads the device idle share and the time by kernel from
@@ -50,7 +54,8 @@
    the same shape (the numbers that place the K1/K3 boundary); and K1 (the
    levels `ops/convgru.py` gives it, at B=2 and B=8) and K2 (all six
    levels, B=2) at that preset's shapes against their plain versions, at
-   the tolerances of phases 2 and 5;
+   the tolerances of phases 2 and 5, and prints the device µs of the gate
+   and dh launches at 4²×512 and 8²×512;
 8. holds one f32 long-clip-shaped step (the 256 px schedules at ch 8, T 4,
    batch 2, grad_accum 2, remat on; its 64² and 128² levels go to K3) on
    the card against the CPU, at phase 6's limits;
@@ -67,8 +72,11 @@
     level shapes (B 16 for ucf101_64, B 2 for kinetics_256_48f), and drives
     the single-step entry `ops.convgru.convgru_cell` over the T steps of
     both presets' levels (bf16; 16 steps at B 16, 48 steps at B 2; launch
-    counter zeroed just before): K4 unrolled on K1's own gx/cx equals K1
-    bit for bit, and the entry's sequence agrees with `ops.convgru.convgru`;
+    counter zeroed just before): K4 on K1's own gx/cx and states gives K1's
+    next state, bit for bit where it takes K1's two launches (planes over
+    8×8), within atol 3e-2 where it takes its one launch (CUDA-core sums
+    against K1's tensor cores), and the entry's sequence agrees with
+    `ops.convgru.convgru`;
 11. holds K6a and K6b (the fused spatial attention through its two
     entries) against their plain version at every call of the driven paths
     (K6a: 32²×64 at N = 256 and 128, 32²×256 at N = 384 and 96; K6b: 64²×64
@@ -113,6 +121,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -147,7 +156,8 @@ LONG_STEPS = 2
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 CONVGRU_KERNELS = ("gate_kernel", "cand_kernel", "cand_bwd_kernel",
-                   "drh_kernel", "dh_kernel", "blocked_step_kernel")
+                   "drh_kernel", "dh_kernel", "blocked_step_kernel",
+                   "conv3x3_mma_kernel")
 UPS_KERNELS = ("ups2x_fwd_kernel", "ups2x_dx_kernel", "ups2x_dw_kernel")
 # the upsample conv of each G level: (H, W, Cin, Cout) of its source plane
 UPS_LEVELS = [(4, 4, 256, 256), (8, 8, 256, 128), (16, 16, 128, 64),
@@ -214,22 +224,90 @@ def bound(flops: float, n_bytes: float, dtype) -> dict:
             "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
 
 
+def fwd_flops(t, b, h, w, c) -> float:
+    """K1's and K3's operations: the two hidden-side 3×3 convs per step."""
+    return 2 * 9 * t * b * h * w * c * 3 * c
+
+
+def bwd_flops(t, b, h, w, c) -> float:
+    """K2's operations: the gate and candidate recompute (3C), the two
+    transposed convs (C + 2C) and the two weight gradients (2C + C) per
+    step."""
+    return 2 * 9 * t * b * h * w * c * 9 * c
+
+
 def fwd_bound(t, b, h, w, c, dtype) -> dict:
-    """K1's and K3's function: the two hidden-side 3×3 convs per step;
-    gx, cx, h0 and the weights read once, hs written once."""
+    """K1's and K3's function: gx, cx, h0 and the weights read once, hs
+    written once."""
     px = t * b * h * w
     n_el = px * 3 * c + b * h * w * c + 27 * c * c + px * c
-    return bound(2 * 9 * px * c * 3 * c, n_el * dtype.itemsize, dtype)
+    return bound(fwd_flops(t, b, h, w, c), n_el * dtype.itemsize, dtype)
 
 
 def bwd_bound(t, b, h, w, c, dtype) -> dict:
-    """K2's function: the gate and candidate recompute (3C), the two
-    transposed convs (C + 2C) and the two weight gradients (2C + C) per
-    step; gx, cx, h0, weights, hs and g read, dgx, dcx, dh0, dW written."""
+    """K2's function: gx, cx, h0, weights, hs and g read, dgx, dcx, dh0,
+    dW written."""
     px = t * b * h * w
     n_el = (px * 3 * c + b * h * w * c + 27 * c * c + 2 * px * c
             + px * 3 * c + b * h * w * c + 27 * c * c)
-    return bound(2 * 9 * px * c * 9 * c, n_el * dtype.itemsize, dtype)
+    return bound(bwd_flops(t, b, h, w, c), n_el * dtype.itemsize, dtype)
+
+
+def launch_kind(key: str) -> str:
+    """The launch a ConvGRU kernel name stands for: the epilogue of a
+    tensor-core launch (`conv3x3_mma_kernel<…, GateEpi>`), else the
+    kernel's own name."""
+    found = (re.search(r"(\w+Epi)\b", key)
+             or re.search(r"(\w+_kernel)\s*<", key))
+    return found.group(1) if found else key[:40]
+
+
+def device_view(fn, launches: int, tries: int = 3) -> dict:
+    """One fn() call seen from the device and the host: torch.profiler's
+    device time of all its kernels (ms), the mean device µs of each kind
+    of ConvGRU launch and how many ConvGRU launches the profiler saw; and
+    the host's µs per launch to enqueue the call (host clock from its
+    start to its return, before the synchronize). The profiler traces a
+    warm-up call before the call it keeps, and it can still miss a call's
+    kernels (seen on the H100: 1 of 24 in a session): the call is traced
+    again, up to `tries` times, until it sees all `launches`, else the
+    session that saw most is kept and `profiled_launches` says so."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    best = None
+    for _ in range(tries):
+        kept = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: kept.append(p.key_averages())
+                     ) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        kernels = [e for e in kept[0] if e.device_type == DeviceType.CUDA]
+        kinds, seen = {}, 0
+        for e in kernels:
+            if any(k in e.key for k in CONVGRU_KERNELS):
+                kinds[launch_kind(e.key)] = dev_us(e) / e.count
+                seen += e.count
+        view = {"device_ms": sum(dev_us(e) for e in kernels) / 1e3,
+                "launch_device_us": kinds, "profiled_launches": seen}
+        if best is None or seen > best["profiled_launches"]:
+            best = view
+        if seen >= launches:
+            break
+    return {**best, "host_us_per_launch": host_s * 1e6 / launches}
 
 
 def k1_inputs(h: int, w: int, c: int, dtype, device, seed: int, b: int = B,
@@ -263,7 +341,10 @@ def check_k1(device, levels=LEVELS, t: int = T, b: int = B,
                    "ms": cuda_ms(lambda: k1.gru_sequence_fused(*args), reps),
                    "plain_ms": cuda_ms(
                        lambda: k1.gru_sequence_reference(*args), reps),
-                   **fwd_bound(t, b, h, w, c, dtype)}
+                   **fwd_bound(t, b, h, w, c, dtype),
+                   **device_view(lambda: k1.gru_sequence_fused(*args),
+                                 t * k1.LAUNCHES_PER_STEP)}
+            row["tflops"] = fwd_flops(t, b, h, w, c) / row["ms"] / 1e9
             print("K1 " + json.dumps(row), flush=True)
             if not row["max_abs_err"] <= TOL[dtype]:
                 raise AssertionError(f"K1 disagrees with its plain version: "
@@ -384,22 +465,29 @@ def check_k2(device, levels=LEVELS, t: int = T, b: int = B_TRAIN,
                 20 + i)).to(device, dtype)
             ref = k2.gru_sequence_bwd_reference(*args, hs, g)
             out = k2.gru_sequence_bwd(*args, hs, g)
+            again = k2.gru_sequence_bwd(*args, hs, g)
             torch.cuda.synchronize()
             errs = {n: float((o.float() - r.float()).abs().max())
                     for n, o, r in zip(names, out, ref)}
             scales = {n: float(r.float().abs().max())
                       for n, r in zip(names, ref)}
-            del ref, out
+            # the kernel's own outputs (dW are cuDNN's weight gradients)
+            same = all(torch.equal(o, a) for o, a in zip(out[:3], again[:3]))
+            del ref, out, again
             row = {"dtype": str(dtype).replace("torch.", ""),
                    "shape": [t, b, h, w, c],
                    "max_abs_err": max(errs.values()),
                    "max_rel_err": max(errs[n] / scales[n] for n in names),
+                   "two_runs_bitwise_equal": same,
                    "ms": cuda_ms(lambda: k2.gru_sequence_bwd(*args, hs, g),
                                  reps),
                    "plain_ms": cuda_ms(
                        lambda: k2.gru_sequence_bwd_reference(*args, hs, g),
                        reps),
-                   **bwd_bound(t, b, h, w, c, dtype)}
+                   **bwd_bound(t, b, h, w, c, dtype),
+                   **device_view(lambda: k2.gru_sequence_bwd(*args, hs, g),
+                                 t * k2.LAUNCHES_PER_STEP)}
+            row["tflops"] = bwd_flops(t, b, h, w, c) / row["ms"] / 1e9
             if autograd:
                 # the plain autograd backward through K1's plain version
                 leaves = [a.detach().clone().requires_grad_(True)
@@ -411,10 +499,10 @@ def check_k2(device, levels=LEVELS, t: int = T, b: int = B_TRAIN,
                 del hs_plain, leaves
             print("K2 " + json.dumps(row), flush=True)
             bad = [n for n in names if not errs[n] <= K2_TOL[dtype] * scales[n]]
-            if bad:
+            if bad or not same:
                 raise AssertionError(
-                    f"K2 disagrees with its plain version on {bad}: {errs} "
-                    f"(atol {K2_TOL[dtype]} × {scales})")
+                    f"K2 disagrees with its plain version on {bad} or with "
+                    f"itself: {errs} (atol {K2_TOL[dtype]} × {scales})")
             rows.append(row)
     return rows
 
@@ -733,8 +821,11 @@ def check_k4(device, levels, b: int, reps: int = 10) -> list[dict]:
 
 def drive_cell(device, levels=LEVELS, t: int = T, b: int = B) -> int:
     """The single-step entry over `t` steps at the GRU planes `levels`
-    (bf16, batch `b`): K4 unrolled on K1's own gx/cx must equal K1 bit for bit,
-    and `ops.convgru.convgru_cell` unrolled must agree with
+    (bf16, batch `b`): K4 on K1's own gx/cx and K1's previous state must
+    give K1's next state, bit for bit where K4 takes K1's two launches
+    (planes over 8×8), within K1's atol where it takes its one launch (its
+    CUDA-core sums against K1's tensor cores); and
+    `ops.convgru.convgru_cell` unrolled must agree with
     `ops.convgru.convgru` (their input convs run at other batch sizes, so
     cuDNN may sum them in another order: atol as K1's). -> K4's launches
     in the unroll through the entry."""
@@ -747,12 +838,17 @@ def drive_cell(device, levels=LEVELS, t: int = T, b: int = B) -> int:
         gx, cx, h0, wg, wc = k1_inputs(h, w, c, dtype, device, seed=60 + i,
                                        b=b, t=t)
         hs = k1.gru_sequence_fused(gx, cx, h0, wg, wc)
-        hid = h0
+        one_launch = max(h, w) <= k4.PLANE_MAX
+        step_err = 0.0
         for k in range(t):
-            hid = k4.gru_cell_fused(gx[k], cx[k], hid, wg, wc)
-            if not torch.equal(hid, hs[k]):
-                raise AssertionError(f"K4 unrolled differs from K1 at level "
-                                     f"{(h, w, c)}, step {k}")
+            hid = k4.gru_cell_fused(gx[k], cx[k], h0 if k == 0 else hs[k - 1],
+                                    wg, wc)
+            step_err = max(step_err,
+                           float((hid.float() - hs[k].float()).abs().max()))
+            if not (step_err <= TOL[dtype] if one_launch
+                    else torch.equal(hid, hs[k])):
+                raise AssertionError(f"K4 differs from K1's step at level "
+                                     f"{(h, w, c)}, step {k}: {step_err}")
 
         gen = torch.Generator().manual_seed(70 + i)
         p = convgru.convgru_init(gen, c)
@@ -774,8 +870,10 @@ def drive_cell(device, levels=LEVELS, t: int = T, b: int = B) -> int:
                                  f"{(h, w, c)}, want {want}")
         launches += n
         err = float((torch.stack(outs).float() - seq.float()).abs().max())
-        print(f"cell unroll {(t, b, h, w, c)}: K4 on K1's gx/cx bitwise "
-              f"equal; convgru_cell vs convgru max_abs_err {err:.3e}, "
+        print(f"cell unroll {(t, b, h, w, c)}: K4 on K1's gx/cx and state "
+              + (f"max_abs_err {step_err:.3e} (one launch)" if one_launch
+                 else "bitwise equal (K1's two launches)")
+              + f"; convgru_cell vs convgru max_abs_err {err:.3e}, "
               f"bitwise {torch.equal(torch.stack(outs), seq)}; K4 launches "
               f"{n}", flush=True)
         if not err <= TOL[dtype]:
@@ -1204,6 +1302,13 @@ def main() -> int:
     rows_k3_fake = [r for r in on_path if r["shape"][1] == LONG_B_FAKE]
     rows_k2_long = check_k2(device, LONG_LEVELS, LONG_T, LONG_B, reps=5,
                             autograd=False)
+    # the launches at the 4² and 8² long-clip levels, one at a time
+    print("convgru_launch_device_us " + json.dumps(
+        {f"{name} {r['shape'][2]}x{r['shape'][3]}x{r['shape'][4]} B "
+         f"{r['shape'][1]}": r["launch_device_us"]
+         for name, rows_of in (("K1", rows_long), ("K2", rows_k2_long))
+         for r in rows_of
+         if r["dtype"] == "bfloat16" and r["shape"][2] <= 8}), flush=True)
     res = check_train_f32(device, "long-clip-shaped f32", LONG_F32_ARGV)
     if res["k3_launches"] <= 0:
         raise AssertionError("the long-clip-shaped f32 step launched no K3")
@@ -1298,8 +1403,11 @@ def main() -> int:
         if all("tflops" in r for r in bf16):
             extra["tflops"] = (sum(r["tflops"] * r["ms"] for r in bf16)
                                / sum(r["ms"] for r in bf16))
+        if library and len(library) == len(bf16):
             extra["vs_library"] = (sum(r["ms"] for r in bf16)
-                                   / sum(r["library_ms"] for r in bf16))
+                                   / sum(library))
+        if all("device_ms" in r for r in bf16):
+            extra["device_ms"] = sum(r["device_ms"] for r in bf16)
         return {"name": name, "route": "cuda",
                 "source": f"dvdgan_tpu_torch/kernels/csrc/{source}",
                 "replaces": f"dvdgan_tpu/kernels/{replaces}",

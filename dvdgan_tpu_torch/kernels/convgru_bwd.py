@@ -6,8 +6,10 @@ shapes as in `convgru_seq`; `g` is the upstream gradient of hs. Per
 reversed step it recomputes the gates from h_{t-1} (h0 at t = 0) in f32
 and carries dh from t+1 to t through the two transposed 3×3 convs. It
 launches the hand-written CUDA kernel (`csrc/convgru_bwd.cu`: four launches
-per step) for CUDA tensors, and takes the plain PyTorch version
-`gru_sequence_bwd_reference` only for CPU tensors. Both round to the
+per step; in bf16 implicit GEMMs on the tensor cores run as
+`convgru_seq.plan` says, with one split-K workspace per call) for CUDA
+tensors, and takes the plain PyTorch version `gru_sequence_bwd_reference`
+only for CPU tensors. Both round to the
 activation dtype exactly where the TPU kernel does: rh, da_c (= dcx),
 da_rz (= dgx) and the dh carry, each step.
 
@@ -25,7 +27,7 @@ import torch
 
 from dvdgan_tpu_torch.kernels import _build
 from dvdgan_tpu_torch.kernels.convgru_seq import (
-    _DTYPE_CODES, _conv3x3, _pixel_strides, device_index, validate)
+    _DTYPE_CODES, _conv3x3, _pixel_strides, device_index, mma_args, validate)
 
 
 def _flip_t(w: torch.Tensor) -> torch.Tensor:
@@ -88,13 +90,16 @@ def gru_sequence_bwd_reference(gx, cx, h0, wg, wc, hs, g):
 def _lib() -> ctypes.CDLL:
     lib = _build.load("convgru_bwd")
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    plan_args = [i, i, p, p]          # tile, slices, work, counters
     lib.convgru_bwd_gate_step.argtypes = [i, i, p, p, i64, i64, p, p, p, p,
-                                          i, i, i, i, p]
+                                          i, i, i, i, *plan_args, p]
     lib.convgru_bwd_cand_step.argtypes = [i, i, p, p, i64, i64, p, p, p, p,
-                                          p, p, p, p, i, i, i, i, p]
+                                          p, p, p, p, i, i, i, i, *plan_args,
+                                          p]
     lib.convgru_bwd_drh_step.argtypes = [i, i, p, p, p, p, p, p,
-                                         i, i, i, i, p]
-    lib.convgru_bwd_dh_step.argtypes = [i, i, p, p, p, p, i, i, i, i, p]
+                                         i, i, i, i, *plan_args, p]
+    lib.convgru_bwd_dh_step.argtypes = [i, i, p, p, p, p, i, i, i, i,
+                                        *plan_args, p]
     for name in ("gate", "cand", "drh", "dh"):
         getattr(lib, f"convgru_bwd_{name}_step").restype = i
     lib.convgru_bwd_error_string.argtypes = [i]
@@ -133,31 +138,43 @@ def gru_sequence_bwd(gx, cx, h0, wg, wc, hs, g):
     r, z, dh = (torch.empty((b, hh, ww, c), dtype=torch.float32,
                             device=device) for _ in range(3))
     wgt, wct = _flip_t(wg), _flip_t(wc)
+    plans, _workspace = mma_args(b, hh, ww, c, ("gate", "cand", "drh", "dh"),
+                                 dt, device)
     stream = torch.cuda.current_stream(device).cuda_stream
+    bhwc = (b, hh, ww, c)
+    # device addresses, and the stride of step t's planes, hoisted out of
+    # the loop
+    item = h0.element_size()
+    plane = h0.numel() * item
+    h0_p, hs_p, g_p = h0.data_ptr(), hs.data_ptr(), g.data_ptr()
+    gx_p, gx_t = gx.data_ptr(), gx.stride(0) * item
+    cx_p, cx_t = cx.data_ptr(), cx.stride(0) * item
+    dgx_p, dcx_p, rh_p = dgx.data_ptr(), dcx.data_ptr(), rh_seq.data_ptr()
+    r_p, z_p, dh_p, carry_p = (a.data_ptr() for a in (r, z, dh, carry))
+    wg_p, wc_p, wgt_p, wct_p = (a.data_ptr() for a in (wg, wc, wgt, wct))
     for step in reversed(range(t)):
-        h_prev = h0 if step == 0 else hs[step - 1]
+        h_prev = h0_p if step == 0 else hs_p + (step - 1) * plane
+        rh_t, dcx_t = rh_p + step * plane, dcx_p + step * plane
+        dgx_t = dgx_p + 2 * step * plane
         err = lib.convgru_bwd_gate_step(
-            code, dev, h_prev.data_ptr(), gx[step].data_ptr(), gx_b, gx_pix,
-            wg.data_ptr(), rh_seq[step].data_ptr(), r.data_ptr(),
-            z.data_ptr(), b, hh, ww, c, stream)
+            code, dev, h_prev, gx_p + step * gx_t, gx_b, gx_pix, wg_p, rh_t,
+            r_p, z_p, *bhwc, *plans["gate"], stream)
         _check(lib, err, "gate")
         gru_sequence_bwd.launches += 1
         err = lib.convgru_bwd_cand_step(
-            code, dev, rh_seq[step].data_ptr(), cx[step].data_ptr(), cx_b,
-            cx_pix, wc.data_ptr(), z.data_ptr(), h_prev.data_ptr(),
-            g[step].data_ptr(), carry.data_ptr(), dcx[step].data_ptr(),
-            dgx[step].data_ptr(), dh.data_ptr(), b, hh, ww, c, stream)
+            code, dev, rh_t, cx_p + step * cx_t, cx_b, cx_pix, wc_p, z_p,
+            h_prev, g_p + step * plane, carry_p, dcx_t, dgx_t, dh_p, *bhwc,
+            *plans["cand"], stream)
         _check(lib, err, "candidate")
         gru_sequence_bwd.launches += 1
         err = lib.convgru_bwd_drh_step(
-            code, dev, dcx[step].data_ptr(), wct.data_ptr(), r.data_ptr(),
-            h_prev.data_ptr(), dh.data_ptr(), dgx[step].data_ptr(),
-            b, hh, ww, c, stream)
+            code, dev, dcx_t, wct_p, r_p, h_prev, dh_p, dgx_t, *bhwc,
+            *plans["drh"], stream)
         _check(lib, err, "drh")
         gru_sequence_bwd.launches += 1
         err = lib.convgru_bwd_dh_step(
-            code, dev, dgx[step].data_ptr(), wgt.data_ptr(), dh.data_ptr(),
-            carry.data_ptr(), b, hh, ww, c, stream)
+            code, dev, dgx_t, wgt_p, dh_p, carry_p, *bhwc, *plans["dh"],
+            stream)
         _check(lib, err, "dh")
         gru_sequence_bwd.launches += 1
     dwg, dwc = _weight_grads(h0, hs, rh_seq, dgx, dcx, wg, wc)

@@ -13,9 +13,11 @@ one step of `convgru_seq.gru_sequence_reference`.
 for CPU tensors. The kernel has two forms, chosen from the plane's shape
 (`single_launch`): planes up to 8 × 8 take ONE launch in which a CTA owns a
 batch element's whole plane and keeps r⊙h in shared memory; larger planes
-take K1's gate launch and candidate launch (a CTA cannot wait for its
-neighbours' r⊙h), with r⊙h and z in scratch. No (T, …) sequence buffer is
-made either way.
+take K1's gate launch and candidate launch through K1's library
+(`convgru_seq.Steps`: a CTA cannot wait for its neighbours' r⊙h), with
+r⊙h and z in scratch, so there the step is K1's bit for bit. In bf16 the
+one-launch form sums on the CUDA cores and K1 on the tensor cores, in
+another order. No (T, …) sequence buffer is made either way.
 
 Under autograd the forward saves its inputs and h', and the backward is K2
 at T = 1 (`convgru_bwd.gru_sequence_bwd`). The reference's cell has no
@@ -36,7 +38,7 @@ from dvdgan_tpu_torch.kernels import _build, convgru_bwd
 from dvdgan_tpu_torch.kernels.convgru_blocked import MAX_SMEM_BYTES
 from dvdgan_tpu_torch.kernels.convgru_seq import (
     _DTYPE_CODES, _pixel_strides, device_index, gru_sequence_reference,
-    validate)
+    Steps, validate)
 
 # the one-launch form's CTA holds a whole plane of at most this many rows
 # and columns (its tile, `csrc/convgru_cell.cu`)
@@ -55,12 +57,7 @@ def _lib() -> ctypes.CDLL:
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.convgru_cell_plane_step.argtypes = [i, i, p, p, i64, i64, p, i64, i64,
                                             p, p, p, i, i, i, i, p]
-    lib.convgru_cell_gate_step.argtypes = [i, i, p, p, i64, i64, p, p, p,
-                                           i, i, i, i, p]
-    lib.convgru_cell_cand_step.argtypes = [i, i, p, p, i64, i64, p, p, p, p,
-                                           i, i, i, i, p]
-    for name in ("plane", "gate", "cand"):
-        getattr(lib, f"convgru_cell_{name}_step").restype = i
+    lib.convgru_cell_plane_step.restype = i
     lib.convgru_cell_plane_smem_bytes.argtypes = [i, i, i, i]
     lib.convgru_cell_plane_smem_bytes.restype = i64
     lib.convgru_cell_error_string.argtypes = [i]
@@ -110,20 +107,9 @@ def _forward(gx, cx, h, wg, wc):
         _check(lib, err, "plane")
         gru_cell_fused.launches += 1
         return out
-    rh = torch.empty_like(h)
-    z = torch.empty(h.shape, dtype=torch.float32, device=device)
-    err = lib.convgru_cell_gate_step(code, dev, h.data_ptr(), gx.data_ptr(),
-                                     gx_b, gx_pix, wg.data_ptr(),
-                                     rh.data_ptr(), z.data_ptr(), b, hh, ww,
-                                     c, stream)
-    _check(lib, err, "gate")
-    gru_cell_fused.launches += 1
-    err = lib.convgru_cell_cand_step(code, dev, rh.data_ptr(), cx.data_ptr(),
-                                     cx_b, cx_pix, wc.data_ptr(),
-                                     z.data_ptr(), h.data_ptr(),
-                                     out.data_ptr(), b, hh, ww, c, stream)
-    _check(lib, err, "candidate")
-    gru_cell_fused.launches += 1
+    Steps(gx5, cx5, h, wg, wc, device).run(
+        gru_cell_fused, h.data_ptr(), gx.data_ptr(), cx.data_ptr(),
+        out.data_ptr())
     return out
 
 

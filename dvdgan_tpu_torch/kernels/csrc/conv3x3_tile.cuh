@@ -1,8 +1,10 @@
-// Shared pieces of the ConvGRU kernels (K1 forward, convgru_seq.cu; K2
-// backward, convgru_bwd.cu; K3 blocked forward, convgru_blocked.cu; K4
-// single step, convgru_cell.cu): f32/bf16 conversion, the CTA tile shapes, a
-// SAME 3x3 conv over one CTA's tile accumulated in registers, the gate launch
-// that K1, K4 and K2's recompute run, and the candidate launch of K1 and K4.
+// Shared pieces of the ConvGRU kernels: f32/bf16 conversion, the blend,
+// the CUDA-core CTA tile shapes, a SAME 3x3 conv over one CTA's tile
+// accumulated in registers (f32 FMAs on staged f32 copies of the operands),
+// and the gate and candidate launches built on it. K3 (convgru_blocked.cu)
+// and K4's one-launch form (convgru_cell.cu) run this body in both dtypes;
+// K1 (convgru_seq.cu) and K2 (convgru_bwd.cu) run it only in f32, their
+// parity mode: in bf16 they run the tensor-core body of conv3x3_mma.cuh.
 //
 // Layouts (channels-last, as the reference): a plane is (H, W, Ch) with
 // pixel stride `pix` (>= Ch) and unit channel stride; weights are HWIO
@@ -286,19 +288,8 @@ int cand_launch(const void* rh, const void* cx, int64_t cx_bstride,
 
 }  // namespace convgru
 
-// Returns LAUNCH<TL, T>(args...) for the tile that fits the H x W plane and
-// the element type `dtype` (0 = float32, 1 = bfloat16) on `device`: the
-// CUDA error code of the launch (0 = launched).
-#define CONVGRU_DISPATCH(dtype, device, H, W, LAUNCH, ...)                    \
-  do {                                                                        \
-    const cudaError_t e_ = cudaSetDevice(device);                             \
-    if (e_ != cudaSuccess) return static_cast<int>(e_);                       \
-    const bool small_ = convgru::small_plane(H, W);                           \
-    if ((dtype) == 0)                                                         \
-      return small_ ? LAUNCH<convgru::TileSmall, float>(__VA_ARGS__)          \
-                    : LAUNCH<convgru::TileWide, float>(__VA_ARGS__);          \
-    if ((dtype) == 1)                                                         \
-      return small_ ? LAUNCH<convgru::TileSmall, __nv_bfloat16>(__VA_ARGS__)  \
-                    : LAUNCH<convgru::TileWide, __nv_bfloat16>(__VA_ARGS__);  \
-    return static_cast<int>(cudaErrorInvalidValue);                           \
-  } while (0)
+// LAUNCH<TL, float>(args...) for the CUDA-core tile that fits the H x W
+// plane: the CUDA error code of the launch (0 = launched).
+#define CONVGRU_F32(H, W, LAUNCH, ...)                                        \
+  (convgru::small_plane(H, W) ? LAUNCH<convgru::TileSmall, float>(__VA_ARGS__) \
+                              : LAUNCH<convgru::TileWide, float>(__VA_ARGS__))

@@ -21,35 +21,44 @@
 // conv. The weight gradients are conv weight-grads over the folded T*B
 // batch, outside this kernel, as in the reference.
 //
-// Design: the TPU kernel keeps one whole plane per batch block in VMEM and
-// walks T in one grid (<= 16 CTAs on 132 SMs). Here each step is four
-// launches on the caller's stream, driven by a host loop over reversed T,
-// because each 3x3 conv needs the whole plane its input was written to in
-// the same step (a halo):
-//   1. gate:  K1's gate launch (conv3x3_tile.cuh), which also writes r;
-//             writes r, z (f32 scratch) and rh[t];
+// Each step is four launches on the caller's stream, driven by a host loop
+// over reversed T, because each 3x3 conv needs the whole plane its input
+// was written to in the same step (a halo):
+//   1. gate:  K1's gate launch, which also writes r; writes r, z (f32
+//             scratch) and rh[t];
 //   2. cand:  conv3x3(rh[t], wc) -> cand; writes dcx[t], the da_z half of
 //             dgx[t] and the partial dh = gt*(1-z) (f32 scratch);
 //   3. drh:   conv3x3(dcx[t], flip_t(wc)) -> drh; writes the da_r half of
 //             dgx[t] and adds drh*r to the partial dh;
 //   4. dh:    conv3x3(dgx[t], flip_t(wg)) over 2C input channels; writes
 //             the rounded carry.
-// Every launch uses K1's CTA tiles and CUDA-core FMAs. What bounds it is
-// what bounds K1 (staging latency at the 4x4 and 8x8 levels, FMA rate at
-// 32x32), with twice K1's conv work per step: 9*C*(2C + C + C + 2C) MACs
-// per pixel. The carry, the f32 scratch planes and the weights stay in
-// the 50 MB L2 between launches.
+//
+// bf16: every launch is the implicit GEMM on the tensor cores of
+// conv3x3_mma.cuh (M = the step's B*H*W pixels; N = 2C for the gate, C for
+// the others; K = 9C, 9*2C for dh), its step of the math above as the
+// epilogue. What bounds it on the H100 is what bounds K1 (convgru_seq.cu),
+// with twice K1's conv work per step, 9*C*(2C + C + C + 2C) MACs per pixel:
+// operations at 16x16 and up; at the 4x4 and 8x8 planes reading the
+// weights (flip_t(wg) is 4.7 MB at C 512) and the latency of four dependent
+// launches a step, where the plan cuts each contraction into slices so
+// that a launch has at least 132 CTAs and reads each weight once, the last
+// CTA of a tile adding the slices' f32 partial sums in order (two runs give
+// the same bits). The carry, the f32 scratch planes and the weights stay
+// in the 50 MB L2 between launches. f32 (the parity mode): the CUDA-core
+// body of conv3x3_tile.cuh on K1's tiles.
 //
 // Layouts: h0, hs, g, rh, dcx, dgx, the carry and the scratch planes are
 // contiguous (B, H, W, Ch) per step; gx/cx are read at pixel stride `pix`
 // and batch stride `bstride` (channel slices, or a stride-0-in-T
-// broadcast), as in K1.
+// broadcast), as in K1. flip_t(w) is HWIO like w.
 
-#include "conv3x3_tile.cuh"
+#include "conv3x3_mma.cuh"
 
 namespace {
 
 using namespace convgru;
+
+// ---- f32: the CUDA-core launches (conv3x3_tile.cuh's body) ---------------
 
 // grid: grid_for<TL>(B, H, W, C)
 template <class TL, typename T>
@@ -162,21 +171,118 @@ int dh_launch(const void* dgx, const void* wgt, const float* dh, void* carry,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16: the epilogues of the tensor-core launches (conv3x3_mma.cuh) ---
+
+using convgru_tc::bf16;
+
+// 2. cand: a = conv3x3(rh, wc) at (q, n); writes dcx, da_z, partial dh.
+struct CandBwdEpi {
+  const bf16* cx;
+  int64_t cx_bstride, cx_pix;
+  const float* z;
+  const bf16* h_prev;
+  const bf16* g;
+  const bf16* carry;
+  bf16* dcx;
+  bf16* dgx;
+  float* dh;
+  int C;
+  struct In {
+    float cx, z, h, gt;
+  };
+  __device__ __forceinline__ In load(int64_t q, int b, int64_t p,
+                                     int n) const {
+    const int64_t o = q * C + n;
+    return {to_f(cx[b * cx_bstride + p * cx_pix + n]), z[o], to_f(h_prev[o]),
+            to_f(g[o]) + to_f(carry[o])};
+  }
+  __device__ __forceinline__ void store(int64_t q, int n, const In& in,
+                                        float a) const {
+    const int64_t o = q * C + n;
+    const float cand = tanhf(in.cx + a);
+    dcx[o] = from_f<bf16>(in.gt * in.z * (1.f - cand * cand));
+    dgx[q * 2 * C + C + n] =
+        from_f<bf16>(in.gt * (cand - in.h) * in.z * (1.f - in.z));
+    dh[o] = in.gt * (1.f - in.z);
+  }
+};
+
+// 3. drh: a = conv3x3(dcx, flip_t(wc)); writes da_r, adds drh*r to dh.
+struct DrhEpi {
+  const float* r;
+  const bf16* h_prev;
+  float* dh;
+  bf16* dgx;
+  int C;
+  struct In {
+    float r, h, dh;
+  };
+  __device__ __forceinline__ In load(int64_t q, int, int64_t, int n) const {
+    const int64_t o = q * C + n;
+    return {r[o], to_f(h_prev[o]), dh[o]};
+  }
+  __device__ __forceinline__ void store(int64_t q, int n, const In& in,
+                                        float drh) const {
+    dh[q * C + n] = in.dh + drh * in.r;
+    dgx[q * 2 * C + n] = from_f<bf16>(drh * in.h * in.r * (1.f - in.r));
+  }
+};
+
+// 4. dh: a = conv3x3(dgx, flip_t(wg)); writes the rounded carry.
+struct DhEpi {
+  const float* dh;
+  bf16* carry;
+  int C;
+  struct In {
+    float dh;
+  };
+  __device__ __forceinline__ In load(int64_t q, int, int64_t, int n) const {
+    return {dh[q * C + n]};
+  }
+  __device__ __forceinline__ void store(int64_t q, int n, const In& in,
+                                        float a) const {
+    carry[q * C + n] = from_f<bf16>(in.dh + a);
+  }
+};
+
+template <typename T>
+const T* cp(const void* p) {
+  return static_cast<const T*>(p);
+}
+template <typename T>
+T* mp(void* p) {
+  return static_cast<T*>(p);
+}
+
 }  // namespace
 
-// Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// Each function makes ONE launch on `stream` (a cudaStream_t) and returns
-// cudaGetLastError() right after it (0 = launched). Pointers other than
-// gx/cx address step t's contiguous (B, H, W, Ch) planes.
+// Plain C interface, loaded with ctypes. dtype: 0 = float32 (CUDA-core
+// body), 1 = bfloat16 (tensor cores, run as the plan (tile, slices) says;
+// `work` and `counters` are the plan's split-K scratch, shared by the four
+// launches, counters zero before the call's first launch, both unused with
+// one slice). Each function makes ONE launch on `stream` (a cudaStream_t)
+// and returns cudaGetLastError() right after it (0 = launched). Pointers
+// other than gx/cx address step t's contiguous (B, H, W, Ch) planes.
 extern "C" {
 
 int convgru_bwd_gate_step(int dtype, int device, const void* h_prev,
                           const void* gx, int64_t gx_bstride, int64_t gx_pix,
                           const void* wg, void* rh, float* r, float* z, int B,
-                          int H, int W, int C, void* stream) {
-  CONVGRU_DISPATCH(dtype, device, H, W, convgru::gate_launch, h_prev, gx,
-                   gx_bstride, gx_pix, wg, rh, z, r, B, H, W, C,
-                   static_cast<cudaStream_t>(stream));
+                          int H, int W, int C, int tile, int slices,
+                          float* work, void* counters, void* stream) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return convgru_tc::conv3x3_mma(
+        tile, h_prev, wg, B, H, W, C, 2 * C, slices, work, counters,
+        convgru_tc::GateEpi{cp<bf16>(h_prev), cp<bf16>(gx), gx_bstride,
+                            gx_pix, mp<bf16>(rh), z, r, C},
+        s);
+  if (dtype == 0)
+    return CONVGRU_F32(H, W, convgru::gate_launch, h_prev, gx, gx_bstride,
+                       gx_pix, wg, rh, z, r, B, H, W, C, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int convgru_bwd_cand_step(int dtype, int device, const void* rh,
@@ -184,25 +290,56 @@ int convgru_bwd_cand_step(int dtype, int device, const void* rh,
                           const void* wc, const float* z, const void* h_prev,
                           const void* g, const void* carry, void* dcx,
                           void* dgx, float* dh, int B, int H, int W, int C,
+                          int tile, int slices, float* work, void* counters,
                           void* stream) {
-  CONVGRU_DISPATCH(dtype, device, H, W, cand_bwd_launch, rh, cx, cx_bstride,
-                   cx_pix, wc, z, h_prev, g, carry, dcx, dgx, dh, B, H, W, C,
-                   static_cast<cudaStream_t>(stream));
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return convgru_tc::conv3x3_mma(
+        tile, rh, wc, B, H, W, C, C, slices, work, counters,
+        CandBwdEpi{cp<bf16>(cx), cx_bstride, cx_pix, z, cp<bf16>(h_prev),
+                   cp<bf16>(g), cp<bf16>(carry), mp<bf16>(dcx), mp<bf16>(dgx),
+                   dh, C},
+        s);
+  if (dtype == 0)
+    return CONVGRU_F32(H, W, cand_bwd_launch, rh, cx, cx_bstride, cx_pix, wc,
+                       z, h_prev, g, carry, dcx, dgx, dh, B, H, W, C, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int convgru_bwd_drh_step(int dtype, int device, const void* dcx,
                          const void* wct, const float* r, const void* h_prev,
                          float* dh, void* dgx, int B, int H, int W, int C,
+                         int tile, int slices, float* work, void* counters,
                          void* stream) {
-  CONVGRU_DISPATCH(dtype, device, H, W, drh_launch, dcx, wct, r, h_prev, dh,
-                   dgx, B, H, W, C, static_cast<cudaStream_t>(stream));
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return convgru_tc::conv3x3_mma(
+        tile, dcx, wct, B, H, W, C, C, slices, work, counters,
+        DrhEpi{r, cp<bf16>(h_prev), dh, mp<bf16>(dgx), C}, s);
+  if (dtype == 0)
+    return CONVGRU_F32(H, W, drh_launch, dcx, wct, r, h_prev, dh, dgx, B, H,
+                       W, C, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int convgru_bwd_dh_step(int dtype, int device, const void* dgx,
                         const void* wgt, const float* dh, void* carry, int B,
-                        int H, int W, int C, void* stream) {
-  CONVGRU_DISPATCH(dtype, device, H, W, dh_launch, dgx, wgt, dh, carry, B, H,
-                   W, C, static_cast<cudaStream_t>(stream));
+                        int H, int W, int C, int tile, int slices,
+                        float* work, void* counters, void* stream) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return convgru_tc::conv3x3_mma(tile, dgx, wgt, B, H, W, 2 * C, C, slices,
+                                   work, counters,
+                                   DhEpi{dh, mp<bf16>(carry), C}, s);
+  if (dtype == 0)
+    return CONVGRU_F32(H, W, dh_launch, dgx, wgt, dh, carry, B, H, W, C, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* convgru_bwd_error_string(int code) {

@@ -9,9 +9,8 @@
 //   ch = conv3x3(rh, wc)                 f32 accumulate
 //   h' = (1 - z) h + z tanh(cx + ch)     f32, rounded once
 //
-// One step, no (T, ...) buffers. Both 3x3 convs run in these kernels' bodies
-// on the register-tile routine of conv3x3_tile.cuh (CUDA-core FMAs). Two
-// forms, chosen by the wrapper from the plane's shape:
+// One step, no (T, ...) buffers. Two forms, chosen by the wrapper from the
+// plane's shape:
 //   * planes up to 8 x 8 (cell_plane_kernel, ONE launch): a CTA owns one
 //     batch element's whole plane with all C channels, as the TPU kernel's
 //     block does. Phase A computes the reset half of the gate conv and
@@ -19,10 +18,13 @@
 //     block of output channels, runs the update half of the gate conv (from
 //     h) and the candidate conv (from the shared r*h plane, whose SAME
 //     padding is the plane's own border) into two register accumulators and
-//     blends. r*h and z never reach global memory.
-//   * larger planes: K1's gate launch then its candidate launch (the
-//     kernels of conv3x3_tile.cuh, built into this library), r*h and z
-//     through global scratch: a CTA cannot wait for its neighbours' r*h.
+//     blends. r*h and z never reach global memory. Both convs run on the
+//     register-tile routine of conv3x3_tile.cuh (CUDA-core FMAs), so in
+//     bf16 its sums are taken in another order than K1's tensor cores.
+//   * larger planes: K1's gate launch then its candidate launch, made by
+//     the wrapper through K1's library (convgru_seq.cu: tensor cores in
+//     bf16), r*h and z through global scratch: a CTA cannot wait for its
+//     neighbours' r*h. So there K4's step is K1's, bit for bit.
 //
 // What bounds it on the H100: operations, 9*C*3C MACs per pixel. The
 // one-launch form has only B CTAs (one per batch element), so at the
@@ -183,27 +185,6 @@ int64_t convgru_cell_plane_smem_bytes(int dtype, int H, int W, int C) {
   return static_cast<int64_t>(
       small ? plane_smem_bytes<PlaneSmall, __nv_bfloat16>(H, W, C)
             : plane_smem_bytes<PlaneWide, __nv_bfloat16>(H, W, C));
-}
-
-// The two-launch form, K1's step: the gate launch writes r*h and z ...
-int convgru_cell_gate_step(int dtype, int device, const void* h, const void* gx,
-                           int64_t gx_bstride, int64_t gx_pix, const void* wg,
-                           void* rh, float* z, int B, int H, int W, int C,
-                           void* stream) {
-  CONVGRU_DISPATCH(dtype, device, H, W, convgru::gate_launch, h, gx,
-                   gx_bstride, gx_pix, wg, rh, z, nullptr, B, H, W, C,
-                   static_cast<cudaStream_t>(stream));
-}
-
-// ... and the candidate launch reads them and writes h_out.
-int convgru_cell_cand_step(int dtype, int device, const void* rh,
-                           const void* cx, int64_t cx_bstride, int64_t cx_pix,
-                           const void* wc, const float* z, const void* h_prev,
-                           void* h_out, int B, int H, int W, int C,
-                           void* stream) {
-  CONVGRU_DISPATCH(dtype, device, H, W, convgru::cand_launch, rh, cx,
-                   cx_bstride, cx_pix, wc, z, h_prev, h_out, B, H, W, C,
-                   static_cast<cudaStream_t>(stream));
 }
 
 const char* convgru_cell_error_string(int code) {

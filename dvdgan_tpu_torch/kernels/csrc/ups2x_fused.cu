@@ -28,7 +28,7 @@
 //    tiles whose row stride is 16 bytes mod 128 (conflict-free). A shifted
 //    or strided window costs nothing: each lane hands ldmatrix its own row
 //    address, so one staged patch serves every tap. Building blocks:
-//    mma_bf16.cuh (shared with K6).
+//    mma_bf16.cuh (shared with K6, K1 and K2).
 //  * f32 (the parity mode): FMAs on the CUDA cores, the body of the first
 //    port. Tensor cores with f32 operands would mean TF32, which loses
 //    bits. A bf16 CUDA tensor always gets the tensor-core body.
@@ -370,20 +370,6 @@ __device__ __forceinline__ void dx_cuda_core(const float* __restrict__ g,
   }
 }
 
-// The last CTA of a dwall block to finish (counter per block) sees every
-// slice's partial sums; it adds them in slice order.
-__device__ __forceinline__ bool last_of_block(unsigned int* counters,
-                                              int slices) {
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    last = atomicAdd(&counters[blockIdx.x], 1u) == (unsigned int)(slices - 1);
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
-}
-
 // K5b dwall, f32.
 constexpr int DWB = 32;           // a CTA's block of ci and of co
 constexpr int DW_TARGET = 264;    // CTAs a launch aims at: two per SM
@@ -484,7 +470,7 @@ __device__ __forceinline__ void dw_cuda_core(
         const int64_t o = index(tap, c, d);
         if (o >= 0) mine[o] = acc[tap][c][d];
       }
-  if (!last_of_block(counters, slices)) return;
+  if (!tc::last_to_arrive(counters + blockIdx.x, slices)) return;
 #pragma unroll 1
   for (int tap = 0; tap < 4; ++tap)
     for (int c = 0; c < 4; ++c)
@@ -507,76 +493,6 @@ constexpr int TC_NT = 128;               // threads per CTA: four warps
 
 template <typename T>
 constexpr int threads_for = kTC<T> ? TC_NT : NT;
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// Stages one step of a contraction: `rows` rows of KCH bf16 channels into
-// dst (row stride LD). Row r's channels start at row_src(r) (nullptr: a
-// zero row) and exist below `left`; past it they are zero. With `vec`
-// (every row start 16-byte aligned, `left` a multiple of 8) as 16-byte
-// cp.async copies, in flight until the pipeline waits; else as plain loads
-// and stores (channel counts that are not multiples of 8).
-template <int KCH, int LD, class RowSrc>
-__device__ __forceinline__ void stage_tc(bf16* dst, int rows, int left,
-                                         bool vec, const bf16* base,
-                                         RowSrc row_src) {
-  if (vec) {
-    constexpr int V = KCH / 8;
-    for (int u = threadIdx.x; u < rows * V; u += TC_NT) {
-      const int r = u / V, c = (u % V) * 8;
-      const bf16* s = row_src(r);
-      const bool ok = s != nullptr && c < left;
-      tc::cp_async_16(dst + r * LD + c, ok ? s + c : base, ok);
-    }
-  } else {
-    for (int u = threadIdx.x; u < rows * KCH; u += TC_NT) {
-      const int r = u / KCH, c = u % KCH;
-      const bf16* s = row_src(r);
-      dst[r * LD + c] = s != nullptr && c < left ? s[c] : __float2bfloat16(0.f);
-    }
-  }
-}
-
-// The contraction's main loop, STAGES buffers deep: load(step, buffer)
-// stages a step (its copies form one cp.async group), compute(buffer) uses
-// one. The next STAGES - 1 steps are in flight while one is computed.
-template <int STAGES, class Load, class Compute>
-__device__ __forceinline__ void pipeline(int steps, Load&& load,
-                                         Compute&& compute) {
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < steps) load(s, s);
-    tc::cp_async_commit();
-  }
-#pragma unroll 1
-  for (int it = 0; it < steps; ++it) {
-    const int next = it + STAGES - 1;
-    if (next < steps) load(next, next % STAGES);
-    tc::cp_async_commit();
-    tc::cp_async_wait_pending<STAGES - 1>();
-    __syncthreads();
-    compute(it % STAGES);
-    __syncthreads();
-  }
-}
-
-// Accumulator tiles [M][N][4] of a warp. The tensor cores add each mma's
-// products to its f32 accumulator with a rounding of their own, and over a
-// long chain (K5b: up to 512 mmas) that drifts from round-to-nearest sums
-// (past the GPU tests' 1e-5 x max|ref| at 4x4, 512 -> 512). So K5b sums
-// each step of its contraction in a fresh tile and adds that to the total
-// with plain f32 adds (PROMOTE); K5a's rounding to bf16 hides the drift.
-#define ZERO(a, M, N)                                                         \
-  _Pragma("unroll") for (int i_ = 0; i_ < (M); ++i_)                          \
-  _Pragma("unroll") for (int j_ = 0; j_ < (N); ++j_)                          \
-  _Pragma("unroll") for (int e_ = 0; e_ < 4; ++e_) (a)[i_][j_][e_] = 0.f
-#define PROMOTE(acc, part, M, N)                                              \
-  _Pragma("unroll") for (int i_ = 0; i_ < (M); ++i_)                          \
-  _Pragma("unroll") for (int j_ = 0; j_ < (N); ++j_)                          \
-  _Pragma("unroll") for (int e_ = 0; e_ < 4; ++e_)                            \
-      (acc)[i_][j_][e_] += (part)[i_][j_][e_]
 
 // K5a, bf16. grid: grid_for<TL>(N, H, W, Cout) (32 channels a CTA).
 constexpr int FKC = 32, FLD = FKC + 8;   // channels a step; row stride 80 B
@@ -603,7 +519,7 @@ __device__ __forceinline__ void fwd_tensor_core(
   const int HP = H + 2, WP = W + 2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const bool vec = Cin % 8 == 0 && aligned16(xp) && aligned16(wall_t);
+  const bool vec = Cin % 8 == 0 && tc::aligned16(xp) && tc::aligned16(wall_t);
 
   // ldmatrix rows of this lane: A, pixel 32 warp + 16 mt + lane % 16 of the
   // patch (channels + 8 for lanes 16-31); B, row lane % 8 (+ 8 for lanes
@@ -620,14 +536,14 @@ __device__ __forceinline__ void fwd_tensor_core(
 
   float acc[4][2][4][4];     // [phase][m-tile][n-tile][fragment]
 #pragma unroll
-  for (int ph = 0; ph < 4; ++ph) ZERO(acc[ph], 2, 4);
+  for (int ph = 0; ph < 4; ++ph) tc::zero(acc[ph]);
 
   auto load = [&](int step, int buf) {
     const int ci0 = step * FKC;
     bf16* xs = smem + buf * L::STAGE;
     bf16* ws = xs + L::PATCH * FLD;
-    stage_tc<FKC, FLD>(xs, L::PATCH, Cin - ci0, vec, xp,
-                       [&](int r) -> const bf16* {
+    tc::stage_rows<TC_NT, FKC, FLD>(xs, L::PATCH, Cin - ci0, vec, xp,
+        [&](int r) -> const bf16* {
       const int xx = r % TL::HW, yy = (r / TL::HW) % TL::HH;
       const int n = at.n0 + r / (TL::HW * TL::HH);
       const int y = at.y0 + yy, x = at.x0 + xx;
@@ -635,15 +551,15 @@ __device__ __forceinline__ void fwd_tensor_core(
                  ? xp + (((int64_t)n * HP + y) * WP + x) * Cin + ci0
                  : nullptr;
     });
-    stage_tc<FKC, FLD>(ws, L::WROWS, Cin - ci0, vec, wall_t,
-                       [&](int r) -> const bf16* {
+    tc::stage_rows<TC_NT, FKC, FLD>(ws, L::WROWS, Cin - ci0, vec, wall_t,
+        [&](int r) -> const bf16* {
       const int co = co0 + r % OCB, s = r / OCB;     // s = tap * 4 + phase
       return co < Cout ? wall_t + (int64_t)((s & 3) * Cout + co) * (4 * Cin) +
                              (s >> 2) * Cin + ci0
                        : nullptr;
     });
   };
-  auto compute = [&](int buf) {
+  auto compute = [&](int, int buf) {
     const bf16* xs = smem + buf * L::STAGE;
     const bf16* ws = xs + L::PATCH * FLD;
 #pragma unroll
@@ -682,7 +598,7 @@ __device__ __forceinline__ void fwd_tensor_core(
         }
     }
   };
-  pipeline<2>((Cin + FKC - 1) / FKC, load, compute);
+  tc::pipeline<2>((Cin + FKC - 1) / FKC, load, compute);
 
   // round once into an interleaved output tile [f][2TH][2TW][OLD], then
   // whole 16-byte vectors of its rows to `out`
@@ -705,7 +621,7 @@ __device__ __forceinline__ void fwd_tensor_core(
       }
   __syncthreads();
   constexpr int OW = 2 * TL::TW, OH = 2 * TL::TH, OV = OCB / 8;
-  const bool ovec = Cout % 8 == 0 && aligned16(out);
+  const bool ovec = Cout % 8 == 0 && tc::aligned16(out);
   for (int u = threadIdx.x; u < TL::TF * OH * OW * OV; u += TC_NT) {
     const int v = u % OV, pix = u / OV;
     const int ox = pix % OW, oy = (pix / OW) % OH, n = at.n0 + pix / (OW * OH);
@@ -746,7 +662,7 @@ __device__ __forceinline__ void dx_tensor_core(
   const int ci0 = blockIdx.y * OCB;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, t = lane & 3;
-  const bool vec = Cout % 8 == 0 && aligned16(g) && aligned16(wall);
+  const bool vec = Cout % 8 == 0 && tc::aligned16(g) && tc::aligned16(wall);
 
   // A: padded pixel (f, ry, rx) at offset (dr, dc) reads g patch row
   // 2 ry + 3 - dr, column 2 rx + 3 - dc, which lies in the column half of
@@ -761,14 +677,14 @@ __device__ __forceinline__ void dx_tensor_core(
   const int b_row = ((lane >> 4) * 8 + (lane & 7)) * XLD + ((lane >> 3) & 1) * 8;
 
   float acc[2][4][4];        // [m-tile][n-tile][fragment]
-  ZERO(acc, 2, 4);
+  tc::zero(acc);
 
   auto load = [&](int step, int buf) {
     const int co0 = step * XKC;
     bf16* gs = smem + buf * L::STAGE;
     bf16* ws = gs + L::GROWS * XLD;
-    stage_tc<XKC, XLD>(gs, L::GROWS, Cout - co0, vec, g,
-                       [&](int r) -> const bf16* {
+    tc::stage_rows<TC_NT, XKC, XLD>(gs, L::GROWS, Cout - co0, vec, g,
+        [&](int r) -> const bf16* {
       const int c = r % GW, yy = (r / GW) % GH;
       const int n = at.n0 + r / (GW * GH);
       const int xx = 2 * (c % HALF) + c / HALF;
@@ -777,19 +693,19 @@ __device__ __forceinline__ void dx_tensor_core(
                  ? g + (((int64_t)n * 2 * H + gy) * 2 * W + gx) * Cout + co0
                  : nullptr;
     });
-    stage_tc<XKC, XLD>(ws, L::WROWS, Cout - co0, vec, wall,
-                       [&](int r) -> const bf16* {
+    tc::stage_rows<TC_NT, XKC, XLD>(ws, L::WROWS, Cout - co0, vec, wall,
+        [&](int r) -> const bf16* {
       const int ci = ci0 + r % OCB, s = r / OCB;     // s = tap * 4 + phase
       return ci < Cin ? wall + ((int64_t)(s >> 2) * Cin + ci) * (4 * Cout) +
                             (s & 3) * Cout + co0
                       : nullptr;
     });
   };
-  auto compute = [&](int buf) {
+  auto compute = [&](int, int buf) {
     const bf16* gs = smem + buf * L::STAGE;
     const bf16* ws = gs + L::GROWS * XLD;
-    float part[2][4][4];     // this step's sums (see ZERO / PROMOTE)
-    ZERO(part, 2, 4);
+    float part[2][4][4];     // this step's sums (see tc::promote)
+    tc::zero(part);
 #pragma unroll
     for (int dr = 0; dr < 4; ++dr)
 #pragma unroll
@@ -812,9 +728,9 @@ __device__ __forceinline__ void dx_tensor_core(
           }
         }
       }
-    PROMOTE(acc, part, 2, 4);
+    tc::promote(acc, part);
   };
-  pipeline<2>((Cout + XKC - 1) / XKC, load, compute);
+  tc::pipeline<2>((Cout + XKC - 1) / XKC, load, compute);
 
   const bool pair = Cin % 2 == 0;
 #pragma unroll
@@ -879,8 +795,8 @@ __device__ __forceinline__ void dw_tensor_core(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;   // warp = tap
   const int gq = lane >> 2, t = lane & 3;
   const int ta = warp >> 1, tb = warp & 1;
-  const bool vec = Cin % 8 == 0 && Cout % 8 == 0 && aligned16(xp) &&
-                   aligned16(g);
+  const bool vec = Cin % 8 == 0 && Cout % 8 == 0 && tc::aligned16(xp) &&
+                   tc::aligned16(g);
 
   // ldmatrix.trans rows of this lane within a 16-pixel k-step: A (xp^T),
   // pixel lane % 8 + 8 (lane / 16) at the tap's shift, ci + 8 for lanes
@@ -891,22 +807,22 @@ __device__ __forceinline__ void dw_tensor_core(
   const int a_col = ((lane >> 3) & 1) * 8, b_col = (lane >> 4) * 8;
 
   float acc[4][4][4];        // [m-tile: 16 ci][n-tile: 8 co][fragment]
-  ZERO(acc, 4, 4);
+  tc::zero(acc);
 
   auto load = [&](int step, int buf) {
     const int u = u0 + step, n = u / tiles, tile = u % tiles;
     const int i0 = (tile / tiles_x) * TS, j0 = (tile % tiles_x) * TS;
     bf16* xs = smem + buf * L::STAGE;
     bf16* gs = xs + L::XROWS * WXLD;
-    stage_tc<WCI, WXLD>(xs, L::XROWS, Cin - ci0, vec, xp,
-                        [&](int r) -> const bf16* {
+    tc::stage_rows<TC_NT, WCI, WXLD>(xs, L::XROWS, Cin - ci0, vec, xp,
+        [&](int r) -> const bf16* {
       const int y = i0 + r / XW, x = j0 + r % XW;
       return y < HP && x < WP
                  ? xp + (((int64_t)n * HP + y) * WP + x) * Cin + ci0
                  : nullptr;
     });
-    stage_tc<OCB, WGLD>(gs, L::GROWS, Cout - co0, vec, g,
-                        [&](int r) -> const bf16* {
+    tc::stage_rows<TC_NT, OCB, WGLD>(gs, L::GROWS, Cout - co0, vec, g,
+        [&](int r) -> const bf16* {
       const int i = i0 + r / TS, j = j0 + r % TS;
       return i < H && j < W
                  ? g + (((int64_t)n * 2 * H + 2 * i + p) * 2 * W + 2 * j + q) *
@@ -914,11 +830,11 @@ __device__ __forceinline__ void dw_tensor_core(
                  : nullptr;
     });
   };
-  auto compute = [&](int buf) {
+  auto compute = [&](int, int buf) {
     const bf16* xs = smem + buf * L::STAGE;
     const bf16* gs = xs + L::XROWS * WXLD;
-    float part[4][4][4];     // this unit's sums (see ZERO / PROMOTE)
-    ZERO(part, 4, 4);
+    float part[4][4][4];     // this unit's sums (see tc::promote)
+    tc::zero(part);
 #pragma unroll
     for (int k0 = 0; k0 < L::GROWS; k0 += 16) {
       const int pa = k0 + ka, pb = k0 + kb;
@@ -938,9 +854,9 @@ __device__ __forceinline__ void dw_tensor_core(
         }
       }
     }
-    PROMOTE(acc, part, 4, 4);
+    tc::promote(acc, part);
   };
-  pipeline<DW_STAGES>(max(u1 - u0, 0), load, compute);
+  tc::pipeline<DW_STAGES>(max(u1 - u0, 0), load, compute);
 
   // this slice's partial sums (or, as the only slice, dwall itself), then
   // the last CTA of the block adds the slices in order
@@ -966,7 +882,8 @@ __device__ __forceinline__ void dw_tensor_core(
         }
       }
     }
-  if (slices == 1 || !last_of_block(counters, slices)) return;
+  if (slices == 1 || !tc::last_to_arrive(counters + blockIdx.x, slices))
+    return;
   for (int e = threadIdx.x; e < 4 * WCI * OCB; e += TC_NT) {
     const int co = co0 + e % OCB, ci = ci0 + (e / OCB) % WCI, tap = e / (OCB * WCI);
     if (ci >= Cin || co >= Cout) continue;

@@ -499,6 +499,77 @@ def test_remat_on_card_keeps_upsample_outputs_and_sequences(cuda):
     assert worst <= 2e-6     # 3.9e-7 measured on an H100
 
 
+# ------------------------------------------- K1, K2 on the tensor cores ---
+
+def _unit_inputs(t, b, h, w, c, device, seed=0):
+    """bf16 K1 inputs with unit-gain 3×3 weights (the scale SN leaves), so
+    that the gates stay off saturation at the production widths."""
+    g = torch.Generator().manual_seed(seed)
+    s = (9 * c) ** -0.5
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).to(device,
+                                                            torch.bfloat16)
+
+    return (rand(t, b, h, w, 2 * c), rand(t, b, h, w, c),
+            torch.tanh(rand(b, h, w, c)).contiguous(),
+            rand(3, 3, c, 2 * c, scale=s), rand(3, 3, c, c, scale=s))
+
+
+# (T, B, H, W, C): the long-clip widths at 4², 8² (split K) and 32² (8×16
+# tiles), B 1 and 3, channel counts that are not multiples of the mma
+# tile (6, 12, 40, 72), a step of 15 pixels, two 8×8 frames a CTA (B·H·W
+# ≥ 512)
+TC_SHAPES = [(3, 2, 4, 4, 512), (3, 2, 8, 8, 512), (3, 2, 32, 32, 256),
+             (3, 1, 4, 4, 512), (3, 3, 8, 8, 512), (3, 2, 5, 6, 6),
+             (3, 3, 1, 5, 12), (2, 3, 9, 17, 40), (2, 2, 8, 8, 72),
+             (2, 8, 8, 8, 64)]
+
+
+@pytest.mark.parametrize("t,b,h,w,c", TC_SHAPES)
+def test_k1_tensor_cores_match_plain_and_repeat_bitwise(cuda, t, b, h, w, c):
+    args = _unit_inputs(t, b, h, w, c, cuda)
+    before = k1.gru_sequence_fused.launches
+    out = k1.gru_sequence_fused(*args)
+    again = k1.gru_sequence_fused(*args)
+    torch.cuda.synchronize()
+    assert k1.gru_sequence_fused.launches - before == (
+        2 * t * k1.LAUNCHES_PER_STEP)
+    assert torch.equal(out, again)          # partial sums in a fixed order
+    ref = k1.gru_sequence_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("t,b,h,w,c", TC_SHAPES + [(2, 2, 128, 128, 64)])
+def test_k2_tensor_cores_match_plain_and_repeat_bitwise(cuda, t, b, h, w, c):
+    args = _unit_inputs(t, b, h, w, c, cuda)
+    hs = k1.gru_sequence_fused(*args)
+    g = torch.randn(hs.shape, generator=torch.Generator().manual_seed(9)
+                    ).to(cuda, torch.bfloat16)
+    before = k2.gru_sequence_bwd.launches
+    out = k2.gru_sequence_bwd(*args, hs, g)
+    again = k2.gru_sequence_bwd(*args, hs, g)
+    torch.cuda.synchronize()
+    assert k2.gru_sequence_bwd.launches - before == (
+        2 * t * k2.LAUNCHES_PER_STEP)
+    ref = k2.gru_sequence_bwd_reference(*args, hs, g)
+    for name, o, a, r in zip(("dgx", "dcx", "dh0", "dwg", "dwc"), out, again,
+                             ref):
+        if name[:2] != "dw":   # the kernel's own outputs; dW are cuDNN's
+            assert torch.equal(o, a), name
+        torch.testing.assert_close(
+            o.float(), r.float(), rtol=0,
+            atol=TOL[torch.bfloat16] * float(r.float().abs().max()), msg=name)
+
+
+def test_mma_tiles_match_the_library(cuda):
+    """The plan's copy of the tile table (`convgru_seq.MMA_TILES`, its
+    shared memory) is the one the kernels were built with."""
+    for tile, dims in enumerate(k1.MMA_TILES):
+        assert k1.mma_tile_info(tile) == (*dims, k1.mma_tile_smem(tile))
+
+
 # ---------------------------------------------------------------- K4 -------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -519,8 +590,16 @@ def test_k4_kernel_matches_plain(cuda, dtype, b, h, w, c, launches):
     assert out.dtype == dtype and out.shape == ref.shape
     torch.testing.assert_close(out.float(), ref.float(), rtol=0,
                                atol=TOL[dtype])
-    # K1's step sums in the same order and blends with the same roundings
-    assert torch.equal(out, k1.gru_sequence_fused(gx, cx, h0, wg, wc)[0])
+    step = k1.gru_sequence_fused(gx, cx, h0, wg, wc)[0]
+    if dtype == torch.float32 or launches == 2:
+        # K1's step sums in the same order and blends with the same
+        # roundings (two launches: K4 runs K1's own)
+        assert torch.equal(out, step)
+    else:
+        # the one-launch form sums on the CUDA cores, K1 in bf16 on the
+        # tensor cores: another order
+        torch.testing.assert_close(out.float(), step.float(), rtol=0,
+                                   atol=TOL[dtype])
 
 
 def test_k4_kernel_reads_strided_inputs(cuda):
