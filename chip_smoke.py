@@ -49,9 +49,12 @@
    mu, the gradient, within 1e-3 × max|mu| of each model);
 7. holds K3 against its plain version at the three large level shapes of
    the long-clip preset kinetics_256_48f (32²×256, 64²×128, 128²×64; T=48,
-   B=2: one G micro-batch), f32 atol 1e-4 and bf16 3e-2, and in bf16 at
-   the fake pass's B=8, timed beside its plain version and K1's kernel at
-   the same shape (the numbers that place the K1/K3 boundary); and K1 (the
+   B=2: one G micro-batch), f32 atol 1e-4 and bf16 3e-2 (bf16 on the
+   tensor cores, with the tile its plan gives), and in bf16 at the fake
+   pass's B=8, two runs bitwise equal, timed beside its plain version and
+   K1's kernel at the same shape (the numbers that place the K1/K3
+   boundary), each row with K1's and K3's TFLOP/s and the profiler's view
+   as K1's rows have it; and K1 (the
    levels `ops/convgru.py` gives it, at B=2 and B=8) and K2 (all six
    levels, B=2) at that preset's shapes against their plain versions, at
    the tolerances of phases 2 and 5, and prints the device µs of the gate
@@ -157,7 +160,7 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 CONVGRU_KERNELS = ("gate_kernel", "cand_kernel", "cand_bwd_kernel",
                    "drh_kernel", "dh_kernel", "blocked_step_kernel",
-                   "conv3x3_mma_kernel")
+                   "blocked_mma_kernel", "conv3x3_mma_kernel")
 UPS_KERNELS = ("ups2x_fwd_kernel", "ups2x_dx_kernel", "ups2x_dw_kernel")
 # the upsample conv of each G level: (H, W, Cin, Cout) of its source plane
 UPS_LEVELS = [(4, 4, 256, 256), (8, 8, 256, 128), (16, 16, 128, 64),
@@ -512,7 +515,9 @@ def check_k3(device, reps: int = 10, levels=K3_LEVELS, t: int = LONG_T,
     """K3 against its plain version (K1's) at the planes `levels` (the
     long-clip preset's three large ones), timed beside the plain version
     and K1's kernel: in f32 and bf16 at one G micro-batch, and in bf16 at
-    the fake pass's batch."""
+    the fake pass's batch. Each row: two runs bitwise equal, the bf16 tile
+    of the plan, TFLOP/s (the two convs without the rim) and the
+    profiler's view of one call (`device_view`), K1's beside it."""
     from dvdgan_tpu_torch.kernels import convgru_blocked as k3
     from dvdgan_tpu_torch.kernels import convgru_seq as k1
     rows = []
@@ -523,23 +528,38 @@ def check_k3(device, reps: int = 10, levels=K3_LEVELS, t: int = LONG_T,
                              t=t)
             ref = k3.gru_sequence_blocked_reference(*args)
             out = k3.gru_sequence_blocked(*args)
+            again = k3.gru_sequence_blocked(*args)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs()
+            same = torch.equal(out, again)
+            del ref, out, again
+            launches = t * k3.LAUNCHES_PER_STEP
             row = {"dtype": str(dtype).replace("torch.", ""),
                    "shape": [t, nb, h, w, c],
+                   "tile": (k3.TILES[k3.plan(nb, h, w, c).tile][:2]
+                            if dtype == torch.bfloat16 else [8, 8]),
                    "max_abs_err": float(err.max()),
                    "mean_abs_err": float(err.mean()),
+                   "two_runs_bitwise_equal": same,
                    "ms": cuda_ms(lambda: k3.gru_sequence_blocked(*args), reps),
                    "plain_ms": cuda_ms(
                        lambda: k3.gru_sequence_blocked_reference(*args), reps),
                    "k1_ms": cuda_ms(lambda: k1.gru_sequence_fused(*args),
                                     reps),
-                   **fwd_bound(t, nb, h, w, c, dtype)}
-            del ref, out, err, args
+                   **fwd_bound(t, nb, h, w, c, dtype),
+                   **device_view(lambda: k3.gru_sequence_blocked(*args),
+                                 launches)}
+            flops = fwd_flops(t, nb, h, w, c)
+            row["tflops"] = flops / row["ms"] / 1e9
+            row["k1_tflops"] = flops / row["k1_ms"] / 1e9
+            row["k1_device_ms"] = device_view(
+                lambda: k1.gru_sequence_fused(*args),
+                t * k1.LAUNCHES_PER_STEP)["device_ms"]
+            del err, args
             print("K3 " + json.dumps(row), flush=True)
-            if not row["max_abs_err"] <= TOL[dtype]:
-                raise AssertionError(f"K3 disagrees with its plain version: "
-                                     f"{row} (atol {TOL[dtype]})")
+            if not row["max_abs_err"] <= TOL[dtype] or not same:
+                raise AssertionError(f"K3 disagrees with its plain version or "
+                                     f"with itself: {row} (atol {TOL[dtype]})")
             rows.append(row)
     return rows
 

@@ -1,10 +1,11 @@
 // Shared pieces of the ConvGRU kernels: f32/bf16 conversion, the blend,
 // the CUDA-core CTA tile shapes, a SAME 3x3 conv over one CTA's tile
 // accumulated in registers (f32 FMAs on staged f32 copies of the operands),
-// and the gate and candidate launches built on it. K3 (convgru_blocked.cu)
-// and K4's one-launch form (convgru_cell.cu) run this body in both dtypes;
-// K1 (convgru_seq.cu) and K2 (convgru_bwd.cu) run it only in f32, their
-// parity mode: in bf16 they run the tensor-core body of conv3x3_mma.cuh.
+// and the gate and candidate launches built on it. K4's one-launch form
+// (convgru_cell.cu) runs this body in both dtypes; K1 (convgru_seq.cu), K2
+// (convgru_bwd.cu) and K3 (convgru_blocked.cu) run it only in f32, their
+// parity mode: in bf16 they run tensor-core bodies (conv3x3_mma.cuh; K3's
+// own fused step).
 //
 // Layouts (channels-last, as the reference): a plane is (H, W, Ch) with
 // pixel stride `pix` (>= Ch) and unit channel stride; weights are HWIO

@@ -1,6 +1,7 @@
 // bf16 tensor-core building blocks for Hopper (sm_90a), shared by the
 // kernels that run their products on mma.sync: attention_spatial.cu (K6),
-// ups2x_fused.cu (K5a, K5b) and conv3x3_mma.cuh (K1, K2).
+// ups2x_fused.cu (K5a, K5b), conv3x3_mma.cuh (K1, K2) and
+// convgru_blocked.cu (K3).
 //
 //  * cp.async: 16-byte copies from global to shared memory that bypass L1
 //    and registers; a thread's copies form a group at commit, and a wait

@@ -16,6 +16,7 @@ bf16 ulp at the output's scale.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import pytest
@@ -247,17 +248,35 @@ def test_train_step_on_card_matches_cpu(cuda):
 
 # ---------------------------------------------------------------- K3 -------
 
+def _forced_tile(monkeypatch, tile):
+    """K3's plan with the bf16 tile `tile` forced (None: the plan's own)."""
+    if tile is not None:
+        monkeypatch.setattr(k3, "plan", functools.partial(k3.plan, tile=tile))
+
+
+@pytest.mark.parametrize("tile", [None, *range(len(k3.TILES))])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,b,h,w,c", [(3, 2, 4, 4, 8),     # one ragged tile
                                        (3, 2, 5, 6, 8),     # ragged tile
                                        (2, 3, 9, 17, 6),    # partial ch groups
                                        (2, 2, 16, 16, 40),  # several ci chunks
                                        (2, 1, 24, 16, 72),  # > 1 oc block
+                                       # rims across ragged edges of every
+                                       # tile, a 1-pixel-wide plane
+                                       (2, 2, 19, 23, 32),
+                                       (2, 2, 13, 1, 16),
                                        # the long-clip path's 64² level
                                        # at more CTAs (192) than the card
                                        # has SMs: two share one
                                        (2, 3, 64, 64, 128)])
-def test_k3_kernel_matches_plain(cuda, dtype, t, b, h, w, c):
+def test_k3_kernel_matches_plain(cuda, monkeypatch, tile, dtype, t, b, h, w,
+                                 c):
+    """Each bf16 tile forced (f32 has one body: its runs with a forced bf16
+    tile repeat the plan's)."""
+    if dtype == torch.bfloat16 and tile is not None and (
+            k3.smem_bytes(tile, c) > k3.MAX_SMEM_BYTES):
+        pytest.skip("the tile does not fit shared memory at this C")
+    _forced_tile(monkeypatch, tile)
     args = _inputs(t, b, h, w, c, dtype, cuda)
     before = k3.gru_sequence_blocked.launches
     out = k3.gru_sequence_blocked(*args)
@@ -272,6 +291,33 @@ def test_k3_kernel_matches_plain(cuda, dtype, t, b, h, w, c):
     torch.testing.assert_close(out.float(),
                                k1.gru_sequence_fused(*args).float(), rtol=0,
                                atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("t,b,h,w,c", [(3, 2, 19, 23, 32), (2, 2, 9, 17, 72),
+                                       (2, 2, 64, 64, 64)])
+def test_k3_bf16_has_the_same_bits_under_every_tile(cuda, monkeypatch, t, b,
+                                                     h, w, c):
+    """Two runs, and every tile of the plan: a rim pixel's r is its owner's
+    bit for bit (the same k order per element), so the outputs are equal."""
+    args = _inputs(t, b, h, w, c, torch.bfloat16, cuda, seed=3)
+    first = k3.gru_sequence_blocked(*args)
+    assert torch.equal(first, k3.gru_sequence_blocked(*args))
+    plan = k3.plan
+    for tile in range(len(k3.TILES)):
+        if k3.smem_bytes(tile, c) > k3.MAX_SMEM_BYTES:
+            continue
+        monkeypatch.setattr(k3, "plan", functools.partial(plan, tile=tile))
+        assert torch.equal(k3.gru_sequence_blocked(*args), first), tile
+
+
+def test_k3_tile_table_matches_the_library(cuda):
+    """The plan's copy of the tile table and shared-memory formula
+    (`convgru_blocked.TILES`, `smem_bytes`) against the built kernel's."""
+    for tile, dims in enumerate(k3.TILES):
+        assert k3.tile_info(tile) == (*dims, k3.STAGES, k3.THREADS)
+        for c in (6, 64, 72, 128, 256, 352):
+            assert k3._lib().convgru_blocked_smem_bytes(1, c, tile) == (
+                k3.smem_bytes(tile, c)), (tile, c)
 
 
 def test_k3_kernel_reads_strided_inputs(cuda):
@@ -296,6 +342,18 @@ def test_k3_refuses_more_channels_than_shared_memory_holds(cuda):
     args = _inputs(1, 1, 8, 8, 512, torch.float32, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         k3.gru_sequence_blocked(*args)
+    # bf16: the 8x8 tile holds C up to 336 (its patch and r⊙h tile at a row
+    # stride of C + 8); one chunk more is refused before any launch
+    before = k3.gru_sequence_blocked.launches
+    args = _inputs(1, 1, 8, 8, 352, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        k3.gru_sequence_blocked(*args)
+    assert k3.gru_sequence_blocked.launches == before
+    args = _inputs(1, 1, 8, 8, 336, torch.bfloat16, cuda)
+    out = k3.gru_sequence_blocked(*args)
+    torch.testing.assert_close(
+        out.float(), k3.gru_sequence_blocked_reference(*args).float(),
+        rtol=0, atol=TOL[torch.bfloat16])
 
 
 def test_convgru_large_plane_grads_on_card_match_cpu(cuda):
