@@ -13,7 +13,7 @@ On the TPU K6a holds a whole frame's logits on chip and K6b tiles the query
 rows for the maps K6a cannot hold. No SM holds a frame's logits (1 MB f32 at
 32×32), so here both entries run ONE hand-written, query-tiled CUDA kernel
 (`csrc/attention_spatial.cu`, two launches per call: the frame's k and v
-once, then the query tiles); they differ in what they check and count:
+once, then the query rows); they differ in what they check and count:
 `spatial_attn_fused` takes any map, `spatial_attn_tiled` also takes the
 reference's test hook `force_bqr` (image rows per query tile), which must
 divide H. CUDA tensors launch the kernel or raise; CPU tensors take the
@@ -21,6 +21,12 @@ plain version `spatial_attn_kernel_reference`, which rounds where the
 kernel rounds (q, k and the logits stay f32; attn, v and o are rounded once
 before the product that reads them; y = o·Wo is f32; out = f32(x) + γ·y is
 rounded once).
+
+In bf16 the second launch runs persistent CTAs whose warps own 16 query
+rows each from x to out, with the logits on the tensor cores as 3×TF32
+(`logits_3xtf32` is its plain emulation, for the tests); in f32 it runs the
+CUDA-core body of the first version. `plan` picks the body, the queries of
+a work item and the grid; the C interface checks what it is given.
 
 Under autograd both are `torch.autograd.Function`s with the reference's
 `custom_vjp` policy: the forward saves x, the four weights and γ, and the
@@ -35,6 +41,7 @@ f32 in frame order and cast once.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -75,8 +82,11 @@ def _pool_tokens(x: torch.Tensor) -> torch.Tensor:
         n, -1, c)
 
 
-def spatial_attn_kernel_reference(x, wq, wk, wv, wo, gamma) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, with the kernel's roundings."""
+def spatial_attn_kernel_reference(x, wq, wk, wv, wo, gamma,
+                                  logits=torch.matmul) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, with the kernel's roundings.
+    `logits(q, kT)` forms the f32 logits (the tests pass `logits_3xtf32`,
+    the bf16 kernel's product)."""
     n, h, w, c, _, _ = _dims(x, wq, wk, wv, wo, gamma)
     dt = x.dtype
     wq, wk, wv, wo = (a.to(dt).float() for a in (wq, wk, wv, wo))
@@ -85,10 +95,27 @@ def spatial_attn_kernel_reference(x, wq, wk, wv, wo, gamma) -> torch.Tensor:
     q = xt @ wq
     k = kv @ wk
     v = (kv @ wv).to(dt)
-    attn = torch.softmax(q @ k.transpose(1, 2), dim=-1).to(dt)
+    attn = torch.softmax(logits(q, k.transpose(1, 2)), dim=-1).to(dt)
     o = (attn.float() @ v.float()).to(dt)
     y = o.float() @ wo
     return (xt + gamma.float() * y).to(dt).reshape(x.shape)
+
+
+def tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """f32 -> tf32 (10 stored significand bits) as `cvt.rna.tf32.f32` rounds:
+    to nearest, ties away from zero, on the bit pattern; returned as f32
+    with the 13 low bits clear. Finite inputs."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def logits_3xtf32(q: torch.Tensor, kt: torch.Tensor) -> torch.Tensor:
+    """q (…, M, D) @ kt (…, D, K) as the bf16 kernel forms the logits on the
+    tensor cores: each f32 operand split into hi = tf32(v) and lo =
+    tf32(v − hi), then hi·hi + hi·lo + lo·hi in f32 (lo·lo dropped)."""
+    q_hi, k_hi = tf32_rna(q), tf32_rna(kt)
+    q_lo, k_lo = tf32_rna(q - q_hi), tf32_rna(kt - k_hi)
+    return q_lo @ k_hi + q_hi @ k_lo + q_hi @ k_hi
 
 
 def spatial_attn_reference(x, wq, wk, wv, wo, gamma) -> torch.Tensor:
@@ -108,14 +135,147 @@ def spatial_attn_reference(x, wq, wk, wv, wo, gamma) -> torch.Tensor:
     return (xt + gamma.to(dt) * y).reshape(x.shape)
 
 
+# The bf16 bodies of `csrc/attention_spatial.cu` (its BODY_TABLE), by the
+# index its C interface takes: (mode, OT, most warps a CTA). Mode 0 keeps a
+# row's logits in registers (maps of exactly RES_KEYS keys: 32×32), mode 1
+# sweeps the keys three times (any other map), mode 2 is mode 1 with the
+# frame's vᵀ read from L2, and its k too where k alone does not fit beside
+# the weights: where k and vᵀ do not fit shared memory together (64×64 at
+# C ≥ 128, larger maps). A warp holds OT o n-tiles and
+# OT/4 q n-tiles of 8 channels (c2 ≤ 8·OT, c8 ≤ 2·OT). The most warps a CTA
+# is also what an SM holds by registers (255 a thread at 8 warps, 128 at
+# 16), so the persistent grid takes one such CTA an SM.
+BODIES = ((0, 4, 8), (0, 16, 8), (1, 4, 16), (1, 8, 8), (1, 16, 8),
+          (2, 4, 16), (2, 8, 8), (2, 16, 8))
+RES_KEYS = 256
+# dynamic shared memory a CTA may ask for on sm_90 (227 KB); an SM's 228 KB
+# less the 1 KB it keeps for each CTA
+MAX_SMEM_BYTES = 232448
+SM_SMEM_BYTES, CTA_RESERVED_BYTES = 233472, 1024
+SMS = 132          # H100 SXM; `_forward` asks the card
+MAX_WARPS_PER_SM = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the second launch runs: `body` (bf16: an index into BODIES; f32:
+    -1, the CUDA-core body), `tq` queries a work item (f32: a CTA), the
+    `items` (frame, tile) and the grid's `ctas` (f32: one an item), each
+    CTA's `smem_bytes`."""
+    body: int
+    tq: int
+    items: int
+    ctas: int
+    smem_bytes: int
+
+
+def _f32_smem(tq: int, kvn: int, c: int, c8: int, c2: int) -> int:
+    """The f32 body's x tile, logits tile, q and o (its `make_layout`)."""
+    return 4 * tq * ((c + 4) + (kvn + 4) + c8 + (c2 + 4))
+
+
+def _bf16_smem(kvn: int, c: int, c8: int, c2: int, v_staged: bool) -> int:
+    """The bf16 body's Wq^T and Wo^T, v^T where `v_staged`, and the split k
+    where v is staged or k fits beside the weights (its `tc_layout`)."""
+    ldq = c + 32 if c % 64 == 0 else c
+    head = 2 * (c8 * ldq + c * (c2 + 8)) + (2 * c2 * (kvn + 8) if v_staged
+                                            else 0)
+    with_k = head + 8 * c8 * kvn
+    return with_k if v_staged or with_k <= MAX_SMEM_BYTES else head
+
+
+def _kv_fits(dtype: torch.dtype, kvn: int, c: int) -> bool:
+    """The first launch's pooled tokens fit for some token tile (its
+    `plan_kt`)."""
+    row = 2 * (c + 32 if c % 64 == 0 else c) if dtype == torch.bfloat16 \
+        else 4 * (c + 4)
+    return any(kvn % kt == 0 and kt * row <= MAX_SMEM_BYTES
+               for kt in (64, 32, 16))
+
+
+def _body(mode: int, c8: int, c2: int) -> int | None:
+    """The bf16 body of `mode` with the fewest o n-tiles that hold c2 and
+    c8; None where none does."""
+    for i, (m, ot, _) in enumerate(BODIES):
+        if m == mode and c2 <= 8 * ot and c8 <= 2 * ot:
+            return i
+    return None
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(dtype: torch.dtype, n: int, h: int, w: int, c: int, c8: int,
+         c2: int, force_tq: int = 0, ctas: int | None = None,
+         sms: int = SMS) -> Plan:
+    """The second launch's plan for x (n, h, w, c) with c8, c2. Work items
+    of `tq` queries: `force_tq` if given (a multiple of 16 that divides
+    H·W and that the body takes), else the most the body takes that divides
+    H·W (bf16: 16 per warp; f32: 64, 32 or 16 as shared memory allows).
+    bf16: one CTA of the body's size an SM as registers and shared memory
+    allow, `sms` SMs, at most one CTA an item (`ctas` forces a grid; it
+    changes no output bit). Raises ValueError for what the kernel does not
+    take."""
+    hw, kvn = h * w, (h // 2) * (w // 2)
+    what = (f"spatial_attn: the kernel does not take x {(n, h, w, c)} with "
+            f"c8={c8}, c2={c2}")
+    bf16 = dtype == torch.bfloat16
+    if (h % 2 or w % 2 or c < 16 or c % (32 if bf16 else 16) or c8 < 8
+            or c8 % 8 or c2 < 16 or c2 % 16 or kvn < 16 or kvn % 16
+            or not _kv_fits(dtype, kvn, c)):
+        raise ValueError(what + (
+            ": it needs C % 16 == 0 (bf16: % 32), c8 % 8 == 0, c2 % 16 == "
+            "0, H·W/4 % 16 == 0 and projections that fit shared memory"))
+    if bf16:
+        # the mode by the keys; mode 2 where the frame's k and v^T do not fit
+        mode = 0 if kvn == RES_KEYS else 1
+        smem = _bf16_smem(kvn, c, c8, c2, True)
+        if smem > MAX_SMEM_BYTES:
+            mode, smem = 2, _bf16_smem(kvn, c, c8, c2, False)
+        body = _body(mode, c8, c2)
+        if body is None or smem > MAX_SMEM_BYTES:
+            raise ValueError(what + ": in bf16 a warp holds c8 ≤ 32 and "
+                             "c2 ≤ 128 (C ≤ 256), and the weights must fit "
+                             "shared memory")
+        most = 16 * BODIES[body][2]
+        sizes = [tq for tq in (most, most // 2, most // 4, most // 8,
+                               most // 16) if tq >= 16]
+    else:
+        body, most = -1, 64
+        sizes = [tq for tq in (most, 32, 16)
+                 if _f32_smem(tq, kvn, c, c8, c2) <= MAX_SMEM_BYTES]
+    if force_tq:
+        fits = force_tq % 16 == 0 and (
+            force_tq <= most if bf16 else
+            _f32_smem(force_tq, kvn, c, c8, c2) <= MAX_SMEM_BYTES)
+        sizes = [force_tq] if fits else []
+    sizes = [tq for tq in sizes if hw % tq == 0]
+    if not sizes:
+        raise ValueError(what + f", {force_tq or 'any'} queries a tile: no "
+                         f"query tile fits (a forced tile must be a multiple "
+                         f"of 16 queries that divides H·W and fits: in bf16 "
+                         f"at most {most})")
+    tq = sizes[0]
+    items = n * (hw // tq)
+    if not bf16:
+        return Plan(-1, tq, items, items, _f32_smem(tq, kvn, c, c8, c2))
+    warps = tq // 16
+    per_sm = min(SM_SMEM_BYTES // (smem + CTA_RESERVED_BYTES),
+                 BODIES[body][2] // warps, MAX_WARPS_PER_SM // warps)
+    grid = sms * per_sm if ctas is None else ctas
+    return Plan(body, tq, items, max(1, min(grid, items)), smem)
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Sets the C signatures of a build of `csrc/attention_spatial.cu`."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.spatial_attn_plan.argtypes = [i] * 7
+    lib.spatial_attn_smem_bytes.argtypes = [i] * 8
+    lib.spatial_attn_smem_bytes.restype = ctypes.c_longlong
+    lib.spatial_attn_kv_tokens.argtypes = [i] * 4
+    lib.spatial_attn_body.argtypes = [i, p]
     lib.spatial_attn_kv.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.spatial_attn_fwd.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i,
-                                     i, i, p]
-    for name in ("spatial_attn_plan", "spatial_attn_kv", "spatial_attn_fwd"):
+                                     i, i, i, i, p]
+    for name in ("spatial_attn_kv_tokens", "spatial_attn_body",
+                 "spatial_attn_kv", "spatial_attn_fwd"):
         getattr(lib, name).restype = i
     lib.spatial_attn_error_string.argtypes = [i]
     lib.spatial_attn_error_string.restype = ctypes.c_char_p
@@ -125,6 +285,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     return bind(_build.load("attention_spatial"))
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -176,23 +341,22 @@ def _forward(entry, x, wq, wk, wv, wo, gamma, force_bqr=None) -> torch.Tensor:
     device = _validate(dict(zip(_NAMES, (x, wq, wk, wv, wo, gamma))))
     if device.type == "cpu":
         return spatial_attn_kernel_reference(x, wq, wk, wv, wo, gamma)
+    dev = device_index(device)
+    pl = plan(x.dtype, n, h, w, c, c8, c2, force_tq=force_tq, sms=_sms(dev))
     lib = _lib()
-    code, dev = _DTYPE_CODES[x.dtype], device_index(device)
-    tq = lib.spatial_attn_plan(code, h, w, c, c8, c2, force_tq)
-    if tq <= 0:
-        raise ValueError(
-            f"spatial_attn: the kernel does not take x {tuple(x.shape)} with "
-            f"c8={c8}, c2={c2}" + (f", force_bqr={force_bqr}" if force_bqr
-                                   else "")
-            + (": no query tile fits shared memory (a forced tile must be a "
-               "multiple of 16 queries that divides H·W)" if tq == 0 else
-               ": it needs C % 16 == 0, c8 % 8 == 0, c2 % 16 == 0, H·W/4 % "
-               "16 == 0 and projections that fit shared memory"))
+    code = _DTYPE_CODES[x.dtype]
     stream = torch.cuda.current_stream(device).cuda_stream
     kvn = (h // 2) * (w // 2)
-    # the kernel's B operands are n-major: transposed weights, k and v
-    wq_t, wk_t, wv_t, wo_t = (a.t().contiguous() for a in (wq, wk, wv, wo))
-    k_t = torch.empty((n, c8, kvn), dtype=torch.float32, device=device)
+    # the first launch reads the k and v projections transposed, and so does
+    # the f32 body the q and out projections (B operands n-major); the bf16
+    # body stages those two transposed itself. In bf16 k goes out split for
+    # the 3×TF32 logits (c8/8 k-steps × keys × 16 floats).
+    bf16 = x.dtype == torch.bfloat16
+    wk_t, wv_t = wk.t().contiguous(), wv.t().contiguous()
+    wq_k, wo_k = ((wq.contiguous(), wo.contiguous()) if bf16
+                  else (wq.t().contiguous(), wo.t().contiguous()))
+    k_shape = (n, c8 // 8, kvn, 16) if bf16 else (n, c8, kvn)
+    k_t = torch.empty(k_shape, dtype=torch.float32, device=device)
     v_t = torch.empty((n, c2, kvn), dtype=x.dtype, device=device)
     out = torch.empty_like(x)
     err = lib.spatial_attn_kv(code, dev, x.data_ptr(), wk_t.data_ptr(),
@@ -200,10 +364,11 @@ def _forward(entry, x, wq, wk, wv, wo, gamma, force_bqr=None) -> torch.Tensor:
                               n, h, w, c, c8, c2, stream)
     _check(lib, err, "k/v")
     entry.launches += 1
-    err = lib.spatial_attn_fwd(code, dev, x.data_ptr(), wq_t.data_ptr(),
-                               wo_t.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
+    err = lib.spatial_attn_fwd(code, dev, x.data_ptr(), wq_k.data_ptr(),
+                               wo_k.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
                                gamma.contiguous().data_ptr(), out.data_ptr(),
-                               n, h, w, c, c8, c2, tq, stream)
+                               n, h, w, c, c8, c2, pl.body, pl.tq, pl.ctas,
+                               stream)
     _check(lib, err, "attention")
     entry.launches += 1
     return out

@@ -14,58 +14,82 @@
 // rounded once to the activation type before the product that reads them;
 // y = o Wo is f32; out = f32(x) + gamma * y is rounded once.
 //
-// Design. A frame's (HW x HW/4) f32 logits are 1 MB at 32x32: no SM's 227 KB
-// of shared memory holds them, so on this card K6a is query-tiled like K6b,
-// and both entries run the same two launches:
+// A frame's (HW x HW/4) f32 logits are 1 MB at 32x32: no SM's 227 KB of
+// shared memory holds them, so on this card K6a is query-tiled like K6b, and
+// both entries run the same two launches:
 //
 //   attn_kv_kernel   grid (HW/4 / KT, N): pools KT kv tokens of a frame into
-//                    shared memory and writes k^T (N, c8, HW/4) f32 and
-//                    v^T (N, c2, HW/4) in the activation type to scratch:
-//                    once per frame, not once per query tile (at C = 256 a
-//                    frame's k and v cost twice a 64-query tile's own work).
-//   attn_fwd_kernel  grid (HW / TQ, N): a CTA owns TQ queries of one frame
-//                    (TQ = 64, 32 or 16, the largest whose tiles fit) and
-//                    walks seven phases with a block barrier between them:
-//                    stage the x tile (and, in bf16, Wq^T; v^T and a small
-//                    Wo^T stay in flight); q = x Wq into shared memory; the
-//                    f32 logits of the TQ x HW/4 tile into shared memory as
-//                    f32 FMAs (the product's operands are f32 by the
-//                    kernel's contract, so it cannot run on the bf16 tensor
-//                    cores, and TF32 would lose bits: a thread keeps k for
-//                    four keys in registers and takes four rows at a time,
-//                    16 FMAs per 16-byte broadcast read of q); a warp per
-//                    row takes the softmax, a row's values in registers from
-//                    the one read to the one write at 32x32 and 64x64, and
-//                    rounds attn into the front half of its own row;
-//                    o = attn v; y = o Wo; the residual and the one rounding
-//                    go into the x tile in place, which leaves in whole rows.
-//                    The logits and attn never leave the SM.
+//                    shared memory and writes k (f32) and v^T (N, c2, HW/4)
+//                    in the activation type to scratch, once per frame. In
+//                    f32 k goes out as k^T (N, c8, HW/4); in bf16 already
+//                    split for the 3xTF32 logits (below), the projections on
+//                    mma.sync with the weights' fragments read from L2.
+//   attn_fwd_kernel  the query rows, by one of two bodies.
 //
-// In bf16 the five products with bf16 operands (x Wq, kv Wk, kv Wv, attn v,
-// o Wo) run on the tensor cores: mma.sync.m16n8k16, bf16 operands, f32
-// accumulators, fragments read with ldmatrix from padded shared-memory
-// tiles (row stride = 16 bytes mod 128, so a fragment load is conflict-free);
-// the cp.async, ldmatrix and mma helpers are mma_bf16.cuh's (shared with K5).
-// Every B operand is kept "n-major" ([N][K], K contiguous), which is why the
-// wrapper hands over transposed weights and the first launch writes k and v
-// transposed. In f32 (the parity mode, not the fast one) every product is
-// f32 FMAs in the same structure, with the weights and v^T read from global
-// memory.
+// bf16: persistent CTAs, warp-owned query rows. The grid is the SMs times the
+// CTAs an SM holds; each CTA walks a contiguous range of work items (frame,
+// TQ-query tile), so consecutive items share a frame. Wq^T and Wo^T are
+// staged into shared memory once per CTA, the frame's split k and v^T once
+// per frame the CTA enters (cp.async; the next frame's are fetched into L2
+// meanwhile) where they fit beside the weights; where they do not (64x64 at
+// C >= 128, larger maps), the warps read v^T, and k where it does not fit
+// alone, from L2 (mode 2). A warp owns 16 query rows from x to out, with no
+// block barrier between its phases and no logits tile in shared memory:
 //
-// Shared memory of attn_fwd_kernel, bf16: the x tile, a region U that holds
-// Wq^T and then the logits/attn tile S (and after that Wo^T where it is
-// large), v^T, q, o and a small Wo^T. 103 KB at 32x32x64 (two CTAs an SM),
-// 192 KB at 32x32x256, 206 KB at 64x64x64 (TQ = 32).
+//   q      = x Wq on mma.sync (bf16, f32 sums); the A fragments come straight
+//            from global memory as 16-byte loads (the contraction's order is
+//            permuted to match, and Wq^T's fragments are 16-byte shared
+//            loads), so x is never staged; the next item's rows are
+//            prefetched into L2 under the current item.
+//   logits = q k^T as 3xTF32 on the tensor cores: each f32 operand v is
+//            split into hi = tf32(v) and lo = tf32(v - hi) (cvt.rna), and
+//            lo_q hi_k + hi_q lo_k + hi_q hi_k run on mma.m16n8k8.tf32 with
+//            f32 accumulators (lo lo is dropped): about 2^-21 relative per
+//            product, near f32; one TF32 product alone (2^-11) would break
+//            the contract. q's accumulator fragment is its A fragment (the
+//            contraction permuted again), k arrives split in the first
+//            launch, a lane's two keys' hi and lo in one 16-byte load; the
+//            mmas of four key tiles interleave.
+//   softmax over the full row, f32, exp(l - m) as ex2.approx of
+//            l log2(e) - m log2(e) (exp_shifted). 32x32 maps (RES_KEYS =
+//            256 keys) keep a row's logits in registers (16 rows x 256 keys
+//            = 128 f32 a lane): max, exp, sum, times 1/sum, rounded to bf16
+//            and packed from the accumulator fragments into attn v's A
+//            fragments (as FlashAttention-2 does). Other maps (64x64: 1024
+//            keys) walk the keys in blocks of SWEEP_KEYS three times,
+//            recomputing the logits (c8 deep: a few mmas a fragment, the
+//            same bits each time): the row max; the sum of exp(l - m); then
+//            attn into attn v. Every rounding point stays where it is (an
+//            online, rescaled softmax would move them).
+//   o      = attn v on mma.sync, v^T's fragments by ldmatrix (mode 2: 4-byte
+//            loads from L2); rounded to bf16 into o Wo's A fragments in
+//            registers.
+//   out    = f32(x) + gamma (o Wo), Wo^T staged with its rows permuted so a
+//            lane's accumulators are 8 neighbouring channels: x read and out
+//            written as 16-byte vectors.
 //
-// What bounds it on the H100: bytes by the roofline (x read and out written
-// once: 2 N HW C elements; the f32 logits' FMAs come close to that at
-// 64x64), but this version is bound by latency: one or two CTAs of eight
-// warps an SM, seven barriers, and phases whose chains (a fragment load, its
-// mma, the epilogue) are short. Per-phase cycles: build with -DK6_PROFILE.
-// The logits (f32 FMAs, a third of the cycles at C = 256) and the o Wo
-// product are the largest phases left; wgmma, TMA, persistent CTAs that
-// fetch the next tile under the current one, and a v^T shared across a
-// cluster are left for later work.
+// A query's output does not depend on which CTA, tile size or grid took it:
+// every row runs the same instructions in the same order. Bodies by the map
+// (resident, sweep, sweep from L2) and by the widths the registers hold
+// (OT): the
+// table BODY_TABLE, which `attention_spatial.py` BODIES copies. The mmas are
+// volatile asm issued in the order written: left free, the compiler hoisted
+// loads across them and spilled.
+//
+// f32 (the parity mode, not the fast one): the CUDA-core body of the first
+// version, unchanged. Grid (HW / TQ, N); a CTA owns TQ queries of one frame
+// and walks its phases with block barriers between them: stage the x tile;
+// q = x Wq into shared memory; the f32 logits of the TQ x HW/4 tile into
+// shared memory as f32 FMAs (a thread keeps k for four keys in registers and
+// takes four rows at a time, 16 FMAs per 16-byte broadcast read of q); a warp
+// per row takes the softmax; o = attn v; y = o Wo; the residual and the one
+// rounding into the x tile in place, which leaves in whole rows.
+//
+// What bounds it on the H100: in bf16 the tensor cores and the exps' MUFU
+// (two exps a logit at 64x64) more than the bytes (x read twice, out written
+// once); this version is still bound by latency at one CTA of 8 or 16 warps
+// an SM. Per-phase cycles of the bf16 body: build with -DK6_PROFILE
+// (tools/torch_k6_phases.py).
 
 #include <cmath>
 #include <cstddef>
@@ -77,34 +101,60 @@ namespace {
 
 using tc::copy_rows_async;
 using tc::cp_async_wait;
-using tc::ldmatrix_x2;
 using tc::ldmatrix_x4;
 using tc::mma_16816;
 
 using bf16 = __nv_bfloat16;
 
-constexpr int NT = 256;                // threads per CTA
+constexpr int NT = 256;                // threads per CTA: f32 and attn_kv_kernel
 constexpr int NWARPS = NT / 32;
 constexpr int SMEM_MAX = 232448;       // 227 KB: a block's most on sm_90
 
-// With -DK6_PROFILE attn_fwd_kernel adds the cycles thread 0 of every CTA
-// spends in each of its phases to k6_cycles (read and zeroed through
-// spatial_attn_profile); without it the marks compile to nothing.
+// The bf16 bodies of attn_fwd_kernel, by the index the C interface takes:
+// {mode, OT, most warps a CTA}. Mode 0 keeps a row's logits in registers
+// (maps of exactly RES_KEYS keys: 32x32), 1 sweeps the keys in blocks of
+// SWEEP_KEYS three times (any other map).
+// A warp holds OT o n-tiles and OT / 4 q n-tiles (c2 <= 8 OT, c8 <= 2 OT).
+// The most warps a CTA is also what an SM holds by registers (255 or 128 a
+// thread), so the persistent grid takes one CTA of that size an SM.
+// Mode 2 is mode 1 with the frame's v^T read from L2 instead of staged, and
+// its split k too where k does not fit beside the weights: for maps whose k
+// and v^T do not fit shared memory together (64x64 at C >= 128, larger
+// maps).
+constexpr int N_BODIES = 8;
+constexpr int BODY_TABLE[N_BODIES][3] = {
+    {0, 4, 8}, {0, 16, 8}, {1, 4, 16}, {1, 8, 8},
+    {1, 16, 8}, {2, 4, 16}, {2, 8, 8}, {2, 16, 8}};
+template <int B>
+struct BodyOf {
+  static constexpr int kMode = BODY_TABLE[B][0];
+  static constexpr int kOT = BODY_TABLE[B][1];
+  static constexpr int kWarps = BODY_TABLE[B][2];
+};
+constexpr int RES_KEYS = 256;
+constexpr int SWEEP_KEYS = 64;
+
+// With -DK6_PROFILE the bf16 body adds the cycles lane 0 of every warp spends
+// in each phase of a work item to k6_cycles (read and zeroed through
+// spatial_attn_profile): 0 frame staging, 1 q, 2 logits (sweep: the max
+// sweep), 3 softmax (sweep: the sum sweep), 4 attn v (sweep: the third
+// sweep), 5 o Wo and the store; 6 counts warp items, 7 frames staged. Without
+// it the marks compile to nothing.
 #ifdef K6_PROFILE
 __device__ unsigned long long k6_cycles[8];
-#define K6_MARK_START() long long k6_mark = clock64()
-#define K6_MARK(i)                                                         \
+#define K6_START() long long k6_t = clock64()
+#define K6_LAP(i)                                                          \
   do {                                                                     \
-    __syncthreads();                                                       \
-    if (threadIdx.x == 0) {                                                \
-      const long long now = clock64();                                     \
-      atomicAdd(&k6_cycles[i], (unsigned long long)(now - k6_mark));       \
-      k6_mark = now;                                                       \
-    }                                                                      \
+    const long long k6_now = clock64();                                    \
+    if ((threadIdx.x & 31) == 0)                                           \
+      atomicAdd(&k6_cycles[i], (unsigned long long)(k6_now - k6_t));       \
+    k6_t = k6_now;                                                         \
   } while (0)
+#define K6_COUNT(i) atomicAdd(&k6_cycles[i], 1ull)
 #else
-#define K6_MARK_START()
-#define K6_MARK(i)
+#define K6_START()
+#define K6_LAP(i)
+#define K6_COUNT(i)
 #endif
 
 template <typename T>
@@ -123,12 +173,6 @@ __device__ __forceinline__ void store2(float* p, float v0, float v1) {
 __device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 
 // Elementwise max of two 16-byte vectors of T.
 template <typename T>
@@ -142,93 +186,31 @@ __device__ __forceinline__ uint4 vmax(uint4 a, uint4 b) {
   return a;
 }
 
-// ---- products --------------------------------------------------------------
+template <int M, int N>
+__device__ __forceinline__ void zero(float (&a)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) a[i][j] = 0.f;
+}
+
+// tf32(v), round to nearest with ties away from zero, as the f32 bit pattern
+// with the 13 low bits clear.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r & 0xffffe000u;
+}
+
+// ---- f32 products (the f32 body and attn_kv_kernel's f32 path) -------------
 //
 // block_gemm(A, lda, Bt, ldb, M, N, K, epi): the CTA computes
 // D (M x N) = A (M x K, row-major, row stride lda) * B, with B given n-major
 // (Bt[n][k], row stride ldb), f32 sums, and hands every pair of neighbouring
 // columns to epi(row, col, d[row][col], d[row][col + 1]) (col even), once.
-// M is a multiple of 16, N of 8, K of 16. No synchronisation inside.
-
-// One warp: rows [m0, m0 + 16) of D times the n-tiles (8 columns each)
-// nt0 .. nt0 + NB - 1 (those below n_tiles). A and Bt lie in shared memory
-// with 16-byte-aligned rows. The fragment layouts are the PTX ISA's for
-// m16n8k16: with g = lane / 4 and t = lane % 4, A holds rows g and g + 8 at
-// columns 2t, 2t + 1 (+ 8); B holds k = 2t, 2t + 1 (+ 8) of column g; the
-// accumulator rows g and g + 8 at columns 2t, 2t + 1. One ldmatrix.x4 loads
-// the A fragment (matrices: rows 0-7 | 8-15 at k 0-7, then at k 8-15), one
-// the B fragments of two n-tiles (per tile: k 0-7, then k 8-15).
-template <int NB, class Epi>
-__device__ __forceinline__ void warp_mma(const bf16* A, int lda, const bf16* Bt,
-                                         int ldb, int K, int m0, int nt0,
-                                         int n_tiles, Epi& epi) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float acc[NB][4];
-#pragma unroll
-  for (int i = 0; i < NB; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  const bf16* ap = A + (size_t)(m0 + (lane & 15)) * lda + (lane >> 4) * 8;
-  // this lane's row of B in each pair of n-tiles (a tile past the end reads
-  // the last one again; its product is dropped)
-  const bf16* bp[(NB + 1) / 2];
-#pragma unroll
-  for (int i = 0; i < NB; i += 2) {
-    int nt = nt0 + i + (NB > 1 ? lane >> 4 : 0);
-    if (nt >= n_tiles) nt = n_tiles - 1;
-    bp[i / 2] = Bt + (size_t)(nt * 8 + (lane & 7)) * ldb + ((lane >> 3) & 1) * 8;
-  }
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t a[4];
-    ldmatrix_x4(a, ap + k0);
-    if constexpr (NB == 1) {
-      uint32_t b[2];
-      ldmatrix_x2(b, bp[0] + k0);
-      mma_16816(acc[0], a, b[0], b[1]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < NB; i += 2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, bp[i / 2] + k0);
-        mma_16816(acc[i], a, b[0], b[1]);
-        mma_16816(acc[i + 1], a, b[2], b[3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < NB; ++i)
-    if (nt0 + i < n_tiles) {
-      const int col = (nt0 + i) * 8 + 2 * t;
-      epi(m0 + g, col, acc[i][0], acc[i][1]);
-      epi(m0 + g + 8, col, acc[i][2], acc[i][3]);
-    }
-}
-
-// bf16: tensor cores. A warp takes one 16-row tile and up to four n-tiles at
-// a time (the A fragment is loaded once for them); fewer where that would
-// leave warps without work.
-template <class Epi>
-__device__ __forceinline__ void block_gemm(const bf16* A, int lda,
-                                           const bf16* Bt, int ldb, int M,
-                                           int N, int K, Epi epi) {
-  const int warp = threadIdx.x >> 5;
-  const int m_tiles = M / 16, n_tiles = N / 8;
-  int nb = 4;
-  while (nb > 1 && m_tiles * ((n_tiles + nb - 1) / nb) < NWARPS) nb >>= 1;
-  const int groups = (n_tiles + nb - 1) / nb;
-  for (int u = warp; u < m_tiles * groups; u += NWARPS) {
-    const int m0 = (u % m_tiles) * 16, nt0 = (u / m_tiles) * nb;
-    if (nb == 4)
-      warp_mma<4>(A, lda, Bt, ldb, K, m0, nt0, n_tiles, epi);
-    else if (nb == 2)
-      warp_mma<2>(A, lda, Bt, ldb, K, m0, nt0, n_tiles, epi);
-    else
-      warp_mma<1>(A, lda, Bt, ldb, K, m0, nt0, n_tiles, epi);
-  }
-}
-
-// f32: FMAs on the CUDA cores, k ascending. A thread takes 8 rows x 2
-// neighbouring columns; A and Bt are read as 16-byte vectors along k.
+// M is a multiple of 8, N of 2, K of 4. No synchronisation inside. FMAs on
+// the CUDA cores, k ascending: a thread takes 8 rows x 2 neighbouring
+// columns; A and Bt are read as 16-byte vectors along k.
 template <class Epi>
 __device__ __forceinline__ void block_gemm(const float* A, int lda,
                                            const float* Bt, int ldb, int M,
@@ -265,17 +247,105 @@ __device__ __forceinline__ void block_gemm(const float* A, int lda,
   }
 }
 
-// ---- first launch: k^T and v^T of a frame ----------------------------------
+// ---- first launch: k and v^T of a frame -------------------------------------
 
+// The pooled tokens' row stride: f32 padded by a 16-byte vector; bf16 two
+// rows 64 bytes apart modulo 128 (the 16-byte fragment loads below).
 template <typename T>
-__host__ __device__ inline size_t kv_smem_bytes(int kt, int C, int c8, int c2) {
-  const int ld = C + Traits<T>::kPad;
-  const int rows = Traits<T>::kBf16 ? kt + c8 + c2 : kt;  // + Wk^T, Wv^T
-  return (size_t)rows * ld * sizeof(T);
+__host__ __device__ inline int kv_ld(int C) {
+  return Traits<T>::kBf16 ? (C % 64 == 0 ? C + 32 : C) : C + Traits<T>::kPad;
+}
+template <typename T>
+__host__ __device__ inline size_t kv_smem_bytes(int kt, int C) {
+  return (size_t)kt * kv_ld<T>(C) * sizeof(T);
+}
+
+// bf16: k and v^T of the CTA's KT pooled tokens (kv, row stride ld) on
+// mma.sync, the weights' fragments read straight from global memory (every
+// CTA reads the same 16-byte pieces: L2), nothing staged but the tokens.
+// The contraction is permuted as q's is (q_frags): lane (g, t) takes
+// channels 32j + 8t .. + 7 of a row, k-step 0 the first four, k-step 1 the
+// last four, for A and B alike. k: units of 16 tokens x 8 channels (two
+// chains, one a k-step, added in f32), written split for the logits. v^T:
+// units of 16 channels x 16 tokens, rounded once.
+__device__ __forceinline__ void kv_project(const bf16* kv, int ld,
+                                           const bf16* __restrict__ wk_t,
+                                           const bf16* __restrict__ wv_t,
+                                           float* __restrict__ kSn,
+                                           bf16* __restrict__ vTn, int KT,
+                                           int kvn, int tok0, int C, int c8,
+                                           int c2) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, chunks = C / 32;
+  const int mt = KT / 16;
+  for (int u = warp; u < mt * (c8 / 8); u += NWARPS) {
+    const int m0 = (u % mt) * 16, n0 = (u / mt) * 8;
+    const bf16* a0p = kv + (size_t)(m0 + g) * ld + 8 * t;
+    const bf16* a1p = a0p + (size_t)8 * ld;
+    const bf16* bp = wk_t + (size_t)(n0 + g) * C + 8 * t;
+    float acc[2][4];
+    zero(acc);
+    for (int j = 0; j < chunks; ++j) {
+      const uint4 a0 = *reinterpret_cast<const uint4*>(a0p + 32 * j);
+      const uint4 a1 = *reinterpret_cast<const uint4*>(a1p + 32 * j);
+      const uint4 b = __ldg(reinterpret_cast<const uint4*>(bp + 32 * j));
+      const uint32_t k0[4] = {a0.x, a1.x, a0.y, a1.y};
+      const uint32_t k1[4] = {a0.z, a1.z, a0.w, a1.w};
+      mma_16816(acc[0], k0, b.x, b.y);
+      mma_16816(acc[1], k1, b.z, b.w);
+    }
+    // rows m0 + g (+ 8) at channels n0 + 2t, + 1: hi, hi, lo, lo
+    const int c = n0 + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v0 = acc[0][2 * h] + acc[1][2 * h];
+      const float v1 = acc[0][2 * h + 1] + acc[1][2 * h + 1];
+      const uint32_t h0 = tf32_rna(v0), h1 = tf32_rna(v1);
+      *reinterpret_cast<uint4*>(
+          kSn + ((size_t)(c / 8) * kvn + tok0 + m0 + g + 8 * h) * 16 +
+          (c % 8) * 2) =
+          make_uint4(h0, h1, tf32_rna(v0 - __uint_as_float(h0)),
+                     tf32_rna(v1 - __uint_as_float(h1)));
+    }
+  }
+  const int vm = c2 / 16;
+  for (int u = warp; u < vm * mt; u += NWARPS) {
+    const int m0 = (u % vm) * 16, t0 = (u / vm) * 16;
+    const bf16* a0p = wv_t + (size_t)(m0 + g) * C + 8 * t;
+    const bf16* a1p = a0p + (size_t)8 * C;
+    const bf16* bp = kv + (size_t)(t0 + g) * ld + 8 * t;
+    float acc[2][4];
+    zero(acc);
+    for (int j = 0; j < chunks; ++j) {
+      const uint4 a0 = __ldg(reinterpret_cast<const uint4*>(a0p + 32 * j));
+      const uint4 a1 = __ldg(reinterpret_cast<const uint4*>(a1p + 32 * j));
+      const uint32_t k0[4] = {a0.x, a1.x, a0.y, a1.y};
+      const uint32_t k1[4] = {a0.z, a1.z, a0.w, a1.w};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint4 b = *reinterpret_cast<const uint4*>(
+            bp + (size_t)8 * i * ld + 32 * j);
+        mma_16816(acc[i], k0, b.x, b.y);
+        mma_16816(acc[i], k1, b.z, b.w);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      bf16* p = vTn + (size_t)(m0 + g) * kvn + tok0 + t0 + 8 * i + 2 * t;
+      store2(p, acc[i][0], acc[i][1]);
+      store2(p + (size_t)8 * kvn, acc[i][2], acc[i][3]);
+    }
+  }
 }
 
 // x (N, H, W, C); wk_t (c8, C), wv_t (c2, C): the transposed projections;
-// kT (N, c8, kvn) f32 and vT (N, c2, kvn) out. A CTA takes KT kv tokens.
+// vT (N, c2, kvn) out, and k: in f32 kT (N, c8, kvn); in bf16 split for the
+// 3xTF32 logits, kS (N, c8 / 8, kvn, 16) f32, where the 16 floats of key m
+// and k-step s are, for t = 0..3, {hi(k[m][8s + 2t]), hi(k[m][8s + 2t + 1]),
+// lo(..), lo(..)} (hi = tf32(k), lo = tf32(k - hi)): a lane's B fragments of
+// one key in one 16-byte load. A CTA takes KT kv tokens: it pools them into
+// shared memory, then projects them (f32: block_gemm on the CUDA cores with
+// the weights from global memory; bf16: kv_project).
 template <typename T>
 __global__ void __launch_bounds__(NT)
 attn_kv_kernel(const T* __restrict__ x, const T* __restrict__ wk_t,
@@ -283,13 +353,14 @@ attn_kv_kernel(const T* __restrict__ x, const T* __restrict__ wk_t,
                T* __restrict__ vT, int H, int W, int C, int c8, int c2, int KT) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int V = Traits<T>::kVec;
-  const int ld = C + Traits<T>::kPad;
+  const int ld = kv_ld<T>(C);
   T* kv = reinterpret_cast<T*>(smem);               // [KT][ld] pooled tokens
   const int n = blockIdx.y, tok0 = blockIdx.x * KT;
   const int W2 = W / 2, kvn = (H / 2) * W2;
   const T* xn = x + (size_t)n * H * W * C;
 
   const int cv = C / V;
+#pragma unroll 4
   for (int u = threadIdx.x; u < KT * cv; u += NT) {
     const int tk = u / cv, c0 = (u % cv) * V;
     const int m = tok0 + tk, i = m / W2, j = m % W2;
@@ -301,70 +372,47 @@ attn_kv_kernel(const T* __restrict__ x, const T* __restrict__ wk_t,
     best = vmax<T>(best, *reinterpret_cast<const uint4*>(p + row + C));
     *reinterpret_cast<uint4*>(kv + (size_t)tk * ld + c0) = best;
   }
-  const T* bk = wk_t;
-  const T* bv = wv_t;
-  int ldw = C;
-  if constexpr (Traits<T>::kBf16) {
-    T* wk_s = kv + (size_t)KT * ld;                 // [c8][ld]
-    T* wv_s = wk_s + (size_t)c8 * ld;               // [c2][ld]
-    copy_rows_async<NT>(wk_s, ld, wk_t, C, c8, C);
-    copy_rows_async<NT>(wv_s, ld, wv_t, C, c2, C);
-    cp_async_wait();
-    bk = wk_s;
-    bv = wv_s;
-    ldw = ld;
-  }
   __syncthreads();
 
-  // k (tokens x c8) = kv Wk, kept f32, stored transposed
-  float* kTn = kT + (size_t)n * c8 * kvn + tok0;
-  block_gemm(kv, ld, bk, ldw, KT, c8, C,
-             [&](int r, int c, float v0, float v1) {
-               kTn[(size_t)c * kvn + r] = v0;
-               kTn[(size_t)(c + 1) * kvn + r] = v1;
-             });
-  // v^T (c2 x tokens) = Wv^T kv^T, rounded once
-  T* vTn = vT + (size_t)n * c2 * kvn + tok0;
-  block_gemm(bv, ldw, kv, ld, c2, KT, C,
-             [&](int r, int c, float v0, float v1) {
-               store2(vTn + (size_t)r * kvn + c, v0, v1);
-             });
+  if constexpr (Traits<T>::kBf16) {
+    kv_project(kv, ld, wk_t, wv_t, kT + (size_t)n * c8 * kvn * 2,
+               vT + (size_t)n * c2 * kvn, KT, kvn, tok0, C, c8, c2);
+  } else {
+    // k (tokens x c8) = kv Wk, kept f32, stored transposed
+    float* kTn = kT + (size_t)n * c8 * kvn + tok0;
+    block_gemm(kv, ld, wk_t, C, KT, c8, C,
+               [&](int r, int c, float v0, float v1) {
+                 kTn[(size_t)c * kvn + r] = v0;
+                 kTn[(size_t)(c + 1) * kvn + r] = v1;
+               });
+    // v^T (c2 x tokens) = Wv^T kv^T, rounded once
+    T* vTn = vT + (size_t)n * c2 * kvn + tok0;
+    block_gemm(wv_t, C, kv, ld, c2, KT, C,
+               [&](int r, int c, float v0, float v1) {
+                 store2(vTn + (size_t)r * kvn + c, v0, v1);
+               });
+  }
 }
 
-// ---- second launch: a tile of queries --------------------------------------
+// ---- second launch, f32: a tile of queries on the CUDA cores ----------------
 
-// Shared-memory layout of attn_fwd_kernel (bytes from the start): the x
-// tile (kept for the residual); a region U that holds Wq^T, then the
-// logits/attn tile S in its place and, where Wo^T is too large for a region
-// of its own, Wo^T after that; in bf16 v^T; q; o; a small Wo^T.
+// Shared-memory layout of the f32 body (bytes from the start): the x tile
+// (kept for the residual); the logits/attn tile S; q; o.
 struct Layout {
-  int ldx, lds, ldv, ldo;         // row strides, in elements of their tiles
-  bool wo_apart;                  // Wo^T in its own region, staged at once
-  size_t u, v, q, o, wo, total;   // offsets; x starts at 0
+  int ldx, lds, ldo;              // row strides, in floats
+  size_t u, q, o, total;          // offsets; x starts at 0
 };
 
-template <typename T>
 __host__ __device__ inline Layout make_layout(int tq, int kvn, int C, int c8,
                                               int c2) {
-  constexpr bool B = Traits<T>::kBf16;
-  constexpr int P = Traits<T>::kPad;
   Layout L;
-  L.ldx = C + P;
-  L.lds = kvn + 4;      // f32; as bf16 (attn in place) 2 * lds
-  L.ldv = kvn + P;
-  L.ldo = c2 + P;
-  const size_t wq_b = B ? (size_t)c8 * L.ldx * sizeof(T) : 0;
-  const size_t wo_b = B ? (size_t)C * L.ldo * sizeof(T) : 0;
-  L.wo_apart = wo_b <= 16384;
-  size_t u_b = (size_t)tq * L.lds * 4;
-  if (wq_b > u_b) u_b = wq_b;
-  if (!L.wo_apart && wo_b > u_b) u_b = wo_b;
-  L.u = (size_t)tq * L.ldx * sizeof(T);
-  L.v = L.u + u_b;
-  L.q = L.v + (B ? (size_t)c2 * L.ldv * sizeof(T) : 0);
+  L.ldx = C + 4;
+  L.lds = kvn + 4;
+  L.ldo = c2 + 4;
+  L.u = (size_t)tq * L.ldx * 4;
+  L.q = L.u + (size_t)tq * L.lds * 4;
   L.o = L.q + (size_t)tq * c8 * 4;
-  L.wo = L.wo_apart ? L.o + (size_t)tq * L.ldo * sizeof(T) : L.u;
-  L.total = L.o + (size_t)tq * L.ldo * sizeof(T) + (L.wo_apart ? wo_b : 0);
+  L.total = L.o + (size_t)tq * L.ldo * 4;
   return L;
 }
 
@@ -424,11 +472,8 @@ __device__ __forceinline__ void logits_tile(const float* __restrict__ kTn,
 
 // The softmax of rows r0 .. r0 + R - 1 of S over their kvn columns, f32, by
 // one warp: the R rows' chains (max, exp and sum, scale) run side by side.
-// attn = e * (1 / sum): one division per row. In bf16 attn is rounded into
-// the front half of its own row: a step reads floats [32i, 32i + 32) and
-// then writes bf16 [32i, 32i + 32) = floats [16i, 16i + 16), which every
-// later step has left behind.
-template <int R, bool kBf16>
+// attn = e * (1 / sum): one division per row.
+template <int R>
 __device__ __forceinline__ void softmax_rows(float* S, int lds, int kvn,
                                              int r0) {
   const int lane = threadIdx.x & 31;
@@ -462,29 +507,14 @@ __device__ __forceinline__ void softmax_rows(float* S, int lds, int kvn,
       sum[j] += __shfl_xor_sync(0xffffffffu, sum[j], o);
 #pragma unroll
   for (int j = 0; j < R; ++j) sum[j] = 1.f / sum[j];
-  if constexpr (kBf16) {
-    for (int m0 = 0; m0 < kvn; m0 += 32) {      // every lane, every step
-      const int m = m0 + lane;
-      float p[R];
+  for (int m = lane; m < kvn; m += 32)
 #pragma unroll
-      for (int j = 0; j < R; ++j) p[j] = m < kvn ? row[j][m] * sum[j] : 0.f;
-      __syncwarp();
-      if (m < kvn) {
-#pragma unroll
-        for (int j = 0; j < R; ++j)
-          reinterpret_cast<bf16*>(row[j])[m] = __float2bfloat16_rn(p[j]);
-      }
-    }
-  } else {
-    for (int m = lane; m < kvn; m += 32)
-#pragma unroll
-      for (int j = 0; j < R; ++j) row[j][m] *= sum[j];
-  }
+    for (int j = 0; j < R; ++j) row[j][m] *= sum[j];
 }
 
 // The same for rows of exactly 32 * EPL columns, each lane's EPL values of
 // a row kept in registers from the one read to the one write.
-template <int EPL, int R, bool kBf16>
+template <int EPL, int R>
 __device__ __forceinline__ void softmax_rows_reg(float* S, int lds, int r0) {
   const int lane = threadIdx.x & 31;
   float v[R][EPL], mx[R], sum[R];
@@ -522,139 +552,787 @@ __device__ __forceinline__ void softmax_rows_reg(float* S, int lds, int r0) {
     const float inv = 1.f / sum[j];
     float* row = S + (size_t)(r0 + j) * lds;
 #pragma unroll
-    for (int i = 0; i < EPL; ++i) {
-      if constexpr (kBf16)
-        reinterpret_cast<bf16*>(row)[32 * i + lane] =
-            __float2bfloat16_rn(v[j][i] * inv);
-      else
-        row[32 * i + lane] = v[j][i] * inv;
-    }
+    for (int i = 0; i < EPL; ++i) row[32 * i + lane] = v[j][i] * inv;
   }
 }
 
-// x, out (N, HW, C); wq_t (c8, C), wo_t (C, c2); kT (N, c8, kvn) f32 and
+// x, out (N, HW, C); wq_t (c8, C), wo_t (C, c2); kT (N, c8, kvn) and
 // vT (N, c2, kvn) from attn_kv_kernel; gamma: one f32 on the device. DC:
 // the channels of k a thread keeps in registers for the logits (8, or 16
-// where c8 is a multiple of 16: a kernel of its own, with its own register
-// count).
-template <typename T, int DC>
-__global__ void __launch_bounds__(NT)
-attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wq_t,
-                const T* __restrict__ wo_t, const float* __restrict__ kT,
-                const T* __restrict__ vT, const float* __restrict__ gamma,
-                T* __restrict__ out, int HW, int kvn, int C, int c8, int c2,
-                int TQ) {
+// where c8 is a multiple of 16: a kernel of its own).
+template <int DC>
+__device__ __forceinline__ void fwd_f32(
+    const float* __restrict__ x, const float* __restrict__ wq_t,
+    const float* __restrict__ wo_t, const float* __restrict__ kT,
+    const float* __restrict__ vT, const float* __restrict__ gamma,
+    float* __restrict__ out, int HW, int kvn, int C, int c8, int c2, int TQ) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr bool B = Traits<T>::kBf16;
-  const Layout L = make_layout<T>(TQ, kvn, C, c8, c2);
-  T* xs = reinterpret_cast<T*>(smem);                 // [TQ][ldx]
-  float* S = reinterpret_cast<float*>(smem + L.u);    // [TQ][lds]
-  float* qs = reinterpret_cast<float*>(smem + L.q);   // [TQ][c8]
-  T* os = reinterpret_cast<T*>(smem + L.o);           // [TQ][ldo]
+  const Layout L = make_layout(TQ, kvn, C, c8, c2);
+  float* xs = reinterpret_cast<float*>(smem);          // [TQ][ldx]
+  float* S = reinterpret_cast<float*>(smem + L.u);     // [TQ][lds]
+  float* qs = reinterpret_cast<float*>(smem + L.q);    // [TQ][c8]
+  float* os = reinterpret_cast<float*>(smem + L.o);    // [TQ][ldo]
   const int n = blockIdx.y, q0 = blockIdx.x * TQ;
-  const T* xq = x + ((size_t)n * HW + q0) * C;
-  T* outq = out + ((size_t)n * HW + q0) * C;
-  const T* vTn = vT + (size_t)n * c2 * kvn;
+  const float* xq = x + ((size_t)n * HW + q0) * C;
+  float* outq = out + ((size_t)n * HW + q0) * C;
+  const float* vTn = vT + (size_t)n * c2 * kvn;
 
   const float gm = __ldg(gamma);
-  // stage the x tile; in bf16 also Wq^T, then (in flight until attn v needs
-  // them) the frame's v^T and a small Wo^T
-  K6_MARK_START();
   copy_rows_async<NT>(xs, L.ldx, xq, C, TQ, C);
-  const T* bq = wq_t;
-  const T* bv = vTn;
-  const T* bo = wo_t;
-  int ldq = C, ldv = kvn, ldw = c2;
-  if constexpr (B) {
-    T* wq_s = reinterpret_cast<T*>(smem + L.u);
-    T* v_s = reinterpret_cast<T*>(smem + L.v);
-    T* wo_s = reinterpret_cast<T*>(smem + L.wo);
-    copy_rows_async<NT>(wq_s, L.ldx, wq_t, C, c8, C);
-    cp_async_wait();
-    copy_rows_async<NT>(v_s, L.ldv, vTn, kvn, c2, kvn);
-    if (L.wo_apart) copy_rows_async<NT>(wo_s, L.ldo, wo_t, c2, C, c2);
-    bq = wq_s;
-    bv = v_s;
-    bo = wo_s;
-    ldq = L.ldx;
-    ldv = L.ldv;
-    ldw = L.ldo;
-  } else {
-    cp_async_wait();
-  }
+  cp_async_wait();
   __syncthreads();
-  K6_MARK(0);
 
   // q = x Wq, f32, not rounded
-  block_gemm(xs, L.ldx, bq, ldq, TQ, c8, C,
+  block_gemm(xs, L.ldx, wq_t, C, TQ, c8, C,
              [&](int r, int c, float v0, float v1) {
                store2(qs + (size_t)r * c8 + c, v0, v1);
              });
-  __syncthreads();          // Wq^T is dead: S takes its place
-  K6_MARK(1);
+  __syncthreads();
 
   // logits = q k^T with f32 operands
   const float* kTn = kT + (size_t)n * c8 * kvn;
   logits_tile<DC>(kTn, qs, S, kvn, c8, L.lds, TQ);
   __syncthreads();
-  K6_MARK(2);
 
   // softmax over the full rows: a warp takes TQ / 8 neighbouring rows
   {
     const int rpw = TQ / NWARPS, r_lo = (threadIdx.x >> 5) * rpw;
     if (kvn == 256 && rpw % 4 == 0)         // 32 x 32 maps
       for (int r = r_lo; r < r_lo + rpw; r += 4)
-        softmax_rows_reg<8, 4, B>(S, L.lds, r);
+        softmax_rows_reg<8, 4>(S, L.lds, r);
     else if (kvn == 1024)                   // 64 x 64 maps
       for (int r = r_lo; r < r_lo + rpw; ++r)
-        softmax_rows_reg<32, 1, B>(S, L.lds, r);
+        softmax_rows_reg<32, 1>(S, L.lds, r);
     else                                    // any other map
       for (int r = r_lo; r < r_lo + rpw; r += 2)
-        softmax_rows<2, B>(S, L.lds, kvn, r);
+        softmax_rows<2>(S, L.lds, kvn, r);
   }
-  K6_MARK(3);
-  cp_async_wait();          // this thread's part of v^T (and Wo^T)
   __syncthreads();
-  K6_MARK(4);
 
-  // o = attn v, f32 sums, rounded once
-  const T* P = reinterpret_cast<const T*>(S);
-  block_gemm(P, B ? 2 * L.lds : L.lds, bv, ldv, TQ, c2, kvn,
+  // o = attn v, f32 sums
+  block_gemm(S, L.lds, vTn, kvn, TQ, c2, kvn,
              [&](int r, int c, float v0, float v1) {
                store2(os + (size_t)r * L.ldo + c, v0, v1);
              });
-  __syncthreads();          // attn is dead: a large Wo^T takes its place
-  K6_MARK(5);
-  if constexpr (B) {
-    if (!L.wo_apart) {
-      copy_rows_async<NT>(const_cast<T*>(bo), L.ldo, wo_t, c2, C, c2);
-      cp_async_wait();
-      __syncthreads();
-    }
-  }
-  K6_MARK(6);
+  __syncthreads();
 
-  // y = o Wo (f32); out = f32(x) + gamma * y, rounded once, into the x tile
-  // in place (an mma fragment's store covers 16 bytes of 8 rows), then to
+  // y = o Wo (f32); out = x + gamma * y into the x tile in place, then to
   // global memory in whole rows. The product and the sum are rounded apart,
   // as the plain version's are.
-  block_gemm(os, L.ldo, bo, ldw, TQ, C, c2,
+  block_gemm(os, L.ldo, wo_t, c2, TQ, C, c2,
              [&](int r, int c, float v0, float v1) {
-               T* p = xs + (size_t)r * L.ldx + c;
-               const float2 xr = load2(p);
-               store2(p, __fadd_rn(xr.x, __fmul_rn(gm, v0)),
-                      __fadd_rn(xr.y, __fmul_rn(gm, v1)));
+               float* p = xs + (size_t)r * L.ldx + c;
+               store2(p, __fadd_rn(p[0], __fmul_rn(gm, v0)),
+                      __fadd_rn(p[1], __fmul_rn(gm, v1)));
              });
   __syncthreads();
   {
-    constexpr int V = Traits<T>::kVec;
     const int lane = threadIdx.x & 31;
     for (int r = threadIdx.x >> 5; r < TQ; r += NWARPS)
-      for (int c = lane * V; c < C; c += 32 * V)
+      for (int c = lane * 4; c < C; c += 128)
         *reinterpret_cast<uint4*>(outq + (size_t)r * C + c) =
             *reinterpret_cast<const uint4*>(xs + (size_t)r * L.ldx + c);
   }
-  K6_MARK(7);
+}
+
+// ---- second launch, bf16: persistent CTAs, warp-owned query rows ------------
+
+// Shared memory of the bf16 body (bytes from the start): Wq^T [c8][ldq]; Wo^T
+// [C][ldo], rows permuted (out_rows); the frame's v^T [c2][ldv]; its split k
+// [c8 / 8][kvn][16] f32. Mode 2 (v^T not staged): the weights, then the split
+// k where it fits beside them (k_staged), else nothing more. ldq keeps two rows 64 bytes apart modulo 128 (a
+// quarter warp's 16-byte loads of two rows hit all 32 banks), ldo and ldv
+// are odd multiples of 16 bytes (conflict-free ldmatrix).
+struct TcLayout {
+  int ldq, ldo, ldv;
+  size_t wo, v, k, total;         // offsets; Wq^T starts at 0
+  bool k_staged;
+};
+
+__host__ __device__ inline TcLayout tc_layout(int kvn, int C, int c8, int c2,
+                                              bool v_staged) {
+  TcLayout L;
+  L.ldq = C % 64 == 0 ? C + 32 : C;
+  L.ldo = c2 + 8;
+  L.ldv = kvn + 8;
+  L.wo = (size_t)c8 * L.ldq * 2;
+  L.v = L.wo + (size_t)C * L.ldo * 2;
+  L.k = v_staged ? L.v + (size_t)c2 * L.ldv * 2 : L.v;
+  const size_t k_end = L.k + (size_t)c8 * kvn * 8;
+  L.k_staged = v_staged || k_end <= SMEM_MAX;
+  L.total = L.k_staged ? k_end : L.k;
+  return L;
+}
+
+// What a warp reads of its CTA: the staged operands and the shape.
+struct TcCtx {
+  const bf16* wq_s;
+  const bf16* wo_s;
+  const bf16* v_s;
+  const float* k_s;
+  int ldq, ldo, ldv, kvn, C, c8, c2;
+  float gm;
+};
+
+// The warp body's mmas, D += A B with f32 accumulators: tf32 m16n8k8 (A rows
+// g, g + 8 at k t, t + 4; B k t, t + 4 of column g) and bf16 m16n8k16
+// (mma_bf16.cuh's layout). Volatile: they issue in the order written, which
+// interleaves independent chains (left to itself the compiler hoists loads
+// across them until the registers spill).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// exp(l - m) as 2^(l log2(e) - m log2(e)): one FFMA (mb = -m log2(e), once a
+// row) and one MUFU.EX2 (ex2.approx, about 2^-22 relative; libdevice's expf
+// spends eight more FP32 instructions, and at 64x64 the sweeps evaluate two
+// exps an element).
+constexpr float LOG2E = 1.4426950408889634f;
+__device__ __forceinline__ float exp_shifted(float l, float mb) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(fmaf(l, LOG2E, mb)));
+  return r;
+}
+
+// Two floats rounded to bf16, the first in the low half (the lower column
+// of an mma fragment register).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// f32(x) + gamma * y for the two bf16 of `x`, rounded once.
+__device__ __forceinline__ uint32_t residual(uint32_t x, float gm, float y0,
+                                             float y1) {
+  const float2 xf =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  return pack_bf16(__fadd_rn(xf.x, __fmul_rn(gm, y0)),
+                   __fadd_rn(xf.y, __fmul_rn(gm, y1)));
+}
+
+// Copies `rows` rows of `cols` elements (a multiple of 16 bytes) into dst
+// (row stride ld) with cp.async, row r from src(r), all the block's threads;
+// one commit group.
+template <typename T, class Src>
+__device__ __forceinline__ void stage_async(T* dst, int ld, int rows, int cols,
+                                            Src src) {
+  constexpr int V = 16 / sizeof(T);
+  const int cv = cols / V;
+  for (int u = threadIdx.x; u < rows * cv; u += blockDim.x) {
+    const int r = u / cv, e = (u - r * cv) * V;
+    tc::cp_async_16(dst + (size_t)r * ld + e, src(r) + e, true);
+  }
+  tc::cp_async_commit();
+}
+
+// dst[row_of(n)][k] (row stride ld) = src[k][n] for k < K, n < NN: src
+// row-major (K x NN, NN a multiple of 8) read in 16-byte pieces, all the
+// block's threads. Once per CTA: the stores' bank conflicts do not matter.
+template <class Row>
+__device__ __forceinline__ void stage_transposed(bf16* dst, int ld,
+                                                 const bf16* __restrict__ src,
+                                                 int K, int NN, Row row_of) {
+  const int nv = NN / 8;
+  for (int u = threadIdx.x; u < K * nv; u += blockDim.x) {
+    const int k = u / nv, n0 = (u - k * nv) * 8;
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(src + (size_t)k * NN + n0));
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst[(size_t)row_of(n0 + i) * ld + k] = e[i];
+  }
+}
+
+// Asks L2 for `bytes` from p: lines part, part + parts, ... of 128 bytes.
+__device__ __forceinline__ void prefetch_l2(const void* p, size_t bytes,
+                                            int part, int parts) {
+  const char* b = static_cast<const char*>(p);
+  for (size_t o = (size_t)part * 128; o < bytes; o += (size_t)parts * 128)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(b + o));
+}
+
+// Materialises a fragment here: the compiler may not sink the instructions
+// that form it past this point (it would keep their wider inputs live, the
+// f32 logits behind attn's bf16 fragments, and spill).
+__device__ __forceinline__ void fence(uint32_t (&a)[4]) {
+  asm volatile("" : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]));
+}
+
+// q of the warp's 16 rows xr[0 .. 15] (row stride C), f32 sums of bf16
+// products on mma.sync, split into the hi and lo tf32 A fragments of the
+// logits. Lane (g, t) loads 16 bytes of rows g and g + 8 at channels
+// 32j + 8t .. + 7: its A fragments of chunk j's two k-steps, the contraction
+// permuted (k-step 0 takes channels 8t .. 8t + 3, k-step 1 8t + 4 .. 8t + 7)
+// and Wq^T read in the same order, also 16 bytes a lane. Four chunks' loads
+// are in flight at once; the two k-steps sum into two accumulators (two
+// chains an n-tile), added in f32 at the end.
+template <int QT>
+__device__ __forceinline__ void q_frags(const bf16* __restrict__ xr,
+                                        const TcCtx& c, uint32_t (&qh)[QT][4],
+                                        uint32_t (&ql)[QT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nq = c.c8 / 8, chunks = c.C / 32;
+  const bf16* x0 = xr + (size_t)g * c.C + 8 * t;
+  const bf16* x1 = x0 + (size_t)8 * c.C;
+  const bf16* w0 = c.wq_s + (size_t)g * c.ldq + 8 * t;
+  float qa[QT][4], qb[QT][4];
+  zero(qa);
+  zero(qb);
+  for (int j0 = 0; j0 < chunks; j0 += 4) {
+    uint4 a0[4], a1[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (j0 + u < chunks) {
+        a0[u] = __ldg(reinterpret_cast<const uint4*>(x0 + 32 * (j0 + u)));
+        a1[u] = __ldg(reinterpret_cast<const uint4*>(x1 + 32 * (j0 + u)));
+      }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (j0 + u < chunks) {
+        uint4 w[QT];
+#pragma unroll
+        for (int nt = 0; nt < QT; ++nt)
+          if (nt < nq)
+            w[nt] = *reinterpret_cast<const uint4*>(
+                w0 + (size_t)nt * 8 * c.ldq + 32 * (j0 + u));
+        const uint32_t k0[4] = {a0[u].x, a1[u].x, a0[u].y, a1[u].y};
+        const uint32_t k1[4] = {a0[u].z, a1[u].z, a0[u].w, a1[u].w};
+#pragma unroll
+        for (int nt = 0; nt < QT; ++nt)
+          if (nt < nq) mma_bf16(qa[nt], k0, w[nt].x, w[nt].y);
+#pragma unroll
+        for (int nt = 0; nt < QT; ++nt)
+          if (nt < nq) mma_bf16(qb[nt], k1, w[nt].z, w[nt].w);
+      }
+  }
+  // the accumulator holds q[g][8nt + 2t, + 1] and q[g + 8][..]: the tf32 A
+  // fragment's k = t and t + 4, with channel 8nt + 2t as k = t
+#pragma unroll
+  for (int nt = 0; nt < QT; ++nt) {
+    const float a[4] = {qa[nt][0] + qb[nt][0], qa[nt][2] + qb[nt][2],
+                        qa[nt][1] + qb[nt][1], qa[nt][3] + qb[nt][3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      qh[nt][e] = tf32_rna(a[e]);
+      ql[nt][e] = tf32_rna(a[e] - __uint_as_float(qh[nt][e]));
+    }
+    fence(qh[nt]);
+    fence(ql[nt]);
+  }
+}
+
+// The logits of the warp's 16 rows at NB n-tiles of 8 keys (the first
+// `valid` of them), 3xTF32: per k-step lo_q hi_k, hi_q lo_k, then hi_q hi_k
+// into each tile's f32 accumulator, the tiles' mmas interleaved. kp: this
+// lane's 16 bytes of its key (g) in the first tile at k-step 0; kstride:
+// floats from one k-step to the next. Every caller forms a logit with the
+// same instructions, so a recomputed logit has the same bits.
+template <int QT, int NB>
+__device__ __forceinline__ void logit_block(float (&s)[NB][4], const float* kp,
+                                            int valid, int kstride, int nq,
+                                            const uint32_t (&qh)[QT][4],
+                                            const uint32_t (&ql)[QT][4]) {
+  zero(s);
+#pragma unroll
+  for (int kk = 0; kk < QT; ++kk)
+    if (kk < nq) {
+      uint4 b[NB];
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        if (j < valid)
+          b[j] = *reinterpret_cast<const uint4*>(kp + (size_t)j * 128 +
+                                                 (size_t)kk * kstride);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        if (j < valid) mma_tf32(s[j], ql[kk], b[j].x, b[j].y);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        if (j < valid) mma_tf32(s[j], qh[kk], b[j].z, b[j].w);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        if (j < valid) mma_tf32(s[j], qh[kk], b[j].x, b[j].y);
+    }
+}
+
+// Row max and sum over the four lanes of a row (t = 0..3).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The max of rows g (m[0]) and g + 8 (m[1]) over the first `valid` tiles.
+template <int NB>
+__device__ __forceinline__ void block_max(const float (&s)[NB][4], int valid,
+                                          float (&m)[2]) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    if (j < valid) {
+      m[0] = fmaxf(m[0], fmaxf(s[j][0], s[j][1]));
+      m[1] = fmaxf(m[1], fmaxf(s[j][2], s[j][3]));
+    }
+}
+
+// This lane's ldmatrix row address in a pair of n-tiles of an n-major B
+// (rows 0-7 at k 0-7, at k 8-15, then rows 8-15 likewise).
+__device__ __forceinline__ const bf16* b_pair_row(const bf16* B, int ld) {
+  const int lane = threadIdx.x & 31;
+  return B + (size_t)((lane & 7) + ((lane >> 4) << 3)) * ld +
+         ((lane >> 3) & 1) * 8;
+}
+
+// attn = e (1 / sum) of two neighbouring n-tiles, rounded once into the A
+// fragment of one attn v k-step (FlashAttention-2's register reuse).
+__device__ __forceinline__ void attn_frag(uint32_t (&a)[4], const float (&e0)[4],
+                                          const float (&e1)[4], float i0,
+                                          float i1) {
+  a[0] = pack_bf16(e0[0] * i0, e0[1] * i0);
+  a[1] = pack_bf16(e0[2] * i1, e0[3] * i1);
+  a[2] = pack_bf16(e1[0] * i0, e1[1] * i0);
+  a[3] = pack_bf16(e1[2] * i1, e1[3] * i1);
+}
+
+// o rounded to bf16: accumulator n-tiles 2i, 2i + 1 are o Wo's k-step i.
+__device__ __forceinline__ void o_frag(uint32_t (&a)[4], const float (&o0)[4],
+                                       const float (&o1)[4]) {
+  a[0] = pack_bf16(o0[0], o0[1]);
+  a[1] = pack_bf16(o0[2], o0[3]);
+  a[2] = pack_bf16(o1[0], o1[1]);
+  a[3] = pack_bf16(o1[2], o1[3]);
+}
+
+// One attn v k-step (16 keys, A fragment a) into n-tiles 2p0 .. of acc (the
+// first `np` pairs of it) at key column `key`: v^T's fragments by ldmatrix
+// from shared memory, vp this lane's row address of the pair p0
+// (b_pair_row); with L2, the same four registers as 4-byte loads from
+// global memory, vp = v^T + g ldv + 2t.
+template <int NP, bool L2>
+__device__ __forceinline__ void attn_v_step(float (&acc)[2 * NP][4],
+                                            const uint32_t (&a)[4],
+                                            const bf16* vp, int key, int np,
+                                            int ldv) {
+  uint32_t b[NP][4];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+    if (p < np) {
+      const bf16* r = vp + (size_t)p * 16 * ldv + key;
+      if constexpr (L2) {
+        const bf16* r8 = r + (size_t)8 * ldv;
+        b[p][0] = __ldg(reinterpret_cast<const unsigned int*>(r));
+        b[p][1] = __ldg(reinterpret_cast<const unsigned int*>(r + 8));
+        b[p][2] = __ldg(reinterpret_cast<const unsigned int*>(r8));
+        b[p][3] = __ldg(reinterpret_cast<const unsigned int*>(r8 + 8));
+      } else {
+        ldmatrix_x4(b[p], r);
+      }
+    }
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+    if (p < np) {
+      mma_bf16(acc[2 * p], a, b[p][0], b[p][1]);
+      mma_bf16(acc[2 * p + 1], a, b[p][2], b[p][3]);
+    }
+}
+
+// The first two groups of 32 channels of x's rows g and g + 8 for the
+// residual, loaded ahead of o Wo.
+__device__ __forceinline__ void x_ahead(const bf16* __restrict__ xr,
+                                        const TcCtx& c, uint4 (&xg)[2][2]) {
+  const int lane = threadIdx.x & 31;
+  const bf16* p = xr + (size_t)(lane >> 2) * c.C + 8 * (lane & 3);
+#pragma unroll
+  for (int G = 0; G < 2; ++G)
+    if (32 * G < c.C) {
+      xg[G][0] = __ldg(reinterpret_cast<const uint4*>(p + 32 * G));
+      xg[G][1] = __ldg(reinterpret_cast<const uint4*>(p + 8 * c.C + 32 * G));
+    }
+}
+
+// out = f32(x) + gamma (o Wo), rounded once, for the warp's 16 rows, from
+// o's bf16 A fragments oa. Wo^T's shared rows are permuted: in each group of
+// 32 output channels, row 8j + i holds channel 8 (i / 2) + 2j + i % 2, so
+// n-tile j's accumulator columns 2t, 2t + 1 are channels 8t + 2j, + 1, and
+// a lane holds 8 neighbouring channels of rows g and g + 8 over the four
+// n-tiles. x of group G + 2 is loaded while group G computes (xg: groups 0
+// and 1, loaded ahead); with YS = 2 the k-steps alternate between two
+// accumulators, added in f32.
+template <int OK>
+__device__ __forceinline__ void out_rows(const uint32_t (&oa)[OK][4],
+                                         const uint4 (&xg)[2][2],
+                                         const bf16* __restrict__ xr,
+                                         bf16* __restrict__ outr,
+                                         const TcCtx& c) {
+  constexpr int YS = OK >= 4 ? 2 : 1;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nk = c.c2 / 16, groups = c.C / 32;
+  const bf16* wp = b_pair_row(c.wo_s, c.ldo);
+  const size_t r0 = (size_t)g * c.C + 8 * t, r1 = r0 + (size_t)8 * c.C;
+  const float gm = c.gm;
+  uint4 x0 = xg[0][0], x1 = xg[0][1], n0 = xg[1][0], n1 = xg[1][1];
+#pragma unroll 1
+  for (int G = 0; G < groups; ++G) {
+    uint4 f0 = n0, f1 = n1;
+    if (G + 2 < groups) {
+      f0 = __ldg(reinterpret_cast<const uint4*>(xr + r0 + 32 * (G + 2)));
+      f1 = __ldg(reinterpret_cast<const uint4*>(xr + r1 + 32 * (G + 2)));
+    }
+    float y[YS][4][4];
+    zero(y[0]);
+    if constexpr (YS == 2) zero(y[1]);
+#pragma unroll
+    for (int kk = 0; kk < OK; ++kk)
+      if (kk < nk) {
+        uint32_t b[2][4];
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp)
+          ldmatrix_x4(b[jp], wp + (size_t)(32 * G + 16 * jp) * c.ldo + 16 * kk);
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          mma_bf16(y[kk % YS][2 * jp], oa[kk], b[jp][0], b[jp][1]);
+          mma_bf16(y[kk % YS][2 * jp + 1], oa[kk], b[jp][2], b[jp][3]);
+        }
+      }
+    if constexpr (YS == 2)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) y[0][j][e] += y[1][j][e];
+    const float (&v)[4][4] = y[0];
+    *reinterpret_cast<uint4*>(outr + r0 + 32 * G) =
+        make_uint4(residual(x0.x, gm, v[0][0], v[0][1]),
+                   residual(x0.y, gm, v[1][0], v[1][1]),
+                   residual(x0.z, gm, v[2][0], v[2][1]),
+                   residual(x0.w, gm, v[3][0], v[3][1]));
+    *reinterpret_cast<uint4*>(outr + r1 + 32 * G) =
+        make_uint4(residual(x1.x, gm, v[0][2], v[0][3]),
+                   residual(x1.y, gm, v[1][2], v[1][3]),
+                   residual(x1.z, gm, v[2][2], v[2][3]),
+                   residual(x1.w, gm, v[3][2], v[3][3]));
+    x0 = n0;
+    x1 = n1;
+    n0 = f0;
+    n1 = f1;
+  }
+}
+
+// Mode 0: the warp's 16 rows with all RES_KEYS of their logits in
+// registers: lane (g, t) holds keys 8j + 2t, + 1 of rows g and g + 8, in
+// blocks of NB n-tiles. attn v runs in groups of OG o n-tiles (each group's
+// o rounded into oa at once, so registers hold one group: C 256 spilled
+// with groups of eight), the k-steps alternating between KS accumulators.
+// The fences keep each phase's fragments from holding the last phase's f32
+// values live.
+template <int OT>
+__device__ __forceinline__ void rows_resident(const bf16* __restrict__ xr,
+                                              bf16* __restrict__ outr,
+                                              const TcCtx& c) {
+  constexpr int QT = OT / 4, NJ = RES_KEYS / 8, NB = QT == 1 ? 8 : 4;
+  constexpr int OG = 4, KS = 2;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nq = c.c8 / 8, np = c.c2 / 16;
+  K6_START();
+  uint32_t qh[QT][4], ql[QT][4];
+  q_frags<QT>(xr, c, qh, ql);
+  K6_LAP(1);
+
+  const float* kp = c.k_s + (size_t)g * 16 + 4 * t;
+  float s[NJ / NB][NB][4];
+#pragma unroll
+  for (int b = 0; b < NJ / NB; ++b)
+    logit_block<QT, NB>(s[b], kp + (size_t)b * NB * 128, NB, RES_KEYS * 16,
+                        nq, qh, ql);
+  K6_LAP(2);
+
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int b = 0; b < NJ / NB; ++b) block_max<NB>(s[b], NB, m);
+  const float mb[2] = {-quad_max(m[0]) * LOG2E, -quad_max(m[1]) * LOG2E};
+  float z0 = 0.f, z1 = 0.f;
+#pragma unroll
+  for (int b = 0; b < NJ / NB; ++b) {
+    float y0 = 0.f, y1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      float (&e)[4] = s[b][j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) e[i] = exp_shifted(e[i], mb[i >> 1]);
+      y0 += e[0];
+      y0 += e[1];
+      y1 += e[2];
+      y1 += e[3];
+    }
+    z0 += y0;
+    z1 += y1;
+  }
+  const float i0 = 1.f / quad_sum(z0), i1 = 1.f / quad_sum(z1);
+  uint32_t pa[NJ / 2][4];
+#pragma unroll
+  for (int kk = 0; kk < NJ / 2; ++kk) {
+    attn_frag(pa[kk], s[2 * kk / NB][2 * kk % NB],
+              s[(2 * kk + 1) / NB][(2 * kk + 1) % NB], i0, i1);
+    fence(pa[kk]);
+  }
+  K6_LAP(3);
+
+  uint32_t oa[OT / 2][4];
+  const bf16* vp = b_pair_row(c.v_s, c.ldv);
+#pragma unroll
+  for (int gi = 0; gi < OT / OG; ++gi)
+    if (gi * OG / 2 < np) {
+      float o[KS][OG][4];
+#pragma unroll
+      for (int k = 0; k < KS; ++k) zero(o[k]);
+      const bf16* vg = vp + (size_t)gi * OG * 8 * c.ldv;
+#pragma unroll
+      for (int kk = 0; kk < NJ / 2; ++kk)
+        attn_v_step<OG / 2, false>(o[kk % KS], pa[kk], vg, 16 * kk,
+                            np - gi * OG / 2, c.ldv);
+      if constexpr (KS == 2)
+#pragma unroll
+        for (int i = 0; i < OG; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[0][i][e] += o[1][i][e];
+#pragma unroll
+      for (int i = 0; i < OG / 2; ++i) {
+        o_frag(oa[gi * OG / 2 + i], o[0][2 * i], o[0][2 * i + 1]);
+        fence(oa[gi * OG / 2 + i]);
+      }
+    }
+  K6_LAP(4);
+  uint4 xg[2][2];
+  x_ahead(xr, c, xg);
+  out_rows<OT / 2>(oa, xg, xr, outr, c);
+  K6_LAP(5);
+}
+
+// Modes 1 and 2: the warp's 16 rows over keys in blocks of SWEEP_KEYS (two
+// halves of NB n-tiles), three sweeps that recompute the same logits: the
+// row max; the sum of exp(l - m); attn = exp(l - m) (1 / sum) into attn v.
+// The third sweep takes PG o n-tiles at a time (two passes at OT 16, each
+// recomputing its logits): a block's attn v sums start from zero and are
+// added into f32 totals (one tensor-core chain over all 64 k-steps of a
+// 64x64 map made 0.65-1.3% of the bf16 outputs differ at C 128-256). L2
+// (mode 2): c.k_s and
+// c.v_s are the frame's k and v^T in global memory, read the same way but
+// for v^T's fragments (attn_v_step), and c.k_s is the staged k where it fits
+// (fwd_tc): the same instructions on the same values, so the same bits as
+// mode 1.
+template <int OT, bool L2>
+__device__ __forceinline__ void rows_sweep(const bf16* __restrict__ xr,
+                                           bf16* __restrict__ outr,
+                                           const TcCtx& c) {
+  constexpr int QT = OT / 4, NB = 4, BJ = SWEEP_KEYS / 8;
+  constexpr int PG = OT < 8 ? OT : 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nj = c.kvn / 8, nq = c.c8 / 8, ks = c.kvn * 16, np = c.c2 / 16;
+  K6_START();
+  uint32_t qh[QT][4], ql[QT][4];
+  q_frags<QT>(xr, c, qh, ql);
+  K6_LAP(1);
+
+  const float* kp = c.k_s + (size_t)g * 16 + 4 * t;
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll 2
+  for (int j0 = 0; j0 < nj; j0 += NB) {
+    float s[NB][4];
+    logit_block<QT, NB>(s, kp + (size_t)j0 * 128, nj - j0, ks, nq, qh, ql);
+    block_max<NB>(s, nj - j0, m);
+  }
+  const float mb[2] = {-quad_max(m[0]) * LOG2E, -quad_max(m[1]) * LOG2E};
+  K6_LAP(2);
+
+  float z0 = 0.f, z1 = 0.f;
+#pragma unroll 2
+  for (int j0 = 0; j0 < nj; j0 += NB) {
+    float s[NB][4];
+    logit_block<QT, NB>(s, kp + (size_t)j0 * 128, nj - j0, ks, nq, qh, ql);
+    float y0 = 0.f, y1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      if (j0 + j < nj) {
+        y0 += exp_shifted(s[j][0], mb[0]);
+        y0 += exp_shifted(s[j][1], mb[0]);
+        y1 += exp_shifted(s[j][2], mb[1]);
+        y1 += exp_shifted(s[j][3], mb[1]);
+      }
+    z0 += y0;
+    z1 += y1;
+  }
+  const float i0 = 1.f / quad_sum(z0), i1 = 1.f / quad_sum(z1);
+  K6_LAP(3);
+
+  uint32_t oa[OT / 2][4];
+  const bf16* vp = L2 ? c.v_s + (size_t)g * c.ldv + 2 * t
+                      : b_pair_row(c.v_s, c.ldv);
+#pragma unroll
+  for (int g0 = 0; g0 < OT; g0 += PG)
+    if (g0 / 2 < np) {
+      const bf16* vg = vp + (size_t)g0 * 8 * c.ldv;
+      float o[PG][4];
+      zero(o);
+#pragma unroll 1
+      for (int j0 = 0; j0 < nj; j0 += BJ) {
+        float ob[PG][4];
+        zero(ob);
+#pragma unroll
+        for (int h = 0; h < BJ; h += NB)
+          if (j0 + h < nj) {
+            float s[NB][4];
+            logit_block<QT, NB>(s, kp + (size_t)(j0 + h) * 128, nj - j0 - h,
+                                ks, nq, qh, ql);
+#pragma unroll
+            for (int kk = 0; kk < NB / 2; ++kk)
+              if (j0 + h + 2 * kk < nj) {
+                float (&e0)[4] = s[2 * kk];
+                float (&e1)[4] = s[2 * kk + 1];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  e0[e] = exp_shifted(e0[e], mb[e >> 1]);
+                  e1[e] = exp_shifted(e1[e], mb[e >> 1]);
+                }
+                uint32_t a[4];
+                attn_frag(a, e0, e1, i0, i1);
+                attn_v_step<PG / 2, L2>(ob, a, vg, 8 * (j0 + h) + 16 * kk,
+                                        np - g0 / 2, c.ldv);
+              }
+          }
+#pragma unroll
+        for (int i = 0; i < PG; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[i][e] += ob[i][e];
+      }
+#pragma unroll
+      for (int i = 0; i < PG / 2; ++i) {
+        o_frag(oa[g0 / 2 + i], o[2 * i], o[2 * i + 1]);
+        fence(oa[g0 / 2 + i]);
+      }
+    }
+  K6_LAP(4);
+  uint4 xg[2][2];
+  x_ahead(xr, c, xg);
+  out_rows<OT / 2>(oa, xg, xr, outr, c);
+  K6_LAP(5);
+}
+
+// The persistent loop: this CTA's contiguous range of work items (frame n,
+// TQ queries from q0), a warp per 16 rows. x, out (N, HW, C); wq (C, c8),
+// wo (c2, C) as the module holds them; kS and vT from attn_kv_kernel (bf16
+// layout).
+template <int MODE, int OT>
+__device__ __forceinline__ void fwd_tc(
+    const bf16* __restrict__ x, const bf16* __restrict__ wq,
+    const bf16* __restrict__ wo, const float* __restrict__ kS,
+    const bf16* __restrict__ vT, const float* __restrict__ gamma,
+    bf16* __restrict__ out, int N, int HW, int kvn, int C, int c8, int c2,
+    int TQ) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kStaged = MODE != 2;     // v^T (and k) in shared memory
+  const TcLayout L = tc_layout(kvn, C, c8, c2, kStaged);
+  bf16* wq_s = reinterpret_cast<bf16*>(smem);
+  bf16* wo_s = reinterpret_cast<bf16*>(smem + L.wo);
+  bf16* v_s = reinterpret_cast<bf16*>(smem + L.v);
+  float* k_s = reinterpret_cast<float*>(smem + L.k);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles = HW / TQ;
+  const long long items = (long long)N * tiles;
+  const int first = (int)(items * blockIdx.x / gridDim.x);
+  const int last = (int)(items * (blockIdx.x + 1) / gridDim.x);
+  const size_t kv_floats = (size_t)c8 * kvn * 2, v_elems = (size_t)c2 * kvn;
+
+  // Wq^T from wq (C, c8); Wo^T from wo (c2, C), channel n to the row that
+  // holds it in out_rows' permutation (row 8j + i of a group of 32 holds
+  // channel 8 (i / 2) + 2j + i % 2)
+  stage_transposed(wq_s, L.ldq, wq, C, c8, [](int n) { return n; });
+  stage_transposed(wo_s, L.ldo, wo, c2, C, [](int n) {
+    const int w = n & 31;
+    return (n & ~31) + 8 * ((w >> 1) & 3) + 2 * (w >> 3) + (w & 1);
+  });
+  __syncthreads();                // mode 2 without k staged has no other
+  TcCtx c{wq_s, wo_s, v_s, k_s, L.ldq, L.ldo, kStaged ? L.ldv : kvn,
+          kvn, C, c8, c2, __ldg(gamma)};
+
+  int frame = -1;
+  for (int it = first; it < last; ++it) {
+    const int n = it / tiles, q0 = (it - n * tiles) * TQ;
+    K6_START();
+    if (n != frame) {
+      const float* kSn = kS + (size_t)n * kv_floats;
+      const bf16* vTn = vT + (size_t)n * v_elems;
+      if (L.k_staged) {
+        __syncthreads();          // every warp is done with the last frame
+        stage_async(k_s, 0, 1, (int)kv_floats, [&](int) { return kSn; });
+      } else {
+        c.k_s = kSn;
+      }
+      if constexpr (kStaged)
+        stage_async(v_s, L.ldv, c2, kvn,
+                    [&](int r) { return vTn + (size_t)r * kvn; });
+      else
+        c.v_s = vTn;
+      if ((long long)(n + 1) * tiles < last) {   // the next frame, into L2
+        prefetch_l2(kSn + kv_floats, kv_floats * 4, threadIdx.x, blockDim.x);
+        prefetch_l2(vTn + v_elems, v_elems * 2, threadIdx.x, blockDim.x);
+      }
+      if (L.k_staged) {
+        cp_async_wait();
+        __syncthreads();
+      }
+      frame = n;
+      if (threadIdx.x == 0) K6_COUNT(7);
+    }
+    if (it + 1 < last) {          // this warp's rows of the next item, into L2
+      const int n1 = (it + 1) / tiles, q1 = (it + 1 - n1 * tiles) * TQ;
+      prefetch_l2(x + ((size_t)n1 * HW + q1 + 16 * warp) * C, (size_t)32 * C,
+                  lane, 32);
+    }
+    K6_LAP(0);
+    if (lane == 0) K6_COUNT(6);
+    const size_t row0 = (size_t)n * HW + q0 + 16 * warp;
+    if constexpr (MODE == 0)
+      rows_resident<OT>(x + row0 * C, out + row0 * C, c);
+    else
+      rows_sweep<OT, !kStaged>(x + row0 * C, out + row0 * C, c);
+  }
+}
+
+// The second launch. f32: V = DC, the CUDA-core body on grid (HW / TQ, N),
+// NT threads, wq and wo transposed. bf16: V = the body (BODY_TABLE), the
+// persistent grid, 2 TQ threads (a warp per 16 queries), wq and wo as the
+// module holds them.
+template <typename T, int V>
+struct FwdThreads {
+  static constexpr int value = NT;
+};
+template <int V>
+struct FwdThreads<bf16, V> {
+  static constexpr int value = 32 * BodyOf<V>::kWarps;
+};
+
+template <typename T, int V>
+__global__ void __launch_bounds__(FwdThreads<T, V>::value, 1)
+attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wq,
+                const T* __restrict__ wo, const float* __restrict__ kT,
+                const T* __restrict__ vT, const float* __restrict__ gamma,
+                T* __restrict__ out, int N, int HW, int kvn, int C, int c8,
+                int c2, int TQ) {
+  if constexpr (Traits<T>::kBf16)
+    fwd_tc<BodyOf<V>::kMode, BodyOf<V>::kOT>(x, wq, wo, kT, vT, gamma,
+                                             out, N, HW, kvn, C, c8, c2, TQ);
+  else
+    fwd_f32<V>(x, wq, wo, kT, vT, gamma, out, HW, kvn, C, c8, c2, TQ);
 }
 
 // ---- plans and launches ----------------------------------------------------
@@ -666,37 +1344,47 @@ bool bad_shape(int N, int H, int W, int C, int c8, int c2) {
          kvn % 16 || N > 65535;
 }
 
-// Queries per CTA: `force` if it is a multiple of 16 that divides HW and
-// fits, else the largest of 64, 32, 16 that fits; 0 where nothing does.
+// kv tokens per CTA of the first launch: the most of 64, 32, 16 that divides
+// the frame's tokens and fits (bf16: C % 32 == 0 for its fragment loads);
+// 0 where none does. A token's k and v do not depend on the tile.
 template <typename T>
-int plan_tq(int H, int W, int C, int c8, int c2, int force) {
-  const int HW = H * W, kvn = HW / 4;
-  if (force > 0) {
-    if (force % 16 || HW % force) return 0;
-    return make_layout<T>(force, kvn, C, c8, c2).total <= SMEM_MAX ? force : 0;
-  }
-  for (int tq = 64; tq >= 16; tq >>= 1)
-    if (HW % tq == 0 && make_layout<T>(tq, kvn, C, c8, c2).total <= SMEM_MAX)
-      return tq;
+int plan_kt(int H, int W, int C) {
+  const int kvn = (H / 2) * (W / 2);
+  if (Traits<T>::kBf16 && C % 32) return 0;
+  for (int kt = 64; kt >= 16; kt >>= 1)
+    if (kvn % kt == 0 && kv_smem_bytes<T>(kt, C) <= SMEM_MAX) return kt;
   return 0;
 }
 
-// kv tokens per CTA of the first launch; 0 where the weights do not fit.
-template <typename T>
-int plan_kt(int H, int W, int C, int c8, int c2) {
-  const int kvn = (H / 2) * (W / 2);
-  for (int kt = 64; kt >= 16; kt >>= 1)
-    if (kvn % kt == 0 && kv_smem_bytes<T>(kt, C, c8, c2) <= SMEM_MAX) return kt;
-  return 0;
+// Shared memory of the second launch for this plan; 0 for a plan the kernel
+// does not take: f32 (body -1) a multiple of 16 queries dividing HW; bf16 a
+// body whose mode and widths take the shape, C % 32 == 0, TQ a multiple of
+// 16 dividing HW of at most the body's warps (mode 0: maps of RES_KEYS keys;
+// modes 1 and 2: any). Either must fit SMEM_MAX.
+size_t fwd_smem(int dtype, int body, int tq, int H, int W, int C, int c8,
+                int c2) {
+  const int HW = H * W, kvn = HW / 4;
+  if (tq < 16 || tq % 16 || HW % tq) return 0;
+  size_t bytes = 0;
+  if (dtype == 0 && body == -1) {
+    bytes = make_layout(tq, kvn, C, c8, c2).total;
+  } else if (dtype == 1 && body >= 0 && body < N_BODIES) {
+    const int mode = BODY_TABLE[body][0], ot = BODY_TABLE[body][1];
+    if (C % 32 || c8 > 2 * ot || c2 > 8 * ot ||
+        (mode == 0 && kvn != RES_KEYS) || tq / 16 > BODY_TABLE[body][2])
+      return 0;
+    bytes = tc_layout(kvn, C, c8, c2, mode != 2).total;
+  }
+  return bytes <= SMEM_MAX ? bytes : 0;
 }
 
 template <typename T>
 int kv_launch(const void* x, const void* wk_t, const void* wv_t, float* kT,
               void* vT, int N, int H, int W, int C, int c8, int c2,
               cudaStream_t stream) {
-  const int kt = plan_kt<T>(H, W, C, c8, c2);
+  const int kt = plan_kt<T>(H, W, C);
   if (kt == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = kv_smem_bytes<T>(kt, C, c8, c2);
+  const size_t bytes = kv_smem_bytes<T>(kt, C);
   const cudaError_t e = cudaFuncSetAttribute(
       attn_kv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -709,55 +1397,70 @@ int kv_launch(const void* x, const void* wk_t, const void* wv_t, float* kT,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int fwd_launch(const void* x, const void* wq_t, const void* wo_t,
+template <typename T, int V>
+int fwd_launch(const void* x, const void* wq, const void* wo,
                const float* kT, const void* vT, const float* gamma, void* out,
-               int N, int H, int W, int C, int c8, int c2, int tq,
-               cudaStream_t stream) {
-  if (plan_tq<T>(H, W, C, c8, c2, tq) != tq)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int HW = H * W, kvn = HW / 4;
-  const size_t bytes = make_layout<T>(tq, kvn, C, c8, c2).total;
-  const auto kernel =
-      c8 % 16 == 0 ? attn_fwd_kernel<T, 16> : attn_fwd_kernel<T, 8>;
+               int N, int HW, int C, int c8, int c2, int tq, dim3 grid,
+               int threads, size_t bytes, cudaStream_t stream) {
+  const auto kernel = attn_fwd_kernel<T, V>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(HW / tq, N);
-  kernel<<<grid, NT, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wq_t),
-      static_cast<const T*>(wo_t), kT, static_cast<const T*>(vT), gamma,
-      static_cast<T*>(out), HW, kvn, C, c8, c2, tq);
+  kernel<<<grid, threads, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wq),
+      static_cast<const T*>(wo), kT, static_cast<const T*>(vT), gamma,
+      static_cast<T*>(out), N, HW, HW / 4, C, c8, c2, tq);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 launch of body `body` (V and up).
+template <int V = 0>
+int fwd_bf16(int body, const void* x, const void* wq, const void* wo,
+             const float* kT, const void* vT, const float* gamma, void* out,
+             int N, int HW, int C, int c8, int c2, int tq, int ctas,
+             size_t bytes, cudaStream_t stream) {
+  if constexpr (V < N_BODIES) {
+    if (body != V)
+      return fwd_bf16<V + 1>(body, x, wq, wo, kT, vT, gamma, out, N, HW, C,
+                             c8, c2, tq, ctas, bytes, stream);
+    return fwd_launch<bf16, V>(x, wq, wo, kT, vT, gamma, out, N, HW, C, c8,
+                               c2, tq, dim3(ctas), 2 * tq, bytes, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
 // Each launching function makes ONE launch on `stream` (a cudaStream_t) and
-// returns cudaGetLastError() right after it (0 = launched).
+// returns cudaGetLastError() right after it (0 = launched). The plan (body,
+// queries per work item, grid) comes from `attention_spatial.plan`.
 extern "C" {
 
-// Queries per CTA of the second launch for this shape (`force_tq` > 0: that
-// many, if the kernel takes it); 0 where nothing fits, -1 for a shape the
-// kernels do not take (odd H or W; C not a multiple of 16, c8 of 8, c2 of
-// 16; HW/4 not a multiple of 16) or whose projections overflow the first
-// launch's shared memory.
-int spatial_attn_plan(int dtype, int H, int W, int C, int c8, int c2,
-                      int force_tq) {
-  if (bad_shape(1, H, W, C, c8, c2) || (dtype != 0 && dtype != 1)) return -1;
-  if (dtype == 0)
-    return plan_kt<float>(H, W, C, c8, c2) == 0
-               ? -1
-               : plan_tq<float>(H, W, C, c8, c2, force_tq);
-  return plan_kt<bf16>(H, W, C, c8, c2) == 0
-             ? -1
-             : plan_tq<bf16>(H, W, C, c8, c2, force_tq);
+// Shared memory of the second launch for a plan (see fwd_smem); 0 where the
+// kernel does not take it, -1 for a shape neither launch takes.
+long long spatial_attn_smem_bytes(int dtype, int body, int tq, int H, int W,
+                                  int C, int c8, int c2) {
+  if (bad_shape(1, H, W, C, c8, c2)) return -1;
+  return static_cast<long long>(fwd_smem(dtype, body, tq, H, W, C, c8, c2));
 }
 
-// First launch: kT (N, c8, HW/4) f32 and vT (N, c2, HW/4) from x (N, H, W,
-// C) and the transposed projections wk_t (c8, C), wv_t (c2, C).
+// kv tokens per CTA of the first launch (0: the projections do not fit).
+int spatial_attn_kv_tokens(int dtype, int H, int W, int C) {
+  return dtype == 0 ? plan_kt<float>(H, W, C) : plan_kt<bf16>(H, W, C);
+}
+
+// {mode, OT, most warps a CTA} of bf16 body `body` into out[0..2].
+int spatial_attn_body(int body, int* out) {
+  if (body < 0 || body >= N_BODIES) return -1;
+  for (int i = 0; i < 3; ++i) out[i] = BODY_TABLE[body][i];
+  return 0;
+}
+
+// First launch: vT (N, c2, HW/4) and k (f32: kT (N, c8, HW/4); bf16: kS
+// (N, c8 / 8, HW/4, 16)) from x (N, H, W, C) and the transposed projections
+// wk_t (c8, C), wv_t (c2, C).
 int spatial_attn_kv(int dtype, int device, const void* x, const void* wk_t,
                     const void* wv_t, float* kT, void* vT, int N, int H, int W,
                     int C, int c8, int c2, void* stream) {
@@ -773,30 +1476,42 @@ int spatial_attn_kv(int dtype, int device, const void* x, const void* wk_t,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Second launch: out (N, H, W, C) from x, wq_t (c8, C), wo_t (C, c2), the
-// first launch's kT and vT and gamma (one f32 on the device), `tq` queries
-// per CTA (from spatial_attn_plan).
-int spatial_attn_fwd(int dtype, int device, const void* x, const void* wq_t,
-                     const void* wo_t, const float* kT, const void* vT,
+// Second launch: out (N, H, W, C) from x, the projections wq, wo (f32
+// transposed: (c8, C), (C, c2); bf16 as the module holds them: (C, c8),
+// (c2, C)), the first launch's k and vT and gamma (one f32 on the device),
+// by the plan:
+// f32 body -1, `tq` queries a CTA, ctas = N HW / tq; bf16 `body`, `tq`
+// queries a work item, `ctas` persistent CTAs (at most N HW / tq).
+int spatial_attn_fwd(int dtype, int device, const void* x, const void* wq,
+                     const void* wo, const float* kT, const void* vT,
                      const float* gamma, void* out, int N, int H, int W, int C,
-                     int c8, int c2, int tq, void* stream) {
+                     int c8, int c2, int body, int tq, int ctas, void* stream) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (bad_shape(N, H, W, C, c8, c2))
+  const size_t bytes = bad_shape(N, H, W, C, c8, c2)
+                           ? 0
+                           : fwd_smem(dtype, body, tq, H, W, C, c8, c2);
+  const int HW = H * W;
+  const long long items = (long long)N * (HW / (tq > 0 ? tq : 1));
+  if (bytes == 0 || ctas < 1 || ctas > items ||
+      (dtype == 0 && ctas != items))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return fwd_launch<float>(x, wq_t, wo_t, kT, vT, gamma, out, N, H, W, C, c8,
-                             c2, tq, s);
-  if (dtype == 1)
-    return fwd_launch<bf16>(x, wq_t, wo_t, kT, vT, gamma, out, N, H, W, C, c8,
-                            c2, tq, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    const dim3 grid(HW / tq, N);
+    return c8 % 16 == 0
+               ? fwd_launch<float, 16>(x, wq, wo, kT, vT, gamma, out, N,
+                                       HW, C, c8, c2, tq, grid, NT, bytes, s)
+               : fwd_launch<float, 8>(x, wq, wo, kT, vT, gamma, out, N,
+                                      HW, C, c8, c2, tq, grid, NT, bytes, s);
+  }
+  return fwd_bf16(body, x, wq, wo, kT, vT, gamma, out, N, HW, C, c8, c2, tq,
+                  ctas, bytes, s);
 }
 
 #ifdef K6_PROFILE
-// Copies the eight phase counters (staging, q, logits, softmax, the wait for
-// v^T, attn v, Wo^T staging, o Wo + store) to `out` and zeroes them.
+// Copies the eight counters of the bf16 body (K6_PROFILE above) to `out`
+// and zeroes them.
 int spatial_attn_profile(unsigned long long* out) {
   cudaError_t e = cudaDeviceSynchronize();
   if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, k6_cycles, 64);

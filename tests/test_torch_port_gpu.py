@@ -15,6 +15,7 @@ bf16 ulp at the output's scale.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -965,7 +966,14 @@ ATTN_SHAPES = [(256, 32, 32, 64), (128, 32, 32, 64),    # ucf101_64
                (192, 64, 64, 64), (96, 64, 64, 64),     # 128 px, attn 64
                (3, 16, 8, 64),      # a wide map, 32 keys: a 64-query tile
                (2, 8, 8, 128),      # 16 keys: half a warp's softmax step
-               (2, 24, 24, 64)]     # 576 queries, 144 keys: a 64-query tile
+               (2, 24, 24, 64),     # 576 queries, 144 keys: a 64-query tile
+               # the bf16 sweep bodies at each width, a ragged last block
+               (2, 48, 48, 128),    # 576 keys, c2 64
+               (2, 40, 40, 64),     # 400 keys: 6 blocks of 64 and 16 more
+               (2, 16, 16, 256),    # 64 keys, c2 128
+               # bf16: k and vᵀ read from L2 (mode 2)
+               (2, 64, 64, 128),    # kinetics_256_48f with --attn_res 64
+               (1, 64, 64, 256)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -981,7 +989,8 @@ def test_k6_kernel_matches_plain(cuda, dtype, n, h, w, c):
     assert out.shape == ref.shape and out.dtype == dtype
     scale = float(ref.float().abs().max())
     atol = 1e-4 if dtype == torch.float32 else _bf16_ulp(scale)
-    print(f"\n{(n, h, w, c)} {dtype}: {int((out != ref).sum())} of "
+    plan = k6.plan(dtype, n, h, w, c, c // 8, c // 2)
+    print(f"\n{(n, h, w, c)} {dtype} {plan}: {int((out != ref).sum())} of "
           f"{out.numel()} elements differ, max "
           f"{float((out.float() - ref.float()).abs().max()):.3e} "
           f"(limit {atol:.3e})")
@@ -993,12 +1002,18 @@ def test_k6_kernel_matches_plain(cuda, dtype, n, h, w, c):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k6_forced_tiles_compute_the_same_function(cuda, dtype):
+    """Every query tile force_bqr gives computes the plain version's
+    function; in bf16 (a warp per 16 queries, whatever the tile) with the
+    same bits as the kernel's own plan."""
     args = _attn_inputs(4, 32, 32, 64, dtype, cuda, seed=1)
     ref = k6.spatial_attn_kernel_reference(*args).float()
     atol = 1e-4 if dtype == torch.float32 else _bf16_ulp(float(ref.abs().max()))
-    for bqr in (1, 2):                 # 32 and 64 queries per tile
-        out = k6.spatial_attn_tiled(*args, force_bqr=bqr)
+    own = k6.spatial_attn_tiled(*args)
+    for bqr in (1, 2) + ((4,) if dtype == torch.bfloat16 else ()):
+        out = k6.spatial_attn_tiled(*args, force_bqr=bqr)  # 32, 64, 128
         torch.testing.assert_close(out.float(), ref, rtol=0, atol=atol)
+        if dtype == torch.bfloat16:
+            assert torch.equal(out, own), bqr
     with pytest.raises(ValueError, match="does not take"):
         k6.spatial_attn_tiled(*args, force_bqr=32)      # 1024 queries: no fit
     small = _attn_inputs(2, 8, 8, 64, dtype, cuda, seed=2)
@@ -1006,6 +1021,134 @@ def test_k6_forced_tiles_compute_the_same_function(cuda, dtype):
         k6.spatial_attn_tiled(*small, force_bqr=1)      # 8 queries: not 16·k
     with pytest.raises(ValueError, match="does not divide H"):
         k6.spatial_attn_tiled(*small, force_bqr=3)
+
+
+# one shape per bf16 body (`k6.BODIES`): 32² with C 64 and 256 (logits in
+# registers), 64²×64, 48²×128 and 16²×256 (key sweeps), 96²×64, 64²×128
+# and 64²×256 (key sweeps from L2)
+BODY_SHAPES = [(4, 32, 32, 64), (3, 32, 32, 256), (2, 64, 64, 64),
+               (2, 48, 48, 128), (4, 16, 16, 256), (2, 96, 96, 64),
+               (2, 64, 64, 128), (1, 64, 64, 256)]
+
+
+@pytest.mark.parametrize("n,h,w,c", BODY_SHAPES)
+def test_k6_bf16_has_the_same_bits_under_every_plan(cuda, monkeypatch, n, h,
+                                                    w, c):
+    """A query's output does not depend on the work item's size, on the
+    persistent grid, or on the run: every query tile the body takes and
+    grids of 1, 5 and the plan's CTAs give the bits of the plan's own run."""
+    args = _attn_inputs(n, h, w, c, torch.bfloat16, cuda, seed=5)
+    own = k6.spatial_attn_fused(*args)
+    assert torch.equal(k6.spatial_attn_fused(*args), own)        # two runs
+    plan = k6.plan
+    body = plan(torch.bfloat16, n, h, w, c, c // 8, c // 2).body
+    tiles = [tq for tq in (16, 32, 64, 128, 256)
+             if tq <= 16 * k6.BODIES[body][2] and (h * w) % tq == 0]
+    assert len(tiles) >= 3
+    for tq in tiles:
+        for ctas in (1, 5, None):
+            monkeypatch.setattr(k6, "plan", lambda *a, tq=tq, ctas=ctas, **kw:
+                                plan(*a, **{**kw, "force_tq": tq,
+                                            "ctas": ctas}))
+            assert torch.equal(k6.spatial_attn_fused(*args), own), (tq, ctas)
+    monkeypatch.setattr(k6, "plan", plan)
+
+
+@pytest.mark.parametrize("n,h,w,c", BODY_SHAPES[2:5])
+def test_k6_bf16_l2_body_has_the_bits_of_the_staged_body(cuda, monkeypatch,
+                                                         n, h, w, c):
+    """Mode 2 (k and vᵀ read from L2) runs mode 1's instructions on the
+    same values: at a shape both take, the same bits."""
+    args = _attn_inputs(n, h, w, c, torch.bfloat16, cuda, seed=6)
+    own = k6.spatial_attn_fused(*args)
+    plan = k6.plan
+    staged = plan(torch.bfloat16, n, h, w, c, c // 8, c // 2)
+    mode, ot, warps = k6.BODIES[staged.body]
+    assert mode == 1
+    l2 = k6.BODIES.index((2, ot, warps))
+    monkeypatch.setattr(k6, "plan", lambda *a, **kw: dataclasses.replace(
+        plan(*a, **kw), body=l2))
+    assert torch.equal(k6.spatial_attn_fused(*args), own)
+    monkeypatch.setattr(k6, "plan", plan)
+
+
+@pytest.mark.parametrize("n,h,w,c,c8,c2", [
+    (2, 8, 8, 512, 64, 256),      # kinetics_128 / _256_48f, --attn_res 8
+    (2, 16, 16, 384, 48, 192),
+    (2, 16, 16, 80, 16, 32)])     # C % 32 == 16: no model width (c8 = C/8)
+def test_k6_bf16_refuses_what_its_bodies_do_not_hold(cuda, n, h, w, c, c8,
+                                                     c2):
+    """In bf16 the kernel takes C ≤ 256 (a warp's registers hold c8 ≤ 32,
+    c2 ≤ 128) and C % 32 == 0 (x is read in 16-byte pieces of 32 channels a
+    quad); it refuses other widths with no launch, and the f32 body takes
+    them."""
+    gen = torch.Generator().manual_seed(7)
+    args = [torch.randn(n, h, w, c, generator=gen)] + [
+        a ** -0.5 * torch.randn(a, b, generator=gen)
+        for a, b in ((c, c8), (c, c8), (c, c2), (c2, c))]
+    args = [a.to(cuda, torch.bfloat16) for a in args] + [
+        torch.tensor(0.7, device=cuda)]
+    entry = _attn_entry(h, w)
+    before = entry.launches
+    with pytest.raises(ValueError, match="does not take"):
+        entry(*args)
+    assert entry.launches == before
+    f32 = [a.float() for a in args]
+    out = entry(*f32)
+    torch.testing.assert_close(out, k6.spatial_attn_kernel_reference(*f32),
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,h,w,c", ATTN_SHAPES[:6] + ATTN_SHAPES[-2:])
+def test_k6_bf16_differs_from_plain_on_at_most_half_a_percent(cuda, n, h, w,
+                                                              c):
+    """At the driven calls the bf16 kernel's output differs from the plain
+    version's (f32 sums in another order, tensor-core accumulation, 3×TF32
+    logits, ex2.approx) on at most 0.5% of the elements, each by one ulp at
+    the output's scale (`test_k6_kernel_matches_plain`)."""
+    args = _attn_inputs(n, h, w, c, torch.bfloat16, cuda, seed=n + c)
+    out = _attn_entry(h, w)(*args)
+    ref = k6.spatial_attn_kernel_reference(*args)
+    share = float((out != ref).float().mean())
+    print(f"\n{(n, h, w, c)}: {share:.4%} of the elements differ")
+    assert share <= 0.005
+
+
+@pytest.mark.parametrize("n,h,w,c", [(96, 64, 64, 64), (2, 64, 64, 128)])
+def test_k6_bf16_differ_share_holds_over_seeds(cuda, n, h, w, c):
+    """The 64² sweep sums attn·v over all keys in one accumulator chain:
+    the share of differing elements, the largest over eight seeds, stays
+    within 0.5%."""
+    shares = []
+    for seed in range(8):
+        args = _attn_inputs(n, h, w, c, torch.bfloat16, cuda, seed=100 + seed)
+        out = _attn_entry(h, w)(*args)
+        ref = k6.spatial_attn_kernel_reference(*args)
+        shares.append(float((out != ref).float().mean()))
+        del args, out, ref
+    print(f"\n{(n, h, w, c)}: differing share over 8 seeds, max "
+          f"{max(shares):.4%}, mean {sum(shares) / 8:.4%}")
+    assert max(shares) <= 0.005
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_plan_matches_the_kernel(cuda, dtype):
+    """`k6.plan`'s shared-memory formula and body table are the kernel's;
+    the kernel takes every plan it makes and refuses what it refuses."""
+    lib, code = k6._lib(), k6._DTYPE_CODES[dtype]
+    for i, row in enumerate(k6.BODIES):
+        out = (ctypes.c_int * 3)()
+        assert lib.spatial_attn_body(i, ctypes.addressof(out)) == 0
+        assert tuple(out) == row
+    assert lib.spatial_attn_body(len(k6.BODIES), ctypes.addressof(out)) != 0
+    for n, h, w, c in ATTN_SHAPES + BODY_SHAPES:
+        plan = k6.plan(dtype, n, h, w, c, c // 8, c // 2)
+        assert lib.spatial_attn_smem_bytes(code, plan.body, plan.tq, h, w, c,
+                                           c // 8, c // 2) == plan.smem_bytes
+        assert lib.spatial_attn_kv_tokens(code, h, w, c) > 0
+    # 1024 queries a tile: no fit in either body
+    assert lib.spatial_attn_smem_bytes(code, -1 if dtype == torch.float32
+                                       else 0, 1024, 32, 32, 64, 8, 32) == 0
 
 
 def test_k6_refuses_what_the_kernel_does_not_take(cuda):

@@ -1,18 +1,26 @@
 #!/usr/bin/env python3
-"""Where a query tile's time goes in the port's fused spatial-attention
-kernel (K6, `dvdgan_tpu_torch/kernels/csrc/attention_spatial.cu`).
+"""Where the time goes in the port's fused spatial-attention kernel (K6,
+`dvdgan_tpu_torch/kernels/csrc/attention_spatial.cu`), bf16.
 
     python3 tools/torch_k6_phases.py        # from the repository root; one GPU
 
-Builds the source once more with -DK6_PROFILE (nvcc by hand, into a
-temporary directory), in which `attn_fwd_kernel` adds the cycles thread 0 of
-every CTA spends in each of its eight phases to a device array, runs the
-kernel through the package's own wrapper at the shapes the driven paths give
-it, and prints one JSON line per shape and dtype: the mean cycles per CTA
-and phase (staging of x and Wq^T; q = x Wq; the f32 logits; the softmax; the
-wait for v^T; attn v; staging of a large Wo^T; o Wo with the residual and
-the store). The marks add a block barrier per phase; the shares, not the
-sum, are what to read.
+At the three shapes the driven paths give its bodies (32²×64: logits in
+registers, C 64; 32²×256: in registers, C 256; 64²×64: three key sweeps)
+it prints one JSON line each with:
+
+  * the profiler's view of one call (`chip_smoke.device_view`: the device
+    µs of attn_kv_kernel and attn_fwd_kernel, None where it missed a
+    launch) and the call's CUDA-event ms;
+  * the mean cycles a warp spends in each phase of a work item (16 query
+    rows) of the second launch: staging the frame's k and v (the wait at a
+    frame change, shared by the CTA's warps); q = x Wq (x read from global
+    memory); the logits (sweep body: the max sweep); the softmax (sweep: the
+    sum sweep); attn v (sweep: the third sweep with its logits and exps);
+    o Wo with the residual and the store. From a build with -DK6_PROFILE
+    (nvcc by hand, into a temporary directory), in which lane 0 of every
+    warp adds clock64() laps to a device array. A warp's laps include the
+    time it waits on the others sharing its SM sub-partition: the shares,
+    not the sums, are what to read.
 """
 
 from __future__ import annotations
@@ -27,11 +35,11 @@ import tempfile
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
 from dvdgan_tpu_torch.kernels import _build  # noqa: E402
 from dvdgan_tpu_torch.kernels import attention_spatial as k6  # noqa: E402
 
-PHASES = ("stage", "q", "logits", "softmax", "wait_v", "attn_v", "stage_wo",
-          "out")
+PHASES = ("stage", "q", "logits", "softmax", "attn_v", "out")
 SHAPES = [(256, 32, 32, 64), (384, 32, 32, 256), (192, 64, 64, 64)]
 
 
@@ -48,6 +56,15 @@ def build_profiled(tmp: str) -> ctypes.CDLL:
     return lib
 
 
+def inputs(n, h, w, c, device):
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(n, h, w, c, generator=gen).to(device, torch.bfloat16)
+    ws = [(a ** -0.5 * torch.randn(a, b, generator=gen)).to(
+        device, torch.bfloat16)
+        for a, b in ((c, c // 8), (c, c // 8), (c, c // 2), (c // 2, c))]
+    return (x, *ws, torch.tensor(0.7, device=device))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_k6_phases: no CUDA device", file=sys.stderr)
@@ -56,33 +73,44 @@ def main() -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip())
+    rows = {}
+    for n, h, w, c in SHAPES:
+        args = inputs(n, h, w, c, device)
+
+        def call(args=args):
+            return k6.spatial_attn_fused(*args)
+
+        view = chip_smoke.device_view(call, k6.LAUNCHES_PER_CALL,
+                                      chip_smoke.ATTN_KERNELS)
+        rows[(n, h, w, c)] = {
+            "launch_device_us": view["launch_device_us"],
+            "device_ms": view["device_ms"], "ms": chip_smoke.cuda_ms(call)}
+    lib_of = k6._lib
     with tempfile.TemporaryDirectory() as tmp:
         lib = build_profiled(tmp)
         k6._lib = lambda: lib
-        cycles = (ctypes.c_ulonglong * len(PHASES))()
-        for dtype in (torch.bfloat16, torch.float32):
+        counts = (ctypes.c_ulonglong * 8)()
+        try:
             for n, h, w, c in SHAPES:
-                gen = torch.Generator().manual_seed(0)
-                x = torch.randn(n, h, w, c, generator=gen).to(device, dtype)
-                ws = [(a ** -0.5 * torch.randn(a, b, generator=gen)
-                       ).to(device, dtype)
-                      for a, b in ((c, c // 8), (c, c // 8), (c, c // 2),
-                                   (c // 2, c))]
-                gamma = torch.tensor(0.7, device=device)
+                args = inputs(n, h, w, c, device)
                 for _ in range(2):          # the second run is the one read
-                    k6.spatial_attn_fused(x, *ws, gamma)
-                    err = lib.spatial_attn_profile(cycles)
+                    k6.spatial_attn_fused(*args)
+                    err = lib.spatial_attn_profile(counts)
                     if err:
                         raise RuntimeError(f"spatial_attn_profile: {err}")
-                tq = lib.spatial_attn_plan(k6._DTYPE_CODES[dtype], h, w, c,
-                                           c // 8, c // 2, 0)
-                ctas = n * h * w // tq
-                per_cta = {p: round(v / ctas) for p, v in zip(PHASES, cycles)}
+                plan = k6.plan(torch.bfloat16, n, h, w, c, c // 8, c // 2)
+                items, frames = counts[6], counts[7]
+                per_item = {p: round(v / items)
+                            for p, v in zip(PHASES, counts)}
                 print(json.dumps({
-                    "dtype": str(dtype).replace("torch.", ""),
-                    "shape": [n, h, w, c], "queries_per_cta": tq,
-                    "ctas": ctas, "cycles_per_cta": per_cta,
-                    "sum": sum(per_cta.values())}), flush=True)
+                    "shape": [n, h, w, c], "body": k6.BODIES[plan.body],
+                    "queries_per_item": plan.tq, "ctas": plan.ctas,
+                    "warp_items": items, "frames_staged": frames,
+                    "cycles_per_warp_item": per_item,
+                    "sum": sum(per_item.values()),
+                    **rows[(n, h, w, c)]}), flush=True)
+        finally:
+            k6._lib = lib_of
     return 0
 
 
