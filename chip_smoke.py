@@ -127,6 +127,7 @@ clips, `dvdgan_tpu_torch.data`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -135,6 +136,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -183,6 +185,13 @@ FULL = ["--ups_fused", "full"]
 K6A_SHAPES = [(256, 32, 32, 64), (128, 32, 32, 64), (384, 32, 32, 256),
               (96, 32, 32, 256)]
 K6B_SHAPES = [(192, 64, 64, 64), (96, 64, 64, 64)]
+# K6a's wide body: the 8² attention at C 512 of kinetics_128 with
+# `--attn_res 8`, its sampling (N = 8 · 12 frames) and its train step's fake
+# pass (192)
+K6A_WIDE_SHAPES = [(96, 8, 8, 512), (192, 8, 8, 512)]
+# the sample CLI on that path: bf16, batch 8, with `--attn_fused` off / on
+PX128_ATTN8 = ["--preset", "kinetics_128", "--attn_res", "8"]
+PX128_ATTN8_B = 8
 ATTN_KERNELS = ("attn_kv_kernel", "attn_fwd_kernel")
 K6_DIFFER = 0.005       # bf16: share of K6's output elements that may differ
 #                         from the plain version by their one ulp
@@ -374,16 +383,17 @@ def check_k1(device, levels=LEVELS, t: int = T, b: int = B,
     return rows
 
 
-def time_sample(device, g_cfg, seed: int = 0):
-    """Steady-state serving rate of `g_cfg`, bf16 batch B, weights already
-    on the card: median of 5 after 2 warm-ups. -> (the rate, the state's
-    trees, z, y)."""
+def time_sample(device, g_cfg, seed: int = 0, batch: int = B):
+    """Steady-state serving rate of `g_cfg`, bf16 batch `batch`, weights
+    already on the card: median of 5 after 2 warm-ups. -> (the rate, the
+    state's trees, z, y)."""
     from dvdgan_tpu_torch.models.generator import GeneratorState
     from dvdgan_tpu_torch.train import step
     trees = GeneratorState.create(g_cfg, seed).to(device).trees()
     gen = torch.Generator().manual_seed(1)
-    z = torch.randn(B, g_cfg.z_dim, generator=gen).to(device, torch.bfloat16)
-    y = torch.randint(0, g_cfg.n_classes, (B,), generator=gen).to(device)
+    z = torch.randn(batch, g_cfg.z_dim, generator=gen).to(device,
+                                                          torch.bfloat16)
+    y = torch.randint(0, g_cfg.n_classes, (batch,), generator=gen).to(device)
     for _ in range(2):
         step.sample(*trees, z, y, g_cfg)
     torch.cuda.synchronize()
@@ -394,49 +404,62 @@ def time_sample(device, g_cfg, seed: int = 0):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     sec = statistics.median(secs)
-    clips = {"batch": B, "dtype": "bfloat16", "ups_fused": g_cfg.ups_fused,
+    clips = {"batch": batch, "dtype": "bfloat16", "img_size": g_cfg.img_size,
+             "attn_res": g_cfg.attn_res, "ups_fused": g_cfg.ups_fused,
              "attn_fused": g_cfg.attn_fused, "ms_per_batch": sec * 1e3,
-             "clips_per_s": B / sec}
+             "clips_per_s": batch / sec}
     print("sample_rate " + json.dumps(clips), flush=True)
     return clips, trees, z, y
 
 
-def drive_sample(device, route=()) -> tuple[dict, dict, np.ndarray]:
-    """The sample CLI with the flags `route` (none: the unfused routes;
-    FULL: the fused upsample; ON: the fused attention). -> (launches of K1,
-    K5a and K6a, the serving rate, the clips)."""
+def drive_sample(device, route=(), preset=("--preset", "ucf101_64"),
+                 batch: int = B, f32_vs_cpu: bool = True
+                 ) -> tuple[dict, dict, np.ndarray]:
+    """The sample CLI of `preset` at `batch` with the flags `route` (none:
+    the unfused routes; FULL: the fused upsample; ON: the fused attention),
+    the launch counters zeroed just before. `f32_vs_cpu`: also an f32
+    batch-2 sample, card against the CPU. -> (launches of K1, K3, K5a and
+    K6a, the serving rate, the clips)."""
     from dvdgan_tpu_torch import cli
     from dvdgan_tpu_torch.kernels import attention_spatial as k6
+    from dvdgan_tpu_torch.kernels import convgru_blocked as k3
     from dvdgan_tpu_torch.kernels import convgru_seq as k1
     from dvdgan_tpu_torch.kernels import ups2x_fused as k5
     from dvdgan_tpu_torch.models.generator import GeneratorState
+    from dvdgan_tpu_torch.ops import convgru
     from dvdgan_tpu_torch.train import step
     from dvdgan_tpu_torch.utils.config import parse_config
 
-    argv = ["--mode", "sample", "--preset", "ucf101_64", "--n_samples",
-            str(B), "--bf16", "1", *route]
+    argv = ["--mode", "sample", *preset, "--n_samples", str(batch), "--bf16",
+            "1", *route]
     cfg = parse_config(argv)
     g_cfg = cfg.g_config()
     with tempfile.TemporaryDirectory() as tmp:
         k1.gru_sequence_fused.launches = k5.ups2x.launches = 0
+        k3.gru_sequence_blocked.launches = 0
         k6.spatial_attn_fused.launches = k6.spatial_attn_tiled.launches = 0
         videos = cli.main(argv + ["--out_dir", tmp])
         launches = k1.gru_sequence_fused.launches
+        k3_launches = k3.gru_sequence_blocked.launches
         k5a = k5.ups2x.launches
         k6a = k6.spatial_attn_fused.launches
         k6b = k6.spatial_attn_tiled.launches
         saved = np.load(os.path.join(tmp, "samples.npy"))
-    want_shape = (B, g_cfg.n_frames, g_cfg.img_size, g_cfg.img_size, 3)
+    want_shape = (batch, g_cfg.n_frames, g_cfg.img_size, g_cfg.img_size, 3)
     if videos.shape != want_shape or saved.shape != want_shape:
         raise AssertionError(f"sample shape {videos.shape}, want {want_shape}")
     if not np.isfinite(videos).all():
         raise AssertionError("non-finite values in the sampled clips")
     if videos.min() < -1.0 or videos.max() > 1.0:
         raise AssertionError(f"clip range [{videos.min()}, {videos.max()}]")
-    want = g_cfg.n_levels * g_cfg.n_frames * k1.LAUNCHES_PER_STEP
-    if launches != want:
-        raise AssertionError(f"K1 launched {launches} times in the sample "
-                             f"run, want {want}")
+    n_k3 = sum(convgru.uses_blocked(g_cfg.base_res * 2 ** i,
+                                    g_cfg.base_res * 2 ** i)
+               for i in range(g_cfg.n_levels))
+    want = ((g_cfg.n_levels - n_k3) * g_cfg.n_frames * k1.LAUNCHES_PER_STEP,
+            n_k3 * g_cfg.n_frames * k3.LAUNCHES_PER_STEP)
+    if (launches, k3_launches) != want:
+        raise AssertionError(f"K1, K3 launched {(launches, k3_launches)} "
+                             f"times in the sample run, want {want}")
     want_k5a = 0 if cfg.ups_fused == "off" else (
         g_cfg.n_levels * k5.LAUNCHES_PER_CALL)
     if k5a != want_k5a:
@@ -448,12 +471,15 @@ def drive_sample(device, route=()) -> tuple[dict, dict, np.ndarray]:
         raise AssertionError(f"K6a, K6b launched {(k6a, k6b)} times in the "
                              f"sample run with --attn_fused {cfg.attn_fused}, "
                              f"want {(want_k6a, 0)}")
-    print(f"sample ups {cfg.ups_fused} attn {cfg.attn_fused}: shape "
-          f"{videos.shape} range [{videos.min():.4f}, {videos.max():.4f}] "
-          f"K1 launches {launches} K5a launches {k5a} K6a launches {k6a}",
-          flush=True)
+    print(f"sample {' '.join(preset[1:])} ups {cfg.ups_fused} attn "
+          f"{cfg.attn_fused}: shape {videos.shape} range [{videos.min():.4f}, "
+          f"{videos.max():.4f}] K1 launches {launches} K3 launches "
+          f"{k3_launches} K5a launches {k5a} K6a launches {k6a}", flush=True)
 
-    clips, trees, z, y = time_sample(device, g_cfg, cfg.seed)
+    clips, trees, z, y = time_sample(device, g_cfg, cfg.seed, batch)
+    counts = {"k1": launches, "k3": k3_launches, "k5a": k5a, "k6a": k6a}
+    if not f32_vs_cpu:
+        return counts, clips, videos
 
     # a small f32 sample: card (K1) against the CPU (plain K1 version)
     z2, y2 = z[:2].float(), y[:2]
@@ -467,7 +493,7 @@ def drive_sample(device, route=()) -> tuple[dict, dict, np.ndarray]:
     if not err <= SAMPLE_TOL:
         raise AssertionError(f"f32 sample on the card disagrees with the "
                              f"CPU path: {err}")
-    return {"k1": launches, "k5a": k5a, "k6a": k6a}, clips, videos
+    return counts, clips, videos
 
 
 def check_k2(device, levels=LEVELS, t: int = T, b: int = B_TRAIN,
@@ -822,16 +848,19 @@ def check_k6(device, name: str, shapes, reps_of, views) -> list[dict]:
     return rows
 
 
-def sample_route_gap(device) -> dict:
+def sample_route_gap(device, argv=("--preset", "ucf101_64"), batch: int = B,
+                     f32_vs_cpu: bool = True) -> dict:
     """EMA-G sampling with `--attn_fused on` against `off` with both
     attention γ off their zero init (at γ = 0 the spatial pass returns x on
-    either route): the bf16 batch-16 clips of the two routes on the card,
-    and an f32 batch-2 sample with `on`, card against CPU."""
+    either route): the bf16 clips (batch `batch`) of the two routes on the
+    card, and (`f32_vs_cpu`) an f32 batch-2 sample with `on`, card against
+    CPU."""
+    from dvdgan_tpu_torch.kernels import attention_spatial as k6
     from dvdgan_tpu_torch.models.generator import GeneratorState
     from dvdgan_tpu_torch.train import step
     from dvdgan_tpu_torch.utils.config import parse_config
 
-    argv = ["--preset", "ucf101_64"]
+    argv = list(argv)
     cfgs = {m: parse_config(argv + ["--attn_fused", m]).g_config()
             for m in ("off", "on")}
 
@@ -843,35 +872,107 @@ def sample_route_gap(device) -> dict:
         return params, stats, sn_u
 
     gen = torch.Generator().manual_seed(3)
-    z = torch.randn(B, cfgs["on"].z_dim, generator=gen).to(device)
-    y = torch.randint(0, cfgs["on"].n_classes, (B,), generator=gen).to(device)
+    z = torch.randn(batch, cfgs["on"].z_dim, generator=gen).to(device)
+    y = torch.randint(0, cfgs["on"].n_classes, (batch,), generator=gen
+                      ).to(device)
     card = trees(device)
+    k6.spatial_attn_fused.launches = 0
     clips = {m: step.sample(*card, z.bfloat16(), y, cfg).float()
              for m, cfg in cfgs.items()}
     gap = (clips["on"] - clips["off"]).abs()
-    on_card = step.sample(*card, z[:2], y[:2], cfgs["on"]).cpu()
-    on_cpu = step.sample(*trees("cpu"), z[:2].cpu(), y[:2].cpu(), cfgs["on"])
-    res = {"bf16_on_vs_off_max_abs": float(gap.max()),
+    res = {"preset": " ".join(argv), "batch": batch,
+           "k6a_launches": k6.spatial_attn_fused.launches,
+           "bf16_on_vs_off_max_abs": float(gap.max()),
            "bf16_on_vs_off_mean_abs": float(gap.mean()),
-           "limit": ATTN_CLIP_TOL,
-           "f32_on_card_vs_cpu_max_abs": float((on_card - on_cpu).abs().max()),
-           "f32_limit": SAMPLE_TOL}
+           "limit": ATTN_CLIP_TOL}
+    if f32_vs_cpu:
+        on_card = step.sample(*card, z[:2], y[:2], cfgs["on"]).cpu()
+        on_cpu = step.sample(*trees("cpu"), z[:2].cpu(), y[:2].cpu(),
+                             cfgs["on"])
+        res["f32_on_card_vs_cpu_max_abs"] = float(
+            (on_card - on_cpu).abs().max())
+        res["f32_limit"] = SAMPLE_TOL
     print("sample attn on vs off (gamma 0.6, -0.5) " + json.dumps(res),
           flush=True)
     if not res["bf16_on_vs_off_max_abs"] <= ATTN_CLIP_TOL:
         raise AssertionError(f"the fused attention's clips differ from the "
                              f"unfused route's: {res}")
-    if not res["f32_on_card_vs_cpu_max_abs"] <= SAMPLE_TOL:
+    if res["k6a_launches"] != k6.LAUNCHES_PER_CALL:
+        raise AssertionError(f"the fused attention's sample launched K6a "
+                             f"{res['k6a_launches']} times, want "
+                             f"{k6.LAUNCHES_PER_CALL}")
+    if f32_vs_cpu and not res["f32_on_card_vs_cpu_max_abs"] <= SAMPLE_TOL:
         raise AssertionError(f"f32 sample with the fused attention, card vs "
                              f"CPU: {res}")
     return res
 
 
+def k4_launches(args, cluster: int = 0):
+    """One K4 step as its launches alone, without the wrapper's Python: the
+    C entry of the form `convgru_cell.plan` gives (`cluster`: clusters of
+    that size), or K1's gate + candidate pair (`convgru_seq.Steps`, K4's
+    two-launch form) where it gives none. -> a function that makes them."""
+    from dvdgan_tpu_torch.kernels import convgru_cell as k4
+    from dvdgan_tpu_torch.kernels import convgru_seq as k1
+    gx, cx, h, wg, wc = args
+    b, hh, ww, c = h.shape
+    out = torch.empty_like(h)
+    pl = k4.plan(h.dtype, b, hh, ww, c, force_cluster=cluster)
+    if pl is None:
+        return k1_pair_launches((gx[None], cx[None], h, wg, wc), out)
+    lib = k4._lib()
+    gx_b, gx_pix = k1._pixel_strides(gx[None], "gx")
+    cx_b, cx_pix = k1._pixel_strides(cx[None], "cx")
+    ptrs = (k1.device_index(h.device), h.data_ptr(), gx.data_ptr(), gx_b,
+            gx_pix, cx.data_ptr(), cx_b, cx_pix, wg.data_ptr(), wc.data_ptr(),
+            out.data_ptr())
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    if h.dtype == torch.bfloat16:
+        call = functools.partial(lib.convgru_cell_cluster_step, *ptrs, b, hh,
+                                 ww, c, pl.cluster, stream)
+    else:
+        call = functools.partial(lib.convgru_cell_plane_step, 0, *ptrs, b, hh,
+                                 ww, c, stream)
+
+    def launch():
+        err = call()
+        if err:
+            raise RuntimeError(f"K4 launch failed ({err})")
+    launch.keep = out
+    return launch
+
+
+def k1_pair_launches(args, out=None):
+    """K1's gate + candidate launches of one step (T = 1) alone: args are
+    K1's (gx (1, B, H, W, 2C), cx, h0, wg, wc)."""
+    from dvdgan_tpu_torch.kernels import convgru_seq as k1
+    gx, cx, h, wg, wc = args
+    out = torch.empty_like(h) if out is None else out
+    steps = k1.Steps(gx, cx, h, wg, wc, h.device)
+    ptrs = (h.data_ptr(), gx.data_ptr(), cx.data_ptr(), out.data_ptr())
+    counter = types.SimpleNamespace(launches=0)
+    launch = functools.partial(steps.run, counter, *ptrs)
+    launch.keep = out
+    return launch
+
+
+def launches_ms(launch, per_rep: int = 50, reps: int = 5) -> float:
+    """Device ms of one `launch()` call: `per_rep` calls back to back
+    between one CUDA-event pair (a ctypes launch takes a few µs of host
+    time, so the device sets the pace), median of `reps`."""
+    return cuda_ms(lambda: [launch() for _ in range(per_rep)], reps) / per_rep
+
+
 def check_k4(device, levels, b: int, reps: int = 10) -> list[dict]:
     """K4 against its plain version (one step of K1's) at the GRU planes
-    `levels` with batch `b`; `launches` is per call (1 or 2). Where K4 takes
-    its one-launch form, `k1_pair_ms` is the other form at the same shape:
-    K1's gate + candidate launches (K1 at T = 1)."""
+    `levels` with batch `b`; `launches` is per call (1 or 2). `ms` is a
+    wrapper call in CUDA events (its host work included); `kernel_ms` the
+    launches alone, back to back (`k4_launches`). Where K4 takes its
+    one-launch form, `k1_pair_ms` and `k1_pair_kernel_ms` are the other
+    form at the same shape, K1's gate + candidate launches (K1 at T = 1),
+    and a bf16 row names its `cluster` size; at B 2 (the long clip) a bf16
+    row also runs clusters of 16 (the card's non-portable most): its
+    kernel ms, and the same bits as the plan's clusters of 8."""
     from dvdgan_tpu_torch.kernels import convgru_cell as k4
     from dvdgan_tpu_torch.kernels import convgru_seq as k1
     rows = []
@@ -893,14 +994,33 @@ def check_k4(device, levels, b: int, reps: int = 10) -> list[dict]:
                    "ms": cuda_ms(lambda: k4.gru_cell_fused(*args), reps),
                    "plain_ms": cuda_ms(lambda: k4.gru_cell_reference(*args),
                                        reps),
+                   "kernel_ms": launches_ms(k4_launches(args)),
                    **fwd_bound(1, b, h, w, c, dtype)}
+            pl = k4.plan(dtype, b, h, w, c)
             if row["launches_per_call"] == 1:
                 row["k1_pair_ms"] = cuda_ms(
                     lambda: k1.gru_sequence_fused(gx, cx, h0, wg, wc), reps)
+                row["k1_pair_kernel_ms"] = launches_ms(
+                    k1_pair_launches((gx, cx, h0, wg, wc)))
+            if dtype == torch.bfloat16 and pl is not None:
+                row["cluster"] = pl.cluster
+                if b == LONG_B:
+                    plan = k4.plan
+                    k4.plan = functools.partial(plan, force_cluster=16)
+                    try:
+                        wide = k4.gru_cell_fused(*args)
+                    finally:
+                        k4.plan = plan
+                    row["cluster16"] = {
+                        "kernel_ms": launches_ms(k4_launches(args, 16)),
+                        "bitwise_vs_cluster8": torch.equal(wide, out)}
             print("K4 " + json.dumps(row), flush=True)
             if not row["max_abs_err"] <= TOL[dtype]:
                 raise AssertionError(f"K4 disagrees with its plain version: "
                                      f"{row} (atol {TOL[dtype]})")
+            if not row.get("cluster16", {}).get("bitwise_vs_cluster8", True):
+                raise AssertionError(f"K4's clusters of 16 change the bits of "
+                                     f"its clusters of 8: {row}")
             rows.append(row)
     return rows
 
@@ -909,8 +1029,8 @@ def drive_cell(device, levels=LEVELS, t: int = T, b: int = B) -> int:
     """The single-step entry over `t` steps at the GRU planes `levels`
     (bf16, batch `b`): K4 on K1's own gx/cx and K1's previous state must
     give K1's next state, bit for bit where K4 takes K1's two launches
-    (planes over 8×8), within K1's atol where it takes its one launch (its
-    CUDA-core sums against K1's tensor cores); and
+    (planes over 8×8), within K1's atol where it takes its one cluster
+    launch (K1 adds its split-K partial sums there: another order); and
     `ops.convgru.convgru_cell` unrolled must agree with
     `ops.convgru.convgru` (their input convs run at other batch sizes, so
     cuDNN may sum them in another order: atol as K1's). -> K4's launches
@@ -1332,6 +1452,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from dvdgan_tpu_torch.kernels import _build
+    from dvdgan_tpu_torch.kernels import attention_spatial as k6
     from dvdgan_tpu_torch.ops import convgru
     from dvdgan_tpu_torch.utils.config import parse_config
 
@@ -1420,6 +1541,7 @@ def main() -> int:
     views = k6_views()
     rows_k6a = check_k6(device, "K6a", K6A_SHAPES, reps_k6, views)
     rows_k6b = check_k6(device, "K6b", K6B_SHAPES, reps_k6, views)
+    rows_k6w = check_k6(device, "K6a wide", K6A_WIDE_SHAPES, reps_k6, views)
     px_k1_levels = [lv for lv in PX128_LEVELS
                     if not convgru.uses_blocked(*lv[:2])]
     px_k3_levels = [lv for lv in PX128_LEVELS if convgru.uses_blocked(*lv[:2])]
@@ -1446,6 +1568,25 @@ def main() -> int:
                     ("--preset", "ucf101_64", "--batch_size", "2",
                      "--d_steps", "1", *FUSED))
     phase("sampling and the flagship step with the fused routes")
+
+    # the 128 px sample with its attention at 8² (C 512): K6a's wide body
+    wide_off, _, clips_w_off = drive_sample(
+        device, ["--attn_fused", "off"], PX128_ATTN8, PX128_ATTN8_B, False)
+    wide_on, _, clips_w_on = drive_sample(device, ON, PX128_ATTN8,
+                                          PX128_ATTN8_B, False)
+    gap = np.abs(clips_w_on - clips_w_off)
+    print(f"sample {' '.join(PX128_ATTN8)} attn on vs off (bf16, γ at its "
+          f"zero init): max_abs {gap.max():.3e} (limit {ATTN_CLIP_TOL})",
+          flush=True)
+    if not gap.max() <= ATTN_CLIP_TOL:
+        raise AssertionError(f"the wide K6a's clips differ from the unfused "
+                             f"route's by {gap.max()}")
+    if (wide_off["k6a"], wide_on["k6a"]) != (0, k6.LAUNCHES_PER_CALL):
+        raise AssertionError(f"K6a launched {wide_off['k6a']} and "
+                             f"{wide_on['k6a']} times in the off / on "
+                             f"samples")
+    wide_gap = sample_route_gap(device, PX128_ATTN8, PX128_ATTN8_B, False)
+    phase("the 128 px sample with the 8×8 attention")
 
     # the routes in turns, in this one call
     keys = ("ups_fused", "attn_fused", "ms_per_step", "steps_per_s",
@@ -1527,6 +1668,21 @@ def main() -> int:
                         else None)
                     for k in ATTN_KERNELS}}
 
+    def k4_extra(rows):
+        """K4's launches alone (`kernel_ms`, back to back: a call's event
+        ms holds the wrapper's host work) and, for its one-launch rows, K1's
+        pair at the same shapes, wrapper and launches alone."""
+        bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+        one = [r for r in bf16 if r["launches_per_call"] == 1]
+        return {"kernel_ms": sum(r["kernel_ms"] for r in bf16),
+                "one_launch_kernel_ms": sum(r["kernel_ms"] for r in one),
+                "k1_pair_ms_one_launch_shapes": sum(r["k1_pair_ms"]
+                                                    for r in one),
+                "k1_pair_kernel_ms_one_launch_shapes": sum(
+                    r["k1_pair_kernel_ms"] for r in one),
+                "cluster": {"x".join(map(str, r["shape"][1:])): r["cluster"]
+                            for r in one}}
+
     def k4_per_call(rows):
         return {"x".join(map(str, r["shape"][1:])): r["launches_per_call"]
                 for r in rows if r["dtype"] == "bfloat16"}
@@ -1569,12 +1725,15 @@ def main() -> int:
               k1_ms_same_shapes=sum(r["k1_ms"] for r in rows_k3_path
                                     if r["dtype"] == "bfloat16")),
         entry("convgru_cell (K4, bf16, one step at the 4 ucf101_64 levels, "
-              "B=16)", "convgru_cell.cu", "convgru_cell.py:162", k4_flag,
-              {"cell_unroll": cell_launches}, k4_per_call(k4_flag)),
+              "B=16: one cluster launch at 4x4 and 8x8, K1's pair above)",
+              "convgru_cell.cu", "convgru_cell.py:162", k4_flag,
+              {"cell_unroll": cell_launches}, k4_per_call(k4_flag),
+              **k4_extra(k4_flag)),
         entry("convgru_cell (K4, bf16, one step at the 6 kinetics_256_48f "
-              "levels, B=2)", "convgru_cell.cu", "convgru_cell.py:162",
+              "levels, B=2: one cluster launch at 4x4 and 8x8, K1's pair "
+              "above)", "convgru_cell.cu", "convgru_cell.py:162",
               k4_long, {"cell_unroll": cell_launches_long},
-              k4_per_call(k4_long)),
+              k4_per_call(k4_long), **k4_extra(k4_long)),
         entry("ups2x_fused fwd (K5a, bf16 on mma.sync, sum of the 4 "
               "ucf101_64 levels, N=128; fake pass and sampling N=256)", k5_src,
               "ups2x_fused.py:195", k5a_flag,
@@ -1608,6 +1767,14 @@ def main() -> int:
                "train_fused": train_fused["per_step"]["k6a_launches"],
                "longclip_fused": long_fused["per_step"]["k6a_launches"]},
               **k6_extra(rows_k6a)),
+        entry("attention_spatial (K6a, the fused entry's wide body, bf16, sum "
+              "of its 2 calls: 8x8x512 at N=96 and 192, kinetics_128 "
+              "--attn_res 8)", "attention_spatial.cu",
+              "attention_spatial.py:104", rows_k6w,
+              {"sample_px128_attn8_on": wide_on["k6a"],
+               "sample_px128_attn8_gap": wide_gap["k6a_launches"]},
+              {"sample_px128_attn8_on": wide_on["k6a"]},
+              **k6_extra(rows_k6w)),
         entry("attention_spatial (K6b, the tiled entry, bf16, sum of its 2 "
               "calls: 64x64x64 at N=192 and 96)",
               "attention_spatial.cu", "attention_spatial.py:217", rows_k6b,

@@ -144,10 +144,15 @@ def spatial_attn_reference(x, wq, wk, wv, wo, gamma) -> torch.Tensor:
 # C ≥ 128, larger maps). A warp holds OT o n-tiles and
 # OT/4 q n-tiles of 8 channels (c2 ≤ 8·OT, c8 ≤ 2·OT). The most warps a CTA
 # is also what an SM holds by registers (255 a thread at 8 warps, 128 at
-# 16), so the persistent grid takes one such CTA an SM.
+# 16), so the persistent grid takes one such CTA an SM. Mode 3 takes the
+# widths the others refuse on maps of at most WIDE_KEYS keys (c8 ≤ 64 in
+# two q passes, c2 ≤ 256 in two o passes, c2 % 32 == 0: the 8×8 and 16×16
+# attention at C 384–512), Wq^T and Wo^T read from L2 (the wrapper hands it
+# them transposed) and each warp's o in a shared-memory buffer.
 BODIES = ((0, 4, 8), (0, 16, 8), (1, 4, 16), (1, 8, 8), (1, 16, 8),
-          (2, 4, 16), (2, 8, 8), (2, 16, 8))
+          (2, 4, 16), (2, 8, 8), (2, 16, 8), (3, 32, 8))
 RES_KEYS = 256
+WIDE_KEYS = 64
 # dynamic shared memory a CTA may ask for on sm_90 (227 KB); an SM's 228 KB
 # less the 1 KB it keeps for each CTA
 MAX_SMEM_BYTES = 232448
@@ -182,6 +187,12 @@ def _bf16_smem(kvn: int, c: int, c8: int, c2: int, v_staged: bool) -> int:
                                             else 0)
     with_k = head + 8 * c8 * kvn
     return with_k if v_staged or with_k <= MAX_SMEM_BYTES else head
+
+
+def _wide_smem(kvn: int, c8: int, c2: int, warps: int) -> int:
+    """Mode 3's split k, vᵀ and a 16-row o buffer a warp (its
+    `wide_layout`)."""
+    return 8 * c8 * kvn + 2 * c2 * (kvn + 8) + warps * 32 * (c2 + 8)
 
 
 def _kv_fits(dtype: torch.dtype, kvn: int, c: int) -> bool:
@@ -231,10 +242,17 @@ def plan(dtype: torch.dtype, n: int, h: int, w: int, c: int, c8: int,
         if smem > MAX_SMEM_BYTES:
             mode, smem = 2, _bf16_smem(kvn, c, c8, c2, False)
         body = _body(mode, c8, c2)
+        if ((body is None or smem > MAX_SMEM_BYTES) and kvn <= WIDE_KEYS
+                and c2 % 32 == 0):
+            body = _body(3, c8, c2)
+            smem = 0 if body is None else _wide_smem(kvn, c8, c2,
+                                                     BODIES[body][2])
         if body is None or smem > MAX_SMEM_BYTES:
             raise ValueError(what + ": in bf16 a warp holds c8 ≤ 32 and "
                              "c2 ≤ 128 (C ≤ 256), and the weights must fit "
-                             "shared memory")
+                             "shared memory; maps of at most "
+                             f"{WIDE_KEYS} keys also c8 ≤ 64 and c2 ≤ 256 "
+                             "with c2 % 32 == 0")
         most = 16 * BODIES[body][2]
         sizes = [tq for tq in (most, most // 2, most // 4, most // 8,
                                most // 16) if tq >= 16]
@@ -258,6 +276,8 @@ def plan(dtype: torch.dtype, n: int, h: int, w: int, c: int, c8: int,
     if not bf16:
         return Plan(-1, tq, items, items, _f32_smem(tq, kvn, c, c8, c2))
     warps = tq // 16
+    if BODIES[body][0] == 3:
+        smem = _wide_smem(kvn, c8, c2, warps)
     per_sm = min(SM_SMEM_BYTES // (smem + CTA_RESERVED_BYTES),
                  BODIES[body][2] // warps, MAX_WARPS_PER_SM // warps)
     grid = sms * per_sm if ctas is None else ctas
@@ -347,13 +367,15 @@ def _forward(entry, x, wq, wk, wv, wo, gamma, force_bqr=None) -> torch.Tensor:
     code = _DTYPE_CODES[x.dtype]
     stream = torch.cuda.current_stream(device).cuda_stream
     kvn = (h // 2) * (w // 2)
-    # the first launch reads the k and v projections transposed, and so does
-    # the f32 body the q and out projections (B operands n-major); the bf16
-    # body stages those two transposed itself. In bf16 k goes out split for
-    # the 3×TF32 logits (c8/8 k-steps × keys × 16 floats).
+    # the first launch reads the k and v projections transposed, and so do
+    # the f32 body and the bf16 mode 3 the q and out projections (B operands
+    # n-major); the other bf16 bodies stage those two transposed themselves.
+    # In bf16 k goes out split for the 3×TF32 logits (c8/8 k-steps × keys ×
+    # 16 floats).
     bf16 = x.dtype == torch.bfloat16
     wk_t, wv_t = wk.t().contiguous(), wv.t().contiguous()
-    wq_k, wo_k = ((wq.contiguous(), wo.contiguous()) if bf16
+    wq_k, wo_k = ((wq.contiguous(), wo.contiguous())
+                  if bf16 and BODIES[pl.body][0] != 3
                   else (wq.t().contiguous(), wo.t().contiguous()))
     k_shape = (n, c8 // 8, kvn, 16) if bf16 else (n, c8, kvn)
     k_t = torch.empty(k_shape, dtype=torch.float32, device=device)

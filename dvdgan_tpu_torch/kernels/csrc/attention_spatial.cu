@@ -68,6 +68,17 @@
 //            lane's accumulators are 8 neighbouring channels: x read and out
 //            written as 16-byte vectors.
 //
+// Wide attention on small maps (mode 3: at most WIDE_KEYS keys, c8 up to 64
+// and c2 up to 256, the 8x8 and 16x16 attention at C 384-512): the weights
+// do not fit shared memory (Wo^T alone is 264 KB at C 512) and a warp's
+// registers do not hold the widths in one pass, so Wq^T and Wo^T are read
+// from L2 (transposed by the wrapper) and the widths are split: q and the
+// logits in passes of 32 q channels added into the same accumulators in k
+// order (the bits of one pass), attn v in passes of 128 o channels each
+// rounded into a per-warp o buffer in shared memory, o Wo from that buffer
+// by ldmatrix with each pass of 128 o channels summed apart and added into
+// f32 totals (rows_wide).
+//
 // A query's output does not depend on which CTA, tile size or grid took it:
 // every row runs the same instructions in the same order. Bodies by the map
 // (resident, sweep, sweep from L2) and by the widths the registers hold
@@ -120,11 +131,13 @@ constexpr int SMEM_MAX = 232448;       // 227 KB: a block's most on sm_90
 // Mode 2 is mode 1 with the frame's v^T read from L2 instead of staged, and
 // its split k too where k does not fit beside the weights: for maps whose k
 // and v^T do not fit shared memory together (64x64 at C >= 128, larger
-// maps).
-constexpr int N_BODIES = 8;
+// maps). Mode 3 takes maps of at most WIDE_KEYS keys at widths past the
+// others' (c8 <= 64, c2 <= 256 with c2 % 32 == 0: the 8x8 and 16x16
+// attention at C 384-512), the weights read from L2 (rows_wide).
+constexpr int N_BODIES = 9;
 constexpr int BODY_TABLE[N_BODIES][3] = {
     {0, 4, 8}, {0, 16, 8}, {1, 4, 16}, {1, 8, 8},
-    {1, 16, 8}, {2, 4, 16}, {2, 8, 8}, {2, 16, 8}};
+    {1, 16, 8}, {2, 4, 16}, {2, 8, 8}, {2, 16, 8}, {3, 32, 8}};
 template <int B>
 struct BodyOf {
   static constexpr int kMode = BODY_TABLE[B][0];
@@ -133,6 +146,7 @@ struct BodyOf {
 };
 constexpr int RES_KEYS = 256;
 constexpr int SWEEP_KEYS = 64;
+constexpr int WIDE_KEYS = 64;
 
 // With -DK6_PROFILE the bf16 body adds the cycles lane 0 of every warp spends
 // in each phase of a work item to k6_cycles (read and zeroed through
@@ -644,8 +658,8 @@ __device__ __forceinline__ void fwd_f32(
 // quarter warp's 16-byte loads of two rows hit all 32 banks), ldo and ldv
 // are odd multiples of 16 bytes (conflict-free ldmatrix).
 struct TcLayout {
-  int ldq, ldo, ldv;
-  size_t wo, v, k, total;         // offsets; Wq^T starts at 0
+  int ldq, ldo, ldv, ldb;
+  size_t wo, v, k, ob, total;     // offsets; Wq^T starts at 0
   bool k_staged;
 };
 
@@ -661,6 +675,27 @@ __host__ __device__ inline TcLayout tc_layout(int kvn, int C, int c8, int c2,
   const size_t k_end = L.k + (size_t)c8 * kvn * 8;
   L.k_staged = v_staged || k_end <= SMEM_MAX;
   L.total = L.k_staged ? k_end : L.k;
+  L.ldb = 0;
+  L.ob = L.total;
+  return L;
+}
+
+// Mode 3 stages no weights (Wq^T and Wo^T are read from L2: ldq and ldo are
+// their global row strides): the frame's split k [c8 / 8][kvn][16] f32 at
+// 0, its v^T [c2][ldv], and a 16-row o buffer [16][ldb] for each of the
+// CTA's warps (ldb an odd multiple of 16 bytes: conflict-free ldmatrix).
+__host__ __device__ inline TcLayout wide_layout(int kvn, int C, int c8, int c2,
+                                                int warps) {
+  TcLayout L;
+  L.ldq = C;
+  L.ldo = c2;
+  L.ldv = kvn + 8;
+  L.ldb = c2 + 8;
+  L.wo = L.k = 0;
+  L.v = (size_t)c8 * kvn * 8;
+  L.ob = L.v + (size_t)c2 * L.ldv * 2;
+  L.total = L.ob + (size_t)warps * 16 * L.ldb * 2;
+  L.k_staged = true;
   return L;
 }
 
@@ -776,7 +811,15 @@ __device__ __forceinline__ void fence(uint32_t (&a)[4]) {
 // and Wq^T read in the same order, also 16 bytes a lane. Four chunks' loads
 // are in flight at once; the two k-steps sum into two accumulators (two
 // chains an n-tile), added in f32 at the end.
-template <int QT>
+template <bool P, class A>
+__device__ __forceinline__ A& pick(A& if_true, A& if_false) {
+  if constexpr (P) return if_true; else return if_false;
+}
+
+// With PROMOTE, each block of four chunks sums from zero into its own two
+// accumulators, added into the totals in f32 (the wide body's C 384-512
+// make chains of 12-16 mmas).
+template <int QT, bool PROMOTE = false>
 __device__ __forceinline__ void q_frags(const bf16* __restrict__ xr,
                                         const TcCtx& c, uint32_t (&qh)[QT][4],
                                         uint32_t (&ql)[QT][4]) {
@@ -789,6 +832,13 @@ __device__ __forceinline__ void q_frags(const bf16* __restrict__ xr,
   zero(qa);
   zero(qb);
   for (int j0 = 0; j0 < chunks; j0 += 4) {
+    float pa[QT][4], pb[QT][4];          // PROMOTE: this block's sums
+    if constexpr (PROMOTE) {
+      zero(pa);
+      zero(pb);
+    }
+    float (&da)[QT][4] = pick<PROMOTE>(pa, qa);
+    float (&db)[QT][4] = pick<PROMOTE>(pb, qb);
     uint4 a0[4], a1[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u)
@@ -809,11 +859,19 @@ __device__ __forceinline__ void q_frags(const bf16* __restrict__ xr,
         const uint32_t k1[4] = {a0[u].z, a1[u].z, a0[u].w, a1[u].w};
 #pragma unroll
         for (int nt = 0; nt < QT; ++nt)
-          if (nt < nq) mma_bf16(qa[nt], k0, w[nt].x, w[nt].y);
+          if (nt < nq) mma_bf16(da[nt], k0, w[nt].x, w[nt].y);
 #pragma unroll
         for (int nt = 0; nt < QT; ++nt)
-          if (nt < nq) mma_bf16(qb[nt], k1, w[nt].z, w[nt].w);
+          if (nt < nq) mma_bf16(db[nt], k1, w[nt].z, w[nt].w);
       }
+    if constexpr (PROMOTE)
+#pragma unroll
+      for (int nt = 0; nt < QT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qa[nt][e] += pa[nt][e];
+          qb[nt][e] += pb[nt][e];
+        }
   }
   // the accumulator holds q[g][8nt + 2t, + 1] and q[g + 8][..]: the tf32 A
   // fragment's k = t and t + 4, with channel 8nt + 2t as k = t
@@ -831,18 +889,17 @@ __device__ __forceinline__ void q_frags(const bf16* __restrict__ xr,
   }
 }
 
-// The logits of the warp's 16 rows at NB n-tiles of 8 keys (the first
-// `valid` of them), 3xTF32: per k-step lo_q hi_k, hi_q lo_k, then hi_q hi_k
-// into each tile's f32 accumulator, the tiles' mmas interleaved. kp: this
+// Adds the logits of the warp's 16 rows at NB n-tiles of 8 keys (the first
+// `valid` of them) into s, 3xTF32: per k-step lo_q hi_k, hi_q lo_k, then
+// hi_q hi_k into each tile's f32 accumulator, the tiles' mmas interleaved. kp: this
 // lane's 16 bytes of its key (g) in the first tile at k-step 0; kstride:
 // floats from one k-step to the next. Every caller forms a logit with the
 // same instructions, so a recomputed logit has the same bits.
 template <int QT, int NB>
-__device__ __forceinline__ void logit_block(float (&s)[NB][4], const float* kp,
-                                            int valid, int kstride, int nq,
-                                            const uint32_t (&qh)[QT][4],
-                                            const uint32_t (&ql)[QT][4]) {
-  zero(s);
+__device__ __forceinline__ void logit_acc(float (&s)[NB][4], const float* kp,
+                                          int valid, int kstride, int nq,
+                                          const uint32_t (&qh)[QT][4],
+                                          const uint32_t (&ql)[QT][4]) {
 #pragma unroll
   for (int kk = 0; kk < QT; ++kk)
     if (kk < nq) {
@@ -862,6 +919,15 @@ __device__ __forceinline__ void logit_block(float (&s)[NB][4], const float* kp,
       for (int j = 0; j < NB; ++j)
         if (j < valid) mma_tf32(s[j], qh[kk], b[j].x, b[j].y);
     }
+}
+// The same from zero.
+template <int QT, int NB>
+__device__ __forceinline__ void logit_block(float (&s)[NB][4], const float* kp,
+                                            int valid, int kstride, int nq,
+                                            const uint32_t (&qh)[QT][4],
+                                            const uint32_t (&ql)[QT][4]) {
+  zero(s);
+  logit_acc<QT, NB>(s, kp, valid, kstride, nq, qh, ql);
 }
 
 // Row max and sum over the four lanes of a row (t = 0..3).
@@ -1227,6 +1293,163 @@ __device__ __forceinline__ void rows_sweep(const bf16* __restrict__ xr,
   K6_LAP(5);
 }
 
+// Mode 3: maps of at most WIDE_KEYS keys at widths one pass of the other
+// bodies does not hold (c8 <= 64, c2 <= 256, c2 % 32 == 0: the 8x8 and 16x16
+// attention at C 384-512). A row's logits stay in registers (at most eight
+// n-tiles of 8 keys, as mode 0's), formed in passes of 32 q channels: each
+// pass's q (its four n-tiles, from x and Wq^T's rows in L2, block sums
+// promoted) adds its k-steps into the same accumulators, in k order, so the
+// logits have the bits of one pass. attn v runs in passes of 128 o channels
+// (16 n-tiles of accumulators, <= 4 k-steps of keys); each pass's o is
+// rounded to bf16 into this warp's o buffer ob (16 rows, row stride ldb),
+// channel 32J + 8t + 4s + 2h + e at column 32J + 16s + 8h + 2t + e, so that
+// ldmatrix of columns 32J + 16s .. + 15 is the A fragment of o Wo's k-step
+// 2J + s with the contraction permuted to match Wo^T's rows read as 16-byte
+// pieces from L2 (out_wide).
+template <int OP>
+__device__ __forceinline__ void o_to_buffer(const float (&o)[OP][4], bf16* ob,
+                                            int ldb, int ch0, int valid) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < OP; ++i)
+    if (i < valid) {
+      const int col = ((ch0 + 8 * i) & ~31) + 16 * (t >> 1) + 8 * (t & 1) +
+                      2 * (((ch0 >> 3) + i) & 3);
+      *reinterpret_cast<uint32_t*>(ob + (size_t)g * ldb + col) =
+          pack_bf16(o[i][0], o[i][1]);
+      *reinterpret_cast<uint32_t*>(ob + (size_t)(g + 8) * ldb + col) =
+          pack_bf16(o[i][2], o[i][3]);
+    }
+}
+
+// out = f32(x) + gamma (o Wo), rounded once, for the warp's 16 rows, o from
+// the warp's buffer (o_to_buffer's columns) and Wo^T (C, c2) from L2. Per
+// group of 32 output channels: n-tile j's B column g is channel 8 (g / 2) +
+// 2j + g % 2 of the group (out_rows' permutation: a lane's accumulators are
+// 8 neighbouring channels); a lane's 16 bytes of that row at o channels
+// 32J + 8t .. + 7 are the B fragments of k-steps 2J and 2J + 1. Each pass of
+// 128 o channels sums from zero and is added into the f32 totals.
+__device__ __forceinline__ void out_wide(const bf16* ob, int ldb,
+                                         const bf16* __restrict__ xr,
+                                         bf16* __restrict__ outr,
+                                         const TcCtx& c) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int groups = c.C / 32, nk = c.c2 / 32;
+  const bf16* ap = ob + (size_t)(lane & 15) * ldb + (lane >> 4) * 8;
+  const size_t r0 = (size_t)g * c.C + 8 * t, r1 = r0 + (size_t)8 * c.C;
+  const float gm = c.gm;
+#pragma unroll 1
+  for (int G = 0; G < groups; ++G) {
+    const uint4 x0 = __ldg(reinterpret_cast<const uint4*>(xr + r0 + 32 * G));
+    const uint4 x1 = __ldg(reinterpret_cast<const uint4*>(xr + r1 + 32 * G));
+    const bf16* wp = c.wo_s +
+                     (size_t)(32 * G + 8 * (g >> 1) + (g & 1)) * c.ldo + 8 * t;
+    float y[4][4];
+    zero(y);
+#pragma unroll 1
+    for (int P = 0; P < nk; P += 4) {
+      float yp[4][4];
+      zero(yp);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        if (P + jj < nk) {
+          const int J = P + jj;
+          uint4 b[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            b[j] = __ldg(reinterpret_cast<const uint4*>(
+                wp + (size_t)2 * j * c.ldo + 32 * J));
+          uint32_t a0[4], a1[4];
+          ldmatrix_x4(a0, ap + 32 * J);
+          ldmatrix_x4(a1, ap + 32 * J + 16);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(yp[j], a0, b[j].x, b[j].y);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(yp[j], a1, b[j].z, b[j].w);
+        }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) y[j][e] += yp[j][e];
+    }
+    *reinterpret_cast<uint4*>(outr + r0 + 32 * G) =
+        make_uint4(residual(x0.x, gm, y[0][0], y[0][1]),
+                   residual(x0.y, gm, y[1][0], y[1][1]),
+                   residual(x0.z, gm, y[2][0], y[2][1]),
+                   residual(x0.w, gm, y[3][0], y[3][1]));
+    *reinterpret_cast<uint4*>(outr + r1 + 32 * G) =
+        make_uint4(residual(x1.x, gm, y[0][2], y[0][3]),
+                   residual(x1.y, gm, y[1][2], y[1][3]),
+                   residual(x1.z, gm, y[2][2], y[2][3]),
+                   residual(x1.w, gm, y[3][2], y[3][3]));
+  }
+}
+
+__device__ __forceinline__ void rows_wide(const bf16* __restrict__ xr,
+                                          bf16* __restrict__ outr,
+                                          const TcCtx& c, bf16* ob, int ldb) {
+  constexpr int QT = 4, NJ = WIDE_KEYS / 8, OP = 16;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nq = c.c8 / 8, nj = c.kvn / 8, ks = c.kvn * 16, nt = c.c2 / 8;
+  K6_START();
+  const float* kp = c.k_s + (size_t)g * 16 + 4 * t;
+  float s[NJ][4];
+  zero(s);
+#pragma unroll 1
+  for (int q0 = 0; q0 < nq; q0 += QT) {
+    TcCtx cq = c;
+    cq.wq_s = c.wq_s + (size_t)q0 * 8 * c.ldq;
+    cq.c8 = c.c8 - 8 * q0;
+    uint32_t qh[QT][4], ql[QT][4];
+    q_frags<QT, true>(xr, cq, qh, ql);
+    logit_acc<QT, NJ>(s, kp + (size_t)q0 * ks, nj, ks, nq - q0, qh, ql);
+  }
+  K6_LAP(2);
+
+  float m[2] = {-INFINITY, -INFINITY};
+  block_max<NJ>(s, nj, m);
+  const float mb[2] = {-quad_max(m[0]) * LOG2E, -quad_max(m[1]) * LOG2E};
+  float z0 = 0.f, z1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+    if (j < nj) {
+      float (&e)[4] = s[j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) e[i] = exp_shifted(e[i], mb[i >> 1]);
+      z0 += e[0];
+      z0 += e[1];
+      z1 += e[2];
+      z1 += e[3];
+    }
+  const float i0 = 1.f / quad_sum(z0), i1 = 1.f / quad_sum(z1);
+  uint32_t pa[NJ / 2][4];
+#pragma unroll
+  for (int kk = 0; kk < NJ / 2; ++kk)
+    if (2 * kk < nj) {
+      attn_frag(pa[kk], s[2 * kk], s[2 * kk + 1], i0, i1);
+      fence(pa[kk]);
+    }
+  K6_LAP(3);
+
+  const bf16* vp = b_pair_row(c.v_s, c.ldv);
+#pragma unroll 1
+  for (int n0 = 0; n0 < nt; n0 += OP) {
+    float o[OP][4];
+    zero(o);
+#pragma unroll
+    for (int kk = 0; kk < NJ / 2; ++kk)
+      if (2 * kk < nj)
+        attn_v_step<OP / 2, false>(o, pa[kk], vp + (size_t)n0 * 8 * c.ldv,
+                                   16 * kk, (nt - n0) / 2, c.ldv);
+    o_to_buffer<OP>(o, ob, ldb, 8 * n0, nt - n0);
+  }
+  __syncwarp();                   // the o buffer, written by every lane
+  K6_LAP(4);
+  out_wide(ob, ldb, xr, outr, c);
+  __syncwarp();                   // read by every lane before the next item
+  K6_LAP(5);
+}
+
 // The persistent loop: this CTA's contiguous range of work items (frame n,
 // TQ queries from q0), a warp per 16 rows. x, out (N, HW, C); wq (C, c8),
 // wo (c2, C) as the module holds them; kS and vT from attn_kv_kernel (bf16
@@ -1240,7 +1463,9 @@ __device__ __forceinline__ void fwd_tc(
     int TQ) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool kStaged = MODE != 2;     // v^T (and k) in shared memory
-  const TcLayout L = tc_layout(kvn, C, c8, c2, kStaged);
+  constexpr bool kWide = MODE == 3;       // the weights read from L2
+  const TcLayout L = kWide ? wide_layout(kvn, C, c8, c2, blockDim.x / 32)
+                           : tc_layout(kvn, C, c8, c2, kStaged);
   bf16* wq_s = reinterpret_cast<bf16*>(smem);
   bf16* wo_s = reinterpret_cast<bf16*>(smem + L.wo);
   bf16* v_s = reinterpret_cast<bf16*>(smem + L.v);
@@ -1255,14 +1480,17 @@ __device__ __forceinline__ void fwd_tc(
   // Wq^T from wq (C, c8); Wo^T from wo (c2, C), channel n to the row that
   // holds it in out_rows' permutation (row 8j + i of a group of 32 holds
   // channel 8 (i / 2) + 2j + i % 2)
-  stage_transposed(wq_s, L.ldq, wq, C, c8, [](int n) { return n; });
-  stage_transposed(wo_s, L.ldo, wo, c2, C, [](int n) {
-    const int w = n & 31;
-    return (n & ~31) + 8 * ((w >> 1) & 3) + 2 * (w >> 3) + (w & 1);
-  });
+  if constexpr (!kWide) {
+    stage_transposed(wq_s, L.ldq, wq, C, c8, [](int n) { return n; });
+    stage_transposed(wo_s, L.ldo, wo, c2, C, [](int n) {
+      const int w = n & 31;
+      return (n & ~31) + 8 * ((w >> 1) & 3) + 2 * (w >> 3) + (w & 1);
+    });
+  }
   __syncthreads();                // mode 2 without k staged has no other
-  TcCtx c{wq_s, wo_s, v_s, k_s, L.ldq, L.ldo, kStaged ? L.ldv : kvn,
-          kvn, C, c8, c2, __ldg(gamma)};
+  TcCtx c{kWide ? wq : wq_s, kWide ? wo : wo_s, v_s, k_s, L.ldq, L.ldo,
+          kStaged ? L.ldv : kvn, kvn, C, c8, c2, __ldg(gamma)};
+  bf16* ob = reinterpret_cast<bf16*>(smem + L.ob) + (size_t)warp * 16 * L.ldb;
 
   int frame = -1;
   for (int it = first; it < last; ++it) {
@@ -1303,6 +1531,8 @@ __device__ __forceinline__ void fwd_tc(
     const size_t row0 = (size_t)n * HW + q0 + 16 * warp;
     if constexpr (MODE == 0)
       rows_resident<OT>(x + row0 * C, out + row0 * C, c);
+    else if constexpr (kWide)
+      rows_wide(x + row0 * C, out + row0 * C, c, ob, L.ldb);
     else
       rows_sweep<OT, !kStaged>(x + row0 * C, out + row0 * C, c);
   }
@@ -1360,7 +1590,8 @@ int plan_kt(int H, int W, int C) {
 // does not take: f32 (body -1) a multiple of 16 queries dividing HW; bf16 a
 // body whose mode and widths take the shape, C % 32 == 0, TQ a multiple of
 // 16 dividing HW of at most the body's warps (mode 0: maps of RES_KEYS keys;
-// modes 1 and 2: any). Either must fit SMEM_MAX.
+// modes 1 and 2: any; mode 3: at most WIDE_KEYS keys, c2 % 32 == 0). Either
+// must fit SMEM_MAX.
 size_t fwd_smem(int dtype, int body, int tq, int H, int W, int C, int c8,
                 int c2) {
   const int HW = H * W, kvn = HW / 4;
@@ -1371,9 +1602,12 @@ size_t fwd_smem(int dtype, int body, int tq, int H, int W, int C, int c8,
   } else if (dtype == 1 && body >= 0 && body < N_BODIES) {
     const int mode = BODY_TABLE[body][0], ot = BODY_TABLE[body][1];
     if (C % 32 || c8 > 2 * ot || c2 > 8 * ot ||
-        (mode == 0 && kvn != RES_KEYS) || tq / 16 > BODY_TABLE[body][2])
+        (mode == 0 && kvn != RES_KEYS) ||
+        (mode == 3 && (kvn > WIDE_KEYS || c2 % 32)) ||
+        tq / 16 > BODY_TABLE[body][2])
       return 0;
-    bytes = tc_layout(kvn, C, c8, c2, mode != 2).total;
+    bytes = mode == 3 ? wide_layout(kvn, C, c8, c2, tq / 16).total
+                      : tc_layout(kvn, C, c8, c2, mode != 2).total;
   }
   return bytes <= SMEM_MAX ? bytes : 0;
 }
@@ -1476,9 +1710,10 @@ int spatial_attn_kv(int dtype, int device, const void* x, const void* wk_t,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Second launch: out (N, H, W, C) from x, the projections wq, wo (f32
-// transposed: (c8, C), (C, c2); bf16 as the module holds them: (C, c8),
-// (c2, C)), the first launch's k and vT and gamma (one f32 on the device),
+// Second launch: out (N, H, W, C) from x, the projections wq, wo (f32 and
+// the bf16 mode 3 transposed: (c8, C), (C, c2); the other bf16 bodies as
+// the module holds them: (C, c8), (c2, C)), the first launch's k and vT and
+// gamma (one f32 on the device),
 // by the plan:
 // f32 body -1, `tq` queries a CTA, ctas = N HW / tq; bf16 `body`, `tq`
 // queries a work item, `ctas` persistent CTAs (at most N HW / tq).

@@ -631,13 +631,18 @@ def test_mma_tiles_match_the_library(cuda):
 
 # ---------------------------------------------------------------- K4 -------
 
+# the one-launch planes of the driven presets (ucf101_64 at B 16,
+# kinetics_256_48f at B 2): bf16 clusters of 8 CTAs
+K4_DRIVEN = [(16, 4, 4, 256), (16, 8, 8, 256), (2, 4, 4, 512), (2, 8, 8, 512)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,w,c,launches", [
     (2, 4, 4, 8, 1),      # the 4x4 plane tile
     (3, 5, 7, 12, 1),     # a ragged plane in the 8x8 tile, partial groups
     (2, 8, 8, 72, 1),     # > 1 output-channel block, several ci chunks
     (2, 9, 17, 6, 2),     # over the one-launch tile: gate + candidate
-    (1, 32, 32, 40, 2)])
+    (1, 32, 32, 40, 2)] + [(*s, 1) for s in K4_DRIVEN])
 def test_k4_kernel_matches_plain(cuda, dtype, b, h, w, c, launches):
     gx, cx, h0, wg, wc = _inputs(1, b, h, w, c, dtype, cuda)
     args = (gx[0], cx[0], h0, wg, wc)
@@ -655,10 +660,86 @@ def test_k4_kernel_matches_plain(cuda, dtype, b, h, w, c, launches):
         # roundings (two launches: K4 runs K1's own)
         assert torch.equal(out, step)
     else:
-        # the one-launch form sums on the CUDA cores, K1 in bf16 on the
-        # tensor cores: another order
+        # the bf16 cluster form sums in K1's chunk order, but K1 cuts the
+        # contraction of these small planes into slices (split K) and adds
+        # their partial sums: another order
         torch.testing.assert_close(out.float(), step.float(), rtol=0,
                                    atol=TOL[dtype])
+
+
+
+
+@pytest.mark.parametrize("b,h,w,c", K4_DRIVEN + [(3, 5, 7, 64), (2, 8, 8, 72)])
+def test_k4_bf16_has_the_same_bits_under_every_cluster_size(cuda, monkeypatch,
+                                                            b, h, w, c):
+    """Each output's contraction runs in one order whatever CTA of whatever
+    cluster computes it: every cluster size the kernel takes (of 1 … 16;
+    over 8 is non-portable) gives the plan's bits, one launch a call, and a
+    second run the same bits."""
+    gx, cx, h0, wg, wc = _unit_inputs(1, b, h, w, c, cuda, seed=4)
+    args = (gx[0], cx[0], h0, wg, wc)
+    own = k4.gru_cell_fused(*args)
+    assert torch.equal(k4.gru_cell_fused(*args), own)
+    plan, sizes = k4.plan, []
+    for k in range(1, k4.MAX_CLUSTER + 1):
+        try:
+            plan(torch.bfloat16, b, h, w, c, force_cluster=k)
+        except ValueError:
+            continue
+        sizes.append(k)
+        monkeypatch.setattr(k4, "plan",
+                            functools.partial(plan, force_cluster=k))
+        before = k4.gru_cell_fused.launches
+        out = k4.gru_cell_fused(*args)
+        torch.cuda.synchronize()
+        assert k4.gru_cell_fused.launches - before == 1
+        assert torch.equal(out, own), k
+    print(f"\n{(b, h, w, c)}: the same bits under clusters of {sizes}")
+    assert len(sizes) >= 2
+
+
+@pytest.mark.parametrize("b,h,w,c", [(2, 8, 8, 64), (2, 4, 4, 256)])
+def test_k4_cluster_reads_strided_inputs(cuda, b, h, w, c):
+    """gx and cx as channel slices of one (B, H, W, 3C) tensor (the hoisted
+    input conv's output): the bits of contiguous copies."""
+    gx, cx, h0, wg, wc = _unit_inputs(1, b, h, w, c, cuda, seed=5)
+    gcx = torch.cat([gx[0], cx[0]], dim=-1)
+    out = k4.gru_cell_fused(gcx[..., :2 * c], gcx[..., 2 * c:], h0, wg, wc)
+    torch.cuda.synchronize()
+    assert torch.equal(out, k4.gru_cell_fused(gx[0], cx[0], h0, wg, wc))
+    torch.testing.assert_close(out.float(), k4.gru_cell_reference(
+        gx[0], cx[0], h0, wg, wc).float(), rtol=0, atol=TOL[torch.bfloat16])
+
+
+def test_k4_plan_matches_the_library(cuda):
+    """`k4.plan`'s shared memory and GEMM tiles are the kernel's, for every
+    cluster size it takes; the sizes it refuses the kernel refuses."""
+    lib = k4._lib()
+    out = (ctypes.c_int * 2)()
+    for b, h, w, c in K4_DRIVEN + [(2, 3, 3, 12), (1, 5, 7, 24),
+                                   (2, 8, 8, 72)]:
+        f32 = k4.plan(torch.float32, b, h, w, c)
+        assert lib.convgru_cell_plane_smem_bytes(h, w, c) == f32.smem_bytes
+        for k in range(1, 17):
+            smem = lib.convgru_cell_cluster_smem_bytes(h, w, c, k,
+                                                       ctypes.addressof(out))
+            tiles = k4.cluster_tiles(h, w, c, k)
+            if tiles is None:
+                assert smem == 0, (b, h, w, c, k)
+                continue
+            assert (smem, tuple(out)) == (
+                k4.cluster_smem_bytes(h, w, c, tiles[1]), tiles)
+
+
+def test_k4_bf16_takes_two_launches_where_no_cluster_holds_the_plane(cuda):
+    """1024 channels: 128-channel slices at 8 CTAs, 252 KB a CTA at 16: the
+    entry takes K1's gate + candidate pair, with K1's bits."""
+    gx, cx, h0, wg, wc = _unit_inputs(1, 1, 8, 8, 1024, cuda)
+    before = k4.gru_cell_fused.launches
+    out = k4.gru_cell_fused(gx[0], cx[0], h0, wg, wc)
+    torch.cuda.synchronize()
+    assert k4.gru_cell_fused.launches - before == 2
+    assert torch.equal(out, k1.gru_sequence_fused(gx, cx, h0, wg, wc)[0])
 
 
 def test_k4_kernel_reads_strided_inputs(cuda):
@@ -974,10 +1055,14 @@ ATTN_SHAPES = [(256, 32, 32, 64), (128, 32, 32, 64),    # ucf101_64
                # bf16: k and vᵀ read from L2 (mode 2)
                (2, 64, 64, 128),    # kinetics_256_48f with --attn_res 64
                (1, 64, 64, 256)]
+# bf16: the wide body (mode 3): the 8² attention of the 128 and 256 px
+# presets at C 512 (c8 64, c2 256; `--attn_res 8`) and 16² at C 384 (c8 48,
+# c2 192)
+WIDE_SHAPES = [(2, 8, 8, 512), (2, 16, 16, 384)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,h,w,c", ATTN_SHAPES)
+@pytest.mark.parametrize("n,h,w,c", ATTN_SHAPES + WIDE_SHAPES)
 def test_k6_kernel_matches_plain(cuda, dtype, n, h, w, c):
     args = _attn_inputs(n, h, w, c, dtype, cuda, seed=n + c)
     entry = _attn_entry(h, w)
@@ -1025,10 +1110,11 @@ def test_k6_forced_tiles_compute_the_same_function(cuda, dtype):
 
 # one shape per bf16 body (`k6.BODIES`): 32² with C 64 and 256 (logits in
 # registers), 64²×64, 48²×128 and 16²×256 (key sweeps), 96²×64, 64²×128
-# and 64²×256 (key sweeps from L2)
+# and 64²×256 (key sweeps from L2), 8²×512 and 16²×384 (the wide body)
 BODY_SHAPES = [(4, 32, 32, 64), (3, 32, 32, 256), (2, 64, 64, 64),
                (2, 48, 48, 128), (4, 16, 16, 256), (2, 96, 96, 64),
-               (2, 64, 64, 128), (1, 64, 64, 256)]
+               (2, 64, 64, 128), (1, 64, 64, 256), (3, 8, 8, 512),
+               (2, 16, 16, 384)]
 
 
 @pytest.mark.parametrize("n,h,w,c", BODY_SHAPES)
@@ -1073,15 +1159,14 @@ def test_k6_bf16_l2_body_has_the_bits_of_the_staged_body(cuda, monkeypatch,
 
 
 @pytest.mark.parametrize("n,h,w,c,c8,c2", [
-    (2, 8, 8, 512, 64, 256),      # kinetics_128 / _256_48f, --attn_res 8
-    (2, 16, 16, 384, 48, 192),
-    (2, 16, 16, 80, 16, 32)])     # C % 32 == 16: no model width (c8 = C/8)
+    (2, 16, 16, 80, 16, 32),      # C % 32 == 16: no model width (c8 = C/8)
+    (2, 32, 32, 384, 48, 192)])   # C 384 on a map of more than 64 keys
 def test_k6_bf16_refuses_what_its_bodies_do_not_hold(cuda, n, h, w, c, c8,
                                                      c2):
-    """In bf16 the kernel takes C ≤ 256 (a warp's registers hold c8 ≤ 32,
-    c2 ≤ 128) and C % 32 == 0 (x is read in 16-byte pieces of 32 channels a
-    quad); it refuses other widths with no launch, and the f32 body takes
-    them."""
+    """In bf16 the kernel takes C % 32 == 0 (x is read in 16-byte pieces of
+    32 channels a quad), and C ≤ 256 (a warp's registers hold c8 ≤ 32, c2 ≤
+    128) but on maps of at most 64 keys (the wide body: c8 ≤ 64, c2 ≤ 256);
+    it refuses other widths with no launch, and the f32 body takes them."""
     gen = torch.Generator().manual_seed(7)
     args = [torch.randn(n, h, w, c, generator=gen)] + [
         a ** -0.5 * torch.randn(a, b, generator=gen)
@@ -1099,7 +1184,8 @@ def test_k6_bf16_refuses_what_its_bodies_do_not_hold(cuda, n, h, w, c, c8,
                                rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("n,h,w,c", ATTN_SHAPES[:6] + ATTN_SHAPES[-2:])
+@pytest.mark.parametrize("n,h,w,c", ATTN_SHAPES[:6] + ATTN_SHAPES[-2:]
+                         + WIDE_SHAPES + [(96, 8, 8, 512), (192, 8, 8, 512)])
 def test_k6_bf16_differs_from_plain_on_at_most_half_a_percent(cuda, n, h, w,
                                                               c):
     """At the driven calls the bf16 kernel's output differs from the plain

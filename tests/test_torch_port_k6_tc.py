@@ -168,13 +168,18 @@ def test_plan_refuses_what_the_kernel_does_not_take(dtype):
     # what the bf16 bodies refuse and the CUDA-core body takes
     for shape, f32_tq in [((2, 8, 8, 48, 8, 16), 64),    # C % 32: x chunks
                           ((2, 16, 16, 80, 16, 32), 64),
-                          ((2, 8, 8, 512, 64, 256), 64),  # wider than a warp
-                          ((2, 32, 32, 384, 48, 192), 64)]:  # holds
-        if dtype == torch.bfloat16:
+                          ((2, 32, 32, 384, 48, 192), 64)]:  # wider than a
+        if dtype == torch.bfloat16:                        # warp holds
             with pytest.raises(ValueError, match="does not take"):
                 ka.plan(dtype, *shape)
         else:
             assert ka.plan(dtype, *shape).tq == f32_tq
+    # the 8×8 attention at C 512: both take it, bf16 in its wide body
+    # (mode 3, `tests/test_torch_port_k6_wide.py`)
+    wide = ka.plan(dtype, 2, 8, 8, 512, 64, 256)
+    assert wide.tq == 64
+    assert wide.body == (-1 if dtype == torch.float32
+                         else ka.BODIES.index((3, 32, 8)))
 
 
 @pytest.mark.parametrize("n,h,w,c,k_staged", [

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Device time of the port's fused spatial attention (K6), bf16, at the six
-calls of the driven paths and at two 64² calls of wider attention
+calls of the driven paths, the two 8² calls of `kinetics_128 --attn_res 8`
+(C 512: the wide body) and at two 64² calls of wider attention
 (`kinetics_256_48f --attn_res 64`, C 128, and C 256), whose frame k and vᵀ
 the bf16 kernel reads from L2: for each shape one JSON line with the
 profiler's view of one call (`chip_smoke.device_view`: device µs of
@@ -45,7 +46,7 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     for n, h, w, c in (chip_smoke.K6A_SHAPES + chip_smoke.K6B_SHAPES
-                       + L2_SHAPES):
+                       + chip_smoke.K6A_WIDE_SHAPES + L2_SHAPES):
         call_args = chip_smoke.k6_inputs(n, h, w, c, torch.bfloat16, dev,
                                          seed=0)
         fn = (k6.spatial_attn_tiled if attention.uses_tiled(h, w)
