@@ -19,9 +19,21 @@
    every kernel of the path launched, then times sampling in clips/s and
    holds a small f32 sample on the card against the CPU (plain) path;
 4. drives the train entry (`python -m dvdgan_tpu_torch --mode train
-   --dataset synthetic ...`) six times, each in a child process whose
-   launch counters start at 0 and which prints each step's launches, the
-   six side by side (a run spends most of its time starting up):
+   --dataset synthetic ...`, `train.trainer.Trainer`: every step logged, a
+   checkpoint at the last step) in child processes whose launch counters
+   start at 0 and which log each step's launches, all side by side (a run
+   spends most of its time starting up), the final state read from the
+   last checkpoint:
+   - the trainer at the flagship step on the reference's schedule
+     (`--log_step 1 --sample_step 2 --model_save_step 2`): A, 4 steps with
+     `--keep_checkpoints 2`; A', A again; B, 2 steps with
+     `--keep_checkpoints 1`, then the same command with `--total_step 4`,
+     which must resume from step 2. Checked: checkpoints 2 and 4 in A and
+     only 4 in B, the grid PNGs at steps 2 and 4 (signature, the grid's
+     IHDR size), the GIFs, the four losses and steps_per_sec in
+     `scalars.jsonl` at every step; if A and A' have the same bits B must
+     too, else every state tree's max|B − A| ≤ 2 × max|A' − A| (both
+     printed);
    - the flagship step, `--preset ucf101_64 --batch_size 8 --bf16 1`, 3
      steps, with the unfused routes and with `--ups_fused full
      --attn_fused on` (per step K1 256, K2 256; fused: K5a 8, K5b 8, K6a 4);
@@ -43,7 +55,12 @@
    its plain version and the plain autograd backward through K1's plain
    version; times flagship train steps/s in bf16 (median of 5 after 2
    warm-ups) and reads the device idle share and the time by kernel from
-   torch.profiler;
+   torch.profiler; the z and frame-index draws of steps 2 and 3 the same
+   fresh and resumed; flagship steps/s through `Trainer.train()` in this
+   process (10 steps, no save or dump, log_step 10) beside the bare loop's,
+   the device idle share of each and the syncs a step (sync debug mode);
+   `AsyncSaver`'s snapshot ms, write s and bytes for the flagship and the
+   kinetics_256_48f state, each restored on the card bitwise;
 6. holds one f32 train step at the flagship widths, batch 2, on the card
    against the CPU from the same state and draws (losses atol 1e-3; Adam
    mu, the gradient, within 1e-3 × max|mu| of each model);
@@ -132,6 +149,7 @@ import json
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1138,32 +1156,39 @@ def launches_per_step(cfg) -> dict[str, int]:
             "k6b_launches": n_k6 if tiled else 0}
 
 
-def start_train(argv, n_steps: int) -> dict:
+def start_train(argv, n_steps: int, tmp=None, first: int = 0) -> dict:
     """Starts the train CLI in a child process (its launch counters start
-    at 0); `finish_train` waits for it and checks the run."""
+    at 0), every step logged and a checkpoint at the last one unless `argv`
+    says otherwise; `finish_train` waits for it and checks the run. `tmp`:
+    the out_dir of an earlier run to resume, at step `first`."""
     from dvdgan_tpu_torch.utils.config import parse_config
 
     # the presets read frame folders; the port trains on synthetic clips
     # (the frames pipeline is not ported yet)
-    argv = [*argv, "--total_step", str(n_steps)]
-    tmp = tempfile.TemporaryDirectory()
+    argv = ["--log_step", "1", "--sample_step", "0", "--model_save_step",
+            str(n_steps), *argv, "--total_step", str(n_steps)]
+    tmp = tmp or tempfile.TemporaryDirectory()
     proc = subprocess.Popen(
         [sys.executable, "-m", "dvdgan_tpu_torch", *argv, "--out_dir",
          tmp.name], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
     return {"proc": proc, "tmp": tmp, "cfg": parse_config(argv),
-            "n_steps": n_steps, "t0": time.perf_counter()}
+            "n_steps": n_steps, "first": first, "t0": time.perf_counter()}
 
 
-def finish_train(run: dict) -> dict:
+def finish_train(run: dict, keep: bool = False) -> dict:
     """Waits for a `start_train` run; returns its K1 … K6b launches, its
-    wall seconds and its peak device memory."""
+    wall seconds, its peak device memory and its stdout; with `keep` also
+    its final state (flat) and out_dir, which then outlives the call."""
     from dvdgan_tpu_torch import interop
+    from dvdgan_tpu_torch.train import checkpoint as ckpt
     from dvdgan_tpu_torch.train import state as train_state
+    from dvdgan_tpu_torch.utils.logging import parse_step_line
 
     proc, cfg, n_steps = run["proc"], run["cfg"], run["n_steps"]
     g_cfg = cfg.g_config()
-    with run["tmp"] as tmp:
+    tmp = run["tmp"].name
+    try:
         try:
             stdout, stderr = proc.communicate(timeout=900)
         except subprocess.TimeoutExpired:
@@ -1174,16 +1199,25 @@ def finish_train(run: dict) -> dict:
         if proc.returncode != 0:
             raise AssertionError(f"train CLI exited {proc.returncode}:\n"
                                  f"{stderr[-4000:]}")
-        with np.load(os.path.join(tmp, "train_state.npz")) as f:
+        ckpt_dir = os.path.join(tmp, "checkpoints")
+        if ckpt.latest_step(ckpt_dir) != n_steps:
+            raise AssertionError(f"newest checkpoint "
+                                 f"{ckpt.latest_step(ckpt_dir)}, want "
+                                 f"{n_steps}")
+        with np.load(os.path.join(ckpt_dir, str(n_steps),
+                                  ckpt.STATE_FILE)) as f:
             after = {k: f[k] for k in f.files}
-    steps = [dict(zip(ln.split()[2::2], ln.split()[3::2]))
-             for ln in stdout.splitlines() if ln.startswith("step ")]
-    if len(steps) != n_steps:
-        raise AssertionError(f"{len(steps)} step lines, want {n_steps}")
+    finally:
+        if not keep:
+            run["tmp"].cleanup()
+    steps = [parse_step_line(ln) for ln in stdout.splitlines()
+             if ln.startswith("step ")]
+    if [n for n, _ in steps] != list(range(run["first"] + 1, n_steps + 1)):
+        raise AssertionError(f"step lines {[n for n, _ in steps]}, want "
+                             f"{run['first'] + 1} … {n_steps}")
     want = launches_per_step(cfg)
-    for s in steps:
-        losses = [float(s[k]) for k in ("d_loss", "d_loss_s", "d_loss_t",
-                                        "g_loss")]
+    for _, s in steps:
+        losses = [s[k] for k in ("d_loss", "d_loss_s", "d_loss_t", "g_loss")]
         if not np.isfinite(losses).all():
             raise AssertionError(f"non-finite loss in the train run: {s}")
         got = {k: int(s[k]) for k in want}
@@ -1210,30 +1244,53 @@ def finish_train(run: dict) -> dict:
             raise AssertionError(f"{prefix}: {n_moved} of {n} leaves moved")
     peak = [float(ln.split()[3]) for ln in stdout.splitlines()
             if ln.startswith("peak device memory ")]
-    return {**{k[:-len("_launches")]: n_steps * n for k, n in want.items()},
-            "per_step": want, "cli_s": secs, "peak_mem_gib": peak[0]}
+    n_run = n_steps - run["first"]
+    out = {**{k[:-len("_launches")]: n_run * n for k, n in want.items()},
+           "per_step": want, "cli_s": secs,
+           "peak_mem_gib": peak[0] if peak else None,     # none on a CPU
+           "stdout": stdout}
+    if keep:
+        out.update(state=after, out_dir=tmp, tmp=run["tmp"])
+    return out
 
 
-def drive_trains(runs: dict[str, tuple]) -> dict[str, dict]:
+def drive_trains(runs: dict[str, tuple], resumes=None, keep=()
+                 ) -> dict[str, dict]:
     """The train CLI once per entry of `runs` ({name: (flags, steps)}), the
     child processes side by side on the one card (each takes most of its
     time to start: the interpreter, CUDA, the seeded init), each checked
-    when it ends. The parent launches nothing meanwhile."""
+    when it ends, in order. `resumes` ({name: (run it resumes, flags,
+    steps)}): a run started in the out_dir of an earlier one as soon as
+    that one has ended. Runs named in `keep` keep their out_dir and final
+    state (the caller cleans up). The parent launches nothing meanwhile."""
+    resumes = resumes or {}
     started = {name: start_train(*run) for name, run in runs.items()}
-    done = {}
+    order, done = list(started), {}
     try:
-        for name, run in started.items():
+        while order:
+            name = order.pop(0)
+            flags = runs[name][0] if name in runs else resumes[name][1]
             print(f"--- train CLI run {name!r}: "
-                  f"{' '.join(runs[name][0][2:])}", flush=True)
-            done[name] = finish_train(run)
+                  f"{' '.join(flags[2:])}", flush=True)
+            done[name] = finish_train(started[name], keep=(
+                name in keep or any(r[0] == name for r in resumes.values())))
             print(f"train CLI run {name!r}: ended {done[name]['cli_s']:.1f} s "
-                  f"after the {len(runs)} runs began, peak device memory "
-                  f"{done[name]['peak_mem_gib']:.3f} GiB", flush=True)
+                  f"after it began, peak device memory "
+                  f"{done[name]['peak_mem_gib']} GiB", flush=True)
+            for later, (src, argv, steps) in resumes.items():
+                if src == name:
+                    started[later] = start_train(argv, steps, done[src]["tmp"],
+                                                 runs[src][1])
+                    order.append(later)
     finally:
         for run in started.values():        # stop whatever still runs
             if run["proc"].poll() is None:
                 run["proc"].kill()
                 run["proc"].communicate()
+        kept = {id(done[k]["tmp"]) for k in keep if k in done}
+        for run in done.values():
+            if "tmp" in run and id(run["tmp"]) not in kept:
+                run["tmp"].cleanup()
     return done
 
 
@@ -1279,14 +1336,16 @@ def time_train(device, name: str = "train_rate", argv=FLAGSHIP_ARGV,
                                   device=device)).to(torch.bfloat16)
     y = torch.randint(0, g_cfg.n_classes, (batch,), generator=gen,
                       device=device)
-    draws = step.TorchDraws(gen, batch, g_cfg.z_dim, g_cfg.n_frames,
-                            ds_cfg.k_frames, torch.bfloat16)
     torch.cuda.reset_peak_memory_stats()
+    i = 0
 
     def one():
-        nonlocal state
+        nonlocal state, i
+        draws = step.TorchDraws(seed, i, batch, g_cfg.z_dim, g_cfg.n_frames,
+                                ds_cfg.k_frames, torch.bfloat16, device)
         state, metrics = step.train_step(state, real, y, draws, g_cfg,
                                          ds_cfg, dt_cfg, tc)
+        i += 1
         return metrics
 
     for _ in range(n_warm):
@@ -1390,11 +1449,11 @@ def check_train_f32(device, name: str = "train f32",
     real = torch.tanh(torch.randn(b, g_cfg.n_frames, g_cfg.img_size,
                                   g_cfg.img_size, 3, generator=gen))
     y = torch.randint(0, g_cfg.n_classes, (b,), generator=gen)
-    draws = step.TorchDraws(gen, b, g_cfg.z_dim, g_cfg.n_frames,
-                            ds_cfg.k_frames, torch.float32)
     n_streams = 3 * tc.d_steps + 2     # z at multiples of 3, indices between
-    zs = {i: draws.z(i) for i in range(0, n_streams, 3)}
-    ids = {i: draws.idx(i) for i in range(n_streams) if i % 3}
+    zs = {i: torch.randn(b, g_cfg.z_dim, generator=gen)
+          for i in range(0, n_streams, 3)}
+    ids = {i: torch.rand(b, g_cfg.n_frames, generator=gen).argsort(dim=1)[
+        :, :ds_cfg.k_frames] for i in range(n_streams) if i % 3}
     state = train_state.create(seed, g_cfg, ds_cfg, dt_cfg)
     fused_attn = g_cfg.attn_fused == "on"
     if fused_attn:
@@ -1447,6 +1506,282 @@ def check_train_f32(device, name: str = "train f32",
     return res
 
 
+# the trainer's child runs: the flagship step on the reference's schedule
+# (every step logged, samples and checkpoints every 2 steps)
+TRAINER_ARGV = FLAGSHIP_ARGV + ["--log_step", "1", "--sample_step", "2",
+                                "--model_save_step", "2"]
+TRAINER_RUNS = {  # B's first leg first: its resume starts when it ends
+    "trainer_B1": (TRAINER_ARGV + ["--keep_checkpoints", "1"], 2),
+    "trainer_A": (TRAINER_ARGV + ["--keep_checkpoints", "2"], 4),
+    "trainer_A2": (TRAINER_ARGV + ["--keep_checkpoints", "2"], 4)}
+TRAINER_RESUMES = {
+    "trainer_B": ("trainer_B1", TRAINER_ARGV + ["--keep_checkpoints", "1"], 4)}
+TRAINER_KEEP = ("trainer_A", "trainer_A2", "trainer_B")
+LOSSES = ("d_loss", "d_loss_s", "d_loss_t", "g_loss")
+
+
+def state_gaps(x: dict, y: dict) -> dict[str, float]:
+    """max |x − y| over each state tree (g/params, g/opt, …, g_ema, step)
+    of two flat train states."""
+    out: dict[str, float] = {}
+    for k, v in x.items():
+        parts = k.split("/")
+        tree = parts[0] if parts[0] in ("step", "g_ema") else "/".join(
+            parts[:2])
+        d = np.abs(v.astype(np.float64) - y[k].astype(np.float64))
+        out[tree] = max(out.get(tree, 0.0), float(d.max()) if d.size else 0.0)
+    return out
+
+
+def check_trainer_runs(done: dict) -> dict:
+    """The trainer's child runs: A (4 steps), A' (A again) and B (2 steps,
+    then the same command resumed to 4). Files: A keeps checkpoints 2 and
+    4, B only 4; grid PNGs at steps 2 and 4 with the grid's IHDR size; GIFs;
+    the four losses and steps_per_sec in scalars.jsonl at every step; B's
+    second leg resumed from step 2. Resume: if A and A' have the same bits,
+    B must too; else every state tree's max|B − A| ≤ 2 × max|A' − A|."""
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    cfg = parse_config(TRAINER_ARGV)
+    g_cfg = cfg.g_config()
+    n_show, pad = min(4, cfg.batch_size), 2
+    grid_wh = (g_cfg.n_frames * (g_cfg.img_size + pad) + pad,
+               n_show * (g_cfg.img_size + pad) + pad)
+    a, a2, b = (done[k] for k in TRAINER_KEEP)
+    for name, run, kept in (("A", a, ["2", "4"]), ("A'", a2, ["2", "4"]),
+                            ("B", b, ["4"])):
+        out = run["out_dir"]
+        got = sorted(os.listdir(os.path.join(out, "checkpoints")))
+        if got != kept:
+            raise AssertionError(f"trainer run {name}: checkpoints {got}, "
+                                 f"want {kept}")
+        for s in (2, 4):
+            with open(os.path.join(out, "samples", f"{s}_grid.png"),
+                      "rb") as f:
+                head = f.read(24)
+            if (head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR"
+                    or struct.unpack(">II", head[16:24]) != grid_wh):
+                raise AssertionError(f"trainer run {name}: {s}_grid.png "
+                                     f"starts {head!r}, want a PNG of "
+                                     f"{grid_wh}")
+            for i in range(n_show):
+                with open(os.path.join(out, "samples", f"{s}_sample{i}.gif"),
+                          "rb") as f:
+                    if f.read(6) != b"GIF89a":
+                        raise AssertionError(f"trainer run {name}: "
+                                             f"{s}_sample{i}.gif")
+        tags: dict[int, set] = {}
+        with open(os.path.join(out, "logs", "scalars.jsonl")) as f:
+            for ln in f:
+                r = json.loads(ln)
+                tags.setdefault(r["step"], set()).add(r["tag"])
+        for s in range(1, 5):
+            if not {*LOSSES, "steps_per_sec"} <= tags.get(s, set()):
+                raise AssertionError(f"trainer run {name}: scalars at step "
+                                     f"{s}: {sorted(tags.get(s, ()))}")
+    if "resumed from checkpoint step 2" not in b["stdout"]:
+        raise AssertionError("trainer run B's second leg did not resume "
+                             "from step 2")
+    same = all(np.array_equal(v, a2["state"][k])
+               for k, v in a["state"].items())
+    repeat, resumed = (state_gaps(a2["state"], a["state"]),
+                       state_gaps(b["state"], a["state"]))
+    res = {"a_repeat_bitwise": same, "max_abs_a_repeat": repeat,
+           "max_abs_b_resumed": resumed,
+           "b_resumed_bitwise": all(np.array_equal(v, a["state"][k])
+                                    for k, v in b["state"].items())}
+    print("trainer runs " + json.dumps(res), flush=True)
+    if same and not res["b_resumed_bitwise"]:
+        raise AssertionError("A and A' have the same bits, the resumed B "
+                             "does not")
+    bad = {k: (v, repeat[k]) for k, v in resumed.items()
+           if v > 2 * repeat[k]}
+    if not same and bad:
+        raise AssertionError(f"resumed B further from A than twice the "
+                             f"repeat A': {bad}")
+    for k in TRAINER_KEEP:
+        done[k]["tmp"].cleanup()
+        del done[k]["state"]
+    return res
+
+
+def check_draws(device) -> None:
+    """The z and frame-index draws of steps 2 and 3 on the card: the same
+    from a run that made steps 0 and 1's first and from a fresh start after
+    other draws of the default generator (a resume)."""
+    from dvdgan_tpu_torch.train import step
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    cfg = parse_config(FLAGSHIP_ARGV)
+    g_cfg, ds_cfg, n = cfg.g_config(), cfg.ds_config(), cfg.d_steps
+
+    def draws(s):
+        d = step.TorchDraws(cfg.seed, s, cfg.batch_size, g_cfg.z_dim,
+                            g_cfg.n_frames, ds_cfg.k_frames, torch.bfloat16,
+                            device)
+        # the train step's order: the D phase's z, its indices, then G's
+        out = [d.z(3 * i) for i in range(n)]
+        out += [d.idx(3 * i + j) for i in range(n) for j in (1, 2)]
+        return out + [d.z(3 * n), d.idx(3 * n + 1)]
+
+    fresh = [draws(s) for s in range(4)][2:]
+    torch.randn(1000, device=device)
+    resumed = [draws(s) for s in (2, 3)]
+    if not all(torch.equal(x, y) for f, r in zip(fresh, resumed)
+               for x, y in zip(f, r)):
+        raise AssertionError("the draws of steps 2 and 3 differ between a "
+                             "fresh and a resumed TorchDraws")
+    print(f"draws of steps 2 and 3: {sum(map(len, fresh))} tensors the same "
+          f"fresh and resumed", flush=True)
+
+
+def profile_busy_us(fn) -> tuple[float, float]:
+    """(device kernel µs, wall µs) of fn() under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return busy, wall_us
+
+
+def time_checkpoint(state: dict, ckpt_dir: str, step: int) -> dict:
+    """`AsyncSaver` on a state on the card, twice (the second reuses the
+    pinned buffers): the snapshot's ms on the caller's thread, the write's
+    s on the background thread, the file's bytes; and the state restored on
+    the card from the file, leaf for leaf against the state."""
+    from dvdgan_tpu_torch import interop
+    from dvdgan_tpu_torch.train import checkpoint as ckpt
+
+    saver, rows = ckpt.AsyncSaver(), []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saver.save(ckpt_dir, step + i, state, max_to_keep=1)
+        t1 = time.perf_counter()
+        saver.wait()
+        rows.append(((t1 - t0) * 1e3, time.perf_counter() - t1))
+    path = os.path.join(ckpt_dir, str(step + 1), ckpt.STATE_FILE)
+    back = ckpt.restore(ckpt_dir, step + 1, state)
+    want = interop.train_state_paths(state)
+    same = all(torch.equal(v, want[k]) and v.device == want[k].device
+               for k, v in interop.train_state_paths(back).items())
+    del back
+    return {"snapshot_ms": [r[0] for r in rows],
+            "write_s": [r[1] for r in rows], "file_bytes":
+            os.path.getsize(path), "state_bytes": sum(
+                v.numel() * v.element_size() for v in want.values()),
+            "round_trip_bitwise": same}
+
+
+def time_trainer(device, bare: dict) -> dict:
+    """Flagship ms per step through `Trainer.train()` in this process (10
+    steps a reading after 2 of warm-up; no save, no dump, log_step 10; host
+    clock around train(), which waits for its last step) and through the
+    bare loop (`time_train`, a synchronize after each step; mean of 5
+    after 1 warm-up), in turns: trainer, bare, bare, trainer (the host's
+    speed moves within a process too: after a profiler session the launches
+    ran slower); the device idle share of each (1 − profiler kernel time
+    per step / the turns' step time; the bare loop's kernel time from
+    `bare`, its profiled reading); syncs per step (torch.cuda sync debug warnings) in
+    the bare step and in the trainer's loop; the checkpoint's snapshot,
+    write and round trip for the flagship state and for the
+    kinetics_256_48f state."""
+    import warnings
+
+    from dvdgan_tpu_torch.train import state as train_state
+    from dvdgan_tpu_torch.train import step
+    from dvdgan_tpu_torch.train.trainer import Trainer
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = parse_config(FLAGSHIP_ARGV + [
+            "--log_step", "10", "--sample_step", "0", "--model_save_step",
+            "0", "--out_dir", tmp])
+        tr = Trainer(cfg)
+        try:
+            tr.train(total_step=2)
+            turns = []
+            for kind in ("trainer", "bare", "bare", "trainer"):
+                if kind == "bare":
+                    row = time_train(device, "bare_turn", n_warm=1,
+                                     n_steps=5, n_prof=0)
+                    turns.append((kind, statistics.mean(row["step_ms_all"])))
+                    continue
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.train(total_step=tr.start_step + 10)
+                turns.append((kind, (time.perf_counter() - t0) / 10 * 1e3))
+            sec = statistics.mean(ms for k, ms in turns
+                                  if k == "trainer") / 1e3
+            busy_us, wall_us = profile_busy_us(
+                lambda: tr.train(total_step=tr.start_step + 5))
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as loop_w:
+                    warnings.simplefilter("always")
+                    tr.train(total_step=tr.start_step + 4)
+                draws = step.TorchDraws(
+                    cfg.seed, tr.start_step, cfg.batch_size, tr.g_cfg.z_dim,
+                    tr.g_cfg.n_frames, tr.ds_cfg.k_frames, torch.bfloat16,
+                    device)
+                real = torch.zeros(cfg.batch_size, tr.g_cfg.n_frames,
+                                   cfg.img_size, cfg.img_size, 3,
+                                   device=device, dtype=torch.bfloat16)
+                y = torch.zeros(cfg.batch_size, dtype=torch.long,
+                                device=device)
+                with warnings.catch_warnings(record=True) as step_w:
+                    warnings.simplefilter("always")
+                    step.train_step(tr.state, real, y, draws, tr.g_cfg,
+                                    tr.ds_cfg, tr.dt_cfg, tr.tc)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            flag_ckpt = time_checkpoint(tr.state, os.path.join(tmp, "ck"),
+                                        tr.start_step)
+        finally:
+            tr.close()
+            del tr
+        long_cfg = parse_config(LONG_ARGV)
+        state = train_state.to_device(train_state.create(
+            long_cfg.seed, long_cfg.g_config(), long_cfg.ds_config(),
+            long_cfg.dt_config()), device)
+        long_ckpt = time_checkpoint(state, os.path.join(tmp, "lk"), 0)
+        del state
+    torch.cuda.empty_cache()
+    bare_ms = statistics.mean(ms for k, ms in turns if k == "bare")
+    out = {"turns_ms_per_step": turns,
+           "trainer_ms_per_step": sec * 1e3, "trainer_steps_per_s": 1 / sec,
+           "bare_ms_per_step": bare_ms, "bare_steps_per_s": 1e3 / bare_ms,
+           "trainer_device_busy_ms_per_step": busy_us / 5 / 1e3,
+           "trainer_device_idle_share": 1.0 - busy_us / 5 / 1e6 / sec,
+           "trainer_device_idle_share_profiled": 1.0 - busy_us / wall_us,
+           "bare_device_busy_ms_per_step": bare["device_busy_ms_per_step"],
+           "bare_device_idle_share": 1.0 - bare["device_busy_ms_per_step"]
+           / bare_ms,
+           "syncs_in_4_trainer_steps": len(loop_w),
+           "syncs_in_one_bare_step": len(step_w),
+           "sync_sites": sorted({str(w.message)[:120]
+                                 for w in [*loop_w, *step_w]})[:8],
+           "checkpoint_flagship": flag_ckpt,
+           "checkpoint_kinetics_256_48f": long_ckpt}
+    print("trainer_rate " + json.dumps(out), flush=True)
+    for name, row in (("flagship", flag_ckpt),
+                      ("kinetics_256_48f", long_ckpt)):
+        if not row["round_trip_bitwise"]:
+            raise AssertionError(f"the {name} state restored on the card "
+                                 f"differs from the state saved")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1482,20 +1817,26 @@ def main() -> int:
     sample_run, _, clips_off = drive_sample(device)
     # every train CLI run of this script, side by side
     runs = drive_trains({
+        **TRAINER_RUNS,
         "train": (FLAGSHIP_ARGV, TRAIN_STEPS),
         "train_fused": (FLAGSHIP_ARGV + FUSED, TRAIN_STEPS),
         "longclip": (LONG_ARGV, LONG_STEPS),
         "longclip_fused": (LONG_ARGV + FUSED, LONG_STEPS),
         "px128": (PX128_ARGV, PX128_STEPS),
-        "px128_on": (PX128_ARGV + ON, PX128_STEPS)})
+        "px128_on": (PX128_ARGV + ON, PX128_STEPS)}, TRAINER_RESUMES,
+        TRAINER_KEEP)
     train, train_fused = runs["train"], runs["train_fused"]
     long_run, long_fused = runs["longclip"], runs["longclip_fused"]
     px_off, px_on = runs["px128"], runs["px128_on"]
-    phase("sampling and the six train CLI runs")
+    trainer_a = runs["trainer_A"]
+    check_trainer_runs(runs)
+    phase("sampling and the train CLI runs (the six and the trainer's)")
     rows_k2 = check_k2(device)
-    time_train(device)
+    bare = time_train(device)
     check_train_f32(device)
-    phase("the flagship step")
+    check_draws(device)
+    time_trainer(device, bare)
+    phase("the flagship step and the trainer")
 
     # the long-clip path
     rows_k3 = check_k3(device)
@@ -1697,7 +2038,7 @@ def main() -> int:
               k1_src, k1_at, rows,
               {"sample": sample_run["k1"], "train": train["k1"],
                "sample_fused": sample_fused["k1"],
-               "train_fused": train_fused["k1"]},
+               "train_fused": train_fused["k1"], "trainer": trainer_a["k1"]},
               {"sample": sample_run["k1"],
                "train": train["per_step"]["k1_launches"]}),
         entry(f"convgru_seq (K1, bf16, sum of its {len(k1_levels)} "
@@ -1710,7 +2051,7 @@ def main() -> int:
         entry("convgru_bwd (K2, bf16, sum of the 4 ucf101_64 levels, B=8)",
               k2_src, k2_at, rows_k2,
               {"sample": 0, "train": train["k2"],
-               "train_fused": train_fused["k2"]},
+               "train_fused": train_fused["k2"], "trainer": trainer_a["k2"]},
               {"train": train["per_step"]["k2_launches"]}),
         entry(f"convgru_bwd (K2, bf16, sum of the 6 {long_shapes})",
               k2_src, k2_at, rows_k2_long,

@@ -10,7 +10,9 @@ It imports torch and never jax.
 Every Pallas kernel on a ported path is a CUDA kernel written by hand for
 sm_90a (`kernels/`), built with nvcc at first use. What is ported so far is
 EMA-G sampling (`train.step.sample`, `python -m dvdgan_tpu_torch --mode
-sample`) and the alternating G/D train step with DS, DT, Adam and EMA
-(`train.step.train_step`, `--mode train`), with grad accumulation and
-per-level remat for the long-clip preset; ROADMAP.md lists the rest.
+sample`), the alternating G/D train step with DS, DT, Adam and EMA
+(`train.step.train_step`), with grad accumulation and per-level remat for
+the long-clip preset, and the trainer that runs it on the reference's
+schedule with checkpoints and auto-resume (`train.trainer`,
+`train.checkpoint`, `--mode train`); ROADMAP.md lists the rest.
 """

@@ -93,18 +93,24 @@ def load_train_state(flat: dict[str, np.ndarray]) -> dict:
     return state
 
 
-def train_state_to_flat(state: dict) -> dict[str, np.ndarray]:
-    """Inverse of load_train_state: float leaves as float32, step and the
-    Adam counts as int32."""
+def train_state_paths(state: dict) -> dict[str, torch.Tensor]:
+    """{reference path: tensor} of the train state, where it lies."""
     tree = dict(state)
     for m in _MODELS:
         tree[m] = dict(state[m], opt=[state[m]["opt"]])  # opt/0/...
-    out = {}
-    for path, v in tru.flatten_with_paths(tree).items():
-        a = v.detach().cpu()
-        out[path] = (a.float().numpy() if a.is_floating_point()
-                     else a.numpy().astype(np.int32))
-    return out
+    return tru.flatten_with_paths(tree)
+
+
+def flat_dtype(v: torch.Tensor) -> torch.dtype:
+    """The exchange dtype of a leaf: float32, or int32 (step, counts)."""
+    return torch.float32 if v.is_floating_point() else torch.int32
+
+
+def train_state_to_flat(state: dict) -> dict[str, np.ndarray]:
+    """Inverse of load_train_state: float leaves as float32, step and the
+    Adam counts as int32."""
+    return {path: v.detach().to("cpu", flat_dtype(v)).numpy()
+            for path, v in train_state_paths(state).items()}
 
 
 def save_train_state_npz(path: str, state: dict) -> None:

@@ -62,6 +62,14 @@ def sigma_and_update(w: torch.Tensor, u: torch.Tensor, n_iter: int = 1):
     return sigma, u_next
 
 
+def sn_sigmas(params, sn_u: dict[str, torch.Tensor]
+              ) -> dict[str, torch.Tensor]:
+    """{path: σ estimate} of every normalized kernel from the stored u,
+    which is not advanced (the trainer's `--log_sigmas` telemetry)."""
+    flat = tru.flatten_with_paths(params)
+    return {p: sigma_and_update(flat[p], u)[0] for p, u in sn_u.items()}
+
+
 def sn_normalize(params, sn_u: dict[str, torch.Tensor], update: bool,
                  n_iter: int = 1, compute_dtype=None):
     """(params with matching kernels divided by σ, new {path: u}).

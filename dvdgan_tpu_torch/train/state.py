@@ -46,6 +46,7 @@ class TrainConfig:
     ema_start: int = 1000
     grad_accum: int = 1           # micro-batches per optimizer update
     fake_gen: str = "pooled"      # only "pooled" is ported
+    log_grad_norms: bool = False  # d_grad_norm, g_grad_norm in the metrics
 
 
 def to_device(state: Any, device: torch.device) -> Any:
@@ -68,8 +69,10 @@ def adam_update(grads: Any, opt: dict, params: Any, lr: float, b1: float,
     mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, opt["mu"])
     nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, opt["nu"])
     n = count.float()
-    bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=n.device) ** n
-    bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=n.device) ** n
+    # torch.full fills on the device; torch.tensor(b, device=cuda) would be
+    # a host-to-device copy that waits for the stream
+    bc1 = 1 - torch.full((), b1, dtype=torch.float32, device=n.device) ** n
+    bc2 = 1 - torch.full((), b2, dtype=torch.float32, device=n.device) ** n
     new_params = tree_map(
         lambda p, m, v: p + (-lr) * ((m / bc1) / (torch.sqrt(v / bc2)
                                                   + ADAM_EPS)),

@@ -33,8 +33,16 @@ Randomness goes through one hook, `draws` (an object with `z(stream)` and
 key-split order (`dvdgan_tpu/train/step.py:152-178`) is, for D step i,
 3i → z, 3i+1 → real frame indices, 3i+2 → fake frame indices, and then
 3·d_steps → G's z, 3·d_steps+1 → G's frame indices. Frame indices are per
-clip, uniform without replacement. `TorchDraws` draws them from a
-torch.Generator on the device; a test feeds the reference's own draws.
+clip, uniform without replacement. `TorchDraws(seed, step, ...)` draws them
+from a torch.Generator on the device seeded by (seed, step), the
+counterpart of the reference's `fold_in(key, step)`: the trainer passes the
+step number from the host, so the draws of step s are the same whether the
+run started at 0 or resumed, and no device read is needed to learn s. A
+test feeds the reference's own draws.
+
+With `tc.log_grad_norms` the metrics also hold `d_grad_norm` (the last D
+step's mean gradient over DS and DT together) and `g_grad_norm`, each the
+f32 global L2 norm of the whole gradient tree.
 
 Gradients are `torch.autograd.grad` of the loss with respect to detached
 copies of the f32 master params; the step builds a new state tree and
@@ -56,15 +64,36 @@ from dvdgan_tpu_torch.train import state as train_state
 from dvdgan_tpu_torch.train.state import TrainConfig
 
 
-class TorchDraws:
-    """The step's draws from a torch.Generator on the device: z ∼ N(0, 1)
-    in the compute dtype, frame indices as the first k of a per-clip
-    random permutation of T. Draws come from the one generator in call
-    order; `stream` only names the draw (a replaying hook keys on it)."""
+_MASK64 = (1 << 64) - 1
 
-    def __init__(self, gen: torch.Generator, batch: int, z_dim: int,
-                 n_frames: int, k: int, dtype: torch.dtype):
-        self.gen, self.b, self.z_dim = gen, batch, z_dim
+
+def splitmix64(x: int) -> int:
+    """One output of the splitmix64 generator whose state is x."""
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The 64-bit seed of step `step`'s draws: splitmix64 of the run's own
+    splitmix64(seed) plus the step, so that runs with neighbouring seeds do
+    not share streams (as seed + step would)."""
+    return splitmix64((splitmix64(seed) + step) & _MASK64)
+
+
+class TorchDraws:
+    """The draws of train step `step` from a torch.Generator on `device`
+    seeded with `step_seed(seed, step)`: z ∼ N(0, 1) in the compute dtype,
+    frame indices as the first k of a per-clip random permutation of T.
+    Draws come from the one generator in call order; `stream` only names
+    the draw (a replaying hook keys on it)."""
+
+    def __init__(self, seed: int, step: int, batch: int, z_dim: int,
+                 n_frames: int, k: int, dtype: torch.dtype,
+                 device: torch.device | str):
+        self.gen = torch.Generator(device).manual_seed(step_seed(seed, step))
+        self.b, self.z_dim = batch, z_dim
         self.t, self.k, self.dtype = n_frames, k, dtype
 
     def z(self, stream: int) -> torch.Tensor:
@@ -114,6 +143,12 @@ def _accum_grads(loss_fn: Callable[..., tuple[torch.Tensor, Any]], params: Any,
     return torch.stack(losses_).mean(), auxes, acc
 
 
+def _global_norm(grads: Any) -> torch.Tensor:
+    """The L2 norm over the whole gradient tree, in f32."""
+    leaves = tru.flatten_with_paths(grads).values()
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+
+
 def _adam(grads: Any, model: dict, lr: float, tc: TrainConfig
           ) -> tuple[Any, dict]:
     return train_state.adam_update(grads, model["opt"], model["params"], lr,
@@ -125,8 +160,8 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
                tc: TrainConfig) -> tuple[dict, dict[str, torch.Tensor]]:
     """(state, real (B, T, H, W, 3) in [-1, 1] in the compute dtype, y (B,)
     class ids, draws) -> (new state, metrics {d_loss, d_loss_s, d_loss_t,
-    g_loss} as f32 scalars on the device; the D losses are the last D
-    step's)."""
+    g_loss} and with `tc.log_grad_norms` {d_grad_norm, g_grad_norm}, as f32
+    scalars on the device; the D losses and norm are the last D step's)."""
     if tc.fake_gen != "pooled":
         raise NotImplementedError(
             f"fake_gen={tc.fake_gen!r}: only the pooled fake generation is "
@@ -186,6 +221,8 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
         ds = {"params": ds_params, "sn_u": ds_u, "opt": ds_opt}
         dt = {"params": dt_params, "sn_u": dt_u, "opt": dt_opt}
         metrics.update(d_loss=d_loss, d_loss_s=l_ds, d_loss_t=l_dt)
+        if tc.log_grad_norms and i == d_steps - 1:
+            metrics["d_grad_norm"] = _global_norm(grads)
 
     # ---- G phase × 1 ------------------------------------------------------
     z_g = draws.z(3 * d_steps)
@@ -227,6 +264,8 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
                                         tc.ema_decay, step, tc.ema_start),
     }
     metrics["g_loss"] = g_loss
+    if tc.log_grad_norms:
+        metrics["g_grad_norm"] = _global_norm(g_grads)
     return new_state, metrics
 
 

@@ -1,0 +1,420 @@
+"""The trainer — the counterpart of `dvdgan_tpu/train/trainer.py` on one
+device (no mesh, no multi-host branch, no in-training eval).
+
+`Trainer(cfg).train()` builds the train state from `--seed` (or from the
+`--weights` npz), auto-resumes from the newest checkpoint under
+`out_dir/checkpoints` (or from `--pretrained_model <step>`), and runs the
+alternating G/D step (`train.step.train_step`) on the reference's schedule:
+
+  * every `log_step` steps, the scalars of the interval that ended
+    `log_step` steps earlier go to `out_dir/logs/scalars.jsonl` (and
+    TensorBoard where it imports) with `steps_per_sec` over that interval,
+    and one line to stdout with the step's kernel launches (K1 … K6b,
+    counted around the train step alone); the last interval is written
+    when the loop ends;
+  * every `sample_step` steps, EMA-G samples of a fixed z and y go to
+    `out_dir/samples/<step>_grid.png` and `<step>_sample<i>.gif`, and with
+    `--log_sigmas` the σ of every SN kernel and every attention γ to the
+    scalars;
+  * every `model_save_step` steps, a checkpoint (`train.checkpoint`),
+    written on a background thread with `--async_save` (the default).
+
+The loop reads no device tensor between log steps. The next batch is
+pinned and copied to the card on a side stream by a daemon thread while the
+current step runs (`_place`), then cast to the compute dtype there; the
+train stream waits for the side stream, and the batch is marked as used on
+the train stream so the allocator does not hand its memory back early. A
+step's metrics go into pinned host memory with `non_blocking=True` beside a
+CUDA event (`_Record`), and a log step waits only on the event of the step
+it reports, recorded `log_step` steps earlier: the host stays up to
+`log_step` steps ahead of the card. The step's draws are keyed by (seed,
+step) from the host's step counter (`train.step.TorchDraws`), so a resumed
+run replays the uninterrupted one: same batches (the loader's position is
+a function of the step), same draws, bitwise equal state.
+
+`--profile` traces steps 10 to 15 with torch.profiler into
+`out_dir/trace`; `--nan_check` turns on autograd's anomaly mode and checks
+every step's metrics, which reads the device each step (asked for).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import queue
+import threading
+import time
+from typing import Optional
+
+import torch
+
+from dvdgan_tpu_torch import interop, kernels
+from dvdgan_tpu_torch.core import tree as tru
+from dvdgan_tpu_torch.data import Loader, SyntheticVideoDataset
+from dvdgan_tpu_torch.ops import spectral_norm as sn
+from dvdgan_tpu_torch.train import checkpoint as ckpt
+from dvdgan_tpu_torch.train import state as train_state
+from dvdgan_tpu_torch.train import step as step_mod
+from dvdgan_tpu_torch.utils.config import Config, check_ported
+from dvdgan_tpu_torch.utils.logging import MetricWriter, step_line
+from dvdgan_tpu_torch.utils.media import save_batch_gifs, save_video_grid_png
+
+
+def resolve_device(name: str) -> torch.device:
+    """The torch device `name` names; a CUDA device must exist."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available "
+                           f"(pass --device cpu to run on the CPU)")
+    return device
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launch counter (host integers)."""
+    return {"k1": kernels.gru_sequence_fused.launches,
+            "k2": kernels.convgru_bwd.gru_sequence_bwd.launches,
+            "k3": kernels.gru_sequence_blocked.launches,
+            "k5a": kernels.ups2x_fused.ups2x.launches,
+            "k5b": kernels.ups2x_fused.ups2x_bwd.launches,
+            "k6a": kernels.spatial_attn_fused.launches,
+            "k6b": kernels.spatial_attn_tiled.launches}
+
+
+class _DaemonPrefetcher:
+    """One job at a time on a persistent daemon thread: `submit(fn)`, then
+    `result()` (fn's value, or its exception raised here). A daemon thread
+    cannot hold up the interpreter's exit, whatever a job is doing."""
+
+    def __init__(self):
+        self._in: queue.Queue = queue.Queue(1)
+        self._out: queue.Queue = queue.Queue(1)
+        self._closed = False
+        self._th = threading.Thread(target=self._run, daemon=True,
+                                    name="h2d-prefetch")
+        self._th.start()
+
+    def _run(self):
+        while True:
+            fn = self._in.get()
+            if fn is None or self._closed:
+                return
+            try:
+                self._out.put((True, fn()))
+            except Exception as e:          # raised again by result()
+                self._out.put((False, e))
+            if self._closed:
+                return
+
+    def submit(self, fn) -> "_DaemonPrefetcher":
+        self._in.put(fn)
+        return self
+
+    def result(self):
+        ok, v = self._out.get()
+        if ok:
+            return v
+        raise v
+
+    def shutdown(self) -> None:
+        """Asks the thread to end; never blocks."""
+        self._closed = True
+        try:
+            self._in.put_nowait(None)
+        except queue.Full:
+            pass
+
+
+class _Mark:
+    """A point in the train stream: a timing CUDA event on the card, the
+    host clock on the CPU (where every op has ended when it returns)."""
+
+    def __init__(self, step: int, device: torch.device):
+        self.step = step
+        self.event: Optional[torch.cuda.Event] = None
+        self.t = 0.0
+        if device.type == "cuda":
+            self.event = torch.cuda.Event(enable_timing=True)
+            self.event.record()
+        else:
+            self.t = time.perf_counter()
+
+    def wait(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+    def seconds_since(self, earlier: "_Mark") -> float:
+        """Stream time from `earlier` to this mark (both waited for)."""
+        if self.event is not None:
+            return earlier.event.elapsed_time(self.event) / 1e3
+        return self.t - earlier.t
+
+
+class _Record(_Mark):
+    """A step's metrics copied to pinned host memory without waiting for
+    the card, and its kernel launches."""
+
+    def __init__(self, step: int, metrics: dict, launches: dict,
+                 device: torch.device):
+        self.names = list(metrics)
+        self.launches = launches
+        values = torch.stack([metrics[k].detach().float()
+                              for k in self.names])
+        if device.type == "cuda":
+            self.host = torch.empty(values.shape, dtype=torch.float32,
+                                    pin_memory=True)
+            self.host.copy_(values, non_blocking=True)
+        else:
+            self.host = values
+        super().__init__(step, device)
+
+    def metrics(self) -> dict[str, float]:
+        self.wait()
+        return dict(zip(self.names, self.host.tolist()))
+
+
+class Trainer:
+    def __init__(self, cfg: Config):
+        check_ported(cfg)
+        if cfg.dataset != "synthetic":
+            raise NotImplementedError(
+                f"--dataset {cfg.dataset}: the port trains on synthetic "
+                f"clips; the frames pipeline is ROADMAP Queue 1 item 3")
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.g_cfg, self.ds_cfg = cfg.g_config(), cfg.ds_config()
+        self.dt_cfg, self.tc = cfg.dt_config(), cfg.train_config()
+        self.dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+
+        self.out_dir = cfg.out_dir
+        self.ckpt_dir = os.path.join(self.out_dir, "checkpoints")
+        self.sample_dir = os.path.join(self.out_dir, "samples")
+        os.makedirs(self.out_dir, exist_ok=True)
+        self.writer = MetricWriter(os.path.join(self.out_dir, "logs"))
+        self.saver = ckpt.AsyncSaver() if cfg.async_save else None
+
+        state = (interop.load_train_state_npz(cfg.weights) if cfg.weights
+                 else train_state.create(cfg.seed, self.g_cfg, self.ds_cfg,
+                                         self.dt_cfg))
+        self.start_step = int(state["step"])        # on the host still
+        resume = cfg.pretrained_model
+        if resume is None:
+            resume = ckpt.latest_step(self.ckpt_dir)
+        if resume is not None:
+            state = ckpt.restore(self.ckpt_dir, resume, state)
+            self.start_step = int(resume)
+            print(f"resumed from checkpoint step {resume}", flush=True)
+        self.state = train_state.to_device(state, self.device)
+
+        self.dataset = SyntheticVideoDataset(
+            n_items=max(cfg.batch_size * 8, 64), n_frames=cfg.n_frames,
+            img_size=cfg.img_size, n_classes=cfg.n_classes, seed=cfg.seed)
+        self.loader = Loader(self.dataset, cfg.batch_size, seed=cfg.seed,
+                             num_threads=cfg.loader_threads,
+                             prefetch=cfg.prefetch)
+        # fixed latents and labels, so that the dumps compare over training
+        gen = torch.Generator().manual_seed(cfg.seed + 1)
+        n_show = min(4, cfg.batch_size)
+        self.z_fixed = torch.randn(n_show, self.g_cfg.z_dim,
+                                   generator=gen).to(self.device, self.dtype)
+        self.y_fixed = torch.randint(0, cfg.n_classes, (n_show,),
+                                     generator=gen).to(self.device)
+        self.side = (torch.cuda.Stream(self.device)
+                     if self.device.type == "cuda" else None)
+
+    # ------------------------------------------------------------------ data
+    def _place(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
+        """Runs on the prefetch thread: the batch on the device in the
+        compute dtype, copied on the side stream from pinned memory."""
+        clips, labels = (torch.from_numpy(a) for a in batch)
+        if self.side is None:
+            return clips.to(self.dtype), labels.long()
+        clips, labels = clips.pin_memory(), labels.pin_memory()
+        with torch.cuda.stream(self.side):
+            real = clips.to(self.device, non_blocking=True).to(self.dtype)
+            y = labels.to(self.device, non_blocking=True).long()
+        return real, y
+
+    def _take(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
+        """A placed batch, ready on the train stream."""
+        if self.side is not None:
+            train = torch.cuda.current_stream(self.device)
+            train.wait_stream(self.side)
+            for t in batch:
+                t.record_stream(train)
+        return batch
+
+    # ----------------------------------------------------------------- train
+    def train(self, total_step: Optional[int] = None) -> dict[str, float]:
+        """Steps from `start_step` up to `total_step` (default
+        cfg.total_step); -> the last step's metrics."""
+        c = self.cfg
+        total = c.total_step if total_step is None else total_step
+        bpe = max(self.loader.batches_per_epoch(), 1)
+        data = self.loader.forever(self.start_step // bpe,
+                                   self.start_step % bpe)
+        prefetch = _DaemonPrefetcher()
+        pending = None
+        lagged: Optional[_Record] = None    # the last log step's record
+        since = _Mark(self.start_step, self.device)
+        metrics: dict[str, torch.Tensor] = {}
+        anomaly = torch.is_anomaly_enabled()
+        torch.autograd.set_detect_anomaly(anomaly or c.nan_check)
+        prof, prof_start = None, self.start_step + 10
+        try:
+            for i in range(self.start_step, total):
+                if c.profile and i == prof_start:
+                    prof = self._profile_start()
+                if prof is not None and i == prof_start + 5:
+                    self._profile_stop(prof, prof_start, i)
+                    prof = None
+                if pending is not None:
+                    batch, pending = pending.result(), None
+                else:
+                    batch = self._place(next(data))
+                if i + 1 < total:               # batch i + 1 while i runs
+                    pending = prefetch.submit(lambda: self._place(next(data)))
+                real, y = self._take(batch)
+                draws = step_mod.TorchDraws(
+                    c.seed, i, c.batch_size, self.g_cfg.z_dim,
+                    self.g_cfg.n_frames, self.ds_cfg.k_frames, self.dtype,
+                    self.device)
+                before = launch_counts()
+                self.state, metrics = step_mod.train_step(
+                    self.state, real, y, draws, self.g_cfg, self.ds_cfg,
+                    self.dt_cfg, self.tc)
+                launches = {k: n - before[k]
+                            for k, n in launch_counts().items()}
+                step = i + 1
+                if c.nan_check:
+                    _check_finite(metrics, step)
+                record = _Record(step, metrics, launches, self.device)
+                if step % c.log_step == 0:
+                    if lagged is not None:
+                        since = self._report(lagged, since)
+                    lagged = record
+                if c.sample_step and step % c.sample_step == 0:
+                    self.dump_samples(step)
+                    if c.log_sigmas:
+                        self.writer.scalars(self.sn_diagnostics(), step)
+                if c.model_save_step and step % c.model_save_step == 0:
+                    self.save(step)
+        except BaseException:
+            self._flush_saver(unwinding=True)
+            raise
+        finally:
+            if pending is not None:     # let the thread leave `data` first
+                try:
+                    pending.result()
+                except Exception:
+                    pass
+            prefetch.shutdown()
+            data.close()
+            if prof is not None:
+                prof.stop()
+            torch.autograd.set_detect_anomaly(anomaly)
+        self._flush_saver()
+        if lagged is not None:          # the last interval, not yet written
+            self._report(lagged, since)
+        self.start_step = max(self.start_step, total)
+        if self.device.type == "cuda":
+            peak = torch.cuda.max_memory_allocated(self.device) / 2**30
+            print(f"peak device memory {peak:.3f} GiB", flush=True)
+        return {k: float(v) for k, v in metrics.items()}
+
+    def _report(self, rec: _Record, since: _Mark) -> _Record:
+        """Writes `rec` (waiting on its event alone) with the steps/s of
+        the interval since `since`; -> rec, the next interval's start."""
+        m = rec.metrics()
+        secs = rec.seconds_since(since)
+        sps = (rec.step - since.step) / secs if secs > 0 else 0.0
+        self.writer.scalars(m, rec.step)
+        self.writer.scalar("steps_per_sec", sps, rec.step)
+        print(" | ".join([step_line(rec.step, m, sps)]
+                         + [f"{k}_launches {n}"
+                            for k, n in rec.launches.items()]), flush=True)
+        return rec
+
+    def save(self, step: int) -> None:
+        keep = self.cfg.keep_checkpoints or None
+        if self.saver is not None:
+            self.saver.save(self.ckpt_dir, step, self.state, max_to_keep=keep)
+        else:
+            ckpt.save(self.ckpt_dir, step, self.state, max_to_keep=keep)
+
+    def _flush_saver(self, unwinding: bool = False) -> None:
+        """Joins the write in flight. On the normal path its failure
+        propagates; while unwinding it is printed, so that it does not hide
+        the error in flight."""
+        if self.saver is None:
+            return
+        if not unwinding:
+            self.saver.wait()
+            return
+        try:
+            self.saver.wait()
+        except RuntimeError as e:
+            print(f"async checkpoint flush failed during teardown: {e}")
+
+    def _profile_start(self):
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _profile_stop(self, prof, first: int, stop: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        trace_dir = os.path.join(self.out_dir, "trace")
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(trace_dir, f"steps_{first}_{stop}.json"))
+
+    # ---------------------------------------------------------- diagnostics
+    @torch.no_grad()
+    def sn_diagnostics(self) -> dict[str, float]:
+        """σ of every SN kernel (from the stored u, not advanced) and every
+        attention γ, as `sigma/<model>/<path>` and `gamma/<model>/<path>`;
+        one read of the device."""
+        out = {}
+        for m in ("g", "ds", "dt"):
+            sig = sn.sn_sigmas(self.state[m]["params"], self.state[m]["sn_u"])
+            out.update({f"sigma/{m}/{p}": v for p, v in sig.items()})
+            flat = tru.flatten_with_paths(self.state[m]["params"])
+            out.update({f"gamma/{m}/{p}": v for p, v in flat.items()
+                        if p.rsplit("/", 1)[-1] == "gamma"})
+        values = torch.stack([v.float().reshape(()) for v in out.values()])
+        return dict(zip(out, values.cpu().tolist()))
+
+    # ---------------------------------------------------------------- sample
+    def sample(self, z: Optional[torch.Tensor] = None,
+               y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """EMA-G clips (B, T, H, W, 3) in [-1, 1] of z and y (default: the
+        fixed ones)."""
+        st = self.state
+        return step_mod.sample(st["g_ema"], st["g"]["stats"], st["g"]["sn_u"],
+                               self.z_fixed if z is None else z,
+                               self.y_fixed if y is None else y, self.g_cfg)
+
+    def dump_samples(self, step: int) -> None:
+        videos = self.sample().float().cpu().numpy()
+        save_video_grid_png(
+            os.path.join(self.sample_dir, f"{step}_grid.png"), videos)
+        save_batch_gifs(self.sample_dir, videos, step)
+
+    def close(self) -> None:
+        if self.saver is not None:
+            self.saver.wait()
+        self.writer.close()
+        self.loader.close()
+
+
+def _check_finite(metrics: dict[str, torch.Tensor], step: int) -> None:
+    """Raises FloatingPointError at a non-finite metric (reads the card)."""
+    values = {k: float(v) for k, v in metrics.items()}
+    bad = {k: v for k, v in values.items() if not math.isfinite(v)}
+    if bad:
+        raise FloatingPointError(f"non-finite metrics at step {step}: {bad}")

@@ -1,16 +1,19 @@
 """Config / CLI — the counterpart of `dvdgan_tpu/utils/config.py`.
 
-The flag names, defaults and PRESETS are the reference's. `Config` carries
-the fields the sample and train modes read and every field a preset sets;
-the eval fields, the checkpoint schedule and the loader's knobs arrive with
-the slices that port them. `--ups_fused {off,fwd,full}` is the reference's
-environment variable DVDGAN_UPS_PALLAS as a flag (the route of G's upsample
-convs, `ops/layers.py`), and `--attn_fused {off,on}` its DVDGAN_ATTN_PALLAS
-(the route of the attention's spatial pass, `ops/attention.py`). `--weights` and `--device` are the port's own:
-`--weights` is an npz written by `interop` (sample: any state holding the
-EMA-G part; train: a whole train state to start from), and `--device` names
-the torch device, `cuda` by default; without a CUDA device the CLI raises
-rather than run elsewhere, unless `--device cpu` asks for the CPU.
+The flag names, defaults and PRESETS are the reference's, and `Config` has
+every field of the reference's. The fields of modules not ported yet
+(`NOT_PORTED`: chunked stepping, frame folders, eval, multi-device) parse,
+and `check_ported` raises `NotImplementedError` naming their ROADMAP Queue 1
+item when one is given a value other than its default.
+`--ups_fused {off,fwd,full}` is the reference's environment variable
+DVDGAN_UPS_PALLAS as a flag (the route of G's upsample convs,
+`ops/layers.py`), and `--attn_fused {off,on}` its DVDGAN_ATTN_PALLAS (the
+route of the attention's spatial pass, `ops/attention.py`). `--weights`
+and `--device` are the port's own: `--weights` is an npz written by
+`interop` (sample: any state holding the EMA-G part; train: a whole train
+state to start from), and `--device` names the torch device, `cuda` by
+default; without a CUDA device the CLI raises rather than run elsewhere,
+unless `--device cpu` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -32,8 +35,17 @@ class Config:
     n_samples: int = 16               # clips to generate in sample mode
     weights: str = ""                 # state npz (interop); empty = the
     #                                   seeded init
+    i3d_weights: str = ""             # eval extractors' weights (item 5)
+    inception_weights: str = ""
+    c3d_weights: str = ""
+    is_protocol: str = "i3d"
+    real_stats: str = ""
     # data
     dataset: str = "synthetic"        # synthetic | frames
+    data_path: str = ""               # frame folders (item 3)
+    npy_range: str = "auto"
+    loader_threads: int = 2           # the loader's decode threads
+    prefetch: int = 2                 # ready batches queued ahead
     n_classes: int = 101
     # model
     img_size: int = 64
@@ -55,15 +67,33 @@ class Config:
     d_steps: int = 2
     grad_accum: int = 1               # micro-batches per update
     fake_gen: str = "pooled"          # pooled | per_step
+    log_grad_norms: bool = False      # g/d_grad_norm in the metrics
+    log_sigmas: bool = False          # SN σ and attention γ scalars at
+    #                                   sample_step
     ema_decay: float = 0.9999
     ema_start: int = 1000
     total_step: int = 100000
+    steps_per_call: int = 1           # K > 1: item 2b
+    # schedule
+    log_step: int = 10
+    sample_step: int = 500
+    model_save_step: int = 1000
+    keep_checkpoints: int = 0         # > 0: keep only the newest N
+    async_save: bool = True           # write checkpoints on a thread (the
+    #                                   snapshot stays on the train thread)
+    eval_step: int = 0                # in-training eval (item 5)
+    eval_samples: int = 64
+    eval_repeats: int = 1
     pretrained_model: Optional[int] = None   # resume from this step
     # runtime
+    n_devices: int = 0                # > 1: item 6
     seed: int = 0
     bf16: bool = True
     out_dir: str = "runs/default"
+    profile: bool = False             # torch.profiler trace of steps 10..15
+    nan_check: bool = False           # anomaly mode, losses checked a step
     remat: bool = False               # rematerialize G levels (long clips)
+    multihost: bool = False           # item 6
     time_shards: int = 1              # >1: DT context-parallel over time
     device: str = "cuda"              # torch device (cuda | cuda:N | cpu)
     ups_fused: str = "off"            # G's upsample convs: off | fwd | full
@@ -96,7 +126,30 @@ class Config:
                            ema_decay=self.ema_decay,
                            ema_start=self.ema_start,
                            grad_accum=self.grad_accum,
-                           fake_gen=self.fake_gen)
+                           fake_gen=self.fake_gen,
+                           log_grad_norms=self.log_grad_norms)
+
+
+# fields parsed but not run yet: {field: its ROADMAP Queue 1 item}
+NOT_PORTED = {"steps_per_call": "2b", "data_path": "3", "npy_range": "3",
+              "eval_step": "5", "eval_samples": "5", "eval_repeats": "5",
+              "i3d_weights": "5", "inception_weights": "5",
+              "c3d_weights": "5", "is_protocol": "5", "real_stats": "5",
+              "multihost": "6", "n_devices": "6", "time_shards": "6"}
+
+
+def check_ported(cfg: Config) -> None:
+    """Raises NotImplementedError for a field of `NOT_PORTED` off its
+    default (`n_devices` 1 is one card: the default's meaning)."""
+    default = Config()
+    for name, item in NOT_PORTED.items():
+        value = getattr(cfg, name)
+        if name == "n_devices" and value <= 1:
+            continue
+        if value != getattr(default, name):
+            raise NotImplementedError(
+                f"--{name} {value}: ROADMAP Queue 1 item {item} (not ported "
+                f"yet)")
 
 
 # The reference's five named configs, unchanged.

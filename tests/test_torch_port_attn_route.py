@@ -47,6 +47,7 @@ from dvdgan_tpu_torch.ops import attention
 from dvdgan_tpu_torch.train import state as train_state
 from dvdgan_tpu_torch.train import step
 from dvdgan_tpu_torch.utils.config import parse_config
+from dvdgan_tpu_torch.utils.logging import parse_step_line
 
 from test_torch_port_longclip import (ReferenceDraws, flat_np,
                                       reference_state, tt)
@@ -352,12 +353,13 @@ def test_state_saved_under_off_samples_under_on(tmp_path):
     """The route adds no parameter: a train state written by an "off" run
     loads and samples under "on", to the clips "off" gives."""
     state = cli.main(["--mode", "train", *FLAGS, "--total_step", "1",
-                      "--out_dir", str(tmp_path / "off")])
+                      "--model_save_step", "1", "--out_dir",
+                      str(tmp_path / "off")])
     on_state = train_state.create(0, GConfig(**G_KW, attn_fused="on"),
                                   DSConfig(**DS_KW), DTConfig(**DT_KW))
     assert (interop.train_state_to_flat(on_state).keys()
             == interop.train_state_to_flat(state).keys())
-    weights = str(tmp_path / "off" / "train_state.npz")
+    weights = str(tmp_path / "off" / "checkpoints" / "1" / "train_state.npz")
     clips = {}
     for mode in ("off", "on"):
         clips[mode] = cli.main(["--mode", "sample", *FLAGS, "--n_samples",
@@ -369,11 +371,11 @@ def test_state_saved_under_off_samples_under_on(tmp_path):
 
 def test_train_cli_prints_k6_launch_counts(tmp_path, capsys):
     cli.main(["--mode", "train", *FLAGS, "--attn_fused", "on", "--remat", "1",
-              "--total_step", "1", "--out_dir", str(tmp_path)])
-    line = [ln for ln in capsys.readouterr().out.splitlines()
-            if ln.startswith("step ")][0].split()
-    fields = dict(zip(line[2::2], line[3::2]))
+              "--total_step", "1", "--log_step", "1", "--out_dir",
+              str(tmp_path)])
+    _, fields = parse_step_line([ln for ln in capsys.readouterr().out
+                                 .splitlines() if ln.startswith("step ")][0])
     # on the CPU the plain versions run: every launch count is 0
     assert [fields[f"{k}_launches"] for k in (
-        "k1", "k2", "k3", "k5a", "k5b", "k6a", "k6b")] == ["0"] * 7
+        "k1", "k2", "k3", "k5a", "k5b", "k6a", "k6b")] == [0] * 7
     assert np.isfinite(float(fields["g_loss"]))

@@ -2,8 +2,9 @@
 PyTorch version on the same CUDA tensors, and the paths through them (the
 sample, K1's autograd.Function, one train step, the single-step GRU entry,
 the fused upsample route, the fused attention route) on the card against
-the CPU. Marked `gpu`; each
-test skips (inside the `cuda` fixture) where there is no CUDA device. Run them on a machine with one:
+the CPU, and the trainer's batch placement and pinned checkpoints.
+Marked `gpu`; each test skips (inside the `cuda` fixture) where there is
+no CUDA device. Run them on a machine with one:
 `python -m pytest tests/test_torch_port_gpu.py -q --noconftest`.
 
 f32 with TF32 off: atol 1e-5 at these small shapes (1e-4 for whole paths
@@ -211,9 +212,9 @@ def test_train_step_on_card_matches_cpu(cuda):
     gen = torch.Generator().manual_seed(1)
     real = torch.tanh(torch.randn(2, 4, 32, 32, 3, generator=gen))
     y = torch.tensor([1, 3])
-    draws = step.TorchDraws(gen, 2, 120, 4, 2, torch.float32)
-    z = {i: draws.z(i) for i in (0, 3, 6)}
-    idx = {i: draws.idx(i) for i in (1, 2, 4, 5, 7)}
+    z = {i: torch.randn(2, 120, generator=gen) for i in (0, 3, 6)}
+    idx = {i: torch.rand(2, 4, generator=gen).argsort(dim=1)[:, :2]
+           for i in (1, 2, 4, 5, 7)}
 
     class Replay:
         def __init__(self, device):
@@ -400,9 +401,9 @@ def _accum_case():
     gen = torch.Generator().manual_seed(1)
     real = torch.tanh(torch.randn(2, 2, 128, 128, 3, generator=gen))
     y = torch.tensor([1, 3])
-    draws = step.TorchDraws(gen, 2, 120, 2, 2, torch.float32)
-    z = {i: draws.z(i) for i in (0, 3)}
-    idx = {i: draws.idx(i) for i in (1, 2, 4)}
+    z = {i: torch.randn(2, 120, generator=gen) for i in (0, 3)}
+    idx = {i: torch.rand(2, 2, generator=gen).argsort(dim=1)[:, :2]
+           for i in (1, 2, 4)}
     return (g_cfg, ds_cfg, dt_cfg), state, real, y, z, idx
 
 
@@ -988,9 +989,9 @@ def test_train_step_fused_on_card_matches_cpu(cuda):
     gen = torch.Generator().manual_seed(1)
     real = torch.tanh(torch.randn(2, 4, 32, 32, 3, generator=gen))
     y = torch.tensor([1, 3])
-    draws = step.TorchDraws(gen, 2, 120, 4, 2, torch.float32)
-    z = {i: draws.z(i) for i in (0, 3, 6)}
-    idx = {i: draws.idx(i) for i in (1, 2, 4, 5, 7)}
+    z = {i: torch.randn(2, 120, generator=gen) for i in (0, 3, 6)}
+    idx = {i: torch.rand(2, 4, generator=gen).argsort(dim=1)[:, :2]
+           for i in (1, 2, 4, 5, 7)}
 
     class Replay:
         def __init__(self, device):
@@ -1346,9 +1347,9 @@ def test_train_step_with_fused_attention_on_card_matches_cpu(cuda):
     gen = torch.Generator().manual_seed(1)
     real = torch.tanh(torch.randn(2, 4, 32, 32, 3, generator=gen))
     y = torch.tensor([1, 3])
-    draws = step.TorchDraws(gen, 2, 120, 4, 2, torch.float32)
-    z = {i: draws.z(i) for i in (0, 3, 6)}
-    idx = {i: draws.idx(i) for i in (1, 2, 4, 5, 7)}
+    z = {i: torch.randn(2, 120, generator=gen) for i in (0, 3, 6)}
+    idx = {i: torch.rand(2, 4, generator=gen).argsort(dim=1)[:, :2]
+           for i in (1, 2, 4, 5, 7)}
 
     class Replay:
         def __init__(self, device):
@@ -1392,3 +1393,41 @@ def test_train_step_with_fused_attention_on_card_matches_cpu(cuda):
     for m in ("g", "ds", "dt"):
         assert gaps["on, card vs CPU"][m][0] <= 1.5e-3, m
         assert gaps["on vs off on the card"][m][0] <= 5e-6, m
+
+
+def test_trainer_on_the_card_places_batches_and_checkpoints(cuda, tmp_path):
+    """The trainer at test scale in bf16 on the card: the prefetched batch
+    arrives on the card in the compute dtype with the loader's values, the
+    schedule writes its files, and the async (pinned) checkpoint restores
+    on the card with the state's bits."""
+    import os
+
+    from dvdgan_tpu_torch import interop
+    from dvdgan_tpu_torch.train import checkpoint as ckpt
+    from dvdgan_tpu_torch.train.trainer import Trainer
+    from dvdgan_tpu_torch.utils.config import Config
+
+    cfg = Config(dataset="synthetic", n_classes=5, img_size=32, n_frames=4,
+                 ch=8, d_ch=8, emb_dim=16, attn_res=16, k_frames=2,
+                 batch_size=2, d_steps=1, ema_start=0, device="cuda",
+                 log_step=1, sample_step=2, model_save_step=2, total_step=4,
+                 out_dir=str(tmp_path))
+    tr = Trainer(cfg)
+    try:
+        metrics = tr.train()
+        batches = tr.loader.epoch(0)
+        clips, labels = next(batches)
+        batches.close()
+        real, y = tr._take(tr._place((clips, labels)))
+    finally:
+        tr.close()
+    assert all(math.isfinite(v) for v in metrics.values())
+    assert real.is_cuda and real.dtype == torch.bfloat16 and y.is_cuda
+    assert torch.equal(real.cpu(), torch.from_numpy(clips).bfloat16())
+    assert torch.equal(y.cpu(), torch.from_numpy(labels).long())
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == ["2", "4"]
+    assert os.path.isfile(tmp_path / "samples" / "4_grid.png")
+    back = interop.train_state_paths(
+        ckpt.restore(str(tmp_path / "checkpoints"), 4, tr.state))
+    for k, v in interop.train_state_paths(tr.state).items():
+        assert back[k].is_cuda and torch.equal(back[k], v), k

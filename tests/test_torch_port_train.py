@@ -42,6 +42,7 @@ from dvdgan_tpu_torch.core import tree
 from dvdgan_tpu_torch.models import DSConfig, DTConfig, GConfig
 from dvdgan_tpu_torch.train import state as train_state
 from dvdgan_tpu_torch.train import step
+from dvdgan_tpu_torch.utils.logging import parse_step_line
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 G_KW = dict(img_size=32, n_frames=4, ch=8, z_dim=120, n_classes=5,
@@ -132,17 +133,39 @@ def one_step():
     new, metrics = step.train_step(
         state0, torch.from_numpy(real), torch.from_numpy(y).long(), draws,
         GConfig(**G_KW), DSConfig(**DS_KW), DTConfig(**DT_KW),
-        train_state.TrainConfig(**TC_KW))
+        train_state.TrainConfig(**TC_KW, log_grad_norms=True))
     return flat_np(jstate0), flat_np(jnew), jmetrics, new, metrics
+
+
+LOSSES = ("d_loss", "d_loss_s", "d_loss_t", "g_loss")
 
 
 def test_train_step_losses_match_reference(one_step):
     _, _, jmetrics, _, metrics = one_step
-    assert set(metrics) == {"d_loss", "d_loss_s", "d_loss_t", "g_loss"}
+    assert set(metrics) == {*LOSSES, "d_grad_norm", "g_grad_norm"}
     for k, v in metrics.items():
         assert v.dtype == torch.float32 and v.dim() == 0
-        np.testing.assert_allclose(float(v), float(jmetrics[k]), atol=1e-4,
-                                   err_msg=k)
+    for k in LOSSES:
+        np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]),
+                                   atol=1e-4, err_msg=k)
+
+
+def test_grad_norms_match_reference(one_step):
+    """With β1 = 0 Adam's new mu is the gradient: each norm equals the
+    global norm of the reference's new mu trees (D: DS and DT together, the
+    last D step's)."""
+    _, ref, _, _, metrics = one_step
+
+    def norm(models):
+        return np.sqrt(sum(np.sum(np.square(v.astype(np.float64)))
+                           for k, v in ref.items()
+                           if k.split("/opt/0/mu/")[0] in models
+                           and "/opt/0/mu/" in k))
+
+    np.testing.assert_allclose(float(metrics["d_grad_norm"]),
+                               norm(("ds", "dt")), rtol=1e-4)
+    np.testing.assert_allclose(float(metrics["g_grad_norm"]), norm(("g",)),
+                               rtol=1e-4)
 
 
 def test_train_step_state_matches_reference(one_step):
@@ -283,42 +306,41 @@ def test_train_cli_on_cpu_writes_state(tmp_path):
     out = tmp_path / "run"
     proc = subprocess.run(
         [sys.executable, "-m", "dvdgan_tpu_torch", "--mode", "train",
-         "--device", "cpu", "--total_step", "2", *TRAIN_FLAGS,
-         "--out_dir", str(out)],
+         "--device", "cpu", "--total_step", "2", "--log_step", "1",
+         "--model_save_step", "2", *TRAIN_FLAGS, "--out_dir", str(out)],
         cwd=REPO, capture_output=True, text=True, timeout=300,
         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode == 0, proc.stderr
-    lines = [ln.split() for ln in proc.stdout.splitlines()
+    lines = [parse_step_line(ln) for ln in proc.stdout.splitlines()
              if ln.startswith("step ")]
-    assert [ln[1] for ln in lines] == ["1", "2"]
-    for ln in lines:
-        fields = dict(zip(ln[2::2], ln[3::2]))
-        launches = {f"{k}_launches" for k in ("k1", "k2", "k3", "k5a", "k5b",
-                                              "k6a", "k6b")}
-        assert set(fields) == {"d_loss", "d_loss_s", "d_loss_t",
-                               "g_loss"} | launches
-        assert all(np.isfinite(float(fields[k])) for k in (
-            "d_loss", "d_loss_s", "d_loss_t", "g_loss"))
+    assert [n for n, _ in lines] == [1, 2]
+    launches = {f"{k}_launches" for k in ("k1", "k2", "k3", "k5a", "k5b",
+                                          "k6a", "k6b")}
+    for _, fields in lines:
+        assert set(fields) == {*LOSSES, "steps/s"} | launches
+        assert all(np.isfinite(fields[k]) for k in LOSSES)
         # CPU tensors take the plain versions: no kernel launches
-        assert {fields[k] for k in launches} == {"0"}
-    state = interop.load_train_state_npz(str(out / "train_state.npz"))
+        assert {fields[k] for k in launches} == {0}
+    saved = out / "checkpoints" / "2" / "train_state.npz"
+    state = interop.load_train_state_npz(str(saved))
     assert int(state["step"]) == 2
-    with np.load(out / "train_state.npz") as f:
+    with np.load(saved) as f:
         assert all(np.isfinite(f[k]).all() for k in f.files)
 
-    # resuming from the written state takes one more step
+    # a run started from the written state takes one more step
     again = cli.main(["--mode", "train", "--device", "cpu", "--total_step",
-                      "1", *TRAIN_FLAGS, "--out_dir", str(tmp_path / "b"),
-                      "--weights", str(out / "train_state.npz")])
+                      "3", "--model_save_step", "1", *TRAIN_FLAGS,
+                      "--out_dir", str(tmp_path / "b"), "--weights",
+                      str(saved)])
     assert int(again["step"]) == 3
-    assert (tmp_path / "b" / "train_state.npz").exists()
+    assert (tmp_path / "b" / "checkpoints" / "3" / "train_state.npz").exists()
 
 
 @pytest.mark.parametrize("flags,match", [
     (["--time_shards", "2"], "item 6"),          # time-axis CP
-    (["--pretrained_model", "100"], "item 2"),   # Orbax resume
+    (["--steps_per_call", "2"], "item 2b"),      # K steps a call
     (["--dataset", "frames"], "item 3"),         # frame folders
-], ids=["flags0-item 9", "flags1-item 8", "flags2-item 8"])
+], ids=["flags0-item 6", "flags1-item 2b", "flags2-item 3"])
 def test_train_cli_refuses_what_is_not_ported(flags, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["--mode", "train", "--device", "cpu", *TRAIN_FLAGS, *flags,

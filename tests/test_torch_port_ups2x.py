@@ -53,6 +53,7 @@ from dvdgan_tpu_torch.ops import layers
 from dvdgan_tpu_torch.train import state as train_state
 from dvdgan_tpu_torch.train import step
 from dvdgan_tpu_torch.utils.config import parse_config
+from dvdgan_tpu_torch.utils.logging import parse_step_line
 
 from test_torch_port_longclip import ReferenceDraws, flat_np, reference_state
 
@@ -399,12 +400,13 @@ def test_state_saved_under_off_samples_under_full(tmp_path):
              "--k_frames", "2", "--batch_size", "2", "--d_steps", "1",
              "--ema_start", "0", "--bf16", "0", "--device", "cpu"]
     state = cli.main(["--mode", "train", *flags, "--total_step", "1",
-                      "--out_dir", str(tmp_path / "off")])
+                      "--model_save_step", "1", "--out_dir",
+                      str(tmp_path / "off")])
     full_state = train_state.create(0, GConfig(**G_KW, ups_fused="full"),
                                     DSConfig(**DS_KW), DTConfig(**DT_KW))
     assert (interop.train_state_to_flat(full_state).keys()
             == interop.train_state_to_flat(state).keys())
-    weights = str(tmp_path / "off" / "train_state.npz")
+    weights = str(tmp_path / "off" / "checkpoints" / "1" / "train_state.npz")
     clips = {}
     for mode in ("off", "full"):
         clips[mode] = cli.main(["--mode", "sample", *flags, "--n_samples",
@@ -421,12 +423,11 @@ def test_train_cli_prints_fused_launch_counts(tmp_path, capsys):
              "--k_frames", "2", "--batch_size", "2", "--d_steps", "1",
              "--ema_start", "0", "--bf16", "0", "--device", "cpu",
              "--ups_fused", "full"]
-    cli.main(["--mode", "train", *flags, "--total_step", "1", "--out_dir",
-              str(tmp_path)])
-    line = [ln for ln in capsys.readouterr().out.splitlines()
-            if ln.startswith("step ")][0].split()
-    fields = dict(zip(line[2::2], line[3::2]))
+    cli.main(["--mode", "train", *flags, "--total_step", "1", "--log_step",
+              "1", "--out_dir", str(tmp_path)])
+    _, fields = parse_step_line([ln for ln in capsys.readouterr().out
+                                 .splitlines() if ln.startswith("step ")][0])
     # on the CPU the plain versions run: every launch count is 0
     assert [fields[f"{k}_launches"] for k in ("k1", "k2", "k3", "k5a",
-                                              "k5b")] == ["0"] * 5
+                                              "k5b")] == [0] * 5
     assert np.isfinite(float(fields["g_loss"]))
