@@ -12,7 +12,11 @@
    (CUDA events, median of 10 runs after warm-up); every K1 and K2 row of
    this script also has its TFLOP/s, the profiler's device ms of one call
    beside the event ms, the device µs of each kind of launch and the
-   host's µs per launch;
+   host's µs per launch; then each kernel (K1, K2, K3, K4's cluster form,
+   K5a, K5b, K6a, K6b) at one driven shape in bf16 captured into a CUDA
+   graph and replayed twice, its outputs poisoned in between: the eager
+   call's bits each time, its launches counted once, during the capture
+   (`graph_replay`);
 3. drives the sample entry (`python -m dvdgan_tpu_torch --mode sample
    --preset ucf101_64 --n_samples 16 --bf16 1`) with the launch counters
    zeroed just before, checks the clip (shape, finite, in [-1, 1]) and that
@@ -24,19 +28,25 @@
    start at 0 and which log each step's launches, all side by side (a run
    spends most of its time starting up), the final state read from the
    last checkpoint:
-   - the trainer at the flagship step on the reference's schedule
-     (`--log_step 1 --sample_step 2 --model_save_step 2`): A, 4 steps with
-     `--keep_checkpoints 2`; A', A again; B, 2 steps with
-     `--keep_checkpoints 1`, then the same command with `--total_step 4`,
-     which must resume from step 2. Checked: checkpoints 2 and 4 in A and
+   - the trainer at the flagship step, `--preset ucf101_64 --batch_size 8
+     --bf16 1`, on the reference's schedule (`--log_step 1 --sample_step 2
+     --model_save_step 2`; per step K1 256, K2 256): A, 4 steps with
+     `--keep_checkpoints 2`; B, the same command with
+     `--keep_checkpoints 1`, resumed at step 2 in a copy of A's out_dir as
+     it stood then (`out_dir_at`). Checked: checkpoints 2 and 4 in A and
      only 4 in B, the grid PNGs at steps 2 and 4 (signature, the grid's
      IHDR size), the GIFs, the four losses and steps_per_sec in
-     `scalars.jsonl` at every step; if A and A' have the same bits B must
-     too, else every state tree's max|B − A| ≤ 2 × max|A' − A| (both
-     printed);
-   - the flagship step, `--preset ucf101_64 --batch_size 8 --bf16 1`, 3
-     steps, with the unfused routes and with `--ups_fused full
-     --attn_fused on` (per step K1 256, K2 256; fused: K5a 8, K5b 8, K6a 4);
+     `scalars.jsonl` at every step, B with A's bits in every leaf;
+   - the same under `--steps_per_call 2` (two steps a CUDA-graph replay):
+     A_K, 4 steps logged, sampled and saved at 2 and 4, and B_K, resumed
+     at 2 from A_K's out_dir: both with A's bits in every leaf (else the
+     differing leaves are named);
+   - the flagship on frame folders of `.npy` uint8 clips the script
+     writes (3 classes, 20–23 frames of 72×88: window, crop, resize and
+     epoch wrap all run), 4 steps at `--steps_per_call` 1 and 2, the
+     two with the same bits;
+   - the flagship step with `--ups_fused full --attn_fused on`, 3 steps
+     (per step K1 256, K2 256, K5a 8, K5b 8, K6a 4);
    - the long-clip step, `--preset kinetics_256_48f --batch_size 4
      --grad_accum 2` (256 px, 48 frames, per-level remat, two micro-batches
      of 2), 2 steps, unfused and fused (K1, K2 and K3 exactly as often as
@@ -47,7 +57,11 @@
      --batch_size 8 --attn_res 64 --remat 1`, 2 steps, with `--attn_fused`
      off and on (K6b 4 per step; K1, K2, K3 at its own five levels);
    each run: finite losses, G/DS/DT params, the three SN u trees and G's BN
-   stats moved, launches per step as predicted, peak memory printed;
+   stats moved, launches per step as predicted, peak memory printed; then
+   the frames loader alone on `.npy` clips at UCF-101's frame size
+   (320×240, 180–187 frames) that it writes: host ms per batch and per
+   call of 4 steps, the ms to read a clip whole and a window of it, and
+   `native.available()`;
 5. holds K2 against its plain version at the shapes the flagship step's G
    update gives it (the four levels, T=16, B=8), in f32 with TF32 off (atol
    1e-4 × max|ref| per output) and in bf16 (5e-2 × max|ref|), two runs
@@ -56,9 +70,7 @@
    version; times flagship train steps/s in bf16 (median of 5 after 2
    warm-ups) and reads the device idle share and the time by kernel from
    torch.profiler; the z and frame-index draws of steps 2 and 3 the same
-   fresh and resumed; flagship steps/s through `Trainer.train()` in this
-   process (10 steps, no save or dump, log_step 10) beside the bare loop's,
-   the device idle share of each and the syncs a step (sync debug mode);
+   fresh and resumed; the syncs of one bare step (sync debug mode);
    `AsyncSaver`'s snapshot ms, write s and bytes for the flagship and the
    kinetics_256_48f state, each restored on the card bitwise;
 6. holds one f32 train step at the flagship widths, batch 2, on the card
@@ -120,7 +132,12 @@
 13. times the routes in turns in this one call: the long-clip step off,
     full, on, on, full, off and the 128 px step off, on, on, off (median of
     2 steps after 1 warm-up, with peak memory; the profiler's view with a
-    route's first reading), and sampling off, on, on, off;
+    route's first reading), and sampling off, on, on, off; and
+    `Trainer.train()` at steps_per_call 1 and K in turns 1, K, K, 1
+    (`time_steps_per_call`): the flagship at K 4 (12 steps a reading,
+    log_step 4), the long clip and the 128 px step at K 2 (4 steps), with
+    ms a step, device time and idle share, the syncs of a train() of K
+    steps, the capture's one-time cost and the peak memory;
 14. prints one JSON line of the kernels, each with its launches on the
     driven paths and its bound (the larger of bytes over 3.35 TB/s and
     operations over the peak rate of its type; K5a/K5b also their TFLOP/s
@@ -128,6 +145,11 @@
 
 Cut against earlier versions of this script to stay inside its time limit:
 the train CLI runs share the card instead of running one after the other;
+a resumed run starts from a copy of its uninterrupted run's out_dir at the
+resume step instead of a first leg of its own; the trainer's child run A
+is the flagship run whose launches are counted, and A_K, which must have
+A's bits, stands for a repeat of A; the trainer's ms a step at K 1 is
+`time_steps_per_call`'s only; the profiler traces the device alone;
 the flagship and long-clip runs with a fused route carry both fused routes
 at once (as do the fused sample run, the fused flagship steps/s and the
 fused f32 step, which takes d_steps 1); the long-clip step is timed over 2
@@ -148,6 +170,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import statistics
 import struct
 import subprocess
@@ -1163,8 +1186,6 @@ def start_train(argv, n_steps: int, tmp=None, first: int = 0) -> dict:
     the out_dir of an earlier run to resume, at step `first`."""
     from dvdgan_tpu_torch.utils.config import parse_config
 
-    # the presets read frame folders; the port trains on synthetic clips
-    # (the frames pipeline is not ported yet)
     argv = ["--log_step", "1", "--sample_step", "0", "--model_save_step",
             str(n_steps), *argv, "--total_step", str(n_steps)]
     tmp = tmp or tempfile.TemporaryDirectory()
@@ -1212,9 +1233,11 @@ def finish_train(run: dict, keep: bool = False) -> dict:
             run["tmp"].cleanup()
     steps = [parse_step_line(ln) for ln in stdout.splitlines()
              if ln.startswith("step ")]
-    if [n for n, _ in steps] != list(range(run["first"] + 1, n_steps + 1)):
+    logged = [s for s in range(run["first"] + 1, n_steps + 1)
+              if s % cfg.log_step == 0]
+    if [n for n, _ in steps] != logged:
         raise AssertionError(f"step lines {[n for n, _ in steps]}, want "
-                             f"{run['first'] + 1} … {n_steps}")
+                             f"{logged}")
     want = launches_per_step(cfg)
     for _, s in steps:
         losses = [s[k] for k in ("d_loss", "d_loss_s", "d_loss_t", "g_loss")]
@@ -1254,33 +1277,54 @@ def finish_train(run: dict, keep: bool = False) -> dict:
     return out
 
 
-def drive_trains(runs: dict[str, tuple], resumes=None, keep=()
-                 ) -> dict[str, dict]:
+def out_dir_at(src: str, step: int) -> tempfile.TemporaryDirectory:
+    """A copy of the train CLI's out_dir `src` as a run stopped at `step`
+    leaves it: its checkpoints, sample files and scalar lines up to `step`
+    (`samples/<step>_…`, `logs/scalars.jsonl`)."""
+    tmp = tempfile.TemporaryDirectory()
+
+    def later(name: str) -> bool:
+        head = name.split("_")[0]
+        return head.isdigit() and int(head) > step
+
+    shutil.copytree(src, tmp.name, dirs_exist_ok=True,
+                    ignore=lambda d, names: [n for n in names if later(n)])
+    scalars = os.path.join(tmp.name, "logs", "scalars.jsonl")
+    with open(scalars) as f:
+        keep = [ln for ln in f if json.loads(ln)["step"] <= step]
+    with open(scalars, "w") as f:
+        f.writelines(keep)
+    return tmp
+
+
+def drive_trains(runs: dict[str, tuple], resumes=None,
+                 keep=()) -> dict[str, dict]:
     """The train CLI once per entry of `runs` ({name: (flags, steps)}), the
     child processes side by side on the one card (each takes most of its
     time to start: the interpreter, CUDA, the seeded init), each checked
-    when it ends, in order. `resumes` ({name: (run it resumes, flags,
-    steps)}): a run started in the out_dir of an earlier one as soon as
-    that one has ended. Runs named in `keep` keep their out_dir and final
-    state (the caller cleans up). The parent launches nothing meanwhile."""
+    when it ends, in order. `resumes` ({name: (run it resumes, step, flags,
+    steps)}): a run started, as soon as the earlier one has ended, in a
+    copy of that one's out_dir as it stood at `step` (`out_dir_at`). Runs
+    named in `keep` keep their out_dir and final state (the caller cleans
+    up). The parent launches nothing meanwhile."""
     resumes = resumes or {}
+    specs = {**runs, **{k: v[2:] for k, v in resumes.items()}}
     started = {name: start_train(*run) for name, run in runs.items()}
     order, done = list(started), {}
     try:
         while order:
             name = order.pop(0)
-            flags = runs[name][0] if name in runs else resumes[name][1]
             print(f"--- train CLI run {name!r}: "
-                  f"{' '.join(flags[2:])}", flush=True)
+                  f"{' '.join(specs[name][0][2:])}", flush=True)
             done[name] = finish_train(started[name], keep=(
                 name in keep or any(r[0] == name for r in resumes.values())))
             print(f"train CLI run {name!r}: ended {done[name]['cli_s']:.1f} s "
                   f"after it began, peak device memory "
                   f"{done[name]['peak_mem_gib']} GiB", flush=True)
-            for later, (src, argv, steps) in resumes.items():
+            for later, (src, at, argv, steps) in resumes.items():
                 if src == name:
-                    started[later] = start_train(argv, steps, done[src]["tmp"],
-                                                 runs[src][1])
+                    started[later] = start_train(
+                        argv, steps, out_dir_at(done[src]["out_dir"], at), at)
                     order.append(later)
     finally:
         for run in started.values():        # stop whatever still runs
@@ -1368,8 +1412,7 @@ def time_train(device, name: str = "train_rate", argv=FLAGSHIP_ARGV,
         print(name + " " + json.dumps(out), flush=True)
         return out
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n_prof):
@@ -1510,13 +1553,12 @@ def check_train_f32(device, name: str = "train f32",
 # (every step logged, samples and checkpoints every 2 steps)
 TRAINER_ARGV = FLAGSHIP_ARGV + ["--log_step", "1", "--sample_step", "2",
                                 "--model_save_step", "2"]
-TRAINER_RUNS = {  # B's first leg first: its resume starts when it ends
-    "trainer_B1": (TRAINER_ARGV + ["--keep_checkpoints", "1"], 2),
-    "trainer_A": (TRAINER_ARGV + ["--keep_checkpoints", "2"], 4),
-    "trainer_A2": (TRAINER_ARGV + ["--keep_checkpoints", "2"], 4)}
-TRAINER_RESUMES = {
-    "trainer_B": ("trainer_B1", TRAINER_ARGV + ["--keep_checkpoints", "1"], 4)}
-TRAINER_KEEP = ("trainer_A", "trainer_A2", "trainer_B")
+TRAINER_RUNS = {
+    "trainer_A": (TRAINER_ARGV + ["--keep_checkpoints", "2"], 4)}
+TRAINER_RESUMES = {   # from A's out_dir as it stood at step 2
+    "trainer_B": ("trainer_A", 2, TRAINER_ARGV + ["--keep_checkpoints", "1"],
+                  4)}
+TRAINER_KEEP = ("trainer_A", "trainer_B")
 LOSSES = ("d_loss", "d_loss_s", "d_loss_t", "g_loss")
 
 
@@ -1534,12 +1576,13 @@ def state_gaps(x: dict, y: dict) -> dict[str, float]:
 
 
 def check_trainer_runs(done: dict) -> dict:
-    """The trainer's child runs: A (4 steps), A' (A again) and B (2 steps,
-    then the same command resumed to 4). Files: A keeps checkpoints 2 and
-    4, B only 4; grid PNGs at steps 2 and 4 with the grid's IHDR size; GIFs;
-    the four losses and steps_per_sec in scalars.jsonl at every step; B's
-    second leg resumed from step 2. Resume: if A and A' have the same bits,
-    B must too; else every state tree's max|B − A| ≤ 2 × max|A' − A|."""
+    """The trainer's child runs: A (4 steps) and B (resumed at step 2 from
+    A's out_dir as it stood then, `out_dir_at`, to 4). Files: A keeps
+    checkpoints 2 and 4, B only 4; grid PNGs at steps 2 and 4 with the
+    grid's IHDR size; GIFs; the four losses and steps_per_sec in
+    scalars.jsonl at every step; B resumed from step 2. Resume: B has A's
+    bits in every leaf (A_K, another process, must have them too:
+    `check_k_runs`); each state tree's max|B − A| is printed."""
     from dvdgan_tpu_torch.utils.config import parse_config
 
     cfg = parse_config(TRAINER_ARGV)
@@ -1547,9 +1590,8 @@ def check_trainer_runs(done: dict) -> dict:
     n_show, pad = min(4, cfg.batch_size), 2
     grid_wh = (g_cfg.n_frames * (g_cfg.img_size + pad) + pad,
                n_show * (g_cfg.img_size + pad) + pad)
-    a, a2, b = (done[k] for k in TRAINER_KEEP)
-    for name, run, kept in (("A", a, ["2", "4"]), ("A'", a2, ["2", "4"]),
-                            ("B", b, ["4"])):
+    a, b = (done[k] for k in TRAINER_KEEP)
+    for name, run, kept in (("A", a, ["2", "4"]), ("B", b, ["4"])):
         out = run["out_dir"]
         got = sorted(os.listdir(os.path.join(out, "checkpoints")))
         if got != kept:
@@ -1580,25 +1622,15 @@ def check_trainer_runs(done: dict) -> dict:
                 raise AssertionError(f"trainer run {name}: scalars at step "
                                      f"{s}: {sorted(tags.get(s, ()))}")
     if "resumed from checkpoint step 2" not in b["stdout"]:
-        raise AssertionError("trainer run B's second leg did not resume "
-                             "from step 2")
-    same = all(np.array_equal(v, a2["state"][k])
-               for k, v in a["state"].items())
-    repeat, resumed = (state_gaps(a2["state"], a["state"]),
-                       state_gaps(b["state"], a["state"]))
-    res = {"a_repeat_bitwise": same, "max_abs_a_repeat": repeat,
-           "max_abs_b_resumed": resumed,
-           "b_resumed_bitwise": all(np.array_equal(v, a["state"][k])
-                                    for k, v in b["state"].items())}
+        raise AssertionError("trainer run B did not resume from step 2")
+    differ = [k for k, v in b["state"].items()
+              if not np.array_equal(v, a["state"][k])]
+    res = {"b_resumed_bitwise": not differ, "differ": differ[:20],
+           "max_abs_b_resumed": state_gaps(b["state"], a["state"])}
     print("trainer runs " + json.dumps(res), flush=True)
-    if same and not res["b_resumed_bitwise"]:
-        raise AssertionError("A and A' have the same bits, the resumed B "
-                             "does not")
-    bad = {k: (v, repeat[k]) for k, v in resumed.items()
-           if v > 2 * repeat[k]}
-    if not same and bad:
-        raise AssertionError(f"resumed B further from A than twice the "
-                             f"repeat A': {bad}")
+    if differ:
+        raise AssertionError(f"the resumed B differs from A in "
+                             f"{len(differ)} leaves: {differ[:20]}")
     for k in TRAINER_KEEP:
         done[k]["tmp"].cleanup()
         del done[k]["state"]
@@ -1640,8 +1672,9 @@ def profile_busy_us(fn) -> tuple[float, float]:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: its kernels are all that is read, and
+    # the host ops' trace took longer to read than the steps to run
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -1683,102 +1716,374 @@ def time_checkpoint(state: dict, ckpt_dir: str, step: int) -> dict:
             "round_trip_bitwise": same}
 
 
-def time_trainer(device, bare: dict) -> dict:
-    """Flagship ms per step through `Trainer.train()` in this process (10
-    steps a reading after 2 of warm-up; no save, no dump, log_step 10; host
-    clock around train(), which waits for its last step) and through the
-    bare loop (`time_train`, a synchronize after each step; mean of 5
-    after 1 warm-up), in turns: trainer, bare, bare, trainer (the host's
-    speed moves within a process too: after a profiler session the launches
-    ran slower); the device idle share of each (1 − profiler kernel time
-    per step / the turns' step time; the bare loop's kernel time from
-    `bare`, its profiled reading); syncs per step (torch.cuda sync debug warnings) in
-    the bare step and in the trainer's loop; the checkpoint's snapshot,
-    write and round trip for the flagship state and for the
-    kinetics_256_48f state."""
+def time_checkpoints(device) -> dict:
+    """The syncs of one bare flagship step (torch.cuda sync debug
+    warnings; the trainer's, at K 1 and K, are `time_steps_per_call`'s),
+    and the checkpoint's snapshot, write and round trip for the flagship
+    state and for the kinetics_256_48f state."""
     import warnings
 
     from dvdgan_tpu_torch.train import state as train_state
     from dvdgan_tpu_torch.train import step
-    from dvdgan_tpu_torch.train.trainer import Trainer
     from dvdgan_tpu_torch.utils.config import parse_config
 
+    def state_of(cfg):
+        return train_state.to_device(train_state.create(
+            cfg.seed, cfg.g_config(), cfg.ds_config(), cfg.dt_config()),
+            device)
+
+    cfg = parse_config(FLAGSHIP_ARGV)
+    g_cfg, ds_cfg = cfg.g_config(), cfg.ds_config()
+    state = state_of(cfg)
+    draws = step.TorchDraws(cfg.seed, 0, cfg.batch_size, g_cfg.z_dim,
+                            g_cfg.n_frames, ds_cfg.k_frames, torch.bfloat16,
+                            device)
+    real = torch.zeros(cfg.batch_size, g_cfg.n_frames, cfg.img_size,
+                       cfg.img_size, 3, device=device, dtype=torch.bfloat16)
+    y = torch.zeros(cfg.batch_size, dtype=torch.long, device=device)
+    step.train_step(state, real, y, draws, g_cfg, ds_cfg, cfg.dt_config(),
+                    cfg.train_config())         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as step_w:
+            warnings.simplefilter("always")
+            state, _ = step.train_step(state, real, y, draws, g_cfg, ds_cfg,
+                                       cfg.dt_config(), cfg.train_config())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = parse_config(FLAGSHIP_ARGV + [
-            "--log_step", "10", "--sample_step", "0", "--model_save_step",
-            "0", "--out_dir", tmp])
-        tr = Trainer(cfg)
-        try:
-            tr.train(total_step=2)
-            turns = []
-            for kind in ("trainer", "bare", "bare", "trainer"):
-                if kind == "bare":
-                    row = time_train(device, "bare_turn", n_warm=1,
-                                     n_steps=5, n_prof=0)
-                    turns.append((kind, statistics.mean(row["step_ms_all"])))
-                    continue
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                tr.train(total_step=tr.start_step + 10)
-                turns.append((kind, (time.perf_counter() - t0) / 10 * 1e3))
-            sec = statistics.mean(ms for k, ms in turns
-                                  if k == "trainer") / 1e3
-            busy_us, wall_us = profile_busy_us(
-                lambda: tr.train(total_step=tr.start_step + 5))
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                with warnings.catch_warnings(record=True) as loop_w:
-                    warnings.simplefilter("always")
-                    tr.train(total_step=tr.start_step + 4)
-                draws = step.TorchDraws(
-                    cfg.seed, tr.start_step, cfg.batch_size, tr.g_cfg.z_dim,
-                    tr.g_cfg.n_frames, tr.ds_cfg.k_frames, torch.bfloat16,
-                    device)
-                real = torch.zeros(cfg.batch_size, tr.g_cfg.n_frames,
-                                   cfg.img_size, cfg.img_size, 3,
-                                   device=device, dtype=torch.bfloat16)
-                y = torch.zeros(cfg.batch_size, dtype=torch.long,
-                                device=device)
-                with warnings.catch_warnings(record=True) as step_w:
-                    warnings.simplefilter("always")
-                    step.train_step(tr.state, real, y, draws, tr.g_cfg,
-                                    tr.ds_cfg, tr.dt_cfg, tr.tc)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            flag_ckpt = time_checkpoint(tr.state, os.path.join(tmp, "ck"),
-                                        tr.start_step)
-        finally:
-            tr.close()
-            del tr
-        long_cfg = parse_config(LONG_ARGV)
-        state = train_state.to_device(train_state.create(
-            long_cfg.seed, long_cfg.g_config(), long_cfg.ds_config(),
-            long_cfg.dt_config()), device)
+        flag_ckpt = time_checkpoint(state, os.path.join(tmp, "ck"), 2)
+        del state
+        state = state_of(parse_config(LONG_ARGV))
         long_ckpt = time_checkpoint(state, os.path.join(tmp, "lk"), 0)
         del state
     torch.cuda.empty_cache()
-    bare_ms = statistics.mean(ms for k, ms in turns if k == "bare")
-    out = {"turns_ms_per_step": turns,
-           "trainer_ms_per_step": sec * 1e3, "trainer_steps_per_s": 1 / sec,
-           "bare_ms_per_step": bare_ms, "bare_steps_per_s": 1e3 / bare_ms,
-           "trainer_device_busy_ms_per_step": busy_us / 5 / 1e3,
-           "trainer_device_idle_share": 1.0 - busy_us / 5 / 1e6 / sec,
-           "trainer_device_idle_share_profiled": 1.0 - busy_us / wall_us,
-           "bare_device_busy_ms_per_step": bare["device_busy_ms_per_step"],
-           "bare_device_idle_share": 1.0 - bare["device_busy_ms_per_step"]
-           / bare_ms,
-           "syncs_in_4_trainer_steps": len(loop_w),
-           "syncs_in_one_bare_step": len(step_w),
-           "sync_sites": sorted({str(w.message)[:120]
-                                 for w in [*loop_w, *step_w]})[:8],
+    out = {"syncs_in_one_bare_step": len(step_w),
+           "sync_sites": sorted({str(w.message)[:120] for w in step_w})[:8],
            "checkpoint_flagship": flag_ckpt,
            "checkpoint_kinetics_256_48f": long_ckpt}
-    print("trainer_rate " + json.dumps(out), flush=True)
+    print("checkpoints " + json.dumps(out), flush=True)
     for name, row in (("flagship", flag_ckpt),
                       ("kinetics_256_48f", long_ckpt)):
         if not row["round_trip_bitwise"]:
             raise AssertionError(f"the {name} state restored on the card "
                                  f"differs from the state saved")
+    return out
+
+
+def graph_replay(name: str, fn, wrapper) -> dict:
+    """One kernel's wrapper call `fn()` on fixed inputs: eagerly, then
+    captured into a CUDA graph (after a warm-up call on a side stream, as
+    `torch.cuda.graphs` asks) and replayed twice, its outputs filled with
+    NaN before each replay. Each replay must give the eager call's bits;
+    the wrapper's counter (`wrapper.launches`) moves by the eager call's
+    launches during the capture and not at all in a replay."""
+    def outs():
+        o = fn()
+        return list(o) if isinstance(o, (tuple, list)) else [o]
+
+    n0 = wrapper.launches
+    eager = [o.clone() for o in outs()]
+    n_eager = wrapper.launches - n0
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outs()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n0 = wrapper.launches
+    with torch.cuda.graph(graph):
+        captured = outs()
+    n_captured = wrapper.launches - n0
+    same = []
+    for _ in range(2):
+        for o in captured:
+            o.fill_(float("nan"))
+        n0 = wrapper.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        if wrapper.launches != n0:
+            raise AssertionError(f"{name}: a replay moved the launch count")
+        same.append(all(torch.equal(o, e) for o, e in zip(captured, eager)))
+    row = {"kernel": name, "launches_eager": n_eager,
+           "launches_captured": n_captured, "replays_bitwise": same,
+           "replay_ms": cuda_ms(graph.replay, reps=5, warmup=1),
+           "eager_ms": cuda_ms(fn, reps=5, warmup=1)}
+    print("graph_replay " + json.dumps(row), flush=True)
+    if n_captured != n_eager or not all(same):
+        raise AssertionError(f"{name} replayed from a CUDA graph differs "
+                             f"from its eager call: {row}")
+    del graph
+    return row
+
+
+def check_graphs(device) -> dict[str, dict]:
+    """Each kernel captured in a CUDA graph and replayed (`graph_replay`)
+    at one shape of a driven path, bf16: K1 and K4 (its cluster form) at
+    the flagship's 4²×256 level (B 16, T 16 for K1), K2 there at B 8, K3
+    at the long clip's 64²×128 plane (T 48, B 2), K5a/K5b at the flagship's
+    8²→16² level (N 128, 256→128), K6a at (128, 32², 64), K6b at (96, 64²,
+    64)."""
+    from dvdgan_tpu_torch.kernels import attention_spatial as k6
+    from dvdgan_tpu_torch.kernels import convgru_blocked as k3
+    from dvdgan_tpu_torch.kernels import convgru_bwd as k2
+    from dvdgan_tpu_torch.kernels import convgru_cell as k4
+    from dvdgan_tpu_torch.kernels import convgru_seq as k1
+    from dvdgan_tpu_torch.kernels import ups2x_fused as k5
+    bf16 = torch.bfloat16
+    rows = {}
+    a1 = k1_inputs(4, 4, 256, bf16, device, seed=90)
+    rows["K1"] = graph_replay("K1", lambda: k1.gru_sequence_fused(*a1),
+                              k1.gru_sequence_fused)
+    a2 = k1_inputs(4, 4, 256, bf16, device, seed=91, b=B_TRAIN)
+    hs = k1.gru_sequence_fused(*a2)
+    g2 = torch.randn(hs.shape, generator=torch.Generator().manual_seed(92)
+                     ).to(device, bf16)
+    rows["K2"] = graph_replay("K2", lambda: k2.gru_sequence_bwd(*a2, hs, g2),
+                              k2.gru_sequence_bwd)
+    a3 = k1_inputs(64, 64, 128, bf16, device, seed=93, b=LONG_B, t=LONG_T)
+    rows["K3"] = graph_replay("K3", lambda: k3.gru_sequence_blocked(*a3),
+                              k3.gru_sequence_blocked)
+    gx, cx, h0, wg, wc = k1_inputs(4, 4, 256, bf16, device, seed=94, t=1)
+    if k4.plan(bf16, B, 4, 4, 256) is None:
+        raise AssertionError("K4 takes no cluster launch at 4x4x256")
+    rows["K4"] = graph_replay(
+        "K4", lambda: k4.gru_cell_fused(gx[0], cx[0], h0, wg, wc),
+        k4.gru_cell_fused)
+    wall, xp, g5 = k5_inputs(T * B_TRAIN, 8, 8, 256, 128, bf16, device, 95)
+    rows["K5a"] = graph_replay("K5a", lambda: k5.ups2x(wall, xp), k5.ups2x)
+    rows["K5b"] = graph_replay("K5b", lambda: k5.ups2x_bwd(wall, xp, g5),
+                               k5.ups2x_bwd)
+    a6 = k6_inputs(128, 32, 32, 64, bf16, device, 96)
+    rows["K6a"] = graph_replay("K6a", lambda: k6.spatial_attn_fused(*a6),
+                               k6.spatial_attn_fused)
+    a6b = k6_inputs(96, 64, 64, 64, bf16, device, 97)
+    rows["K6b"] = graph_replay("K6b", lambda: k6.spatial_attn_tiled(*a6b),
+                               k6.spatial_attn_tiled)
+    return rows
+
+
+# the trainer's child runs under --steps_per_call 2 (one CUDA graph of two
+# steps a call): A_K, A's 4 steps with logs, samples and checkpoints at 2
+# and 4; B_K, resumed at 2 from A_K's out_dir as it stood then, to 4. Each
+# must have A's bits
+TRAINER_ARGV_K = FLAGSHIP_ARGV + ["--log_step", "2", "--sample_step", "2",
+                                  "--model_save_step", "2",
+                                  "--steps_per_call", "2"]
+TRAINER_RUNS_K = {
+    "trainer_AK": (TRAINER_ARGV_K + ["--keep_checkpoints", "2"], 4)}
+TRAINER_RESUMES_K = {
+    "trainer_BK": ("trainer_AK", 2, TRAINER_ARGV_K + ["--keep_checkpoints",
+                                                       "1"], 4)}
+# the flagship on frame folders (.npy uint8 clips the script writes): 3
+# classes of 4 clips, 20 to 23 frames of 72×88 (so that the window, the
+# center crop and the resize all run, and epochs wrap), at K 1 and K 2
+FRAMES_SHAPE = dict(n_classes=3, n_videos=4, t0=20, h=72, w=88)
+FRAMES_ARGV = [*FLAGSHIP_ARGV, "--dataset", "frames", "--n_classes", "3"]
+FRAMES_STEPS = 4
+# the loader alone at UCF-101's published frame size (320×240) and about
+# its mean clip length (7.2 s at 25 fps): 2 classes of 8 clips, 180 to 187
+# frames (41.5 MB a clip as uint8 .npy), 2 batches of 8 an epoch
+UCF_SHAPE = dict(n_classes=2, n_videos=8, t0=180, h=240, w=320)
+
+
+def write_frames(root: str, n_classes: int, n_videos: int, t0: int, h: int,
+                 w: int) -> str:
+    """root/class_<c>/video_<v>.npy: uint8 (t0 + v, h, w, 3) clips from a
+    seeded generator."""
+    rng = np.random.default_rng(0)
+    for c in range(n_classes):
+        os.makedirs(os.path.join(root, f"class_{c}"))
+        for v in range(n_videos):
+            np.save(os.path.join(root, f"class_{c}", f"video_{v}.npy"),
+                    rng.integers(0, 256, (t0 + v, h, w, 3), dtype=np.uint8))
+    return root
+
+
+def time_frames_loader(n_batches: int = 12, k: int = 4) -> dict:
+    """The frame-folder loader as the trainer builds it (flagship clips,
+    batch 8, its threads and prefetch) on `.npy` clips of UCF_SHAPE that it
+    writes to a temporary directory (read back from the page cache: the
+    files were just written): host ms per batch over `n_batches` after one,
+    and per call of `k` steps; the ms to read one clip whole (`np.load`)
+    and one window of the flagship's frames (`np.load(mmap_mode="r")`, the
+    dataset's read), over the folder's clips; which clip path ran
+    (`native.available()`)."""
+    from dvdgan_tpu_torch import native
+    from dvdgan_tpu_torch.data import FrameFolderDataset, Loader
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = write_frames(os.path.join(tmp, "data"), **UCF_SHAPE)
+        cfg = parse_config(FRAMES_ARGV + ["--data_path", root,
+                                          "--n_classes",
+                                          str(UCF_SHAPE["n_classes"])])
+        ds = FrameFolderDataset(root, cfg.n_frames, cfg.img_size,
+                                seed=cfg.seed)
+        loader = Loader(ds, cfg.batch_size, seed=cfg.seed,
+                        num_threads=cfg.loader_threads, prefetch=cfg.prefetch)
+        data = loader.forever()
+        try:
+            clip, _ = next(data)
+            t0 = time.perf_counter()
+            for _ in range(n_batches):
+                next(data)
+            ms = (time.perf_counter() - t0) / n_batches * 1e3
+        finally:
+            data.close()
+            loader.close()
+        paths = [p for p, _ in ds.items]
+        read_ms = {}
+        for kind in ("whole", "window"):
+            t0 = time.perf_counter()
+            for p in paths:
+                if kind == "whole":
+                    np.load(p)
+                else:
+                    np.array(np.load(p, mmap_mode="r")[:cfg.n_frames])
+            read_ms[kind] = (time.perf_counter() - t0) / len(paths) * 1e3
+        clip_bytes = os.path.getsize(paths[0])
+    frame_bytes = UCF_SHAPE["h"] * UCF_SHAPE["w"] * 3
+    out = {"native_available": native.available(), "ms_per_batch": ms,
+           f"ms_per_call_of_{k}": k * ms, "read_ms_per_clip": read_ms,
+           "clip_bytes": clip_bytes,
+           "window_bytes_per_batch": cfg.batch_size * cfg.n_frames
+           * frame_bytes, "clip_shape": [UCF_SHAPE["t0"], UCF_SHAPE["h"],
+                                         UCF_SHAPE["w"], 3],
+           "batch_shape": list(clip.shape), "items": len(ds),
+           "loader_threads": cfg.loader_threads, "prefetch": cfg.prefetch}
+    print("frames_loader " + json.dumps(out), flush=True)
+    if clip.shape != (cfg.batch_size, cfg.n_frames, cfg.img_size,
+                      cfg.img_size, 3) or not np.isfinite(clip).all():
+        raise AssertionError(f"frames loader batch {clip.shape}")
+    return out
+
+
+def check_k_runs(done: dict) -> dict:
+    """A_K and B_K (resumed at 2) against A, and the frames run at K 2
+    against K 1: the same bits in every leaf (the differing leaves named);
+    A_K keeps checkpoints 2 and 4, wrote grids at 2 and 4 and captured its
+    graph; B_K resumed from step 2."""
+    a = done["trainer_A"]["state"]
+    res = {}
+    for name, ref, got in (("A_K", a, done["trainer_AK"]),
+                           ("B_K", a, done["trainer_BK"]),
+                           ("frames_K2", done["frames_k1"]["state"],
+                            done["frames_k2"])):
+        differ = [k for k, v in ref.items()
+                  if not np.array_equal(v, got["state"][k])]
+        res[name] = {"leaves": len(ref), "differ": differ[:20],
+                     "n_differ": len(differ)}
+        if "captured 2 train steps into one CUDA graph" not in got["stdout"]:
+            raise AssertionError(f"{name}: no CUDA graph was captured")
+    out = done["trainer_AK"]["out_dir"]
+    if sorted(os.listdir(os.path.join(out, "checkpoints"))) != ["2", "4"]:
+        raise AssertionError("trainer run A_K: checkpoints "
+                             f"{os.listdir(os.path.join(out, 'checkpoints'))}")
+    for s in (2, 4):
+        if not os.path.exists(os.path.join(out, "samples", f"{s}_grid.png")):
+            raise AssertionError(f"trainer run A_K: no {s}_grid.png")
+    if "resumed from checkpoint step 2" not in done["trainer_BK"]["stdout"]:
+        raise AssertionError("trainer run B_K's second leg did not resume "
+                             "from step 2")
+    print("steps_per_call runs " + json.dumps(res), flush=True)
+    bad = {k: v for k, v in res.items() if v["n_differ"]}
+    if bad:
+        raise AssertionError(f"runs under --steps_per_call 2 differ from "
+                             f"their single-step runs: {bad}")
+    for k in ("trainer_AK", "trainer_BK", "frames_k1", "frames_k2"):
+        done[k]["tmp"].cleanup()
+        del done[k]["state"]
+    return res
+
+
+def time_steps_per_call(device, argv, k: int, n_steps: int,
+                        name: str) -> dict:
+    """One configuration through `Trainer.train()` in this process at
+    steps_per_call 1 and k, synthetic clips, log_step k, no save or dump:
+    each trainer warmed up over k steps (the K one captures its graph
+    there: the capture's one-time cost), then `n_steps`-step readings in
+    turns 1, k, k, 1 (host clock around train(), which waits for its last
+    step). Per trainer: ms a step; the device time a step (the graph's
+    replay in CUDA events, and torch.profiler's kernel time over one call
+    at k: the same work at either K) and the idle share against the turns'
+    step time; the syncs of a train() of k steps
+    (`torch.cuda.set_sync_debug_mode`); and the peak device memory of its
+    warm-up above what was allocated before it was built (the graph's pool
+    and the state buffers under k)."""
+    import warnings
+
+    from dvdgan_tpu_torch.train.trainer import Trainer
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    t_in = time.perf_counter()
+    trainers, tmps, rows = {}, [], {}
+    try:
+        for kk in (1, k):
+            tmp = tempfile.TemporaryDirectory()
+            tmps.append(tmp)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            tr = Trainer(parse_config(argv + [
+                "--steps_per_call", str(kk), "--log_step", str(k),
+                "--sample_step", "0", "--model_save_step", "0",
+                "--out_dir", tmp.name]))
+            t0 = time.perf_counter()
+            tr.train(total_step=k)
+            warm_s = time.perf_counter() - t0
+            trainers[kk] = tr
+            rows[kk] = {"steps_per_call": kk, "warmup_s": warm_s,
+                        "capture_s": (tr._multi.capture_s
+                                      if tr._multi is not None else None),
+                        "peak_mem_gib": (torch.cuda.max_memory_allocated()
+                                         - base) / 2**30}
+        turns = []
+        for kk in (1, k, k, 1):
+            tr = trainers[kk]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train(total_step=tr.start_step + n_steps)
+            turns.append((kk, (time.perf_counter() - t0) / n_steps * 1e3))
+        for kk, tr in trainers.items():
+            row = rows[kk]
+            row["ms_per_step"] = [ms for x, ms in turns if x == kk]
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    tr.train(total_step=tr.start_step + k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            # per train() call: its log step waits on one event, and the
+            # return value's reads come after the loop
+            row[f"syncs_in_{k}_steps"] = len(caught)
+            row["sync_sites"] = sorted({str(w.message)[:100]
+                                        for w in caught})[:4]
+        # the device's work a step, the same at either K: the graph's
+        # replay in CUDA events, and torch.profiler over one call (its
+        # trace takes far longer to read than the steps take to run)
+        multi = trainers[k]._multi
+        device_ms = cuda_ms(multi.graph.replay, reps=3, warmup=1) / k
+        busy_us, _ = profile_busy_us(lambda: trainers[k].train(
+            total_step=trainers[k].start_step + k))
+        rows[k]["device_ms_per_step_profiler"] = busy_us / k / 1e3
+        for kk, row in rows.items():
+            row["device_ms_per_step"] = device_ms
+            row["device_idle_share"] = (
+                1.0 - device_ms / statistics.mean(row["ms_per_step"]))
+    finally:
+        for tr in trainers.values():
+            tr.close()
+        trainers.clear()
+        for tmp in tmps:
+            tmp.cleanup()
+        torch.cuda.empty_cache()
+    out = {"name": name, "turns_ms_per_step": turns,
+           "rows": [rows[1], rows[k]], "seconds": time.perf_counter() - t_in}
+    print(f"{name} " + json.dumps(out), flush=True)
     return out
 
 
@@ -1814,29 +2119,47 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     rows = check_k1(device)
+    graphs = check_graphs(device)
+    phase("K1, and every kernel replayed from a CUDA graph")
     sample_run, _, clips_off = drive_sample(device)
+    phase("the sample CLI")
+    frames_tmp = tempfile.TemporaryDirectory()
+    frames = write_frames(os.path.join(frames_tmp.name, "data"),
+                          **FRAMES_SHAPE)
+    frames_argv = FRAMES_ARGV + ["--data_path", frames]
     # every train CLI run of this script, side by side
     runs = drive_trains({
-        **TRAINER_RUNS,
-        "train": (FLAGSHIP_ARGV, TRAIN_STEPS),
-        "train_fused": (FLAGSHIP_ARGV + FUSED, TRAIN_STEPS),
+        **TRAINER_RUNS, **TRAINER_RUNS_K,
         "longclip": (LONG_ARGV, LONG_STEPS),
         "longclip_fused": (LONG_ARGV + FUSED, LONG_STEPS),
+        "train_fused": (FLAGSHIP_ARGV + FUSED, TRAIN_STEPS),
         "px128": (PX128_ARGV, PX128_STEPS),
-        "px128_on": (PX128_ARGV + ON, PX128_STEPS)}, TRAINER_RESUMES,
-        TRAINER_KEEP)
-    train, train_fused = runs["train"], runs["train_fused"]
+        "px128_on": (PX128_ARGV + ON, PX128_STEPS),
+        "frames_k1": (frames_argv, FRAMES_STEPS),
+        "frames_k2": (frames_argv + ["--steps_per_call", "2", "--log_step",
+                                     "2"], FRAMES_STEPS)},
+        {**TRAINER_RESUMES, **TRAINER_RESUMES_K},
+        TRAINER_KEEP + ("trainer_AK", "trainer_BK", "frames_k1", "frames_k2"))
+    frames_tmp.cleanup()
+    train_fused = runs["train_fused"]
     long_run, long_fused = runs["longclip"], runs["longclip_fused"]
     px_off, px_on = runs["px128"], runs["px128_on"]
     trainer_a = runs["trainer_A"]
+    check_k_runs(runs)
     check_trainer_runs(runs)
-    phase("sampling and the train CLI runs (the six and the trainer's)")
+    phase("the train CLI runs (the trainer's, under --steps_per_call 2, on "
+          "frame folders, the long clip, the 128 px step)")
+    time_frames_loader()
+    phase("the frames loader at UCF-101's frame size")
     rows_k2 = check_k2(device)
-    bare = time_train(device)
+    phase("K2")
+    time_train(device)
+    phase("the flagship step's rate")
     check_train_f32(device)
+    phase("the flagship f32 step, card vs CPU")
     check_draws(device)
-    time_trainer(device, bare)
-    phase("the flagship step and the trainer")
+    time_checkpoints(device)
+    phase("the draws and the checkpoints")
 
     # the long-clip path
     rows_k3 = check_k3(device)
@@ -1941,18 +2264,26 @@ def main() -> int:
         for i, route in enumerate(([], FULL, ON, ON, FULL, []))]
     print("longclip_pairs " + json.dumps(
         [{k: r.get(k) for k in keys} for r in long_rates]), flush=True)
+    phase("the long-clip routes in turns")
     px_rates = [
         time_train(device, "px128_rate", PX128_ARGV + route, n_warm=1,
                    n_steps=2, n_prof=int(i < 2), n_top=15)
         for i, route in enumerate(([], ON, ON, []))]
     print("px128_pairs " + json.dumps(
         [{k: r.get(k) for k in keys} for r in px_rates]), flush=True)
+    phase("the 128 px routes in turns")
     g_cfgs = {m: parse_config(["--preset", "ucf101_64", "--attn_fused", m]
                               ).g_config() for m in ("off", "on")}
     serve = [time_sample(device, g_cfgs[m])[0]
              for m in ("off", "on", "on", "off")]
     print("sample_pairs " + json.dumps(serve), flush=True)
-    phase("the in-call pairs")
+    phase("sampling's routes in turns")
+    # the trainer at steps_per_call 1 and K, in turns
+    for argv, k, n, name in ((FLAGSHIP_ARGV, 4, 12, "flagship"),
+                             (LONG_ARGV, 2, 4, "longclip"),
+                             (PX128_ARGV, 2, 4, "px128")):
+        time_steps_per_call(device, argv, k, n, f"steps_per_call_{name}")
+        phase(f"the {name} trainer at steps_per_call 1 and {k} in turns")
 
     def entry(name, source, replaces, rows, by_path, per_step, also=(),
               **extra):
@@ -2036,11 +2367,11 @@ def main() -> int:
     kernels = [
         entry("convgru_seq (K1, bf16, sum of the 4 ucf101_64 levels, B=16)",
               k1_src, k1_at, rows,
-              {"sample": sample_run["k1"], "train": train["k1"],
-               "sample_fused": sample_fused["k1"],
+              {"sample": sample_run["k1"], "sample_fused": sample_fused["k1"],
                "train_fused": train_fused["k1"], "trainer": trainer_a["k1"]},
               {"sample": sample_run["k1"],
-               "train": train["per_step"]["k1_launches"]}),
+               "trainer": trainer_a["per_step"]["k1_launches"]},
+              in_graph=graphs["K1"]),
         entry(f"convgru_seq (K1, bf16, sum of its {len(k1_levels)} "
               f"{long_shapes})",
               k1_src, k1_at, rows_long,
@@ -2050,9 +2381,10 @@ def main() -> int:
               also=rows_long_fake),
         entry("convgru_bwd (K2, bf16, sum of the 4 ucf101_64 levels, B=8)",
               k2_src, k2_at, rows_k2,
-              {"sample": 0, "train": train["k2"],
-               "train_fused": train_fused["k2"], "trainer": trainer_a["k2"]},
-              {"train": train["per_step"]["k2_launches"]}),
+              {"sample": 0, "train_fused": train_fused["k2"],
+               "trainer": trainer_a["k2"]},
+              {"trainer": trainer_a["per_step"]["k2_launches"]},
+              in_graph=graphs["K2"]),
         entry(f"convgru_bwd (K2, bf16, sum of the 6 {long_shapes})",
               k2_src, k2_at, rows_k2_long,
               {"longclip": long_run["k2"], "longclip_fused": long_fused["k2"]},
@@ -2064,12 +2396,13 @@ def main() -> int:
               {"longclip": long_run["per_step"]["k3_launches"]},
               also=rows_k3_fake,
               k1_ms_same_shapes=sum(r["k1_ms"] for r in rows_k3_path
-                                    if r["dtype"] == "bfloat16")),
+                                    if r["dtype"] == "bfloat16"),
+              in_graph=graphs["K3"]),
         entry("convgru_cell (K4, bf16, one step at the 4 ucf101_64 levels, "
               "B=16: one cluster launch at 4x4 and 8x8, K1's pair above)",
               "convgru_cell.cu", "convgru_cell.py:162", k4_flag,
               {"cell_unroll": cell_launches}, k4_per_call(k4_flag),
-              **k4_extra(k4_flag)),
+              in_graph=graphs["K4"], **k4_extra(k4_flag)),
         entry("convgru_cell (K4, bf16, one step at the 6 kinetics_256_48f "
               "levels, B=2: one cluster launch at 4x4 and 8x8, K1's pair "
               "above)", "convgru_cell.cu", "convgru_cell.py:162",
@@ -2082,7 +2415,7 @@ def main() -> int:
                "train_fused": train_fused["k5a"]},
               {"sample_fused": sample_fused["k5a"],
                "train_fused": train_fused["per_step"]["k5a_launches"]},
-              also=k5a_flag_fake),
+              also=k5a_flag_fake, in_graph=graphs["K5a"]),
         entry("ups2x_fused fwd (K5a, bf16 on mma.sync, sum of the 6 "
               "kinetics_256_48f levels, N=96; fake pass N=384)", k5_src,
               "ups2x_fused.py:195",
@@ -2093,7 +2426,8 @@ def main() -> int:
               "ucf101_64 levels, N=128)", k5_src, "ups2x_fused.py:290",
               k5b_flag,
               {"train_fused": train_fused["k5b"]},
-              {"train_fused": train_fused["per_step"]["k5b_launches"]}),
+              {"train_fused": train_fused["per_step"]["k5b_launches"]},
+              in_graph=graphs["K5b"]),
         entry("ups2x_fused bwd (K5b, bf16 on mma.sync, sum of the 6 "
               "kinetics_256_48f levels, N=96)", k5_src, "ups2x_fused.py:290",
               k5b_long,
@@ -2107,7 +2441,7 @@ def main() -> int:
               {"sample_fused": sample_fused["k6a"],
                "train_fused": train_fused["per_step"]["k6a_launches"],
                "longclip_fused": long_fused["per_step"]["k6a_launches"]},
-              **k6_extra(rows_k6a)),
+              in_graph=graphs["K6a"], **k6_extra(rows_k6a)),
         entry("attention_spatial (K6a, the fused entry's wide body, bf16, sum "
               "of its 2 calls: 8x8x512 at N=96 and 192, kinetics_128 "
               "--attn_res 8)", "attention_spatial.cu",
@@ -2121,7 +2455,7 @@ def main() -> int:
               "attention_spatial.cu", "attention_spatial.py:217", rows_k6b,
               {"px128_on": px_on["k6b"]},
               {"px128_on": px_on["per_step"]["k6b_launches"]},
-              **k6_extra(rows_k6b)),
+              in_graph=graphs["K6b"], **k6_extra(rows_k6b)),
         entry(f"convgru_seq (K1, bf16, sum of its {len(px_k1_levels)} "
               f"{px_shapes})", k1_src, k1_at, rows_px_k1,
               {"px128": px_off["k1"], "px128_on": px_on["k1"]},

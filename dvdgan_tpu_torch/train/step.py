@@ -47,11 +47,17 @@ f32 global L2 norm of the whole gradient tree.
 Gradients are `torch.autograd.grad` of the loss with respect to detached
 copies of the f32 master params; the step builds a new state tree and
 leaves the old one as it was.
+
+`MultiStep` runs K train steps per call, the counterpart of the
+reference's `scan_steps`: on a CUDA device the K steps are ONE CUDA graph,
+captured once and replayed once a call; on the CPU the same steps run
+eagerly on the same buffers.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+import time
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -104,6 +110,43 @@ class TorchDraws:
         u = torch.rand(self.b, self.t, generator=self.gen,
                        device=self.gen.device)
         return u.argsort(dim=1)[:, :self.k]
+
+
+def draw_order(d_steps: int) -> list[tuple[str, int]]:
+    """(kind, stream) of every draw `train_step` makes, in its call order:
+    the D phase's z (3i for each D step i), then per D step the real and
+    the fake frame indices (3i+1, 3i+2), then G's z and frame indices."""
+    order = [("z", 3 * i) for i in range(d_steps)]
+    order += [("idx", 3 * i + j) for i in range(d_steps) for j in (1, 2)]
+    return order + [("z", 3 * d_steps), ("idx", 3 * d_steps + 1)]
+
+
+class HeldDraws:
+    """One step's draws held in buffers, by stream: `z(stream)` and
+    `idx(stream)` return the buffers. `fill(draws)` writes into them what
+    `draws` gives when called in `draw_order`, the order in which
+    `train_step` calls it, so a step fed these buffers sees the draws it
+    would have made itself."""
+
+    def __init__(self, d_steps: int, batch: int, z_dim: int, k: int,
+                 dtype: torch.dtype, device: torch.device):
+        self.order = draw_order(d_steps)
+        self.zs = {s: torch.zeros(batch, z_dim, dtype=dtype, device=device)
+                   for kind, s in self.order if kind == "z"}
+        # frame 0 everywhere: valid indices before the first fill
+        self.ids = {s: torch.zeros(batch, k, dtype=torch.long, device=device)
+                    for kind, s in self.order if kind == "idx"}
+
+    def fill(self, draws) -> None:
+        for kind, s in self.order:
+            buf = self.zs[s] if kind == "z" else self.ids[s]
+            buf.copy_(getattr(draws, kind)(s))
+
+    def z(self, stream: int) -> torch.Tensor:
+        return self.zs[stream]
+
+    def idx(self, stream: int) -> torch.Tensor:
+        return self.ids[stream]
 
 
 def take_frames(video: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -267,6 +310,130 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
     if tc.log_grad_norms:
         metrics["g_grad_norm"] = _global_norm(g_grads)
     return new_state, metrics
+
+
+def _copy_tree(dst: Any, src: Any) -> None:
+    """Every leaf of `src` into the leaf of `dst` at the same path."""
+    d, s = tru.flatten_with_paths(dst), tru.flatten_with_paths(src)
+    if d.keys() != s.keys():
+        raise ValueError(f"state trees differ: {sorted(d.keys() ^ s.keys())}")
+    torch._foreach_copy_(list(d.values()), [s[p] for p in d])
+
+
+class MultiStep:
+    """K train steps per call — the counterpart of the reference's
+    `scan_steps` (`dvdgan_tpu/train/step.py`). Step j of a call takes
+    batch j of `reals` (K, B, T, H, W, 3) and `ys` (K, B) and the draws of
+    step `start + j` (`TorchDraws(seed, start + j, …)`), so a call leaves
+    the state of K single steps; the metrics come back stacked along a
+    leading K axis.
+
+    The object owns static buffers: the train state (a copy of the one it
+    is built from; `self.state`, which a call returns), the K batches and
+    the K steps' draws (`HeldDraws`). A call copies a state that is not
+    its own into the buffers, copies the batches in, fills the draws
+    outside the steps, and then:
+
+      * on a CUDA device, replays ONE CUDA graph of the K steps: step j's
+        output state feeds step j + 1 inside the graph, and the last one
+        is copied back into the state buffers, so the next replay goes on
+        from it. The graph is captured at the first call (or by
+        `capture()`), after one eager warm-up step on a side stream from
+        the same buffers whose outputs are dropped (the step writes
+        nothing in place, so the state is as it was). A capture that fails
+        raises: on the card there is no eager fallback;
+      * on the CPU, runs the same K steps eagerly on the same buffers.
+
+    The graph cannot hold autograd's anomaly mode: capturing under it
+    raises. `launches` is each kernel's launches per step (`counts()`
+    before and after, divided by K): around the capture on the card, where
+    a replay moves no host counter, and around each call on the CPU.
+    """
+
+    def __init__(self, state: dict, k: int, batch: int, g_cfg: GConfig,
+                 ds_cfg: DSConfig, dt_cfg: DTConfig, tc: TrainConfig,
+                 seed: int, dtype: torch.dtype, device: torch.device | str,
+                 counts: Optional[Callable[[], dict[str, int]]] = None):
+        self.k, self.seed, self.dtype = k, seed, dtype
+        self.device = torch.device(device)
+        self.cfgs = (g_cfg, ds_cfg, dt_cfg, tc)
+        self.counts = counts or dict
+        self.state = tru.tree_map(
+            lambda v: v.detach().to(self.device, copy=True), state)
+        shape = (k, batch, g_cfg.n_frames, g_cfg.img_size, g_cfg.img_size, 3)
+        self.reals = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.ys = torch.zeros((k, batch), dtype=torch.long, device=self.device)
+        self.draws = [HeldDraws(tc.d_steps, batch, g_cfg.z_dim,
+                                ds_cfg.k_frames, dtype, self.device)
+                      for _ in range(k)]
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.metrics: dict[str, torch.Tensor] = {}
+        self.launches: dict[str, int] = {}
+        self.capture_s: Optional[float] = None   # warm-up + capture, host
+
+    def _steps(self) -> dict[str, torch.Tensor]:
+        st, ms = self.state, []
+        for j in range(self.k):
+            st, m = train_step(st, self.reals[j], self.ys[j], self.draws[j],
+                               *self.cfgs)
+            ms.append(m)
+        _copy_tree(self.state, st)
+        return {name: torch.stack([m[name] for m in ms]) for name in ms[0]}
+
+    def _per_step(self, before: dict[str, int]) -> dict[str, int]:
+        return {name: (n - before[name]) // self.k
+                for name, n in self.counts().items()}
+
+    def capture(self) -> None:
+        """Warm-up step, then the K steps captured into one CUDA graph.
+        Nothing else may issue CUDA calls meanwhile (the global capture
+        mode): callers capture before their own threads start."""
+        if self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not "
+                             f"{self.device}")
+        if torch.is_anomaly_enabled():
+            raise RuntimeError("the K steps cannot be captured into a CUDA "
+                               "graph under autograd's anomaly mode")
+        t0 = time.perf_counter()
+        train = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(train)
+        with torch.cuda.stream(side):
+            train_step(self.state, self.reals[0], self.ys[0], self.draws[0],
+                       *self.cfgs)
+        train.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = self.counts()
+        with torch.cuda.graph(graph):
+            self.metrics = self._steps()
+        self.launches = self._per_step(before)
+        self.graph = graph
+        torch.cuda.synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, state: dict, reals: torch.Tensor, ys: torch.Tensor,
+                 start: int) -> tuple[dict, dict[str, torch.Tensor]]:
+        """-> (the state after steps start … start + K − 1, their metrics
+        stacked (K,)); both are the object's buffers, which the next call
+        overwrites."""
+        if state is not self.state:
+            _copy_tree(self.state, state)
+        self.reals.copy_(reals)
+        self.ys.copy_(ys)
+        g_cfg, ds_cfg = self.cfgs[:2]
+        for j, held in enumerate(self.draws):
+            held.fill(TorchDraws(self.seed, start + j, self.ys.shape[1],
+                                 g_cfg.z_dim, g_cfg.n_frames,
+                                 ds_cfg.k_frames, self.dtype, self.device))
+        if self.device.type == "cuda":
+            if self.graph is None:
+                self.capture()
+            self.graph.replay()
+        else:
+            before = self.counts()
+            self.metrics = self._steps()
+            self.launches = self._per_step(before)
+        return self.state, self.metrics
 
 
 @torch.no_grad()

@@ -32,9 +32,22 @@ step) from the host's step counter (`train.step.TorchDraws`), so a resumed
 run replays the uninterrupted one: same batches (the loader's position is
 a function of the step), same draws, bitwise equal state.
 
+With `--steps_per_call K` (K > 1) a loop iteration takes K steps in one
+call of `train.step.MultiStep`: on the card one replay of a CUDA graph of
+the K steps, captured before the loop submits its first prefetch job; on
+the CPU the same K steps eagerly. The prefetch thread places the K
+batches stacked; the logged record is the call's last step (the
+reference's `_metrics_host` reports the interval's final step); log,
+sample and save keep their cadence, which the schedule rule
+(`effective_steps_per_call`, the reference's) puts on call boundaries,
+and read the state buffers the graph writes. The launches logged per step
+are counted during the capture and divided by K.
+
 `--profile` traces steps 10 to 15 with torch.profiler into
-`out_dir/trace`; `--nan_check` turns on autograd's anomaly mode and checks
-every step's metrics, which reads the device each step (asked for).
+`out_dir/trace` (the window aligned to K); `--nan_check` turns on
+autograd's anomaly mode and checks every step's metrics, which reads the
+device each step (asked for); under K > 1 the graph cannot hold anomaly
+mode, so each call's stacked metrics are checked after the call.
 """
 
 from __future__ import annotations
@@ -46,11 +59,13 @@ import threading
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from dvdgan_tpu_torch import interop, kernels
 from dvdgan_tpu_torch.core import tree as tru
-from dvdgan_tpu_torch.data import Loader, SyntheticVideoDataset
+from dvdgan_tpu_torch.data import (FrameFolderDataset, Loader,
+                                   SyntheticVideoDataset)
 from dvdgan_tpu_torch.ops import spectral_norm as sn
 from dvdgan_tpu_torch.train import checkpoint as ckpt
 from dvdgan_tpu_torch.train import state as train_state
@@ -78,6 +93,42 @@ def launch_counts() -> dict[str, int]:
             "k5b": kernels.ups2x_fused.ups2x_bwd.launches,
             "k6a": kernels.spatial_attn_fused.launches,
             "k6b": kernels.spatial_attn_tiled.launches}
+
+
+def effective_steps_per_call(cfg: Config, start_step: int) -> int:
+    """The reference's `_effective_steps_per_call`: steps_per_call K when
+    every cadence (total, log, sample, save and eval steps, the resume
+    step) lands on a call boundary; else 1, with the reference's message
+    (chunking would shift the schedule)."""
+    k = max(1, cfg.steps_per_call)
+    if k == 1:
+        return 1
+    cadences = [cfg.total_step, cfg.log_step, cfg.sample_step,
+                cfg.model_save_step, cfg.eval_step, start_step]
+    bad = [c for c in cadences if c and c % k]
+    if bad:
+        print(f"steps_per_call={k} does not divide schedule points "
+              f"{bad}; falling back to per-step dispatch")
+        return 1
+    return k
+
+
+def build_dataset(cfg: Config):
+    """The reference's `_build_dataset`: synthetic clips, or the frame
+    folders under `--data_path`, whose class count must be `--n_classes`."""
+    if cfg.dataset == "synthetic":
+        return SyntheticVideoDataset(
+            n_items=max(cfg.batch_size * 8, 64), n_frames=cfg.n_frames,
+            img_size=cfg.img_size, n_classes=cfg.n_classes, seed=cfg.seed)
+    if cfg.dataset == "frames":
+        ds = FrameFolderDataset(cfg.data_path, cfg.n_frames, cfg.img_size,
+                                seed=cfg.seed, npy_range=cfg.npy_range)
+        if ds.n_classes != cfg.n_classes:
+            raise ValueError(
+                f"--n_classes {cfg.n_classes} != {ds.n_classes} classes "
+                f"found under {cfg.data_path}")
+        return ds
+    raise ValueError(f"unknown dataset {cfg.dataset!r}")
 
 
 class _DaemonPrefetcher:
@@ -175,10 +226,6 @@ class _Record(_Mark):
 class Trainer:
     def __init__(self, cfg: Config):
         check_ported(cfg)
-        if cfg.dataset != "synthetic":
-            raise NotImplementedError(
-                f"--dataset {cfg.dataset}: the port trains on synthetic "
-                f"clips; the frames pipeline is ROADMAP Queue 1 item 3")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.g_cfg, self.ds_cfg = cfg.g_config(), cfg.ds_config()
@@ -204,10 +251,10 @@ class Trainer:
             self.start_step = int(resume)
             print(f"resumed from checkpoint step {resume}", flush=True)
         self.state = train_state.to_device(state, self.device)
+        self.steps_per_call = effective_steps_per_call(cfg, self.start_step)
+        self._multi: Optional[step_mod.MultiStep] = None
 
-        self.dataset = SyntheticVideoDataset(
-            n_items=max(cfg.batch_size * 8, 64), n_frames=cfg.n_frames,
-            img_size=cfg.img_size, n_classes=cfg.n_classes, seed=cfg.seed)
+        self.dataset = build_dataset(cfg)
         self.loader = Loader(self.dataset, cfg.batch_size, seed=cfg.seed,
                              num_threads=cfg.loader_threads,
                              prefetch=cfg.prefetch)
@@ -222,6 +269,15 @@ class Trainer:
                      if self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------------ data
+    def _next(self, data) -> tuple:
+        """The next batch of the loader; K of them stacked (K, B, …) under
+        steps_per_call K > 1."""
+        k = self.steps_per_call
+        if k == 1:
+            return next(data)
+        batches = [next(data) for _ in range(k)]
+        return tuple(np.stack(parts) for parts in zip(*batches))
+
     def _place(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """Runs on the prefetch thread: the batch on the device in the
         compute dtype, copied on the side stream from pinned memory."""
@@ -233,6 +289,28 @@ class Trainer:
             real = clips.to(self.device, non_blocking=True).to(self.dtype)
             y = labels.to(self.device, non_blocking=True).long()
         return real, y
+
+    def _multi_step(self) -> step_mod.MultiStep:
+        """The K-step call, built at the first K-step loop. On the card its
+        graph is captured here, before the loop submits its first prefetch
+        job: under the default (global) capture mode a CUDA call from
+        another thread (the prefetch thread's pin_memory, its side-stream
+        copy) would break the capture. The loader's threads do no CUDA
+        call, nor does the checkpoint writer (its snapshot is taken and
+        waited for on this thread)."""
+        if self._multi is None:
+            c = self.cfg
+            self._multi = step_mod.MultiStep(
+                self.state, self.steps_per_call, c.batch_size, self.g_cfg,
+                self.ds_cfg, self.dt_cfg, self.tc, c.seed, self.dtype,
+                self.device, launch_counts)
+            self.state = self._multi.state
+            if self.device.type == "cuda":
+                self._multi.capture()
+                print(f"captured {self.steps_per_call} train steps into one "
+                      f"CUDA graph in {self._multi.capture_s:.1f} s",
+                      flush=True)
+        return self._multi
 
     def _take(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """A placed batch, ready on the train stream."""
@@ -249,6 +327,11 @@ class Trainer:
         cfg.total_step); -> the last step's metrics."""
         c = self.cfg
         total = c.total_step if total_step is None else total_step
+        k = self.steps_per_call
+        if k > 1 and total % k:
+            raise ValueError(f"total_step override {total} is not a "
+                             f"multiple of steps_per_call {k}")
+        multi = self._multi_step() if k > 1 else None
         bpe = max(self.loader.batches_per_epoch(), 1)
         data = self.loader.forever(self.start_step // bpe,
                                    self.start_step % bpe)
@@ -258,35 +341,44 @@ class Trainer:
         since = _Mark(self.start_step, self.device)
         metrics: dict[str, torch.Tensor] = {}
         anomaly = torch.is_anomaly_enabled()
-        torch.autograd.set_detect_anomaly(anomaly or c.nan_check)
-        prof, prof_start = None, self.start_step + 10
+        torch.autograd.set_detect_anomaly(anomaly or (c.nan_check and k == 1))
+        prof = None
+        prof_start = self.start_step + k * max(1, 10 // k)
+        prof_stop = prof_start + k * max(1, 5 // k)
         try:
-            for i in range(self.start_step, total):
+            for i in range(self.start_step, total, k):
                 if c.profile and i == prof_start:
                     prof = self._profile_start()
-                if prof is not None and i == prof_start + 5:
+                if prof is not None and i == prof_stop:
                     self._profile_stop(prof, prof_start, i)
                     prof = None
                 if pending is not None:
                     batch, pending = pending.result(), None
                 else:
-                    batch = self._place(next(data))
-                if i + 1 < total:               # batch i + 1 while i runs
-                    pending = prefetch.submit(lambda: self._place(next(data)))
+                    batch = self._place(self._next(data))
+                if i + k < total:       # the next call's batches meanwhile
+                    pending = prefetch.submit(
+                        lambda: self._place(self._next(data)))
                 real, y = self._take(batch)
-                draws = step_mod.TorchDraws(
-                    c.seed, i, c.batch_size, self.g_cfg.z_dim,
-                    self.g_cfg.n_frames, self.ds_cfg.k_frames, self.dtype,
-                    self.device)
-                before = launch_counts()
-                self.state, metrics = step_mod.train_step(
-                    self.state, real, y, draws, self.g_cfg, self.ds_cfg,
-                    self.dt_cfg, self.tc)
-                launches = {k: n - before[k]
-                            for k, n in launch_counts().items()}
-                step = i + 1
+                if multi is not None:   # the call's metrics stacked (K,)
+                    self.state, out = multi(self.state, real, y, i)
+                    launches = multi.launches
+                    metrics = {name: v[-1] for name, v in out.items()}
+                else:
+                    draws = step_mod.TorchDraws(
+                        c.seed, i, c.batch_size, self.g_cfg.z_dim,
+                        self.g_cfg.n_frames, self.ds_cfg.k_frames,
+                        self.dtype, self.device)
+                    before = launch_counts()
+                    self.state, out = step_mod.train_step(
+                        self.state, real, y, draws, self.g_cfg, self.ds_cfg,
+                        self.dt_cfg, self.tc)
+                    launches = {name: n - before[name]
+                                for name, n in launch_counts().items()}
+                    metrics = out
+                step = i + k
                 if c.nan_check:
-                    _check_finite(metrics, step)
+                    _check_finite(out, step)
                 record = _Record(step, metrics, launches, self.device)
                 if step % c.log_step == 0:
                     if lagged is not None:
@@ -319,7 +411,7 @@ class Trainer:
         if self.device.type == "cuda":
             peak = torch.cuda.max_memory_allocated(self.device) / 2**30
             print(f"peak device memory {peak:.3f} GiB", flush=True)
-        return {k: float(v) for k, v in metrics.items()}
+        return {name: float(v) for name, v in metrics.items()}
 
     def _report(self, rec: _Record, since: _Mark) -> _Record:
         """Writes `rec` (waiting on its event alone) with the steps/s of
@@ -413,8 +505,10 @@ class Trainer:
 
 
 def _check_finite(metrics: dict[str, torch.Tensor], step: int) -> None:
-    """Raises FloatingPointError at a non-finite metric (reads the card)."""
-    values = {k: float(v) for k, v in metrics.items()}
-    bad = {k: v for k, v in values.items() if not math.isfinite(v)}
+    """Raises FloatingPointError at a non-finite metric (reads the card);
+    a K-step call's metrics are stacked (K,) and `step` is its last."""
+    values = {k: v.reshape(-1).tolist() for k, v in metrics.items()}
+    bad = {k: v for k, v in values.items()
+           if not all(map(math.isfinite, v))}
     if bad:
         raise FloatingPointError(f"non-finite metrics at step {step}: {bad}")

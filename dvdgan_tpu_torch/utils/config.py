@@ -2,7 +2,7 @@
 
 The flag names, defaults and PRESETS are the reference's, and `Config` has
 every field of the reference's. The fields of modules not ported yet
-(`NOT_PORTED`: chunked stepping, frame folders, eval, multi-device) parse,
+(`NOT_PORTED`: eval, multi-device) parse,
 and `check_ported` raises `NotImplementedError` naming their ROADMAP Queue 1
 item when one is given a value other than its default.
 `--ups_fused {off,fwd,full}` is the reference's environment variable
@@ -42,8 +42,9 @@ class Config:
     real_stats: str = ""
     # data
     dataset: str = "synthetic"        # synthetic | frames
-    data_path: str = ""               # frame folders (item 3)
-    npy_range: str = "auto"
+    data_path: str = ""               # root of the frame folders
+    npy_range: str = "auto"           # float .npy clips: auto | unit |
+    #                                   symmetric
     loader_threads: int = 2           # the loader's decode threads
     prefetch: int = 2                 # ready batches queued ahead
     n_classes: int = 101
@@ -73,7 +74,8 @@ class Config:
     ema_decay: float = 0.9999
     ema_start: int = 1000
     total_step: int = 100000
-    steps_per_call: int = 1           # K > 1: item 2b
+    steps_per_call: int = 1           # K > 1: K steps a call (a CUDA
+    #                                   graph on the card)
     # schedule
     log_step: int = 10
     sample_step: int = 500
@@ -131,8 +133,7 @@ class Config:
 
 
 # fields parsed but not run yet: {field: its ROADMAP Queue 1 item}
-NOT_PORTED = {"steps_per_call": "2b", "data_path": "3", "npy_range": "3",
-              "eval_step": "5", "eval_samples": "5", "eval_repeats": "5",
+NOT_PORTED = {"eval_step": "5", "eval_samples": "5", "eval_repeats": "5",
               "i3d_weights": "5", "inception_weights": "5",
               "c3d_weights": "5", "is_protocol": "5", "real_stats": "5",
               "multihost": "6", "n_devices": "6", "time_shards": "6"}

@@ -1431,3 +1431,187 @@ def test_trainer_on_the_card_places_batches_and_checkpoints(cuda, tmp_path):
         ckpt.restore(str(tmp_path / "checkpoints"), 4, tr.state))
     for k, v in interop.train_state_paths(tr.state).items():
         assert back[k].is_cuda and torch.equal(back[k], v), k
+
+
+# ------------------------------------------------------------ CUDA graphs
+def _graph_call(name, dtype, device):
+    """(fn, wrapper): one call of kernel `name`'s wrapper on fixed inputs,
+    and the wrapper whose counter counts its launches."""
+    if name in ("K1", "K2", "K3", "K4"):
+        t, b, h, w, c = {"K1": (3, 2, 4, 4, 64), "K2": (3, 2, 4, 4, 64),
+                         "K3": (2, 2, 64, 64, 64),
+                         "K4": (1, 2, 4, 4, 64)}[name]
+        args = _inputs(t, b, h, w, c, dtype, device)
+        if name == "K1":
+            return (lambda: k1.gru_sequence_fused(*args),
+                    k1.gru_sequence_fused)
+        if name == "K2":
+            hs = k1.gru_sequence_fused(*args)
+            g = torch.randn(hs.shape, generator=torch.Generator()
+                            .manual_seed(9)).to(device, dtype)
+            return (lambda: k2.gru_sequence_bwd(*args, hs, g),
+                    k2.gru_sequence_bwd)
+        if name == "K3":
+            return (lambda: k3.gru_sequence_blocked(*args),
+                    k3.gru_sequence_blocked)
+        gx, cx, h0, wg, wc = args
+        return (lambda: k4.gru_cell_fused(gx[0], cx[0], h0, wg, wc),
+                k4.gru_cell_fused)
+    if name in ("K5a", "K5b"):
+        wall, xp, up = _ups_inputs(2, 8, 8, 64, 32, dtype, device)
+        if name == "K5a":
+            return lambda: k5.ups2x(wall, xp), k5.ups2x
+        return lambda: k5.ups2x_bwd(wall, xp, up), k5.ups2x_bwd
+    hw = 32 if name == "K6a" else 64
+    args = _attn_inputs(2, hw, hw, 64, dtype, device)
+    entry = _attn_entry(hw, hw)
+    assert entry is (k6.spatial_attn_fused if name == "K6a"
+                     else k6.spatial_attn_tiled)
+    return lambda: entry(*args), entry
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "K5a", "K5b",
+                                  "K6a", "K6b"])
+def test_kernel_replays_from_a_cuda_graph_with_its_eager_bits(cuda, name,
+                                                               dtype):
+    """Captured after a warm-up call, replayed twice with its outputs
+    poisoned in between: the eager call's bits each time, the launches
+    counted once, during the capture (`chip_smoke.graph_replay`). The
+    per-launch `cudaFuncSetAttribute` calls, K1's and K5b's split-K
+    counters and K4's cluster launch (bf16) are all inside the graph."""
+    import chip_smoke
+
+    if name == "K4" and dtype == torch.bfloat16:
+        assert k4.plan(dtype, 2, 4, 4, 64) is not None   # the cluster form
+    fn, wrapper = _graph_call(name, dtype, cuda)
+    row = chip_smoke.graph_replay(name, fn, wrapper)
+    assert row["launches_captured"] == row["launches_eager"] > 0
+
+
+STEP_FLAGS = {
+    "off": ["--img_size", "32", "--n_frames", "4", "--ch", "8", "--d_ch",
+            "8", "--emb_dim", "16", "--attn_res", "16", "--k_frames", "2",
+            "--batch_size", "2", "--n_classes", "5", "--bf16", "1"],
+    "off_f32": ["--img_size", "32", "--n_frames", "4", "--ch", "8",
+                "--d_ch", "8", "--emb_dim", "16", "--attn_res", "16",
+                "--k_frames", "2", "--batch_size", "2", "--n_classes", "5",
+                "--bf16", "0"],
+    # C 64 at the 16² attention; both γ set off zero below
+    "fused": ["--img_size", "32", "--n_frames", "4", "--ch", "16", "--d_ch",
+              "8", "--emb_dim", "16", "--attn_res", "16", "--k_frames", "2",
+              "--batch_size", "2", "--n_classes", "5", "--bf16", "1",
+              "--ups_fused", "full", "--attn_fused", "on"],
+    # the 256 px schedules at a small size: remat, 2 micro-batches, K3
+    "remat": ["--preset", "kinetics_256_48f", "--ch", "2", "--d_ch", "2",
+              "--n_frames", "2", "--k_frames", "2", "--n_classes", "5",
+              "--emb_dim", "8", "--batch_size", "2", "--grad_accum", "2",
+              "--bf16", "0"],
+}
+
+
+@pytest.mark.parametrize("case", list(STEP_FLAGS))
+def test_graphed_k_steps_give_the_eager_steps_bits(cuda, case):
+    """`MultiStep` with K = 2 on the card (one CUDA graph, two calls: the
+    second goes on from the state the graph copied back) against four
+    eager `train_step` calls with the same batches and keyed draws: the
+    same bits in every leaf and metric, the same launches per step. The
+    f32 cases run under deterministic cuDNN: its default f32 weight
+    gradients differ from run to run, eager against eager."""
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    f32 = not parse_config(STEP_FLAGS[case]).bf16
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=f32, allow_tf32=False):
+        _graphed_k_steps_give_the_eager_steps_bits(cuda, case)
+
+
+def _graphed_k_steps_give_the_eager_steps_bits(cuda, case):
+    from dvdgan_tpu_torch import interop
+    from dvdgan_tpu_torch.train.trainer import launch_counts
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    cfg = parse_config(STEP_FLAGS[case])
+    g_cfg, ds_cfg, dt_cfg, tc = (cfg.g_config(), cfg.ds_config(),
+                                 cfg.dt_config(), cfg.train_config())
+    dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+    state = train_state.create(cfg.seed, g_cfg, ds_cfg, dt_cfg)
+    if case == "fused":
+        for m in ("g", "g_ema"):
+            params = state[m] if m == "g_ema" else state[m]["params"]
+            for p in tree.flatten_with_paths(params):
+                if p.rsplit("/", 1)[-1] == "gamma":
+                    tree.flatten_with_paths(params)[p].fill_(0.5)
+    state = train_state.to_device(state, cuda)
+    gen = torch.Generator().manual_seed(3)
+    b, t, hw = cfg.batch_size, g_cfg.n_frames, g_cfg.img_size
+    reals = torch.tanh(torch.randn(4, b, t, hw, hw, 3, generator=gen)
+                       ).to(cuda, dtype)
+    ys = torch.randint(0, cfg.n_classes, (4, b), generator=gen).to(cuda)
+    want, want_m, before = state, [], launch_counts()
+    for j in range(4):
+        draws = step.TorchDraws(cfg.seed, 10 + j, b, g_cfg.z_dim, t,
+                                ds_cfg.k_frames, dtype, cuda)
+        want, m = step.train_step(want, reals[j], ys[j], draws, g_cfg,
+                                  ds_cfg, dt_cfg, tc)
+        want_m.append(m)
+    eager_launches = {k: (n - before[k]) // 4
+                      for k, n in launch_counts().items()}
+    multi = step.MultiStep(state, 2, b, g_cfg, ds_cfg, dt_cfg, tc, cfg.seed,
+                           dtype, cuda, launch_counts)
+    got_m = []
+    for call in range(2):
+        got, metrics = multi(multi.state if call else state,
+                             reals[2 * call:2 * call + 2],
+                             ys[2 * call:2 * call + 2], 10 + 2 * call)
+        got_m.append({k: v.clone() for k, v in metrics.items()})
+    torch.cuda.synchronize()
+    assert multi.graph is not None and multi.launches == eager_launches
+    flat_want = interop.train_state_paths(want)
+    flat_got = interop.train_state_paths(got)
+    differ = [p for p, v in flat_want.items()
+              if not torch.equal(v, flat_got[p])]
+    assert not differ, differ[:10]
+    for call in range(2):
+        for k, v in got_m[call].items():
+            assert torch.equal(v, torch.stack(
+                [want_m[2 * call + j][k] for j in range(2)])), (call, k)
+
+
+def test_f32_steps_repeat_bitwise_under_deterministic_cudnn(cuda):
+    """Two eager f32 train steps from one state, twice: the same bits under
+    deterministic cuDNN (which the f32 graph cases above run under). The
+    leaves that differ under cuDNN's default algorithms are printed (PR
+    13's card: most of them, ROADMAP Queue 3)."""
+    from dvdgan_tpu_torch import interop
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    cfg = parse_config(STEP_FLAGS["off_f32"])
+    g_cfg, ds_cfg, dt_cfg, tc = (cfg.g_config(), cfg.ds_config(),
+                                 cfg.dt_config(), cfg.train_config())
+    state = train_state.to_device(
+        train_state.create(0, g_cfg, ds_cfg, dt_cfg), cuda)
+    gen = torch.Generator().manual_seed(3)
+    reals = torch.tanh(torch.randn(2, 2, 4, 32, 32, 3, generator=gen)
+                       ).to(cuda)
+    ys = torch.randint(0, 5, (2, 2), generator=gen).to(cuda)
+
+    def two_steps():
+        st = state
+        for j in range(2):
+            draws = step.TorchDraws(0, j, 2, g_cfg.z_dim, 4, ds_cfg.k_frames,
+                                    torch.float32, cuda)
+            st, _ = step.train_step(st, reals[j], ys[j], draws, g_cfg,
+                                    ds_cfg, dt_cfg, tc)
+        torch.cuda.synchronize()
+        return interop.train_state_paths(st)
+
+    differ = {}
+    for det in (False, True):
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=det, allow_tf32=False):
+            a, b = two_steps(), two_steps()
+        differ[det] = [k for k in a if not torch.equal(a[k], b[k])]
+        print(f"\nf32, cudnn.deterministic={det}: {len(differ[det])} of "
+              f"{len(a)} leaves differ between two runs")
+    assert not differ[True], differ[True][:10]

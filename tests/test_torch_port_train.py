@@ -338,9 +338,9 @@ def test_train_cli_on_cpu_writes_state(tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     (["--time_shards", "2"], "item 6"),          # time-axis CP
-    (["--steps_per_call", "2"], "item 2b"),      # K steps a call
-    (["--dataset", "frames"], "item 3"),         # frame folders
-], ids=["flags0-item 6", "flags1-item 2b", "flags2-item 3"])
+    (["--eval_step", "100"], "item 5"),          # in-training eval
+    (["--n_devices", "2"], "item 6"),            # data parallel
+], ids=["flags0-item 6", "flags1-item 5", "flags2-item 6"])
 def test_train_cli_refuses_what_is_not_ported(flags, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["--mode", "train", "--device", "cpu", *TRAIN_FLAGS, *flags,

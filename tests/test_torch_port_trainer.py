@@ -398,8 +398,8 @@ def test_config_has_every_reference_field_with_its_default():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(steps_per_call=2), "item 2b"),
-    (dict(data_path="/data/ucf"), "item 3"),
+    (dict(eval_repeats=2), "item 5"),
+    (dict(time_shards=2), "item 6"),
     (dict(eval_step=100), "item 5"),
     (dict(i3d_weights="i3d.npz"), "item 5"),
     (dict(multihost=True), "item 6"),
