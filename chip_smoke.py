@@ -21,7 +21,12 @@
    --preset ucf101_64 --n_samples 16 --bf16 1`) with the launch counters
    zeroed just before, checks the clip (shape, finite, in [-1, 1]) and that
    every kernel of the path launched, then times sampling in clips/s and
-   holds a small f32 sample on the card against the CPU (plain) path;
+   holds a small f32 sample on the card against the CPU (plain) path; then
+   the same for DVD-GAN-FP (`--preset kinetics_64 --n_frames 16
+   --cond_frames 5`: the first 5 frames of the CLI's dataset items
+   condition the 11 frames G generates; K1 also runs the warm-up over the
+   prefix at every level), whose clips/s are printed beside ucf101_64's,
+   and the same z with other items' prefixes must give other clips;
 4. drives the train entry (`python -m dvdgan_tpu_torch --mode train
    --dataset synthetic ...`, `train.trainer.Trainer`: every step logged, a
    checkpoint at the last step) in child processes whose launch counters
@@ -56,6 +61,11 @@
    - the 128 px step whose attention sits at 64², `--preset kinetics_128
      --batch_size 8 --attn_res 64 --remat 1`, 2 steps, with `--attn_fused`
      off and on (K6b 4 per step; K1, K2, K3 at its own five levels);
+   - DVD-GAN-FP at kinetics_64 (5 real frames, 11 generated), batch 8, 2
+     steps at `--steps_per_call` 1 and 2, the two with the same bits, the
+     frame encoder among the trees that moved (per step K1 256, K2 256:
+     the warm-up's and the generation's steps, K2's dh0 feeding the
+     warm-up's K2);
    each run: finite losses, G/DS/DT params, the three SN u trees and G's BN
    stats moved, launches per step as predicted, peak memory printed; then
    the frames loader alone on `.npy` clips at UCF-101's frame size
@@ -75,7 +85,9 @@
    kinetics_256_48f state, each restored on the card bitwise;
 6. holds one f32 train step at the flagship widths, batch 2, on the card
    against the CPU from the same state and draws (losses atol 1e-3; Adam
-   mu, the gradient, within 1e-3 × max|mu| of each model);
+   mu, the gradient, within 1e-3 × max|mu| of each model); and at the FP
+   widths, batch 2, at d_steps 1 and with `--fake_gen per_step` at
+   d_steps 2;
 7. holds K3 against its plain version at the three large level shapes of
    the long-clip preset kinetics_256_48f (32²×256, 64²×128, 128²×64; T=48,
    B=2: one G micro-batch), f32 atol 1e-4 and bf16 3e-2 (bf16 on the
@@ -135,7 +147,8 @@
     route's first reading), and sampling off, on, on, off; and
     `Trainer.train()` at steps_per_call 1 and K in turns 1, K, K, 1
     (`time_steps_per_call`): the flagship at K 4 (12 steps a reading,
-    log_step 4), the long clip and the 128 px step at K 2 (4 steps), with
+    log_step 4), FP, the long clip and the 128 px step at K 2 (4 steps),
+    with
     ms a step, device time and idle share, the syncs of a train() of K
     steps, the capture's one-time cost and the peak memory;
 14. prints one JSON line of the kernels, each with its launches on the
@@ -424,10 +437,11 @@ def check_k1(device, levels=LEVELS, t: int = T, b: int = B,
     return rows
 
 
-def time_sample(device, g_cfg, seed: int = 0, batch: int = B):
+def time_sample(device, g_cfg, seed: int = 0, batch: int = B, cond=None):
     """Steady-state serving rate of `g_cfg`, bf16 batch `batch`, weights
-    already on the card: median of 5 after 2 warm-ups. -> (the rate, the
-    state's trees, z, y)."""
+    already on the card (for FP conditioned on the prefixes `cond`, bf16 on
+    the card): median of 5 after 2 warm-ups. -> (the rate, the state's
+    trees, z, y)."""
     from dvdgan_tpu_torch.models.generator import GeneratorState
     from dvdgan_tpu_torch.train import step
     trees = GeneratorState.create(g_cfg, seed).to(device).trees()
@@ -436,16 +450,17 @@ def time_sample(device, g_cfg, seed: int = 0, batch: int = B):
                                                           torch.bfloat16)
     y = torch.randint(0, g_cfg.n_classes, (batch,), generator=gen).to(device)
     for _ in range(2):
-        step.sample(*trees, z, y, g_cfg)
+        step.sample(*trees, z, y, g_cfg, cond_video=cond)
     torch.cuda.synchronize()
     secs = []
     for _ in range(5):
         t0 = time.perf_counter()
-        step.sample(*trees, z, y, g_cfg)
+        step.sample(*trees, z, y, g_cfg, cond_video=cond)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     sec = statistics.median(secs)
     clips = {"batch": batch, "dtype": "bfloat16", "img_size": g_cfg.img_size,
+             "cond_frames": g_cfg.cond_frames, "n_frames": g_cfg.n_frames,
              "attn_res": g_cfg.attn_res, "ups_fused": g_cfg.ups_fused,
              "attn_fused": g_cfg.attn_fused, "ms_per_batch": sec * 1e3,
              "clips_per_s": batch / sec}
@@ -459,8 +474,11 @@ def drive_sample(device, route=(), preset=("--preset", "ucf101_64"),
     """The sample CLI of `preset` at `batch` with the flags `route` (none:
     the unfused routes; FULL: the fused upsample; ON: the fused attention),
     the launch counters zeroed just before. `f32_vs_cpu`: also an f32
-    batch-2 sample, card against the CPU. -> (launches of K1, K3, K5a and
-    K6a, the serving rate, the clips)."""
+    batch-2 sample, card against the CPU. For FP (`--cond_frames` in
+    `preset`) the clips are the frames generated after the CLI's dataset
+    prefixes; K1 also runs the warm-up over them at every level, and the
+    same z with the prefixes of other dataset items must give other clips.
+    -> (launches of K1, K3, K5a and K6a, the serving rate, the clips)."""
     from dvdgan_tpu_torch import cli
     from dvdgan_tpu_torch.kernels import attention_spatial as k6
     from dvdgan_tpu_torch.kernels import convgru_blocked as k3
@@ -468,7 +486,7 @@ def drive_sample(device, route=(), preset=("--preset", "ucf101_64"),
     from dvdgan_tpu_torch.kernels import ups2x_fused as k5
     from dvdgan_tpu_torch.models.generator import GeneratorState
     from dvdgan_tpu_torch.ops import convgru
-    from dvdgan_tpu_torch.train import step
+    from dvdgan_tpu_torch.train import step, trainer
     from dvdgan_tpu_torch.utils.config import parse_config
 
     argv = ["--mode", "sample", *preset, "--n_samples", str(batch), "--bf16",
@@ -496,8 +514,10 @@ def drive_sample(device, route=(), preset=("--preset", "ucf101_64"),
     n_k3 = sum(convgru.uses_blocked(g_cfg.base_res * 2 ** i,
                                     g_cfg.base_res * 2 ** i)
                for i in range(g_cfg.n_levels))
-    want = ((g_cfg.n_levels - n_k3) * g_cfg.n_frames * k1.LAUNCHES_PER_STEP,
-            n_k3 * g_cfg.n_frames * k3.LAUNCHES_PER_STEP)
+    # FP: each level's GRU also runs over the prefix (the warm-up)
+    t = g_cfg.cond_frames + g_cfg.n_frames
+    want = ((g_cfg.n_levels - n_k3) * t * k1.LAUNCHES_PER_STEP,
+            n_k3 * t * k3.LAUNCHES_PER_STEP)
     if (launches, k3_launches) != want:
         raise AssertionError(f"K1, K3 launched {(launches, k3_launches)} "
                              f"times in the sample run, want {want}")
@@ -517,19 +537,39 @@ def drive_sample(device, route=(), preset=("--preset", "ucf101_64"),
           f"{videos.max():.4f}] K1 launches {launches} K3 launches "
           f"{k3_launches} K5a launches {k5a} K6a launches {k6a}", flush=True)
 
-    clips, trees, z, y = time_sample(device, g_cfg, cfg.seed, batch)
+    cond = None
+    if cfg.cond_frames > 0:     # the CLI's prefixes
+        cond = trainer.dataset_prefixes(trainer.build_dataset(cfg),
+                                        cfg.cond_frames, batch)
+    cond_card = None if cond is None else cond.to(device, torch.bfloat16)
+    clips, trees, z, y = time_sample(device, g_cfg, cfg.seed, batch,
+                                     cond_card)
     counts = {"k1": launches, "k3": k3_launches, "k5a": k5a, "k6a": k6a}
+    if cond is not None:
+        # another prefix, the same z and y: another continuation
+        again = step.sample(*trees, z, y, g_cfg, cond_video=cond_card)
+        other = step.sample(*trees, z, y, g_cfg,
+                            cond_video=cond_card.roll(1, 0))
+        gap = float((again.float() - other.float()).abs().max())
+        print(f"sample {' '.join(preset[1:])}: rolled prefixes, the same z: "
+              f"max_abs {gap:.3e}", flush=True)
+        if not gap > 0.01:
+            raise AssertionError(f"FP clips of other prefixes differ by "
+                                 f"{gap} only")
     if not f32_vs_cpu:
         return counts, clips, videos
 
     # a small f32 sample: card (K1) against the CPU (plain K1 version)
     z2, y2 = z[:2].float(), y[:2]
-    on_card = step.sample(*trees, z2, y2, g_cfg).cpu()
+    c2 = None if cond is None else cond[:2]
+    on_card = step.sample(*trees, z2, y2, g_cfg, cond_video=None if c2 is None
+                          else c2.to(device)).cpu()
     cpu_trees = GeneratorState.create(g_cfg, cfg.seed).trees()
-    on_cpu = step.sample(*cpu_trees, z2.cpu(), y2.cpu(), g_cfg)
+    on_cpu = step.sample(*cpu_trees, z2.cpu(), y2.cpu(), g_cfg,
+                         cond_video=c2)
     err = float((on_card - on_cpu).abs().max())
-    print(f"sample ups {cfg.ups_fused} attn {cfg.attn_fused} f32 card vs "
-          f"cpu: max_abs_err {err:.3e} "
+    print(f"sample {' '.join(preset[1:])} ups {cfg.ups_fused} attn "
+          f"{cfg.attn_fused} f32 card vs cpu: max_abs_err {err:.3e} "
           f"(atol {SAMPLE_TOL})", flush=True)
     if not err <= SAMPLE_TOL:
         raise AssertionError(f"f32 sample on the card disagrees with the "
@@ -1137,13 +1177,35 @@ def _tree_moved(before, after) -> tuple[int, int]:
 
 FLAGSHIP_ARGV = ["--mode", "train", "--preset", "ucf101_64", "--dataset",
                  "synthetic", "--batch_size", str(B_TRAIN), "--bf16", "1"]
+# DVD-GAN-FP at the paper's Kinetics-600 prediction setting, with the
+# reference's own flags: 64 px, 16-frame clips of which 5 are the real
+# prefix and 11 are generated; ch 32, 600 classes. Cut: the batch (16 to
+# sample, 8 to train) and the data (synthetic clips, not Kinetics)
+FP_PRESET = ["--preset", "kinetics_64", "--n_frames", "16", "--cond_frames",
+             "5", "--dataset", "synthetic"]
+FP_ARGV = ["--mode", "train", *FP_PRESET, "--batch_size", str(B_TRAIN),
+           "--bf16", "1"]
+FP_STEPS = 2
+# started as two other flagship-sized children end (`drive_trains`): eleven
+# children at once ran the 80 GB card out of memory, as fifteen did before
+FP_AFTER = {"fp_k1": ("train_fused", None, FP_ARGV, FP_STEPS),
+            "fp_k2": ("frames_k1", None, FP_ARGV + [
+                "--steps_per_call", "2", "--log_step", "2"], FP_STEPS)}
+# the f32 step card vs CPU at the FP widths, batch 2: d_steps 1 (ROADMAP
+# Queue 3: f32 steps at d_steps 2 are chaotic), and the per_step fakes
+FP_F32 = ("--preset", "kinetics_64", "--n_frames", "16", "--cond_frames",
+          "5", "--batch_size", "2", "--d_steps", "1")
+FP_F32_PER_STEP = (*FP_F32[:-1], "2", "--fake_gen", "per_step")
 
 
 def launches_per_step(cfg) -> dict[str, int]:
-    """Kernel launches of one train step of `cfg`: the fake pass and one G
+    """Kernel launches of one train step of `cfg`: the D phase's fake
+    forwards (one pooled, or d_steps with `--fake_gen per_step`) and one G
     forward per micro-batch run each level's sequence kernel (K3 where
     `ops/convgru.py` sends the plane, else K1) over T steps, and one K2 per
-    level and micro-batch goes back over them."""
+    level and micro-batch goes back over them. For FP (cond_frames > 0)
+    every level's GRU also runs over the prefix before (the warm-up), and
+    its K2 goes back over it: cond_frames + T steps each."""
     from dvdgan_tpu_torch.kernels import convgru_blocked as k3
     from dvdgan_tpu_torch.kernels import convgru_bwd as k2
     from dvdgan_tpu_torch.kernels import convgru_seq as k1
@@ -1154,7 +1216,8 @@ def launches_per_step(cfg) -> dict[str, int]:
     planes = [(g_cfg.base_res * 2 ** i, g_cfg.level_channels(i)[0])
               for i in range(g_cfg.n_levels)]
     n_k3 = sum(convgru.uses_blocked(r, r) for r, _ in planes)
-    t, ka = g_cfg.n_frames, cfg.grad_accum
+    t, ka = g_cfg.cond_frames + g_cfg.n_frames, cfg.grad_accum
+    fwd = (1 if cfg.fake_gen == "pooled" else cfg.d_steps) + ka
     # the fused upsample conv: K5a once per level in every G forward (none
     # from a remat backward), K5b once per level in every G backward
     k5a = cfg.ups_fused != "off"
@@ -1164,14 +1227,14 @@ def launches_per_step(cfg) -> dict[str, int]:
     # backward recomputes the unfused math, and under remat the fused pass
     # runs outside the checkpoint regions)
     n_k6 = (cfg.attn_fused == "on" and g_cfg.attn_res is not None) * (
-        1 + ka) * k6.LAUNCHES_PER_CALL
+        fwd * k6.LAUNCHES_PER_CALL)
     tiled = g_cfg.attn_res is not None and attention.uses_tiled(
         g_cfg.attn_res, g_cfg.attn_res)
-    return {"k1_launches": (g_cfg.n_levels - n_k3) * t * (1 + ka)
+    return {"k1_launches": (g_cfg.n_levels - n_k3) * t * fwd
             * k1.LAUNCHES_PER_STEP,
             "k2_launches": g_cfg.n_levels * t * ka * k2.LAUNCHES_PER_STEP,
-            "k3_launches": n_k3 * t * (1 + ka) * k3.LAUNCHES_PER_STEP,
-            "k5a_launches": k5a * g_cfg.n_levels * (1 + ka)
+            "k3_launches": n_k3 * t * fwd * k3.LAUNCHES_PER_STEP,
+            "k5a_launches": k5a * g_cfg.n_levels * fwd
             * k5.LAUNCHES_PER_CALL,
             "k5b_launches": k5b * g_cfg.n_levels * ka
             * k5.BWD_LAUNCHES_PER_CALL,
@@ -1253,7 +1316,8 @@ def finish_train(run: dict, keep: bool = False) -> dict:
     before = interop.train_state_to_flat(train_state.create(
         cfg.seed, g_cfg, cfg.ds_config(), cfg.dt_config()))
     moved = {}
-    for prefix in ("g/params/", "ds/params/", "dt/params/", "g/sn_u/",
+    fp = ("g/params/fp_enc/",) if g_cfg.cond_frames else ()
+    for prefix in ("g/params/", *fp, "ds/params/", "dt/params/", "g/sn_u/",
                    "ds/sn_u/", "dt/sn_u/", "g/stats/"):
         keys = [k for k in before if k.startswith(prefix)]
         moved[prefix] = _tree_moved({k: before[k] for k in keys},
@@ -1304,11 +1368,14 @@ def drive_trains(runs: dict[str, tuple], resumes=None,
     time to start: the interpreter, CUDA, the seeded init), each checked
     when it ends, in order. `resumes` ({name: (run it resumes, step, flags,
     steps)}): a run started, as soon as the earlier one has ended, in a
-    copy of that one's out_dir as it stood at `step` (`out_dir_at`). Runs
-    named in `keep` keep their out_dir and final state (the caller cleans
-    up). The parent launches nothing meanwhile."""
+    copy of that one's out_dir as it stood at `step` (`out_dir_at`); with
+    step None, a fresh run that only waits for the earlier one, so that
+    fewer runs share the card's memory at once. Runs named in `keep` keep
+    their out_dir and final state (the caller cleans up). The parent
+    launches nothing meanwhile."""
     resumes = resumes or {}
     specs = {**runs, **{k: v[2:] for k, v in resumes.items()}}
+    sources = {src for src, at, _, _ in resumes.values() if at is not None}
     started = {name: start_train(*run) for name, run in runs.items()}
     order, done = list(started), {}
     try:
@@ -1317,14 +1384,16 @@ def drive_trains(runs: dict[str, tuple], resumes=None,
             print(f"--- train CLI run {name!r}: "
                   f"{' '.join(specs[name][0][2:])}", flush=True)
             done[name] = finish_train(started[name], keep=(
-                name in keep or any(r[0] == name for r in resumes.values())))
+                name in keep or name in sources))
             print(f"train CLI run {name!r}: ended {done[name]['cli_s']:.1f} s "
                   f"after it began, peak device memory "
                   f"{done[name]['peak_mem_gib']} GiB", flush=True)
             for later, (src, at, argv, steps) in resumes.items():
                 if src == name:
-                    started[later] = start_train(
-                        argv, steps, out_dir_at(done[src]["out_dir"], at), at)
+                    started[later] = (
+                        start_train(argv, steps) if at is None else
+                        start_train(argv, steps,
+                                    out_dir_at(done[src]["out_dir"], at), at))
                     order.append(later)
     finally:
         for run in started.values():        # stop whatever still runs
@@ -1375,7 +1444,7 @@ def time_train(device, name: str = "train_rate", argv=FLAGSHIP_ARGV,
     state = train_state.to_device(
         train_state.create(seed, g_cfg, ds_cfg, dt_cfg), device)
     gen = torch.Generator(device).manual_seed(seed)
-    real = torch.tanh(torch.randn(batch, g_cfg.n_frames, g_cfg.img_size,
+    real = torch.tanh(torch.randn(batch, dt_cfg.n_frames, g_cfg.img_size,
                                   g_cfg.img_size, 3, generator=gen,
                                   device=device)).to(torch.bfloat16)
     y = torch.randint(0, g_cfg.n_classes, (batch,), generator=gen,
@@ -1489,7 +1558,9 @@ def check_train_f32(device, name: str = "train f32",
 
     b, seed, g_cfg, ds_cfg, dt_cfg, tc = step_configs(list(argv))
     gen = torch.Generator().manual_seed(seed + 1)
-    real = torch.tanh(torch.randn(b, g_cfg.n_frames, g_cfg.img_size,
+    # whole clips (an FP prefix included); frame indices over the frames
+    # G generates
+    real = torch.tanh(torch.randn(b, dt_cfg.n_frames, g_cfg.img_size,
                                   g_cfg.img_size, 3, generator=gen))
     y = torch.randint(0, g_cfg.n_classes, (b,), generator=gen)
     n_streams = 3 * tc.d_steps + 2     # z at multiples of 3, indices between
@@ -1528,6 +1599,8 @@ def check_train_f32(device, name: str = "train f32",
     k3_launches = k3.gru_sequence_blocked.launches - k3_before
     loss_err, mu_err = gaps(out, ref)
     res = {"ups_fused": g_cfg.ups_fused, "attn_fused": g_cfg.attn_fused,
+           "cond_frames": g_cfg.cond_frames, "d_steps": tc.d_steps,
+           "fake_gen": tc.fake_gen,
            "losses": {k: float(v) for k, v in ref[1].items()},
            "loss_abs_err": loss_err, "mu_err_over_max_mu": mu_err,
            "cpu_step_s": cpu_s, "k3_launches": k3_launches}
@@ -1962,8 +2035,8 @@ def time_frames_loader(n_batches: int = 12, k: int = 4) -> dict:
 
 
 def check_k_runs(done: dict) -> dict:
-    """A_K and B_K (resumed at 2) against A, and the frames run at K 2
-    against K 1: the same bits in every leaf (the differing leaves named);
+    """A_K and B_K (resumed at 2) against A, and the frames and FP runs at
+    K 2 against K 1: the same bits in every leaf (the differing leaves named);
     A_K keeps checkpoints 2 and 4, wrote grids at 2 and 4 and captured its
     graph; B_K resumed from step 2."""
     a = done["trainer_A"]["state"]
@@ -1971,7 +2044,9 @@ def check_k_runs(done: dict) -> dict:
     for name, ref, got in (("A_K", a, done["trainer_AK"]),
                            ("B_K", a, done["trainer_BK"]),
                            ("frames_K2", done["frames_k1"]["state"],
-                            done["frames_k2"])):
+                            done["frames_k2"]),
+                           ("fp_K2", done["fp_k1"]["state"],
+                            done["fp_k2"])):
         differ = [k for k, v in ref.items()
                   if not np.array_equal(v, got["state"][k])]
         res[name] = {"leaves": len(ref), "differ": differ[:20],
@@ -1993,7 +2068,8 @@ def check_k_runs(done: dict) -> dict:
     if bad:
         raise AssertionError(f"runs under --steps_per_call 2 differ from "
                              f"their single-step runs: {bad}")
-    for k in ("trainer_AK", "trainer_BK", "frames_k1", "frames_k2"):
+    for k in ("trainer_AK", "trainer_BK", "frames_k1", "frames_k2", "fp_k1",
+              "fp_k2"):
         done[k]["tmp"].cleanup()
         del done[k]["state"]
     return res
@@ -2121,13 +2197,18 @@ def main() -> int:
     rows = check_k1(device)
     graphs = check_graphs(device)
     phase("K1, and every kernel replayed from a CUDA graph")
-    sample_run, _, clips_off = drive_sample(device)
-    phase("the sample CLI")
+    sample_run, sample_rate, clips_off = drive_sample(device)
+    fp_sample, fp_rate, _ = drive_sample(device, (), FP_PRESET)
+    print("sample_rate_fp_beside_ucf101_64 " + json.dumps(
+        {"fp": fp_rate, "ucf101_64": sample_rate}), flush=True)
+    phase("the sample CLI (ucf101_64, and DVD-GAN-FP at kinetics_64)")
     frames_tmp = tempfile.TemporaryDirectory()
     frames = write_frames(os.path.join(frames_tmp.name, "data"),
                           **FRAMES_SHAPE)
     frames_argv = FRAMES_ARGV + ["--data_path", frames]
-    # every train CLI run of this script, side by side
+    # every train CLI run of this script, side by side; this process hands
+    # its cached blocks back first, for the children
+    torch.cuda.empty_cache()
     runs = drive_trains({
         **TRAINER_RUNS, **TRAINER_RUNS_K,
         "longclip": (LONG_ARGV, LONG_STEPS),
@@ -2138,17 +2219,19 @@ def main() -> int:
         "frames_k1": (frames_argv, FRAMES_STEPS),
         "frames_k2": (frames_argv + ["--steps_per_call", "2", "--log_step",
                                      "2"], FRAMES_STEPS)},
-        {**TRAINER_RESUMES, **TRAINER_RESUMES_K},
-        TRAINER_KEEP + ("trainer_AK", "trainer_BK", "frames_k1", "frames_k2"))
+        {**TRAINER_RESUMES, **TRAINER_RESUMES_K, **FP_AFTER},
+        TRAINER_KEEP + ("trainer_AK", "trainer_BK", "frames_k1", "frames_k2",
+                        *FP_AFTER))
     frames_tmp.cleanup()
     train_fused = runs["train_fused"]
     long_run, long_fused = runs["longclip"], runs["longclip_fused"]
     px_off, px_on = runs["px128"], runs["px128_on"]
     trainer_a = runs["trainer_A"]
+    fp_k1, fp_k2 = runs["fp_k1"], runs["fp_k2"]
     check_k_runs(runs)
     check_trainer_runs(runs)
     phase("the train CLI runs (the trainer's, under --steps_per_call 2, on "
-          "frame folders, the long clip, the 128 px step)")
+          "frame folders, the long clip, the 128 px step, DVD-GAN-FP)")
     time_frames_loader()
     phase("the frames loader at UCF-101's frame size")
     rows_k2 = check_k2(device)
@@ -2157,6 +2240,9 @@ def main() -> int:
     phase("the flagship step's rate")
     check_train_f32(device)
     phase("the flagship f32 step, card vs CPU")
+    check_train_f32(device, "fp f32", FP_F32)
+    check_train_f32(device, "fp f32 per_step", FP_F32_PER_STEP)
+    phase("the DVD-GAN-FP f32 steps, card vs CPU")
     check_draws(device)
     time_checkpoints(device)
     phase("the draws and the checkpoints")
@@ -2280,6 +2366,7 @@ def main() -> int:
     phase("sampling's routes in turns")
     # the trainer at steps_per_call 1 and K, in turns
     for argv, k, n, name in ((FLAGSHIP_ARGV, 4, 12, "flagship"),
+                             (FP_ARGV, 2, 4, "fp"),
                              (LONG_ARGV, 2, 4, "longclip"),
                              (PX128_ARGV, 2, 4, "px128")):
         time_steps_per_call(device, argv, k, n, f"steps_per_call_{name}")
@@ -2368,9 +2455,13 @@ def main() -> int:
         entry("convgru_seq (K1, bf16, sum of the 4 ucf101_64 levels, B=16)",
               k1_src, k1_at, rows,
               {"sample": sample_run["k1"], "sample_fused": sample_fused["k1"],
-               "train_fused": train_fused["k1"], "trainer": trainer_a["k1"]},
+               "train_fused": train_fused["k1"], "trainer": trainer_a["k1"],
+               "sample_fp": fp_sample["k1"], "fp": fp_k1["k1"],
+               "fp_k2": fp_k2["k1"]},
               {"sample": sample_run["k1"],
-               "trainer": trainer_a["per_step"]["k1_launches"]},
+               "trainer": trainer_a["per_step"]["k1_launches"],
+               "sample_fp": fp_sample["k1"],
+               "fp": fp_k1["per_step"]["k1_launches"]},
               in_graph=graphs["K1"]),
         entry(f"convgru_seq (K1, bf16, sum of its {len(k1_levels)} "
               f"{long_shapes})",
@@ -2382,8 +2473,10 @@ def main() -> int:
         entry("convgru_bwd (K2, bf16, sum of the 4 ucf101_64 levels, B=8)",
               k2_src, k2_at, rows_k2,
               {"sample": 0, "train_fused": train_fused["k2"],
-               "trainer": trainer_a["k2"]},
-              {"trainer": trainer_a["per_step"]["k2_launches"]},
+               "trainer": trainer_a["k2"], "fp": fp_k1["k2"],
+               "fp_k2": fp_k2["k2"]},
+              {"trainer": trainer_a["per_step"]["k2_launches"],
+               "fp": fp_k1["per_step"]["k2_launches"]},
               in_graph=graphs["K2"]),
         entry(f"convgru_bwd (K2, bf16, sum of the 6 {long_shapes})",
               k2_src, k2_at, rows_k2_long,

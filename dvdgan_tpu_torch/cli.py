@@ -26,7 +26,10 @@ Sample mode takes EMA-G from the checkpoint --pretrained_model names, or
 from --weights (an npz holding at least the EMA-G part; not both), or from
 the newest checkpoint under DIR/checkpoints, or else the seeded init
 (--seed). It draws z ∼ N(0, 1) and uniform class ids from a
-torch.Generator seeded with --seed + 777 (the reference CLI's offset) and
+torch.Generator seeded with --seed + 777 (the reference CLI's offset); for
+DVD-GAN-FP (--cond_frames > 0) clip i is conditioned on the first
+cond_frames frames of item i mod len of the --dataset, as the reference's
+main.py does, and the clips are the frames generated after them. It
 writes the clips as float32 (N, T, H, W, 3) in [-1, 1] to DIR/samples.npy,
 their grid to DIR/samples/eval_<step>_grid.png and one GIF per clip.
 """
@@ -42,7 +45,8 @@ from dvdgan_tpu_torch import interop
 from dvdgan_tpu_torch.models.generator import GeneratorState
 from dvdgan_tpu_torch.train import checkpoint as ckpt
 from dvdgan_tpu_torch.train import step
-from dvdgan_tpu_torch.train.trainer import Trainer, resolve_device
+from dvdgan_tpu_torch.train.trainer import (Trainer, build_dataset,
+                                            dataset_prefixes, resolve_device)
 from dvdgan_tpu_torch.utils.config import Config, check_ported, parse_config
 from dvdgan_tpu_torch.utils.media import save_batch_gifs, save_video_grid_png
 
@@ -69,14 +73,18 @@ def sample_state(cfg: Config) -> tuple[int, GeneratorState]:
 def run_sample(cfg: Config, device: torch.device,
                state: GeneratorState) -> torch.Tensor:
     """EMA-G clips of `state` for cfg on `device`: (n_samples, T, H, W,
-    3)."""
+    3); for FP the frames generated after real prefixes of the dataset."""
     state = state.to(device)
     gen = torch.Generator().manual_seed(cfg.seed + 777)
     z = torch.randn(cfg.n_samples, cfg.z_dim, generator=gen)
     y = torch.randint(0, cfg.n_classes, (cfg.n_samples,), generator=gen)
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+    cond = None
+    if cfg.cond_frames > 0:
+        cond = dataset_prefixes(build_dataset(cfg), cfg.cond_frames,
+                                cfg.n_samples).to(device, dtype)
     return step.sample(*state.trees(), z.to(device, dtype), y.to(device),
-                       cfg.g_config())
+                       cfg.g_config(), cond_video=cond)
 
 
 def run_train(cfg: Config) -> dict:

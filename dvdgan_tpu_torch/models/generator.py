@@ -1,5 +1,4 @@
-"""Generator G — the counterpart of `dvdgan_tpu/models/generator.py`
-(the synthesis variant, cond_frames == 0).
+"""Generator G — the counterpart of `dvdgan_tpu/models/generator.py`.
 
 z ∼ N(0, 1) splits into n_levels + 1 chunks; SNLinear(chunk 0) seeds a 4×4
 map broadcast over T; each level runs its ConvGRU over the T frames, then a
@@ -7,6 +6,13 @@ GResBlock upsampling 2× with time folded into batch, conditioned on
 [chunk_{i+1}, embed(y)]; separable attention follows the level that reaches
 attn_res; the head is BN → ReLU → SNConv3×3 → tanh (in f32). The internal
 layout is time-major (T, B, H, W, C); folded rows are t·B + b.
+
+DVD-GAN-FP (`cfg.cond_frames > 0`, video prediction): `apply` takes the
+real prefix `cond_video` (B, cond_frames, H, W, 3). A strided-conv frame
+encoder (`params["fp_enc"]`) gives each level a feature sequence of the
+level's GRU width; the level's own GRU runs over it first (the warm-up), and
+its last hidden state is the h0 of the generation scan. The output is the
+n_frames generated frames only.
 
 Parameters, BN running stats and SN `u` vectors are separate trees
 (`core/tree.py`); `apply` is a pure function of them. `GeneratorState`
@@ -28,7 +34,10 @@ environment, `_ups_pallas`). With the fused route ("fwd", "full") and
 remat, the fused conv runs outside both checkpoint regions, as the GRU
 does: its kernel launches once per level and forward, never from a
 backward, and its Function keeps its padded input (which the "off" route
-recomputes); the CBN → ReLU before it is a region of its own.
+recomputes); the CBN → ReLU before it is a region of its own. The FP
+encoder and the warm-up GRU run outside the regions as well: the warm-up's
+kernel launches once per forward, and its backward kernel once per
+backward.
 
 `cfg.attn_fused` is the route of the attention's spatial pass
 (`ops/attention.py`; the reference reads it from the environment,
@@ -56,9 +65,6 @@ from dvdgan_tpu_torch.ops import spectral_norm as sn
 def init(gen: torch.Generator, cfg: GConfig) -> tuple[dict, dict]:
     """(params, stats) on the CPU, drawn from `gen`. Orthogonal init
     everywhere, as the reference; the draws differ from jax.random's."""
-    if cfg.cond_frames > 0:
-        raise NotImplementedError(
-            "DVD-GAN-FP (cond_frames > 0) is ROADMAP Queue 1 item 4")
     levels, stats_levels = [], []
     for i in range(cfg.n_levels):
         cin, cout = cfg.level_channels(i)
@@ -80,8 +86,42 @@ def init(gen: torch.Generator, cfg: GConfig) -> tuple[dict, dict]:
     if cfg.attn_res is not None and cfg.attn_res <= cfg.img_size:
         c_attn = cfg.ch * cfg.mults[_attn_level_index(cfg) + 1]
         params["attn"] = attention.separable_attn_init(gen, c_attn)
+    if cfg.cond_frames > 0:
+        params["fp_enc"] = _fp_encoder_init(gen, cfg)
     stats = {"levels": stats_levels, "out_bn": norm.stats_init(c_last)}
     return params, stats
+
+
+def _fp_encoder_init(gen: torch.Generator, cfg: GConfig) -> dict:
+    """The DVD-GAN-FP frame encoder: a stride-1 3→ch·mults[n−1] stem, then
+    n stride-2 stages from img_size down to base_res; the stage that lands
+    at base_res·2^i emits ch·mults[i] channels, level i's GRU width. Its
+    kernels are `w` leaves, so the SN pass normalizes them."""
+    n = cfg.n_levels
+    cin = cfg.ch * cfg.mults[n - 1]
+    stages = [layers.conv2d_init(gen, 3, 3, cin)]
+    for i in range(n - 1, -1, -1):
+        cout = cfg.ch * cfg.mults[i]
+        stages.append(layers.conv2d_init(gen, 3, cin, cout))
+        cin = cout
+    return {"stages": stages}
+
+
+def _fp_encode(params: dict, cond: torch.Tensor, cfg: GConfig
+               ) -> list[torch.Tensor]:
+    """cond (B, C, H, W, 3) -> level i's time-major features (C, B,
+    base_res·2^i, base_res·2^i, ch·mults[i]) for i in 0 … n_levels − 1,
+    each conv followed by a ReLU."""
+    b, c = cond.shape[:2]
+    n = cfg.n_levels
+    stages = params["fp_enc"]["stages"]
+    x = cond.reshape(b * c, *cond.shape[2:])
+    x = torch.relu(layers.conv2d(stages[0], x))
+    taps = [None] * n
+    for j, i in enumerate(range(n - 1, -1, -1)):
+        x = torch.relu(layers.conv2d(stages[j + 1], x, stride=2))
+        taps[i] = x
+    return [t.reshape(b, c, *t.shape[1:]).movedim(1, 0) for t in taps]
 
 
 def _attn_level_index(cfg: GConfig) -> int:
@@ -156,15 +196,16 @@ def _block(lvl: dict, lvl_stats: dict, h: torch.Tensor, cond_tb: torch.Tensor,
 
 
 def apply(params: dict, stats: dict, z: torch.Tensor, y: torch.Tensor,
-          cfg: GConfig, train: bool, time_major_out: bool = False
-          ) -> tuple[torch.Tensor, dict]:
-    """G(z, y) -> (video (B, T, H, W, 3) in [-1, 1], new_stats).
+          cfg: GConfig, train: bool, cond_video: torch.Tensor | None = None,
+          time_major_out: bool = False) -> tuple[torch.Tensor, dict]:
+    """G(z, y[, cond_video]) -> (video (B, T, H, W, 3) in [-1, 1],
+    new_stats).
 
     z: (B, z_dim) float, whose dtype is the compute dtype; y: (B,) int class
-    ids. time_major_out=True returns the internal (T, B, H, W, 3) layout."""
-    if cfg.cond_frames > 0:
-        raise NotImplementedError(
-            "DVD-GAN-FP (cond_frames > 0) is ROADMAP Queue 1 item 4")
+    ids; with cfg.cond_frames > 0, cond_video is the real prefix (B,
+    cond_frames, H, W, 3), cast to the compute dtype, and the video is the
+    n_frames generated after it. time_major_out=True returns the internal
+    (T, B, H, W, 3) layout."""
     b = z.shape[0]
     t = cfg.n_frames
     n = cfg.n_levels
@@ -180,15 +221,25 @@ def apply(params: dict, stats: dict, z: torch.Tensor, y: torch.Tensor,
     attn_idx = _attn_level_index(cfg) if "attn" in params else -1
     # remat only matters where a backward will follow
     remat = cfg.remat and torch.is_grad_enabled()
+    enc_seqs = [None] * n
+    if cfg.cond_frames > 0:
+        if cond_video is None:
+            raise ValueError("cond_frames > 0 requires cond_video")
+        enc_seqs = _fp_encode(params, cond_video.to(dtype), cfg)
 
     new_stats_levels = []
     for i in range(n):
         lvl = params["levels"][i]
         cond = torch.cat([chunks[i + 1], e], dim=-1)           # (B, cond)
         cond_tb = cond.repeat(t, 1)                            # row t·B + b
+        h0 = None
+        if enc_seqs[i] is not None:
+            # FP warm-up: the level's GRU over the encoded prefix; its last
+            # hidden state seeds the generation
+            h0 = convgru.convgru(lvl["gru"], enc_seqs[i], time_major=True)[-1]
         # level 0's input is the seed broadcast over time: the GRU input
         # conv runs once and broadcasts
-        h_seq = convgru.convgru(lvl["gru"], x_seq, time_major=True,
+        h_seq = convgru.convgru(lvl["gru"], x_seq, h0=h0, time_major=True,
                                 x_static=(i == 0))             # (T,B,H,W,C)
         hw = h_seq.shape[2]
         h = h_seq.reshape(t * b, hw, hw, h_seq.shape[-1])      # fold time

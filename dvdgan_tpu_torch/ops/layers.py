@@ -58,19 +58,36 @@ def conv2d_init(gen: torch.Generator, k: int, cin: int, cout: int,
     return p
 
 
-def conv2d(p: Params, x: torch.Tensor, padding: str = "SAME") -> torch.Tensor:
-    """Stride-1 conv. x: (N, H, W, C) -> (N, H', W', C_out), contiguous."""
+def same_padding(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's SAME padding of one dimension, (before, after): the output
+    has ceil(size / stride) positions, and an odd total goes after (a
+    stride-2 3×3 conv over an even size pads (0, 1), not (1, 1))."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(p: Params, x: torch.Tensor, stride: int = 1,
+           padding: str = "SAME") -> torch.Tensor:
+    """x: (N, H, W, C) -> (N, H', W', C_out), contiguous. SAME pads as XLA
+    does (`same_padding`): symmetric padding goes to the conv, other
+    padding is applied first and the conv is VALID."""
     w = p["w"].to(x.dtype)
     kh, kw = w.shape[:2]
     if padding == "SAME":
-        if kh % 2 == 0 or kw % 2 == 0:
-            raise ValueError(f"SAME padding needs an odd kernel, got {kh}×{kw}")
-        pad = (kh // 2, kw // 2)
+        top, bottom = same_padding(x.shape[1], kh, stride)
+        left, right = same_padding(x.shape[2], kw, stride)
+        if top == bottom and left == right:
+            pad = (top, left)
+        else:
+            x = F.pad(x, (0, 0, left, right, top, bottom))
+            pad = (0, 0)
     elif padding == "VALID":
         pad = (0, 0)
     else:
         raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=pad)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=stride,
+                 padding=pad)
     y = y.permute(0, 2, 3, 1).contiguous()
     if "b" in p:
         y = y + p["b"].to(x.dtype)

@@ -45,7 +45,7 @@ class TrainConfig:
     ema_decay: float = 0.9999
     ema_start: int = 1000
     grad_accum: int = 1           # micro-batches per optimizer update
-    fake_gen: str = "pooled"      # only "pooled" is ported
+    fake_gen: str = "pooled"      # pooled | per_step (train/step.py)
     log_grad_norms: bool = False  # d_grad_norm, g_grad_norm in the metrics
 
 

@@ -6,8 +6,10 @@ EMA, with the reference's contracts:
 
   * G's σ-normalization runs once for the whole D phase (`update=False`),
     and ONE G forward at batch d_steps·B makes every D step's fakes
-    ("pooled" fake generation: their CBN statistics pool over all d_steps
-    batches), without grad; its BN running-stat write is discarded;
+    (`tc.fake_gen="pooled"`: their CBN statistics pool over all d_steps
+    batches), or d_steps forwards at batch B, one a D step with its own
+    statistics (`"per_step"`), without grad; the BN running-stat write is
+    discarded;
   * the real clip and all the fakes are φ-pooled (2× spatial mean) once,
     and DT takes them with `pooled=True`;
   * each D step scores real and fake in ONE shared forward through DS and
@@ -16,6 +18,11 @@ EMA, with the reference's contracts:
   * the G update goes back through DS and DT (their σ from frozen u); G's
     SN `u` and BN running stats advance only here;
   * EMA of G's params, then step + 1.
+
+DVD-GAN-FP (`g_cfg.cond_frames` = cf > 0): the clip's first cf frames are
+G's real prefix and G generates the other n_frames. DS takes its real and
+fake frames from the generated part only; DT scores whole clips, the fake
+one being the real prefix followed by the generated frames.
 
 Gradient accumulation (`tc.grad_accum` = k > 1, the reference's contract):
 the batch splits into k equal micro-batches and each optimizer update takes
@@ -71,6 +78,7 @@ from dvdgan_tpu_torch.train.state import TrainConfig
 
 
 _MASK64 = (1 << 64) - 1
+FAKE_GEN = ("pooled", "per_step")
 
 
 def splitmix64(x: int) -> int:
@@ -115,7 +123,9 @@ class TorchDraws:
 def draw_order(d_steps: int) -> list[tuple[str, int]]:
     """(kind, stream) of every draw `train_step` makes, in its call order:
     the D phase's z (3i for each D step i), then per D step the real and
-    the fake frame indices (3i+1, 3i+2), then G's z and frame indices."""
+    the fake frame indices (3i+1, 3i+2), then G's z and frame indices. The
+    order is the same under both `fake_gen` modes (`per_step` draws each z
+    just before its forward, no other draw in between)."""
     order = [("z", 3 * i) for i in range(d_steps)]
     order += [("idx", 3 * i + j) for i in range(d_steps) for j in (1, 2)]
     return order + [("z", 3 * d_steps), ("idx", 3 * d_steps + 1)]
@@ -201,41 +211,57 @@ def _adam(grads: Any, model: dict, lr: float, tc: TrainConfig
 def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
                g_cfg: GConfig, ds_cfg: DSConfig, dt_cfg: DTConfig,
                tc: TrainConfig) -> tuple[dict, dict[str, torch.Tensor]]:
-    """(state, real (B, T, H, W, 3) in [-1, 1] in the compute dtype, y (B,)
-    class ids, draws) -> (new state, metrics {d_loss, d_loss_s, d_loss_t,
-    g_loss} and with `tc.log_grad_norms` {d_grad_norm, g_grad_norm}, as f32
-    scalars on the device; the D losses and norm are the last D step's)."""
-    if tc.fake_gen != "pooled":
-        raise NotImplementedError(
-            f"fake_gen={tc.fake_gen!r}: only the pooled fake generation is "
-            f"ported (per_step is ROADMAP Queue 1 item 7)")
+    """(state, real (B, cond_frames + n_frames, H, W, 3) in [-1, 1] in the
+    compute dtype, y (B,) class ids, draws) -> (new state, metrics {d_loss,
+    d_loss_s, d_loss_t, g_loss} and with `tc.log_grad_norms` {d_grad_norm,
+    g_grad_norm}, as f32 scalars on the device; the D losses and norm are
+    the last D step's)."""
+    if tc.fake_gen not in FAKE_GEN:
+        raise ValueError(f"fake_gen must be one of {FAKE_GEN}, got "
+                         f"{tc.fake_gen!r}")
     b, t = real.shape[:2]
-    if t != g_cfg.n_frames:
-        raise ValueError(f"clip length {t} != n_frames {g_cfg.n_frames}")
+    cf = g_cfg.cond_frames
+    if t - cf != g_cfg.n_frames:
+        raise ValueError(f"clip length {t} != cond_frames {cf} + n_frames "
+                         f"{g_cfg.n_frames}")
+    cond = real[:, :cf] if cf else None
+    real_gen = real[:, cf:]
     ka = tc.grad_accum
     if b % ka:
         raise ValueError(f"batch {b} not divisible by grad_accum {ka}")
     dtype = real.dtype
     d_steps = tc.d_steps
 
-    # ---- fakes for every D step: one G forward, no grad -------------------
+    # ---- fakes for every D step, no grad ----------------------------------
     with torch.no_grad():
         g_sn, _ = sn.sn_normalize(state["g"]["params"], state["g"]["sn_u"],
                                   update=False, compute_dtype=dtype)
-        z_all = torch.cat([draws.z(3 * i) for i in range(d_steps)])
-        fake_all, _ = generator.apply(g_sn, state["g"]["stats"], z_all,
-                                      y.repeat(d_steps), g_cfg, train=True)
+        if tc.fake_gen == "pooled":     # one forward at batch d_steps·B
+            z_all = torch.cat([draws.z(3 * i) for i in range(d_steps)])
+            cond_all = None if cond is None else cond.repeat(
+                d_steps, 1, 1, 1, 1)
+            fake_all, _ = generator.apply(g_sn, state["g"]["stats"], z_all,
+                                          y.repeat(d_steps), g_cfg,
+                                          train=True, cond_video=cond_all)
+        else:       # per_step: a forward at batch B, own batch statistics
+            fake_all = torch.cat([
+                generator.apply(g_sn, state["g"]["stats"], draws.z(3 * i), y,
+                                g_cfg, train=True, cond_video=cond)[0]
+                for i in range(d_steps)])
         real_dt = resize.avg_pool_2x_video(real)
         fake_all_dt = resize.avg_pool_2x_video(fake_all)
+        cond_dt = real_dt[:, :cf]
 
     # ---- D phase × d_steps ------------------------------------------------
     ds, dt = state["ds"], state["dt"]
     metrics: dict[str, torch.Tensor] = {}
     for i in range(d_steps):
-        real_frames = take_frames(real, draws.idx(3 * i + 1))
+        real_frames = take_frames(real_gen, draws.idx(3 * i + 1))
         fake_frames = take_frames(fake_all[i * b:(i + 1) * b],
                                   draws.idx(3 * i + 2))
         fake_dt = fake_all_dt[i * b:(i + 1) * b]
+        if cf:      # the fake clip DT scores: the real prefix, then G's
+            fake_dt = torch.cat([cond_dt, fake_dt], dim=1)
 
         # called right away, so the models it reads are this D step's
         def d_loss_fn(d_params, rf, ff, rh, fh, yj):
@@ -277,19 +303,20 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
                                    compute_dtype=dtype)
     g = state["g"]
 
-    def g_loss_fn(g_params, z_j, idx_j, y_j):
+    def g_loss_fn(g_params, z_j, idx_j, y_j, cond_j=None):
         g_sn, g_u = sn.sn_normalize(g_params, g["sn_u"], update=True,
                                     compute_dtype=dtype)
         fake, g_stats = generator.apply(g_sn, g["stats"], z_j, y_j, g_cfg,
-                                        train=True)
+                                        train=True, cond_video=cond_j)
         s_ds = discriminator.ds_apply(ds_sn, take_frames(fake, idx_j), y_j,
                                       ds_cfg)
-        s_dt = discriminator.dt_apply(dt_sn, fake, y_j, dt_cfg)
+        dt_in = fake if cond_j is None else torch.cat([cond_j, fake], dim=1)
+        s_dt = discriminator.dt_apply(dt_sn, dt_in, y_j, dt_cfg)
         g_loss = losses.g_hinge(s_ds) + losses.g_hinge(s_dt)
         return g_loss, (g_u, tru.tree_map(torch.Tensor.detach, g_stats))
 
-    g_loss, auxes, g_grads = _accum_grads(g_loss_fn, g["params"],
-                                          (z_g, idx_g, y), ka)
+    fields = (z_g, idx_g, y) + ((cond,) if cf else ())
+    g_loss, auxes, g_grads = _accum_grads(g_loss_fn, g["params"], fields, ka)
     g_u = auxes[-1][0]
     # the running-stat update is linear in the batch moments: the mean over
     # the micros is one update with the mean micro-moment
@@ -360,7 +387,9 @@ class MultiStep:
         self.counts = counts or dict
         self.state = tru.tree_map(
             lambda v: v.detach().to(self.device, copy=True), state)
-        shape = (k, batch, g_cfg.n_frames, g_cfg.img_size, g_cfg.img_size, 3)
+        # whole clips: the FP prefix is a slice of them inside the step
+        shape = (k, batch, g_cfg.cond_frames + g_cfg.n_frames,
+                 g_cfg.img_size, g_cfg.img_size, 3)
         self.reals = torch.zeros(shape, dtype=dtype, device=self.device)
         self.ys = torch.zeros((k, batch), dtype=torch.long, device=self.device)
         self.draws = [HeldDraws(tc.d_steps, batch, g_cfg.z_dim,
@@ -438,11 +467,15 @@ class MultiStep:
 
 @torch.no_grad()
 def sample(g_params_ema: dict, g_stats: dict, sn_u: dict, z: torch.Tensor,
-           y: torch.Tensor, g_cfg: GConfig) -> torch.Tensor:
+           y: torch.Tensor, g_cfg: GConfig,
+           cond_video: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The serving path: EMA weights, eval-mode BN (running stats), SN with
     frozen u (one power iteration, u not stored back), everything in the
-    compute dtype z.dtype. Returns (B, T, H, W, 3) in [-1, 1]."""
+    compute dtype z.dtype. Returns (B, T, H, W, 3) in [-1, 1]: for FP the
+    n_frames generated after the real prefix `cond_video` (B, cond_frames,
+    H, W, 3), which is not re-emitted."""
     g_sn, _ = sn.sn_normalize(g_params_ema, sn_u, update=False,
                               compute_dtype=z.dtype)
-    video, _ = generator.apply(g_sn, g_stats, z, y, g_cfg, train=False)
+    video, _ = generator.apply(g_sn, g_stats, z, y, g_cfg, train=False,
+                               cond_video=cond_video)
     return video

@@ -12,7 +12,9 @@ alternating G/D step (`train.step.train_step`) on the reference's schedule:
     and one line to stdout with the step's kernel launches (K1 … K6b,
     counted around the train step alone); the last interval is written
     when the loop ends;
-  * every `sample_step` steps, EMA-G samples of a fixed z and y go to
+  * every `sample_step` steps, EMA-G samples of a fixed z and y (and for
+    DVD-GAN-FP a fixed real prefix, `cond_fixed`: the first cond_frames
+    frames of dataset items 0 … n_show − 1) go to
     `out_dir/samples/<step>_grid.png` and `<step>_sample<i>.gif`, and with
     `--log_sigmas` the σ of every SN kernel and every attention γ to the
     scalars;
@@ -129,6 +131,14 @@ def build_dataset(cfg: Config):
                 f"found under {cfg.data_path}")
         return ds
     raise ValueError(f"unknown dataset {cfg.dataset!r}")
+
+
+def dataset_prefixes(ds, cond_frames: int, n: int) -> torch.Tensor:
+    """DVD-GAN-FP's real prefixes (n, cond_frames, H, W, 3), float32 on the
+    CPU: row i is the first cond_frames frames of item i mod len(ds), as
+    the reference's trainer (`cond_fixed`) and main.py take them."""
+    return torch.from_numpy(np.stack(
+        [ds[i % len(ds)][0][:cond_frames] for i in range(n)]))
 
 
 class _DaemonPrefetcher:
@@ -265,6 +275,12 @@ class Trainer:
                                    generator=gen).to(self.device, self.dtype)
         self.y_fixed = torch.randint(0, cfg.n_classes, (n_show,),
                                      generator=gen).to(self.device)
+        # FP: a fixed real prefix from the dataset conditions the dumps
+        self.cond_fixed: Optional[torch.Tensor] = None
+        if self.g_cfg.cond_frames > 0:
+            self.cond_fixed = dataset_prefixes(
+                self.dataset, self.g_cfg.cond_frames, n_show).to(
+                self.device, self.dtype)
         self.side = (torch.cuda.Stream(self.device)
                      if self.device.type == "cuda" else None)
 
@@ -483,13 +499,18 @@ class Trainer:
 
     # ---------------------------------------------------------------- sample
     def sample(self, z: Optional[torch.Tensor] = None,
-               y: Optional[torch.Tensor] = None) -> torch.Tensor:
+               y: Optional[torch.Tensor] = None,
+               cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """EMA-G clips (B, T, H, W, 3) in [-1, 1] of z and y (default: the
-        fixed ones)."""
+        fixed ones): the generated frames only; FP conditions on `cond`
+        (default: the first B rows of `cond_fixed`)."""
         st = self.state
+        z = self.z_fixed if z is None else z
+        y = self.y_fixed if y is None else y
+        if cond is None and self.cond_fixed is not None:
+            cond = self.cond_fixed[:z.shape[0]]
         return step_mod.sample(st["g_ema"], st["g"]["stats"], st["g"]["sn_u"],
-                               self.z_fixed if z is None else z,
-                               self.y_fixed if y is None else y, self.g_cfg)
+                               z, y, self.g_cfg, cond_video=cond)
 
     def dump_samples(self, step: int) -> None:
         videos = self.sample().float().cpu().numpy()

@@ -1020,6 +1020,57 @@ def test_train_step_fused_on_card_matches_cpu(cuda):
         assert err <= 1e-4, f"{m} mu {leaf}: {err:.3e}"
 
 
+def test_fp_train_step_on_card_matches_cpu(cuda):
+    """DVD-GAN-FP (cond_frames 2, 4 generated frames) at test scale, f32,
+    d_steps 1: the card against the CPU from the same state and draws, K1
+    and K2 launched for the warm-up and the generation at every level (K2's
+    dh0 feeding the warm-up's K2)."""
+    g_cfg = GConfig(img_size=32, n_frames=4, ch=8, z_dim=120, n_classes=5,
+                    emb_dim=16, attn_res=16, cond_frames=2)
+    ds_cfg = DSConfig(img_size=32, ch=8, n_classes=5, k_frames=2)
+    dt_cfg = DTConfig(img_size=32, n_frames=6, ch=8, n_classes=5)
+    tc = train_state.TrainConfig(d_steps=1, ema_start=0)
+    state = train_state.create(0, g_cfg, ds_cfg, dt_cfg)
+    gen = torch.Generator().manual_seed(1)
+    real = torch.tanh(torch.randn(2, 6, 32, 32, 3, generator=gen))
+    y = torch.tensor([1, 3])
+    z = {i: torch.randn(2, 120, generator=gen) for i in (0, 3)}
+    idx = {i: torch.rand(2, 4, generator=gen).argsort(dim=1)[:, :2]
+           for i in (1, 2, 4)}
+
+    class Replay:
+        def __init__(self, device):
+            self.device = device
+
+        def z(self, i):
+            return z[i].to(self.device)
+
+        def idx(self, i):
+            return idx[i].to(self.device)
+
+    ref_state, ref_m = step.train_step(state, real, y, Replay("cpu"), g_cfg,
+                                       ds_cfg, dt_cfg, tc)
+    before = (k1.gru_sequence_fused.launches, k2.gru_sequence_bwd.launches)
+    out_state, out_m = step.train_step(
+        train_state.to_device(state, cuda), real.to(cuda), y.to(cuda),
+        Replay(cuda), g_cfg, ds_cfg, dt_cfg, tc)
+    steps = g_cfg.n_levels * (g_cfg.cond_frames + g_cfg.n_frames)
+    # the fake pass and the G forward; the G backward
+    assert (k1.gru_sequence_fused.launches - before[0],
+            k2.gru_sequence_bwd.launches - before[1]) == (
+        2 * steps * k1.LAUNCHES_PER_STEP, steps * k2.LAUNCHES_PER_STEP)
+    for k in ref_m:
+        torch.testing.assert_close(out_m[k].cpu(), ref_m[k], rtol=0,
+                                   atol=1e-4)
+    gaps = _mu_gap((out_state,), (ref_state,))
+    print("\nFP, card vs CPU: " + ", ".join(
+        f"{m} {err:.3e} at {leaf}" for m, (err, leaf) in gaps.items()))
+    for m, (err, leaf) in gaps.items():
+        assert err <= 1e-4, f"{m} mu {leaf}: {err:.3e}"
+    enc = tree.flatten_with_paths(out_state["g"]["opt"]["mu"]["fp_enc"])
+    assert all(float(v.abs().max()) > 0 for v in enc.values())
+
+
 # ------------------------------------------- the fused spatial attention ---
 
 def _attn_inputs(n, h, w, c, dtype, device, seed=0, gamma=0.7):
@@ -1502,6 +1553,15 @@ STEP_FLAGS = {
               "8", "--emb_dim", "16", "--attn_res", "16", "--k_frames", "2",
               "--batch_size", "2", "--n_classes", "5", "--bf16", "1",
               "--ups_fused", "full", "--attn_fused", "on"],
+    # DVD-GAN-FP: 2 real frames, 4 generated
+    "fp": ["--img_size", "32", "--n_frames", "6", "--cond_frames", "2",
+           "--ch", "8", "--d_ch", "8", "--emb_dim", "16", "--attn_res", "16",
+           "--k_frames", "2", "--batch_size", "2", "--n_classes", "5",
+           "--bf16", "1"],
+    "fp_f32": ["--img_size", "32", "--n_frames", "6", "--cond_frames", "2",
+               "--ch", "8", "--d_ch", "8", "--emb_dim", "16", "--attn_res",
+               "16", "--k_frames", "2", "--batch_size", "2", "--n_classes",
+               "5", "--bf16", "0"],
     # the 256 px schedules at a small size: remat, 2 micro-batches, K3
     "remat": ["--preset", "kinetics_256_48f", "--ch", "2", "--d_ch", "2",
               "--n_frames", "2", "--k_frames", "2", "--n_classes", "5",
@@ -1545,8 +1605,9 @@ def _graphed_k_steps_give_the_eager_steps_bits(cuda, case):
     state = train_state.to_device(state, cuda)
     gen = torch.Generator().manual_seed(3)
     b, t, hw = cfg.batch_size, g_cfg.n_frames, g_cfg.img_size
-    reals = torch.tanh(torch.randn(4, b, t, hw, hw, 3, generator=gen)
-                       ).to(cuda, dtype)
+    # whole clips: an FP prefix, then the frames G generates
+    reals = torch.tanh(torch.randn(4, b, cfg.n_frames, hw, hw, 3,
+                                   generator=gen)).to(cuda, dtype)
     ys = torch.randint(0, cfg.n_classes, (4, b), generator=gen).to(cuda)
     want, want_m, before = state, [], launch_counts()
     for j in range(4):

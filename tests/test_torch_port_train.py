@@ -288,20 +288,6 @@ def test_port_state_paths_match_reference():
         assert v.shape == ref[k].shape and v.dtype == ref[k].dtype, k
 
 
-# (the ids are those the cases had before ROADMAP's queue was renumbered)
-@pytest.mark.parametrize("change,match", [
-    (dict(fake_gen="per_step"), "item 7")], ids=["change0-item 6"])
-def test_train_step_refuses_what_is_not_ported(change, match):
-    state = train_state.create(0, GConfig(**G_KW), DSConfig(**DS_KW),
-                               DTConfig(**DT_KW))
-    real, y = batch(0)
-    tc = train_state.TrainConfig(**{**TC_KW, **change})
-    with pytest.raises(NotImplementedError, match=match):
-        step.train_step(state, torch.from_numpy(real),
-                        torch.from_numpy(y).long(), None, GConfig(**G_KW),
-                        DSConfig(**DS_KW), DTConfig(**DT_KW), tc)
-
-
 def test_train_cli_on_cpu_writes_state(tmp_path):
     out = tmp_path / "run"
     proc = subprocess.run(
