@@ -66,12 +66,31 @@
      frame encoder among the trees that moved (per step K1 256, K2 256:
      the warm-up's and the generation's steps, K2's dh0 feeding the
      warm-up's K2);
+   - the trainer's A and A_K with `--eval_step 2 --eval_samples 16`
+     (started as the two long-clip runs end): `fvd`, `is_mean`, `is_std`
+     in the scalars and an `eval @` line at steps 2 and 4, and A's bits in
+     every leaf (an evaluation must not move the training);
    each run: finite losses, G/DS/DT params, the three SN u trees and G's BN
    stats moved, launches per step as predicted, peak memory printed; then
    the frames loader alone on `.npy` clips at UCF-101's frame size
    (320×240, 180–187 frames) that it writes: host ms per batch and per
    call of 4 steps, the ms to read a clip whole and a window of it, and
-   `native.available()`;
+   `native.available()`; then the evaluation (`drive_eval`): `--mode
+   eval` children at `--preset ucf101_64 --dataset synthetic --n_samples
+   64 --batch_size 16` with `--is_protocol i3d` (writing `--real_stats`)
+   and `c3d`, and the prediction protocol at FP's kinetics_64 (32 clips),
+   side by side, then the i3d run again reading the stats (the same fvd
+   bitwise): the reference's JSON keys, finite fvd and fid ≥ 0, 1 ≤
+   is_mean ≤ the classifier's classes, every `*_published_comparable`
+   false, K1 launched 128 times a batch of 16 and no other kernel, the
+   evaluation's wall time and its sampling's share; meanwhile I3D (64 →
+   224², logits and avgpool), Inception-v3 (2 × 16 frames, 64 → 299²)
+   and C3D (64 → 112² and the antialiased 128 → 112²) on 2 clips, card vs
+   CPU from one generator with every BN moment, scale, offset and bias
+   moved off its init (TF32 off on both; limit 1e-3 × max|CPU|), and
+   `Trainer.evaluate()` twice in this process (the same fvd bitwise);
+   after the children, each network's CUDA-event ms for a batch of 16
+   clips with TF32 off and on, and its peak memory;
 5. holds K2 against its plain version at the shapes the flagship step's G
    update gives it (the four levels, T=16, B=8), in f32 with TF32 off (atol
    1e-4 × max|ref| per output) and in bf16 (5e-2 × max|ref|), two runs
@@ -142,7 +161,7 @@
     with them (d_steps 1, γ off zero) card vs CPU and against the unfused
     attention on the card;
 13. times the routes in turns in this one call: the long-clip step off,
-    full, on, on, full, off and the 128 px step off, on, on, off (median of
+    on, on, off and the 128 px step off, on, on, off (median of
     2 steps after 1 warm-up, with peak memory; the profiler's view with a
     route's first reading), and sampling off, on, on, off; and
     `Trainer.train()` at steps_per_call 1 and K in turns 1, K, K, 1
@@ -166,9 +185,11 @@ A's bits, stands for a repeat of A; the trainer's ms a step at K 1 is
 the flagship and long-clip runs with a fused route carry both fused routes
 at once (as do the fused sample run, the fused flagship steps/s and the
 fused f32 step, which takes d_steps 1); the long-clip step is timed over 2
-steps per reading instead of 3, its `off` reading is shared between the
-`--ups_fused` and the `--attn_fused` pair, and a route's repeat reading
-skips the profiler.
+steps per reading instead of 3, a route's repeat reading skips the
+profiler, and (to make room for the evaluation's phase) the long-clip
+step's `--ups_fused full` pair is no longer timed in turns (its kernels are
+timed at the long-clip levels in phase 9, and the long-clip child runs
+it).
 
 Any failing phase raises, so the script exits non-zero without the result
 line; so does a machine without a CUDA device. Imports nothing of JAX or
@@ -2163,6 +2184,316 @@ def time_steps_per_call(device, argv, k: int, n_steps: int,
     return out
 
 
+# ------------------------------------------------------------- evaluation
+# --mode eval at the flagship's widths, 64 clips in batches of 16
+# (the reference's evaluate_generator batch), with each IS protocol; the
+# first run writes the real side's features to --real_stats and a second
+# run reads them; and the prediction protocol at FP's kinetics_64, 32 clips
+EVAL_ARGV = ["--mode", "eval", "--preset", "ucf101_64", "--dataset",
+             "synthetic", "--n_samples", "64", "--batch_size", "16"]
+EVAL_FP_ARGV = ["--mode", "eval", *FP_PRESET, "--n_samples", "32",
+                "--batch_size", "16"]
+EVAL_BATCH = 16         # evaluate_generator's default, as main.py calls it
+# the keys of the reference's --mode eval line (main.py)
+EVAL_KEYS = {"fvd", "fid", "is_mean", "is_std", "extractor",
+             "fvd_published_comparable", "is_classifier",
+             "is_published_comparable", "frame_extractor",
+             "fid_published_comparable"}
+# the in-training evaluation: the trainer's run A (and A_K) with
+# --eval_step 2 over its 4 steps, which must leave A's bits; each started
+# as a long-clip child ends, for the card's memory
+EVAL_TRAIN = ["--eval_step", "2", "--eval_samples", "16"]
+EVAL_AFTER = {
+    "eval_k1": ("longclip", None, TRAINER_ARGV + ["--keep_checkpoints", "2",
+                                                  *EVAL_TRAIN], 4),
+    "eval_k2": ("longclip_fused", None, TRAINER_ARGV_K + [
+        "--keep_checkpoints", "2", *EVAL_TRAIN], 4)}
+# the scoring networks card vs CPU: max |card − CPU| ≤ EXTRACTOR_TOL ×
+# max |CPU| per output (cuDNN and the CPU sum in other orders through up to
+# ~95 conv layers, TF32 off on both)
+EXTRACTOR_TOL = 1e-3
+EXTRACTOR_CASES = (     # (network, feature, clips or frames, side, resize)
+    ("i3d", "logits", (2, 16), 64, 224),
+    ("i3d", "avgpool", (2, 16), 64, 224),
+    ("inception", "pool", (32,), 64, 299),
+    ("c3d", "logits", (2, 16), 64, 112),
+    ("c3d", "logits", (2, 16), 128, 112),     # the antialiased shrink
+)
+# a batch of 16 clips of 16 frames at 64², as --mode eval gives each
+# network: I3D and C3D the clips, Inception-v3 their 256 frames
+EXTRACTOR_BATCHES = (("i3d", "logits", (16, 16)),
+                     ("inception", "pool", (256,)),
+                     ("c3d", "logits", (16, 16)))
+
+
+def eval_nets(seed: int = 0) -> dict[str, dict]:
+    """I3D, Inception-v3 and C3D params (CPU) from one torch.Generator,
+    every BN mean, var, scale and offset and every bias moved off its
+    init (seeded), so that eps and the order of the BN arithmetic show."""
+    from dvdgan_tpu_torch.eval import c3d, i3d, inception
+    gen = torch.Generator().manual_seed(seed)
+    nets = {"i3d": i3d.init(gen), "inception": inception.init(gen),
+            "c3d": c3d.init(gen)}
+    for params in nets.values():
+        for k, v in params.items():
+            if k.endswith("/bn/mean"):
+                v.normal_(0, 0.2, generator=gen)
+            elif k.endswith("/bn/var"):
+                v.uniform_(0.25, 1.75, generator=gen)
+            elif k.endswith("/bn/scale"):
+                v.uniform_(0.5, 1.5, generator=gen)
+            elif k.endswith(("/bn/offset", "/b")):
+                v.normal_(0, 0.05, generator=gen)
+    return nets
+
+
+def eval_apply(name: str):
+    from dvdgan_tpu_torch.eval import c3d, i3d, inception
+    return {"i3d": i3d, "inception": inception, "c3d": c3d}[name].apply
+
+
+def check_extractors(device, nets: dict) -> list[dict]:
+    """Each scoring network at its protocol's input size and width on 2
+    clips (Inception-v3: their 32 frames), on the card and on the CPU
+    from the same params and inputs, TF32 off on both (`exact_f32`)."""
+    from dvdgan_tpu_torch.eval import layers
+    rows = []
+    for i, (name, feature, lead, side, resize) in enumerate(EXTRACTOR_CASES):
+        x = torch.from_numpy(np.random.RandomState(i).uniform(
+            -1, 1, (*lead, side, side, 3)).astype(np.float32))
+        apply = eval_apply(name)
+        card = {k: v.to(device) for k, v in nets[name].items()}
+        with layers.exact_f32():
+            got = apply(card, x.to(device), feature, resize).cpu()
+            ref = apply(nets[name], x, feature, resize)
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        row = {"network": name, "feature": feature,
+               "input": [*lead, side, side, 3], "resize": resize,
+               "shape": list(got.shape), "max_abs_err": err,
+               "max_abs_cpu": scale, "rel_err": err / scale,
+               "limit": EXTRACTOR_TOL}
+        print("extractor card vs cpu " + json.dumps(row), flush=True)
+        if not (torch.isfinite(got).all() and err <= EXTRACTOR_TOL * scale):
+            raise AssertionError(f"{name} {feature}: card vs CPU {err} > "
+                                 f"{EXTRACTOR_TOL} × {scale}")
+        rows.append(row)
+    return rows
+
+
+def time_extractors(device, nets: dict) -> list[dict]:
+    """Each network on a batch of 16 clips (16 frames at 64², resized to
+    its protocol's size): CUDA-event ms (median of 5 after 1 warm-up),
+    with TF32 off (the extractors' setting) and then on (one pair, to
+    price the exact f32), the outputs' gap between the two, and the peak
+    device memory of the call above what was allocated before it."""
+    from dvdgan_tpu_torch.eval import layers
+    rows = []
+    for name, feature, lead in EXTRACTOR_BATCHES:
+        apply = eval_apply(name)
+        params = {k: v.to(device) for k, v in nets[name].items()}
+        x = torch.from_numpy(np.random.RandomState(7).uniform(
+            -1, 1, (*lead, 64, 64, 3)).astype(np.float32)).to(device)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with layers.exact_f32():
+            off = apply(params, x, feature)
+            ms_off = cuda_ms(lambda: apply(params, x, feature), 5, 1)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+            on = apply(params, x, feature)
+            ms_on = cuda_ms(lambda: apply(params, x, feature), 5, 1)
+        row = {"network": name, "feature": feature, "batch": list(lead),
+               "ms": ms_off, "ms_tf32_on": ms_on,
+               "tf32_rel_gap": float((on - off).abs().max()
+                                     / off.abs().max()),
+               "peak_mem_gib": peak}
+        print("extractor batch of 16 clips " + json.dumps(row), flush=True)
+        rows.append(row)
+        del params, x, off, on
+    torch.cuda.empty_cache()
+    return rows
+
+
+def eval_k1_per_batch(cfg) -> int:
+    """K1 launches of one EMA-G sample batch of `cfg` (each level whose
+    plane K1 takes, over the prefix and the generated frames)."""
+    from dvdgan_tpu_torch.kernels import convgru_seq as k1
+    from dvdgan_tpu_torch.ops import convgru
+    g_cfg = cfg.g_config()
+    levels = sum(not convgru.uses_blocked(g_cfg.base_res * 2 ** i,
+                                          g_cfg.base_res * 2 ** i)
+                 for i in range(g_cfg.n_levels))
+    return levels * (g_cfg.cond_frames + g_cfg.n_frames) * \
+        k1.LAUNCHES_PER_STEP
+
+
+def start_eval(argv, out_dir: str) -> dict:
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dvdgan_tpu_torch", *argv, "--out_dir",
+         out_dir], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return {"proc": proc, "argv": argv, "t0": time.perf_counter()}
+
+
+def finish_eval(run: dict) -> dict:
+    """Waits for a `start_eval` child and checks its result line: every
+    key of the reference's, finite fvd and fid ≥ 0, 1 ≤ is_mean ≤ the IS
+    classifier's class count, every network labelled not
+    published-comparable (random init), K1 launched as often as the
+    fakes' batches need and no other kernel."""
+    from dvdgan_tpu_torch.train.trainer import build_dataset
+    from dvdgan_tpu_torch.utils.config import parse_config
+    proc = run["proc"]
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    secs = time.perf_counter() - run["t0"]
+    print(stdout, end="", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"eval CLI exited {proc.returncode}:\n"
+                             f"{stderr[-4000:]}")
+    lines = stdout.strip().splitlines()
+
+    def tagged(tag):
+        return json.loads(next(ln for ln in lines
+                               if ln.startswith(tag + " "))[len(tag) + 1:])
+
+    out, launches, timing = json.loads(lines[-1]), tagged("eval_launches"), \
+        tagged("eval_time")
+    cfg = parse_config(run["argv"])
+    classes = 101 if cfg.is_protocol == "c3d" else 400
+    missing = EVAL_KEYS - set(out)
+    if missing:
+        raise AssertionError(f"eval result lacks {sorted(missing)}: {out}")
+    if not all(np.isfinite(out[k]) and out[k] >= 0 for k in ("fvd", "fid")):
+        raise AssertionError(f"eval fvd / fid: {out}")
+    if not 1.0 <= out["is_mean"] <= classes:
+        raise AssertionError(f"eval is_mean {out['is_mean']} outside "
+                             f"[1, {classes}]")
+    if any(out[k] for k in ("fvd_published_comparable",
+                            "is_published_comparable",
+                            "fid_published_comparable")):
+        raise AssertionError(f"random-init networks labelled comparable: "
+                             f"{out}")
+    n = min(cfg.n_samples, len(build_dataset(cfg)))
+    want = {k: 0 for k in launches}
+    want["k1"] = -(-n // EVAL_BATCH) * eval_k1_per_batch(cfg)
+    if launches != want:
+        raise AssertionError(f"eval launches {launches}, want {want}")
+    return {"result": out, "launches": launches, "time": timing,
+            "cli_s": secs}
+
+
+def check_repeat_eval(device) -> dict:
+    """`Trainer.evaluate()` twice in this process (ucf101_64, bf16, 32
+    clips, the default I3D): the same fvd bitwise (bf16 G steps and the
+    extractor's deterministic f32 convs repeat on this card)."""
+    from dvdgan_tpu_torch.train.trainer import Trainer
+    from dvdgan_tpu_torch.utils.config import parse_config
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = Trainer(parse_config(EVAL_ARGV + ["--out_dir", tmp]))
+        try:
+            runs = [tr.evaluate(n_samples=32) for _ in range(2)]
+        finally:
+            tr.close()
+    res = {"runs": runs, "same_bits": runs[0] == runs[1]}
+    print("evaluate twice " + json.dumps(res), flush=True)
+    if not res["same_bits"]:
+        raise AssertionError(f"Trainer.evaluate() gave {runs}")
+    del tr
+    torch.cuda.empty_cache()
+    return res
+
+
+def drive_eval(device) -> dict:
+    """--mode eval children: the ucf101_64 run with --is_protocol i3d
+    (writing --real_stats), with c3d, and the FP protocol side by side,
+    then the i3d run again as the first ends, reading the stats (the same
+    fvd bitwise). Meanwhile this process holds the networks to the CPU and
+    repeats `Trainer.evaluate()`; once the children have ended it times
+    the networks on the card alone."""
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory()
+    stats = os.path.join(tmp.name, "real_stats.npz")
+
+    def out(name):
+        return os.path.join(tmp.name, name)
+
+    i3d_argv = EVAL_ARGV + ["--real_stats", stats]
+    runs = {"i3d": start_eval(i3d_argv, out("i3d")),
+            "c3d": start_eval(EVAL_ARGV + ["--is_protocol", "c3d"],
+                              out("c3d")),
+            "fp": start_eval(EVAL_FP_ARGV, out("fp"))}
+    done = {}
+    try:
+        nets = eval_nets()
+        extractors = check_extractors(device, nets)
+        repeat = check_repeat_eval(device)
+        done["i3d"] = finish_eval(runs["i3d"])
+        if not os.path.isfile(stats):
+            raise AssertionError(f"the i3d eval run wrote no {stats}")
+        runs["i3d_cached"] = start_eval(i3d_argv, out("i3d_cached"))
+        for name in ("c3d", "fp", "i3d_cached"):
+            done[name] = finish_eval(runs[name])
+    finally:
+        for run in runs.values():
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+                run["proc"].communicate()
+        tmp.cleanup()
+    first, again = done["i3d"]["result"], done["i3d_cached"]["result"]
+    print("eval runs " + json.dumps(done), flush=True)
+    for name, d in done.items():
+        t = d["time"]
+        print(f"eval {name}: {d['cli_s']:.1f} s in all, evaluation "
+              f"{t['eval_s']:.2f} s of which sampling {t['sample_s']:.2f} s "
+              f"({t['sample_s'] / t['eval_s']:.3f}), peak device memory "
+              f"{t['peak_mem_gib']:.3f} GiB", flush=True)
+    if again["fvd"] != first["fvd"]:
+        raise AssertionError(f"the run that read --real_stats gave fvd "
+                             f"{again['fvd']}, the one that wrote it "
+                             f"{first['fvd']}")
+    timed = time_extractors(device, nets)
+    return {**done, "extractors": extractors, "timed": timed,
+            "repeat": repeat}
+
+
+def check_eval_runs(done: dict) -> dict:
+    """The in-training evaluations: fvd, is_mean and is_std in the scalars
+    at steps 2 and 4 and an `eval @` line for each, and the final state
+    with A's bits in every leaf (at K 1, and at K 2 where A_K has them)."""
+    a = done["trainer_A"]["state"]
+    res = {}
+    for name in EVAL_AFTER:
+        run = done[name]
+        with open(os.path.join(run["out_dir"], "logs", "scalars.jsonl")) as f:
+            rows = [json.loads(ln) for ln in f]
+        fvd = {r["step"]: r["value"] for r in rows if r["tag"] == "fvd"}
+        tags = {r["tag"] for r in rows if r["step"] == 4}
+        differ = [k for k, v in a.items()
+                  if not np.array_equal(v, run["state"][k])]
+        res[name] = {"fvd": fvd, "n_differ": len(differ),
+                     "differ": differ[:20]}
+        if sorted(fvd) != [2, 4] or not np.isfinite(list(fvd.values())).all() \
+                or not {"is_mean", "is_std"} <= tags:
+            raise AssertionError(f"{name}: eval scalars {fvd}, {tags}")
+        if not all(f"eval @ {s}: fvd " in run["stdout"] for s in (2, 4)):
+            raise AssertionError(f"{name}: no eval @ line")
+        run["tmp"].cleanup()
+        del run["state"]
+    print("in-training eval runs " + json.dumps(res), flush=True)
+    bad = {k: v for k, v in res.items() if v["n_differ"]}
+    if bad:
+        raise AssertionError(f"an evaluation moved the training: {bad}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2219,9 +2550,9 @@ def main() -> int:
         "frames_k1": (frames_argv, FRAMES_STEPS),
         "frames_k2": (frames_argv + ["--steps_per_call", "2", "--log_step",
                                      "2"], FRAMES_STEPS)},
-        {**TRAINER_RESUMES, **TRAINER_RESUMES_K, **FP_AFTER},
+        {**TRAINER_RESUMES, **TRAINER_RESUMES_K, **FP_AFTER, **EVAL_AFTER},
         TRAINER_KEEP + ("trainer_AK", "trainer_BK", "frames_k1", "frames_k2",
-                        *FP_AFTER))
+                        *FP_AFTER, *EVAL_AFTER))
     frames_tmp.cleanup()
     train_fused = runs["train_fused"]
     long_run, long_fused = runs["longclip"], runs["longclip_fused"]
@@ -2229,11 +2560,16 @@ def main() -> int:
     trainer_a = runs["trainer_A"]
     fp_k1, fp_k2 = runs["fp_k1"], runs["fp_k2"]
     check_k_runs(runs)
+    check_eval_runs(runs)
     check_trainer_runs(runs)
     phase("the train CLI runs (the trainer's, under --steps_per_call 2, on "
-          "frame folders, the long clip, the 128 px step, DVD-GAN-FP)")
+          "frame folders, the long clip, the 128 px step, DVD-GAN-FP, with "
+          "--eval_step)")
     time_frames_loader()
     phase("the frames loader at UCF-101's frame size")
+    evals = drive_eval(device)
+    phase("the evaluation (--mode eval: i3d, c3d, cached, FP; the networks "
+          "card vs CPU and timed; Trainer.evaluate() twice)")
     rows_k2 = check_k2(device)
     phase("K2")
     time_train(device)
@@ -2346,8 +2682,8 @@ def main() -> int:
     # (the profiler's view with a route's first reading only)
     long_rates = [
         time_train(device, "longclip_rate", LONG_ARGV + route, n_warm=1,
-                   n_steps=2, n_prof=int(i < 3), n_top=15 if i == 0 else 6)
-        for i, route in enumerate(([], FULL, ON, ON, FULL, []))]
+                   n_steps=2, n_prof=int(i < 2), n_top=15 if i == 0 else 6)
+        for i, route in enumerate(([], ON, ON, []))]
     print("longclip_pairs " + json.dumps(
         [{k: r.get(k) for k in keys} for r in long_rates]), flush=True)
     phase("the long-clip routes in turns")
@@ -2457,11 +2793,16 @@ def main() -> int:
               {"sample": sample_run["k1"], "sample_fused": sample_fused["k1"],
                "train_fused": train_fused["k1"], "trainer": trainer_a["k1"],
                "sample_fp": fp_sample["k1"], "fp": fp_k1["k1"],
-               "fp_k2": fp_k2["k1"]},
+               "fp_k2": fp_k2["k1"],
+               **{f"eval_{name}": evals[name]["launches"]["k1"]
+                  for name in ("i3d", "c3d", "i3d_cached", "fp")}},
               {"sample": sample_run["k1"],
                "trainer": trainer_a["per_step"]["k1_launches"],
                "sample_fp": fp_sample["k1"],
-               "fp": fp_k1["per_step"]["k1_launches"]},
+               "fp": fp_k1["per_step"]["k1_launches"],
+               "eval_batch_16": eval_k1_per_batch(parse_config(EVAL_ARGV)),
+               "eval_fp_batch_16": eval_k1_per_batch(
+                   parse_config(EVAL_FP_ARGV))},
               in_graph=graphs["K1"]),
         entry(f"convgru_seq (K1, bf16, sum of its {len(k1_levels)} "
               f"{long_shapes})",

@@ -14,5 +14,7 @@ sample`), the alternating G/D train step with DS, DT, Adam and EMA
 (`train.step.train_step`), with grad accumulation and per-level remat for
 the long-clip preset, and the trainer that runs it on the reference's
 schedule with checkpoints and auto-resume (`train.trainer`,
-`train.checkpoint`, `--mode train`); ROADMAP.md lists the rest.
+`train.checkpoint`, `--mode train`), and the evaluation: FVD, video IS and
+frame FID of EMA-G samples with I3D, C3D and Inception-v3 (`eval`,
+`--mode eval`, `--eval_step`); ROADMAP.md lists the rest.
 """

@@ -1,9 +1,9 @@
-"""CLI: `python -m dvdgan_tpu_torch --mode sample|train --preset ucf101_64
-[--device cuda] [--weights state.npz] [--pretrained_model STEP] --out_dir
-DIR ...` — the counterpart of the reference's `main.py`.
+"""CLI: `python -m dvdgan_tpu_torch --mode sample|train|eval --preset
+ucf101_64 [--device cuda] [--weights state.npz] [--pretrained_model STEP]
+--out_dir DIR ...` — the counterpart of the reference's `main.py`.
 
-Both modes run on `--device` (default `cuda`); without a CUDA device the CLI
-raises, unless `--device cpu` asks for the CPU.
+Every mode runs on `--device` (default `cuda`); without a CUDA device the
+CLI raises, unless `--device cpu` asks for the CPU.
 
 Train mode is `train.trainer.Trainer(cfg).train()`: the state from --seed
 (or --weights, a train-state npz, at its step), auto-resumed from the newest
@@ -32,21 +32,44 @@ cond_frames frames of item i mod len of the --dataset, as the reference's
 main.py does, and the clips are the frames generated after them. It
 writes the clips as float32 (N, T, H, W, 3) in [-1, 1] to DIR/samples.npy,
 their grid to DIR/samples/eval_<step>_grid.png and one GIF per clip.
+
+Eval mode scores --n_samples EMA-G clips of `Trainer(cfg)` (auto-resumed,
+or from --pretrained_model or --weights, as in train mode) against the
+dataset's first clips, as the reference's main.py does: FVD with I3D
+(`eval.I3DFeatures`, --i3d_weights), frame FID with Inception-v3
+(--inception_weights) and the video IS of --is_protocol i3d (softmax of the
+FVD extractor's own logits) or c3d (C3D, --c3d_weights). The weights are
+npz files in the reference's layout (tools/convert_*_weights.py write
+them where JAX runs); without them the networks run at a seeded random
+init and the result says `*_published_comparable: false`. --real_stats
+PATH keeps the real side's features in an npz, checked against the run's
+dataset, size and extractors when read; --eval_repeats R scores R fake
+sets (sample seeds 1234 + 1000·r) against one real side and reports their
+mean and *_std. It prints the kernel launches, the wall time (the
+sampling's share apart) and the peak device memory, then one JSON line
+with the reference's keys.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import time
 
 import numpy as np
 import torch
 
 from dvdgan_tpu_torch import interop
+from dvdgan_tpu_torch.eval import (C3DClassifierProbs, I3DClassifierProbs,
+                                   I3DFeatures, InceptionFeatures,
+                                   compute_real_features, evaluate_generator,
+                                   file_stamp, load_or_compute_real_stats)
 from dvdgan_tpu_torch.models.generator import GeneratorState
 from dvdgan_tpu_torch.train import checkpoint as ckpt
 from dvdgan_tpu_torch.train import step
 from dvdgan_tpu_torch.train.trainer import (Trainer, build_dataset,
-                                            dataset_prefixes, resolve_device)
+                                            dataset_prefixes, launch_counts,
+                                            resolve_device)
 from dvdgan_tpu_torch.utils.config import Config, check_ported, parse_config
 from dvdgan_tpu_torch.utils.media import save_batch_gifs, save_video_grid_png
 
@@ -101,16 +124,115 @@ def run_train(cfg: Config) -> dict:
     return trainer.state
 
 
+def run_eval(cfg: Config) -> dict:
+    """FVD, frame FID and video IS of EMA-G as the reference's main.py
+    computes them; -> the result dict, also printed as the last line."""
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg)
+    try:
+        device = trainer.device
+        fx = I3DFeatures(cfg.i3d_weights or None, seed=0, device=device)
+        fx2d = InceptionFeatures(cfg.inception_weights or None, seed=0,
+                                 device=device)
+        if cfg.is_protocol == "c3d":     # the published UCF-101 IS
+            clf = C3DClassifierProbs(cfg.c3d_weights or None, seed=0,
+                                     device=device)
+        else:                            # Kinetics IS over fx's own logits
+            clf = I3DClassifierProbs(feature_extractor=fx)
+        # the identity tags key both the cache's stamps and the result
+        fx_tag = "i3d-kinetics400" if fx.pretrained else "i3d-random-init"
+        fx2d_tag = ("inception-v3" if fx2d.pretrained
+                    else "inception-v3-random-init")
+        n = min(cfg.n_samples, len(trainer.dataset))
+        batch = min(cfg.batch_size, n)
+        sample_s = _time_samples(trainer)
+        t1 = time.perf_counter()
+        before = launch_counts()
+        real_features = None
+        if cfg.real_stats:
+            meta = {
+                "dataset": cfg.dataset, "data_path": cfg.data_path,
+                "npy_range": cfg.npy_range,
+                # both datasets draw clip content or windows from the seed
+                "seed": cfg.seed, "n_classes": cfg.n_classes,
+                "img_size": cfg.img_size, "n_frames": cfg.n_frames, "n": n,
+                "extractor": fx_tag,
+                # a reconverted weights file is another feature space
+                "extractor_weights": file_stamp(cfg.i3d_weights),
+                "frame_extractor": fx2d_tag,
+                "frame_extractor_weights": file_stamp(cfg.inception_weights),
+            }
+            real_features = load_or_compute_real_stats(
+                cfg.real_stats, trainer.dataset, fx, n, batch_size=batch,
+                frame_extractor=fx2d, meta=meta)
+            print(f"real stats: {cfg.real_stats}", flush=True)
+        repeats = max(1, cfg.eval_repeats)
+        if real_features is None and repeats > 1:   # one real side for all
+            real_features = compute_real_features(
+                trainer.dataset, fx, n, batch_size=batch,
+                frame_extractor=fx2d)
+        runs = [evaluate_generator(trainer, fx, n_samples=cfg.n_samples,
+                                   classifier=clf, frame_extractor=fx2d,
+                                   real_features=real_features,
+                                   sample_seed=1234 + 1000 * r)
+                for r in range(repeats)]
+        t2 = time.perf_counter()
+        print("eval_launches " + json.dumps(
+            {k: v - before[k] for k, v in launch_counts().items()}))
+        peak = (torch.cuda.max_memory_allocated(device) / 2**30
+                if device.type == "cuda" else None)
+        print("eval_time " + json.dumps(
+            {"setup_s": t1 - t0, "eval_s": t2 - t1,
+             "sample_s": sample_s[0], "peak_mem_gib": peak}))
+        out = dict(runs[0])
+        if repeats > 1:
+            for k in ("fvd", "fid", "is_mean"):
+                if k in runs[0]:
+                    vals = [r[k] for r in runs]
+                    out[k] = float(np.mean(vals))
+                    out[k + "_std"] = float(np.std(vals))
+            out["eval_repeats"] = repeats
+        out["extractor"] = fx_tag
+        out["fvd_published_comparable"] = fx.pretrained
+        out["is_classifier"] = (
+            ("c3d-ucf101" if clf.pretrained else "c3d-random-init")
+            if cfg.is_protocol == "c3d" else
+            ("i3d-kinetics400" if clf.pretrained else "i3d-random-init"))
+        out["is_published_comparable"] = clf.pretrained
+        out["frame_extractor"] = fx2d_tag
+        out["fid_published_comparable"] = fx2d.pretrained
+        print(json.dumps(out), flush=True)
+        return out
+    finally:
+        trainer.close()
+
+
+def _time_samples(trainer: Trainer) -> list[float]:
+    """Wraps trainer.sample to add each call's seconds, to the end of its
+    work on the card, into the returned one-element list."""
+    total = [0.0]
+    inner = trainer.sample
+
+    def timed(*args, **kw):
+        t = time.perf_counter()
+        out = inner(*args, **kw)
+        if out.device.type == "cuda":
+            torch.cuda.synchronize(out.device)
+        total[0] += time.perf_counter() - t
+        return out
+
+    trainer.sample = timed
+    return total
+
+
 def main(argv=None):
-    """Runs the mode; returns the clips (sample) or the final state
-    (train)."""
+    """Runs the mode; returns the clips (sample), the final state (train)
+    or the result dict (eval)."""
     cfg = parse_config(argv)
-    if cfg.mode not in ("sample", "train"):
-        raise NotImplementedError(
-            f"--mode {cfg.mode}: eval is ROADMAP Queue 1 item 5; this port "
-            f"runs --mode sample and --mode train")
     if cfg.mode == "train":
         return run_train(cfg)
+    if cfg.mode == "eval":
+        return run_eval(cfg)
     check_ported(cfg)
     device = resolve_device(cfg.device)
     step_no, state = sample_state(cfg)

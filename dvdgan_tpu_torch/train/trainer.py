@@ -1,5 +1,5 @@
 """The trainer — the counterpart of `dvdgan_tpu/train/trainer.py` on one
-device (no mesh, no multi-host branch, no in-training eval).
+device (no mesh, no multi-host branch).
 
 `Trainer(cfg).train()` builds the train state from `--seed` (or from the
 `--weights` npz), auto-resumes from the newest checkpoint under
@@ -18,6 +18,13 @@ alternating G/D step (`train.step.train_step`) on the reference's schedule:
     `out_dir/samples/<step>_grid.png` and `<step>_sample<i>.gif`, and with
     `--log_sigmas` the σ of every SN kernel and every attention γ to the
     scalars;
+  * every `eval_step` steps, `evaluate()`: FVD and IS (I3D, from
+    `--i3d_weights` or a seeded random init) of `eval_samples` EMA-G
+    clips against the dataset's first clips, whose features are computed
+    once a run; the scalars go to the log and one `eval @ <step>:` line to
+    stdout. It reads only the state and draws from its own generator
+    (`eval.evaluate_generator`), so the run's bits are those of the run
+    without it;
   * every `model_save_step` steps, a checkpoint (`train.checkpoint`),
     written on a background thread with `--async_save` (the default).
 
@@ -42,8 +49,9 @@ batches stacked; the logged record is the call's last step (the
 reference's `_metrics_host` reports the interval's final step); log,
 sample and save keep their cadence, which the schedule rule
 (`effective_steps_per_call`, the reference's) puts on call boundaries,
-and read the state buffers the graph writes. The launches logged per step
-are counted during the capture and divided by K.
+and read the state buffers the graph writes; an evaluation runs eagerly
+after the call's replay, with no capture open. The launches logged per
+step are counted during the capture and divided by K.
 
 `--profile` traces steps 10 to 15 with torch.profiler into
 `out_dir/trace` (the window aligned to K); `--nan_check` turns on
@@ -68,6 +76,8 @@ from dvdgan_tpu_torch import interop, kernels
 from dvdgan_tpu_torch.core import tree as tru
 from dvdgan_tpu_torch.data import (FrameFolderDataset, Loader,
                                    SyntheticVideoDataset)
+from dvdgan_tpu_torch.eval import (I3DClassifierProbs, I3DFeatures,
+                                   compute_real_features, evaluate_generator)
 from dvdgan_tpu_torch.ops import spectral_norm as sn
 from dvdgan_tpu_torch.train import checkpoint as ckpt
 from dvdgan_tpu_torch.train import state as train_state
@@ -283,6 +293,10 @@ class Trainer:
                 self.device, self.dtype)
         self.side = (torch.cuda.Stream(self.device)
                      if self.device.type == "cuda" else None)
+        # evaluate(): the default extractor and IS classifier, built at the
+        # first call, and the real side's features per (extractor, n)
+        self._eval_fx = self._eval_clf = None
+        self._real_feats: dict = {}
 
     # ------------------------------------------------------------------ data
     def _next(self, data) -> tuple:
@@ -404,6 +418,11 @@ class Trainer:
                     self.dump_samples(step)
                     if c.log_sigmas:
                         self.writer.scalars(self.sn_diagnostics(), step)
+                if c.eval_step and step % c.eval_step == 0:
+                    ev = self.evaluate()
+                    self.writer.scalars(ev, step)
+                    print(f"eval @ {step}: " + " ".join(
+                        f"{k} {v:.4f}" for k, v in ev.items()), flush=True)
                 if c.model_save_step and step % c.model_save_step == 0:
                     self.save(step)
         except BaseException:
@@ -496,6 +515,35 @@ class Trainer:
                         if p.rsplit("/", 1)[-1] == "gamma"})
         values = torch.stack([v.float().reshape(()) for v in out.values()])
         return dict(zip(out, values.cpu().tolist()))
+
+    # ------------------------------------------------------------------ eval
+    def evaluate(self, extractor=None, n_samples: Optional[int] = None
+                 ) -> dict[str, float]:
+        """FVD (and IS from the same I3D logits) of EMA-G samples against
+        the dataset: the --eval_step evaluation. The default extractor is
+        I3D from --i3d_weights (a seeded random init without: trends, not
+        published-comparable numbers), built once on the run's device;
+        pass another to override (no IS then). The real side is computed
+        once per (extractor object, n) and kept."""
+        if extractor is None:
+            if self._eval_fx is None:
+                self._eval_fx = I3DFeatures(self.cfg.i3d_weights or None,
+                                            seed=0, device=self.device)
+                self._eval_clf = I3DClassifierProbs(
+                    feature_extractor=self._eval_fx)
+            extractor, clf = self._eval_fx, self._eval_clf
+        else:
+            clf = None
+        n = min(self.cfg.eval_samples if n_samples is None else n_samples,
+                len(self.dataset))
+        batch = min(self.cfg.batch_size, n)
+        key = (extractor, n)    # the object itself: an id() could be reused
+        if key not in self._real_feats:
+            self._real_feats[key] = compute_real_features(
+                self.dataset, extractor, n, batch_size=batch)
+        return evaluate_generator(self, extractor, n_samples=n,
+                                  batch_size=batch, classifier=clf,
+                                  real_features=self._real_feats[key])
 
     # ---------------------------------------------------------------- sample
     def sample(self, z: Optional[torch.Tensor] = None,

@@ -2,9 +2,9 @@
 
 The flag names, defaults and PRESETS are the reference's, and `Config` has
 every field of the reference's. The fields of modules not ported yet
-(`NOT_PORTED`: eval, multi-device) parse,
-and `check_ported` raises `NotImplementedError` naming their ROADMAP Queue 1
-item when one is given a value other than its default.
+(`NOT_PORTED`: multi-device) parse, and `check_ported` raises
+`NotImplementedError` naming their ROADMAP Queue 1 item when one is given
+a value other than its default.
 `--ups_fused {off,fwd,full}` is the reference's environment variable
 DVDGAN_UPS_PALLAS as a flag (the route of G's upsample convs,
 `ops/layers.py`), and `--attn_fused {off,on}` its DVDGAN_ATTN_PALLAS (the
@@ -32,14 +32,20 @@ from dvdgan_tpu_torch.train.state import TrainConfig
 class Config:
     # mode
     mode: str = "train"               # train | sample | eval
-    n_samples: int = 16               # clips to generate in sample mode
+    n_samples: int = 16               # clips to generate (sample) or to
+    #                                   score (eval)
     weights: str = ""                 # state npz (interop); empty = the
     #                                   seeded init
-    i3d_weights: str = ""             # eval extractors' weights (item 5)
-    inception_weights: str = ""
-    c3d_weights: str = ""
-    is_protocol: str = "i3d"
-    real_stats: str = ""
+    i3d_weights: str = ""             # I3D npz in the reference's layout
+    #                                   (tools/convert_i3d_weights.py);
+    #                                   empty = a random init, labelled not
+    #                                   published-comparable
+    inception_weights: str = ""       # Inception-v3 npz (frame FID)
+    c3d_weights: str = ""             # C3D npz (the UCF-101 IS protocol)
+    is_protocol: str = "i3d"          # the IS classifier: i3d | c3d
+    real_stats: str = ""              # --mode eval: npz of the real side's
+    #                                   features; computed and written
+    #                                   there when missing
     # data
     dataset: str = "synthetic"        # synthetic | frames
     data_path: str = ""               # root of the frame folders
@@ -83,9 +89,11 @@ class Config:
     keep_checkpoints: int = 0         # > 0: keep only the newest N
     async_save: bool = True           # write checkpoints on a thread (the
     #                                   snapshot stays on the train thread)
-    eval_step: int = 0                # in-training eval (item 5)
+    eval_step: int = 0                # > 0: FVD/IS of EMA-G every N
+    #                                   steps (Trainer.evaluate)
     eval_samples: int = 64
-    eval_repeats: int = 1
+    eval_repeats: int = 1             # --mode eval: N fake sets, one real
+    #                                   side -> mean and *_std
     pretrained_model: Optional[int] = None   # resume from this step
     # runtime
     n_devices: int = 0                # > 1: item 6
@@ -133,10 +141,7 @@ class Config:
 
 
 # fields parsed but not run yet: {field: its ROADMAP Queue 1 item}
-NOT_PORTED = {"eval_step": "5", "eval_samples": "5", "eval_repeats": "5",
-              "i3d_weights": "5", "inception_weights": "5",
-              "c3d_weights": "5", "is_protocol": "5", "real_stats": "5",
-              "multihost": "6", "n_devices": "6", "time_shards": "6"}
+NOT_PORTED = {"multihost": "6", "n_devices": "6", "time_shards": "6"}
 
 
 def check_ported(cfg: Config) -> None:
@@ -187,6 +192,11 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument(arg, choices=UPS_FUSED_MODES, default=None)
         elif f.name == "attn_fused":
             p.add_argument(arg, choices=ATTN_FUSED_MODES, default=None)
+        elif f.name == "mode":
+            p.add_argument(arg, choices=("train", "sample", "eval"),
+                           default=None)
+        elif f.name == "is_protocol":
+            p.add_argument(arg, choices=("i3d", "c3d"), default=None)
         else:
             typ = {int: int, float: float, str: str}.get(type(f.default), str)
             p.add_argument(arg, type=typ, default=None)

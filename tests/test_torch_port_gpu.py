@@ -1676,3 +1676,77 @@ def test_f32_steps_repeat_bitwise_under_deterministic_cudnn(cuda):
         print(f"\nf32, cudnn.deterministic={det}: {len(differ[det])} of "
               f"{len(a)} leaves differ between two runs")
     assert not differ[True], differ[True][:10]
+
+
+# ------------------------------------------------------------- evaluation
+def _moved_off_init(params: dict, seed: int) -> dict:
+    """Every BN moment and affine vector and every bias moved off its
+    init, so that eps and the order of the BN arithmetic show."""
+    g = torch.Generator().manual_seed(seed)
+    for k, v in params.items():
+        if k.endswith("/bn/mean"):
+            v.normal_(0, 0.2, generator=g)
+        elif k.endswith("/bn/var"):
+            v.uniform_(0.25, 1.75, generator=g)
+        elif k.endswith("/bn/scale"):
+            v.uniform_(0.5, 1.5, generator=g)
+        elif k.endswith(("/bn/offset", "/b")):
+            v.normal_(0, 0.05, generator=g)
+    return params
+
+
+@pytest.mark.parametrize("net,feature,shape,kw", [
+    ("i3d", "logits", (2, 16, 32, 32, 3), {}),
+    ("i3d", "avgpool", (1, 24, 16, 16, 3), {}),
+    ("inception", "pool", (2, 75, 75, 3), {}),
+    ("inception", "logits", (2, 75, 75, 3), {}),
+    ("c3d", "logits", (1, 16, 112, 112, 3),
+     dict(input_mean=(90.0, 98.0, 102.0), input_bgr=True)),
+])
+def test_eval_network_on_card_matches_cpu(cuda, net, feature, shape, kw):
+    """I3D, Inception-v3 and C3D at test size (no resize), the same params
+    and inputs on the card and on the CPU, f32 with TF32 off:
+    1e-4 × max|CPU|."""
+    from dvdgan_tpu_torch.eval import c3d, i3d, inception, layers
+    mod = {"i3d": i3d, "inception": inception, "c3d": c3d}[net]
+    params = _moved_off_init(mod.init(torch.Generator().manual_seed(1)), 2)
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(3)) * 2 - 1
+    card = {k: v.to(cuda) for k, v in params.items()}
+    with layers.exact_f32():
+        got = mod.apply(card, x.to(cuda), feature, None, **kw).cpu()
+        ref = mod.apply(params, x, feature, None, **kw)
+    err = float((got - ref).abs().max())
+    print(f"{net} {feature} {shape}: card vs cpu {err:.3e} of "
+          f"{float(ref.abs().max()):.3e}")
+    assert err <= 1e-4 * float(ref.abs().max())
+
+
+def test_evaluate_generator_on_card_repeats_bitwise(cuda, tmp_path):
+    """The harness at test scale in bf16 on the card (K1 samples the
+    fakes): finite metrics, the same fvd twice, and the fakes reach the
+    extractor as CUDA tensors."""
+    from dvdgan_tpu_torch.eval import (ClassifierProbs, I3DLikeFeatures,
+                                       evaluate_generator)
+    from dvdgan_tpu_torch.train.trainer import Trainer
+    from dvdgan_tpu_torch.utils.config import Config
+
+    tr = Trainer(Config(dataset="synthetic", n_classes=3, img_size=32,
+                        n_frames=4, ch=8, d_ch=8, k_frames=2, batch_size=2,
+                        d_steps=1, device="cuda", out_dir=str(tmp_path)))
+    fx = I3DLikeFeatures(widths=(8, 16), device=cuda)
+    seen = []
+
+    def recording(video):
+        seen.append(isinstance(video, torch.Tensor) and video.is_cuda)
+        return fx(video)
+
+    clf = ClassifierProbs(3, feature_extractor=fx)
+    before = k1.gru_sequence_fused.launches
+    try:
+        runs = [evaluate_generator(tr, recording, n_samples=24, batch_size=8,
+                                   classifier=clf) for _ in range(2)]
+    finally:
+        tr.close()
+    assert k1.gru_sequence_fused.launches > before
+    assert runs[0] == runs[1] and math.isfinite(runs[0]["fvd"])
+    assert seen.count(True) == 6 and 1.0 <= runs[0]["is_mean"] <= 3.0

@@ -132,11 +132,9 @@ def test_sample_cli_writes_clips_on_cpu(tmp_path):
                       str(tmp_path / "again"), "--weights",
                       str(tmp_path / "w.npz")])
     np.testing.assert_allclose(again, clips, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--mode", "eval", "--out_dir", str(tmp_path / "t")])
 
 
-@pytest.mark.parametrize("mode", ["sample", "train"])
+@pytest.mark.parametrize("mode", ["sample", "train", "eval"])
 def test_cli_default_device_refuses_without_a_card(mode, tmp_path,
                                                     monkeypatch):
     """The default device is the card: without one the CLI raises rather

@@ -324,9 +324,8 @@ def test_train_cli_on_cpu_writes_state(tmp_path):
 
 @pytest.mark.parametrize("flags,match", [
     (["--time_shards", "2"], "item 6"),          # time-axis CP
-    (["--eval_step", "100"], "item 5"),          # in-training eval
     (["--n_devices", "2"], "item 6"),            # data parallel
-], ids=["flags0-item 6", "flags1-item 5", "flags2-item 6"])
+], ids=["flags0-item 6", "flags2-item 6"])
 def test_train_cli_refuses_what_is_not_ported(flags, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["--mode", "train", "--device", "cpu", *TRAIN_FLAGS, *flags,
