@@ -87,7 +87,8 @@
    224², logits and avgpool), Inception-v3 (2 × 16 frames, 64 → 299²)
    and C3D (64 → 112² and the antialiased 128 → 112²) on 2 clips, card vs
    CPU from one generator with every BN moment, scale, offset and bias
-   moved off its init (TF32 off on both; limit 1e-3 × max|CPU|), and
+   moved off its init (TF32 off on both; limit 1e-4 × max|CPU|, which
+   the card's output with TF32 on must fail), and
    `Trainer.evaluate()` twice in this process (the same fvd bitwise);
    after the children, each network's CUDA-event ms for a batch of 16
    clips with TF32 off and on, and its peak memory;
@@ -2209,9 +2210,11 @@ EVAL_AFTER = {
     "eval_k2": ("longclip_fused", None, TRAINER_ARGV_K + [
         "--keep_checkpoints", "2", *EVAL_TRAIN], 4)}
 # the scoring networks card vs CPU: max |card − CPU| ≤ EXTRACTOR_TOL ×
-# max |CPU| per output (cuDNN and the CPU sum in other orders through up to
-# ~95 conv layers, TF32 off on both)
-EXTRACTOR_TOL = 1e-3
+# max |CPU| per output, TF32 off on both. cuDNN and the CPU sum in other
+# orders through up to ~95 conv layers: ≤ 2.7e-6 of the scale on the H100;
+# TF32 on moves the outputs 7.5e-4–9.1e-4 of it, and each case must fail
+# the limit with TF32 on, so that the check sees a broken `exact_f32`
+EXTRACTOR_TOL = 1e-4
 EXTRACTOR_CASES = (     # (network, feature, clips or frames, side, resize)
     ("i3d", "logits", (2, 16), 64, 224),
     ("i3d", "avgpool", (2, 16), 64, 224),
@@ -2226,24 +2229,31 @@ EXTRACTOR_BATCHES = (("i3d", "logits", (16, 16)),
                      ("c3d", "logits", (16, 16)))
 
 
+def move_off_init(params: dict, gen: torch.Generator) -> dict:
+    """Every BN mean, var, scale and offset and every bias of a scoring
+    network's params moved off its init (drawn from `gen`), so that eps
+    and the order of the BN arithmetic show. Also used by the GPU tests."""
+    for k, v in params.items():
+        if k.endswith("/bn/mean"):
+            v.normal_(0, 0.2, generator=gen)
+        elif k.endswith("/bn/var"):
+            v.uniform_(0.25, 1.75, generator=gen)
+        elif k.endswith("/bn/scale"):
+            v.uniform_(0.5, 1.5, generator=gen)
+        elif k.endswith(("/bn/offset", "/b")):
+            v.normal_(0, 0.05, generator=gen)
+    return params
+
+
 def eval_nets(seed: int = 0) -> dict[str, dict]:
     """I3D, Inception-v3 and C3D params (CPU) from one torch.Generator,
-    every BN mean, var, scale and offset and every bias moved off its
-    init (seeded), so that eps and the order of the BN arithmetic show."""
+    moved off their init (`move_off_init`)."""
     from dvdgan_tpu_torch.eval import c3d, i3d, inception
     gen = torch.Generator().manual_seed(seed)
     nets = {"i3d": i3d.init(gen), "inception": inception.init(gen),
             "c3d": c3d.init(gen)}
     for params in nets.values():
-        for k, v in params.items():
-            if k.endswith("/bn/mean"):
-                v.normal_(0, 0.2, generator=gen)
-            elif k.endswith("/bn/var"):
-                v.uniform_(0.25, 1.75, generator=gen)
-            elif k.endswith("/bn/scale"):
-                v.uniform_(0.5, 1.5, generator=gen)
-            elif k.endswith(("/bn/offset", "/b")):
-                v.normal_(0, 0.05, generator=gen)
+        move_off_init(params, gen)
     return nets
 
 
@@ -2255,7 +2265,9 @@ def eval_apply(name: str):
 def check_extractors(device, nets: dict) -> list[dict]:
     """Each scoring network at its protocol's input size and width on 2
     clips (Inception-v3: their 32 frames), on the card and on the CPU
-    from the same params and inputs, TF32 off on both (`exact_f32`)."""
+    from the same params and inputs, TF32 off on both (`exact_f32`); then
+    the card's output with TF32 on, which must fail the same limit (the
+    check would catch TF32 left on)."""
     from dvdgan_tpu_torch.eval import layers
     rows = []
     for i, (name, feature, lead, side, resize) in enumerate(EXTRACTOR_CASES):
@@ -2266,17 +2278,25 @@ def check_extractors(device, nets: dict) -> list[dict]:
         with layers.exact_f32():
             got = apply(card, x.to(device), feature, resize).cpu()
             ref = apply(nets[name], x, feature, resize)
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+            tf32 = apply(card, x.to(device), feature, resize).cpu()
         scale = float(ref.abs().max())
         err = float((got - ref).abs().max())
+        err_tf32 = float((tf32 - ref).abs().max())
         row = {"network": name, "feature": feature,
                "input": [*lead, side, side, 3], "resize": resize,
                "shape": list(got.shape), "max_abs_err": err,
                "max_abs_cpu": scale, "rel_err": err / scale,
-               "limit": EXTRACTOR_TOL}
+               "rel_err_tf32_on": err_tf32 / scale, "limit": EXTRACTOR_TOL}
         print("extractor card vs cpu " + json.dumps(row), flush=True)
         if not (torch.isfinite(got).all() and err <= EXTRACTOR_TOL * scale):
             raise AssertionError(f"{name} {feature}: card vs CPU {err} > "
                                  f"{EXTRACTOR_TOL} × {scale}")
+        if err_tf32 <= EXTRACTOR_TOL * scale:
+            raise AssertionError(f"{name} {feature}: TF32 on passes the "
+                                 f"limit ({err_tf32} ≤ {EXTRACTOR_TOL} × "
+                                 f"{scale}), which then cannot see it")
         rows.append(row)
     return rows
 
@@ -2382,11 +2402,13 @@ def finish_eval(run: dict) -> dict:
         raise AssertionError(f"random-init networks labelled comparable: "
                              f"{out}")
     n = min(cfg.n_samples, len(build_dataset(cfg)))
+    batches = -(-n // EVAL_BATCH)
     want = {k: 0 for k in launches}
-    want["k1"] = -(-n // EVAL_BATCH) * eval_k1_per_batch(cfg)
+    want["k1"] = batches * eval_k1_per_batch(cfg)
     if launches != want:
         raise AssertionError(f"eval launches {launches}, want {want}")
-    return {"result": out, "launches": launches, "time": timing,
+    return {"result": out, "launches": launches,
+            "k1_per_batch": launches["k1"] // batches, "time": timing,
             "cli_s": secs}
 
 
@@ -2800,9 +2822,8 @@ def main() -> int:
                "trainer": trainer_a["per_step"]["k1_launches"],
                "sample_fp": fp_sample["k1"],
                "fp": fp_k1["per_step"]["k1_launches"],
-               "eval_batch_16": eval_k1_per_batch(parse_config(EVAL_ARGV)),
-               "eval_fp_batch_16": eval_k1_per_batch(
-                   parse_config(EVAL_FP_ARGV))},
+               "eval_batch_16": evals["i3d"]["k1_per_batch"],
+               "eval_fp_batch_16": evals["fp"]["k1_per_batch"]},
               in_graph=graphs["K1"]),
         entry(f"convgru_seq (K1, bf16, sum of its {len(k1_levels)} "
               f"{long_shapes})",

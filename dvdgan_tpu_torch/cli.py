@@ -145,7 +145,7 @@ def run_eval(cfg: Config) -> dict:
                     else "inception-v3-random-init")
         n = min(cfg.n_samples, len(trainer.dataset))
         batch = min(cfg.batch_size, n)
-        sample_s = _time_samples(trainer)
+        timing = {"sample_s": 0.0}
         t1 = time.perf_counter()
         before = launch_counts()
         real_features = None
@@ -174,7 +174,8 @@ def run_eval(cfg: Config) -> dict:
         runs = [evaluate_generator(trainer, fx, n_samples=cfg.n_samples,
                                    classifier=clf, frame_extractor=fx2d,
                                    real_features=real_features,
-                                   sample_seed=1234 + 1000 * r)
+                                   sample_seed=1234 + 1000 * r,
+                                   timing=timing)
                 for r in range(repeats)]
         t2 = time.perf_counter()
         print("eval_launches " + json.dumps(
@@ -183,7 +184,7 @@ def run_eval(cfg: Config) -> dict:
                 if device.type == "cuda" else None)
         print("eval_time " + json.dumps(
             {"setup_s": t1 - t0, "eval_s": t2 - t1,
-             "sample_s": sample_s[0], "peak_mem_gib": peak}))
+             "sample_s": timing["sample_s"], "peak_mem_gib": peak}))
         out = dict(runs[0])
         if repeats > 1:
             for k in ("fvd", "fid", "is_mean"):
@@ -205,24 +206,6 @@ def run_eval(cfg: Config) -> dict:
         return out
     finally:
         trainer.close()
-
-
-def _time_samples(trainer: Trainer) -> list[float]:
-    """Wraps trainer.sample to add each call's seconds, to the end of its
-    work on the card, into the returned one-element list."""
-    total = [0.0]
-    inner = trainer.sample
-
-    def timed(*args, **kw):
-        t = time.perf_counter()
-        out = inner(*args, **kw)
-        if out.device.type == "cuda":
-            torch.cuda.synchronize(out.device)
-        total[0] += time.perf_counter() - t
-        return out
-
-    trainer.sample = timed
-    return total
 
 
 def main(argv=None):

@@ -142,14 +142,6 @@ class C3DFeatures:
                                    self.input_mean, self.input_bgr))
 
 
-def _conv3d_same(p: dict, x: torch.Tensor, stride) -> torch.Tensor:
-    """The reference's `layers.conv3d` with a stride: x (N, T, H, W, C),
-    a DHWIO kernel, XLA's SAME padding, + bias."""
-    y = layers.conv(x.permute(0, 4, 1, 2, 3), p["w"].permute(4, 3, 0, 1, 2),
-                    stride)
-    return y.permute(0, 2, 3, 4, 1) + p["b"]
-
-
 class I3DLikeFeatures:
     """A 4-layer strided 3-D conv pyramid + global mean: (B, T, H, W, 3)
     -> (B, widths[-1]). `params["blocks"]` holds the reference's layout
@@ -168,12 +160,15 @@ class I3DLikeFeatures:
         self.params = {"blocks": [_on(b, self.device) for b in blocks]}
 
     def __call__(self, video: Video) -> np.ndarray:
-        x = _video(video, self.device)
+        x = _video(video, self.device).permute(0, 4, 1, 2, 3)   # NCTHW
         with layers.exact_f32():
             for i, p in enumerate(self.params["blocks"]):
-                t_stride = 2 if (i % 2 == 1 and x.shape[1] >= 2) else 1
-                x = torch.relu(_conv3d_same(p, x, (t_stride, 2, 2)))
-            return _host(x.mean(dim=(1, 2, 3)))
+                # the reference's `layers.conv3d` with a stride, + bias
+                t_stride = 2 if (i % 2 == 1 and x.shape[2] >= 2) else 1
+                y = layers.conv(x, p["w"].permute(4, 3, 0, 1, 2),
+                                (t_stride, 2, 2))
+                x = torch.relu(y + p["b"].view(-1, 1, 1, 1))
+            return _host(x.mean(dim=(2, 3, 4)))
 
 
 def _softmax_np(logits: np.ndarray) -> np.ndarray:

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dvdgan_tpu_torch.ops.layers import same_padding
+from dvdgan_tpu_torch.ops.layers import pad_same
 
 BN_EPS = 1e-3           # the TF I3D / Inception BatchNorm epsilon
 
@@ -49,31 +49,16 @@ def resize_frames(video: torch.Tensor, size: int) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).reshape(b, t, size, size, c)
 
 
-def _same_pads(x: torch.Tensor, kernel, stride) -> list[tuple[int, int]]:
-    return [same_padding(n, k, s)
-            for n, k, s in zip(x.shape[2:], kernel, stride)]
-
-
-def _flat(pads: list[tuple[int, int]]) -> list[int]:
-    """(before, after) per dim -> F.pad's order, last dim first."""
-    return [p for pair in reversed(pads) for p in pair]
-
-
 def conv(x: torch.Tensor, w: torch.Tensor, stride=1,
          padding: str = "SAME") -> torch.Tensor:
     """A 2-D or 3-D conv of channels-first x with a PyTorch-layout kernel,
-    padded as XLA pads "SAME" (an odd total's extra element after; through
-    the conv's own padding where it is symmetric) or not at all
+    padded as XLA pads "SAME" (`ops.layers.pad_same`) or not at all
     ("VALID")."""
     nd = w.dim() - 2
     stride = (stride,) * nd if isinstance(stride, int) else tuple(stride)
     pad: int | tuple[int, ...] = 0
     if padding == "SAME":
-        pads = _same_pads(x, w.shape[2:], stride)
-        if all(a == b for a, b in pads):
-            pad = tuple(a for a, _ in pads)
-        else:
-            x = F.pad(x, _flat(pads))
+        x, pad = pad_same(x, w.shape[2:], stride, range(2, x.dim()))
     elif padding != "VALID":
         raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
     fn = F.conv3d if nd == 3 else F.conv2d
@@ -82,13 +67,11 @@ def conv(x: torch.Tensor, w: torch.Tensor, stride=1,
 
 def max_pool_same(x: torch.Tensor, window, stride) -> torch.Tensor:
     """3-D max pool of (N, C, T, H, W), padded with −inf by XLA's SAME
-    rule (`reduce_window(-inf, max, padding="SAME")`)."""
-    pads = _same_pads(x, window, stride)
-    if all(a == b and 2 * a <= k for (a, b), k in zip(pads, window)):
-        return F.max_pool3d(x, window, stride,
-                            padding=tuple(a for a, _ in pads))
-    return F.max_pool3d(F.pad(x, _flat(pads), value=float("-inf")), window,
-                        stride)
+    rule (`reduce_window(-inf, max, padding="SAME")`; a SAME total is at
+    most window − 1, so symmetric padding is within the pool's own)."""
+    x, pad = pad_same(x, window, stride, range(2, x.dim()),
+                      value=float("-inf"))
+    return F.max_pool3d(x, window, stride, padding=pad)
 
 
 def bn_relu_(y: torch.Tensor, params: dict, prefix: str) -> torch.Tensor:

@@ -12,6 +12,7 @@ extractors have their features.
 from __future__ import annotations
 
 import os
+import time
 from typing import Callable, Iterable, Optional
 
 import numpy as np
@@ -158,7 +159,8 @@ def evaluate_generator(trainer, extractor: Callable, n_samples: int = 256,
                        classifier: Optional[Callable] = None,
                        frame_extractor: Optional[Callable] = None,
                        real_features: Optional[tuple] = None,
-                       sample_seed: int = 1234) -> dict:
+                       sample_seed: int = 1234,
+                       timing: Optional[dict] = None) -> dict:
     """EMA-G samples vs the trainer's dataset -> {"fvd"[, "fid"][,
     "is_mean", "is_std"]}.
 
@@ -177,7 +179,10 @@ def evaluate_generator(trainer, extractor: Callable, n_samples: int = 256,
     `real_features`: `compute_real_features(...)` of this (dataset,
     extractor[, frame_extractor], n). With it the real side is not
     embedded again, and in synthesis mode not even read (prediction mode
-    still reads each real clip, once, for its prefix)."""
+    still reads each real clip, once, for its prefix).
+
+    `timing`: a dict whose "sample_s" gains the seconds EMA-G's sampling
+    took, each batch to the end of its work on the device."""
     ds = trainer.dataset
     cf = trainer.g_cfg.cond_frames
     n = min(n_samples, len(ds))
@@ -205,6 +210,17 @@ def evaluate_generator(trainer, extractor: Callable, n_samples: int = 256,
     fake_feats, fake_frame_feats, probs = [], [], []
     device, dtype = trainer.device, trainer.dtype
     gen = torch.Generator().manual_seed(trainer.cfg.seed + sample_seed)
+
+    def sample(*args, **kw) -> torch.Tensor:
+        t = time.perf_counter()
+        clip = trainer.sample(*args, **kw)
+        if timing is not None:
+            if clip.device.type == "cuda":
+                torch.cuda.synchronize(clip.device)
+            timing["sample_s"] = (timing.get("sample_s", 0.0)
+                                  + time.perf_counter() - t)
+        return clip
+
     done = 0
     while done < n:
         b = min(batch_size, n - done)
@@ -222,11 +238,10 @@ def evaluate_generator(trainer, extractor: Callable, n_samples: int = 256,
                     if frame_extractor is not None:
                         real_frame_feats.append(frame_extractor(reals))
                 prefix = torch.from_numpy(reals[:, :cf]).to(device)
-                clip = trainer.sample(z, labels.to(device),
-                                      cond=prefix.to(dtype))
+                clip = sample(z, labels.to(device), cond=prefix.to(dtype))
                 fake = torch.cat([prefix, clip.float()], dim=1)
             else:
-                fake = trainer.sample(z, y.to(device)).float()
+                fake = sample(z, y.to(device)).float()
         f = extractor(fake)
         fake_feats.append(f)
         if frame_extractor is not None:

@@ -67,21 +67,31 @@ def same_padding(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def pad_same(x: torch.Tensor, window, stride, dims, value: float = 0.0
+             ) -> tuple[torch.Tensor, tuple[int, ...]]:
+    """XLA's SAME padding of x's `dims` for `window` at `stride` (one
+    entry per dim), split as a conv or pool takes it: (x, pad), where pad
+    is the op's own symmetric padding if every dim pads symmetrically,
+    else x padded with `value` (an odd total's extra element after) and
+    pad all 0."""
+    pads = [same_padding(x.shape[d], k, s)
+            for d, k, s in zip(dims, window, stride)]
+    if all(a == b for a, b in pads):
+        return x, tuple(a for a, _ in pads)
+    by_dim = dict(zip(dims, pads))
+    flat = [q for d in range(x.dim() - 1, min(dims) - 1, -1)
+            for q in by_dim.get(d, (0, 0))]      # F.pad: last dim first
+    return F.pad(x, flat, value=value), (0,) * len(pads)
+
+
 def conv2d(p: Params, x: torch.Tensor, stride: int = 1,
            padding: str = "SAME") -> torch.Tensor:
     """x: (N, H, W, C) -> (N, H', W', C_out), contiguous. SAME pads as XLA
-    does (`same_padding`): symmetric padding goes to the conv, other
-    padding is applied first and the conv is VALID."""
+    does (`pad_same`): symmetric padding goes to the conv, other padding
+    is applied first and the conv is VALID."""
     w = p["w"].to(x.dtype)
-    kh, kw = w.shape[:2]
     if padding == "SAME":
-        top, bottom = same_padding(x.shape[1], kh, stride)
-        left, right = same_padding(x.shape[2], kw, stride)
-        if top == bottom and left == right:
-            pad = (top, left)
-        else:
-            x = F.pad(x, (0, 0, left, right, top, bottom))
-            pad = (0, 0)
+        x, pad = pad_same(x, w.shape[:2], (stride, stride), (1, 2))
     elif padding == "VALID":
         pad = (0, 0)
     else:

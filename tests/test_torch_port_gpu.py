@@ -1679,22 +1679,6 @@ def test_f32_steps_repeat_bitwise_under_deterministic_cudnn(cuda):
 
 
 # ------------------------------------------------------------- evaluation
-def _moved_off_init(params: dict, seed: int) -> dict:
-    """Every BN moment and affine vector and every bias moved off its
-    init, so that eps and the order of the BN arithmetic show."""
-    g = torch.Generator().manual_seed(seed)
-    for k, v in params.items():
-        if k.endswith("/bn/mean"):
-            v.normal_(0, 0.2, generator=g)
-        elif k.endswith("/bn/var"):
-            v.uniform_(0.25, 1.75, generator=g)
-        elif k.endswith("/bn/scale"):
-            v.uniform_(0.5, 1.5, generator=g)
-        elif k.endswith(("/bn/offset", "/b")):
-            v.normal_(0, 0.05, generator=g)
-    return params
-
-
 @pytest.mark.parametrize("net,feature,shape,kw", [
     ("i3d", "logits", (2, 16, 32, 32, 3), {}),
     ("i3d", "avgpool", (1, 24, 16, 16, 3), {}),
@@ -1707,9 +1691,11 @@ def test_eval_network_on_card_matches_cpu(cuda, net, feature, shape, kw):
     """I3D, Inception-v3 and C3D at test size (no resize), the same params
     and inputs on the card and on the CPU, f32 with TF32 off:
     1e-4 × max|CPU|."""
+    from chip_smoke import move_off_init
     from dvdgan_tpu_torch.eval import c3d, i3d, inception, layers
     mod = {"i3d": i3d, "inception": inception, "c3d": c3d}[net]
-    params = _moved_off_init(mod.init(torch.Generator().manual_seed(1)), 2)
+    params = move_off_init(mod.init(torch.Generator().manual_seed(1)),
+                           torch.Generator().manual_seed(2))
     x = torch.rand(shape, generator=torch.Generator().manual_seed(3)) * 2 - 1
     card = {k: v.to(cuda) for k, v in params.items()}
     with layers.exact_f32():
