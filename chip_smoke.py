@@ -92,6 +92,24 @@
    `Trainer.evaluate()` twice in this process (the same fvd bitwise);
    after the children, each network's CUDA-event ms for a batch of 16
    clips with TF32 off and on, and its peak memory;
+   then the parallel phase (`drive_parallel`): each run is two train CLI
+   processes started as the ranks of one `--multihost` run on cuda:0
+   (ranks that share one card talk over gloo through the host: what is
+   measured is that path, not a data-parallel speed-up), checked as the
+   runs above are from the leader's lines and checkpoint, with the
+   backend line (gloo), every rank's state digest equal and every rank's
+   kernel launches over the run (printed at its end) as predicted: DP2, the
+   flagship's global batch 8 over 2 data ranks, 4 steps, checkpoints at 2
+   and 4, and DP2-B resumed at 2 in a copy of its out_dir, with DP2's bits
+   in every leaf; CP2, the flagship over data 1 x time 2, 2 steps; the
+   long clip's CP2 (`--time_shards 2`, batch 4, grad_accum 2; started as
+   CP2 ends): ms a step, each rank's peak memory, K1, K2 and K3 launches
+   a rank-step against `launches_per_step`, collectives and bytes a step;
+   f32 DP2 and CP2 at d_steps 1, 1 step, global batch 4 (TF32 off,
+   deterministic cuDNN): rank 0 against one process fed the same draws
+   (`par_f32_reference`), losses atol 1e-3, Adam mu within 1e-4 x max|mu|;
+   meanwhile this process holds the flagship f32 step card vs CPU (phase
+   6);
 5. holds K2 against its plain version at the shapes the flagship step's G
    update gives it (the four levels, T=16, B=8), in f32 with TF32 off (atol
    1e-4 × max|ref| per output) and in bf16 (5e-2 × max|ref|), two runs
@@ -103,11 +121,17 @@
    fresh and resumed; the syncs of one bare step (sync debug mode);
    `AsyncSaver`'s snapshot ms, write s and bytes for the flagship and the
    kinetics_256_48f state, each restored on the card bitwise;
-6. holds one f32 train step at the flagship widths, batch 2, on the card
-   against the CPU from the same state and draws (losses atol 1e-3; Adam
-   mu, the gradient, within 1e-3 × max|mu| of each model); and at the FP
-   widths, batch 2, at d_steps 1 and with `--fake_gen per_step` at
-   d_steps 2;
+6. holds one f32 train step at the flagship widths, batch 2, d_steps 1,
+   on the card against the CPU from the same state and draws (losses atol
+   1e-3; Adam mu, the gradient, within 1e-3 × max|mu| of each model; run
+   in the parallel phase): from a state off its init (`off_init`) for
+   three draw sets (its own, `TorchDraws(1, 0)`'s and `TorchDraws(2,
+   0)`'s), and from the init for five (its own, `TorchDraws(1 … 4, 0)`'s),
+   where g_loss, which the G phase reads after Adam's sign-like first D
+   update, is held by a float64 step on the CPU instead: the card's f32 no
+   farther from it than twice the CPU's f32 plus 1e-3 (`F64_G_LOSS`); and
+   at the FP widths, batch 2, at d_steps 1 and with `--fake_gen per_step`
+   at d_steps 2;
 7. holds K3 against its plain version at the three large level shapes of
    the long-clip preset kinetics_256_48f (32²×256, 64²×128, 128²×64; T=48,
    B=2: one G micro-batch), f32 atol 1e-4 and bf16 3e-2 (bf16 on the
@@ -161,14 +185,14 @@
     CPU; flagship steps/s with both fused routes; and one f32 flagship step
     with them (d_steps 1, γ off zero) card vs CPU and against the unfused
     attention on the card;
-13. times the routes in turns in this one call: the long-clip step off,
-    on, on, off and the 128 px step off, on, on, off (median of
-    2 steps after 1 warm-up, with peak memory; the profiler's view with a
-    route's first reading), and sampling off, on, on, off; and
-    `Trainer.train()` at steps_per_call 1 and K in turns 1, K, K, 1
-    (`time_steps_per_call`): the flagship at K 4 (12 steps a reading,
-    log_step 4), FP, the long clip and the 128 px step at K 2 (4 steps),
-    with
+13. times the routes in turns in this one call: the long-clip step off
+    and on (one reading each, the first profiled) and the 128 px step off,
+    on, on, off (median of 2 steps after 1 warm-up, with peak memory; the
+    profiler's view with a route's first reading), and sampling off, on,
+    on, off; and `Trainer.train()` at steps_per_call 1 and K in turns 1,
+    K, K, 1 (`time_steps_per_call`): the flagship at K 4 (12 steps a
+    reading, log_step 4), FP and the 128 px step at K 2 (4 steps), the
+    long clip at K 2 (2 steps), with
     ms a step, device time and idle share, the syncs of a train() of K
     steps, the capture's one-time cost and the peak memory;
 14. prints one JSON line of the kernels, each with its launches on the
@@ -190,7 +214,9 @@ steps per reading instead of 3, a route's repeat reading skips the
 profiler, and (to make room for the evaluation's phase) the long-clip
 step's `--ups_fused full` pair is no longer timed in turns (its kernels are
 timed at the long-clip levels in phase 9, and the long-clip child runs
-it).
+it); and (to make room for the parallel phase) the long-clip routes are
+read once each, not in turns, and the long-clip K 1 vs K 2 turns take 2
+steps a reading instead of 4.
 
 Any failing phase raises, so the script exits non-zero without the result
 line; so does a machine without a CUDA device. Imports nothing of JAX or
@@ -200,6 +226,7 @@ clips, `dvdgan_tpu_torch.data`).
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 import json
@@ -1278,7 +1305,7 @@ def start_train(argv, n_steps: int, tmp=None, first: int = 0) -> dict:
         [sys.executable, "-m", "dvdgan_tpu_torch", *argv, "--out_dir",
          tmp.name], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
-    return {"proc": proc, "tmp": tmp, "cfg": parse_config(argv),
+    return {"procs": [proc], "tmp": tmp, "cfg": parse_config(argv),
             "n_steps": n_steps, "first": first, "t0": time.perf_counter()}
 
 
@@ -1286,14 +1313,7 @@ def finish_train(run: dict, keep: bool = False) -> dict:
     """Waits for a `start_train` run; returns its K1 … K6b launches, its
     wall seconds, its peak device memory and its stdout; with `keep` also
     its final state (flat) and out_dir, which then outlives the call."""
-    from dvdgan_tpu_torch import interop
-    from dvdgan_tpu_torch.train import checkpoint as ckpt
-    from dvdgan_tpu_torch.train import state as train_state
-    from dvdgan_tpu_torch.utils.logging import parse_step_line
-
-    proc, cfg, n_steps = run["proc"], run["cfg"], run["n_steps"]
-    g_cfg = cfg.g_config()
-    tmp = run["tmp"].name
+    proc = run["procs"][0]
     try:
         try:
             stdout, stderr = proc.communicate(timeout=900)
@@ -1305,6 +1325,28 @@ def finish_train(run: dict, keep: bool = False) -> dict:
         if proc.returncode != 0:
             raise AssertionError(f"train CLI exited {proc.returncode}:\n"
                                  f"{stderr[-4000:]}")
+    except BaseException:
+        if not keep:
+            run["tmp"].cleanup()
+        raise
+    return checked_run(run, stdout, secs, keep)
+
+
+def checked_run(run: dict, stdout: str, secs: float, keep: bool) -> dict:
+    """A train CLI run that ended with its stdout (the leader's, for a run
+    of ranks) checked: its newest checkpoint, step lines, launches per
+    step, finite losses and state, the trees that moved. -> its launches,
+    seconds, peak memory and stdout (with `keep`: its state and out_dir,
+    which then outlives the call)."""
+    from dvdgan_tpu_torch import interop
+    from dvdgan_tpu_torch.train import checkpoint as ckpt
+    from dvdgan_tpu_torch.train import state as train_state
+    from dvdgan_tpu_torch.utils.logging import parse_step_line
+
+    cfg, n_steps = run["cfg"], run["n_steps"]
+    g_cfg = cfg.g_config()
+    tmp = run["tmp"].name
+    try:
         ckpt_dir = os.path.join(tmp, "checkpoints")
         if ckpt.latest_step(ckpt_dir) != n_steps:
             raise AssertionError(f"newest checkpoint "
@@ -1345,7 +1387,8 @@ def finish_train(run: dict, keep: bool = False) -> dict:
         moved[prefix] = _tree_moved({k: before[k] for k in keys},
                                     {k: after[k] for k in keys})
     print("train moved leaves " + json.dumps(moved), flush=True)
-    for prefix, (n_moved, n) in moved.items():
+    # one step from the orthogonal init leaves every SN u where it was
+    for prefix, (n_moved, n) in moved.items() if n_steps > 1 else ():
         # every param tree moves almost whole; an SN u moves once its
         # (orthogonally initialised) kernel has left the orthogonal group
         least = 0.9 * n if "/params/" in prefix else 1
@@ -1383,8 +1426,9 @@ def out_dir_at(src: str, step: int) -> tempfile.TemporaryDirectory:
     return tmp
 
 
-def drive_trains(runs: dict[str, tuple], resumes=None,
-                 keep=()) -> dict[str, dict]:
+def drive_trains(runs: dict[str, tuple], resumes=None, keep=(),
+                 start=start_train, finish=finish_train,
+                 meanwhile=None) -> dict[str, dict]:
     """The train CLI once per entry of `runs` ({name: (flags, steps)}), the
     child processes side by side on the one card (each takes most of its
     time to start: the interpreter, CUDA, the seeded init), each checked
@@ -1393,19 +1437,24 @@ def drive_trains(runs: dict[str, tuple], resumes=None,
     copy of that one's out_dir as it stood at `step` (`out_dir_at`); with
     step None, a fresh run that only waits for the earlier one, so that
     fewer runs share the card's memory at once. Runs named in `keep` keep
-    their out_dir and final state (the caller cleans up). The parent
-    launches nothing meanwhile."""
+    their out_dir and final state (the caller cleans up). `start` and
+    `finish` start and check one run (`start_train`, `finish_train`; the
+    ranks of one run: `start_ranks`, `finish_ranks`); `meanwhile()` runs
+    on a thread of this process while the runs go on (its error is raised
+    once they have ended), else the parent launches nothing meanwhile."""
     resumes = resumes or {}
     specs = {**runs, **{k: v[2:] for k, v in resumes.items()}}
     sources = {src for src, at, _, _ in resumes.values() if at is not None}
-    started = {name: start_train(*run) for name, run in runs.items()}
+    started = {name: start(*run) for name, run in runs.items()}
     order, done = list(started), {}
+    side = concurrent.futures.ThreadPoolExecutor(1)
     try:
+        aside = side.submit(meanwhile or (lambda: None))
         while order:
             name = order.pop(0)
             print(f"--- train CLI run {name!r}: "
                   f"{' '.join(specs[name][0][2:])}", flush=True)
-            done[name] = finish_train(started[name], keep=(
+            done[name] = finish(started[name], keep=(
                 name in keep or name in sources))
             print(f"train CLI run {name!r}: ended {done[name]['cli_s']:.1f} s "
                   f"after it began, peak device memory "
@@ -1413,15 +1462,18 @@ def drive_trains(runs: dict[str, tuple], resumes=None,
             for later, (src, at, argv, steps) in resumes.items():
                 if src == name:
                     started[later] = (
-                        start_train(argv, steps) if at is None else
-                        start_train(argv, steps,
-                                    out_dir_at(done[src]["out_dir"], at), at))
+                        start(argv, steps) if at is None else
+                        start(argv, steps,
+                              out_dir_at(done[src]["out_dir"], at), at))
                     order.append(later)
+        aside.result()
     finally:
         for run in started.values():        # stop whatever still runs
-            if run["proc"].poll() is None:
-                run["proc"].kill()
-                run["proc"].communicate()
+            for proc in run["procs"]:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        side.shutdown()
         kept = {id(done[k]["tmp"]) for k in keep if k in done}
         for run in done.values():
             if "tmp" in run and id(run["tmp"]) not in kept:
@@ -1555,24 +1607,79 @@ LONG_F32_ARGV = ["--preset", "kinetics_256_48f", "--ch", "8", "--d_ch", "8",
                  "--grad_accum", "2"]
 
 
+def off_init(state: dict, seed: int) -> dict:
+    """`state` moved off its init, as the CPU step tests' `reference_state`
+    moves theirs: every parameter plus 0.05 N(0, 1), Adam's count 3 with mu
+    1e-3 N(0, 1) and nu |1e-4 N(0, 1)|. At the init Adam's state is zero
+    and its first update is sign-like: a D gradient entry within rounding
+    of zero moves its weight by +lr on one device and -lr on the other, and
+    the G phase after it scores against two different Ds. Off the init an
+    update is a smooth function of the gradient."""
+    from dvdgan_tpu_torch.core import tree
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def noise(v, scale):
+        return scale * torch.randn(v.shape, generator=gen)
+
+    out = dict(state)
+    for m in ("g", "ds", "dt"):
+        part = dict(state[m])
+        part["params"] = tree.tree_map(lambda v: v + noise(v, 0.05),
+                                       state[m]["params"])
+        part["opt"] = {
+            "count": torch.tensor(3, dtype=torch.int32),
+            "mu": tree.tree_map(lambda v: noise(v, 1e-3), state[m]["opt"]["mu"]),
+            "nu": tree.tree_map(lambda v: noise(v, 1e-4).abs(),
+                                state[m]["opt"]["nu"])}
+        out[m] = part
+    out["g_ema"] = tree.tree_map(torch.clone, out["g"]["params"])
+    return out
+
+
+# from the init, the card's f32 g_loss against the float64 step: within
+# F64_G_LOSS[0] x the CPU f32's distance from it + F64_G_LOSS[1] (the
+# largest over the draw sets of each); PERF.md §6, before the first run
+F64_G_LOSS = (2.0, 1e-3)
+
+
 def check_train_f32(device, name: str = "train f32",
-                    argv=("--preset", "ucf101_64", "--batch_size", "2")
-                    ) -> dict:
+                    argv=("--preset", "ucf101_64", "--batch_size", "2",
+                          "--d_steps", "1"), draw_seeds=(None,),
+                    start_off_init: bool = False,
+                    f64_witness: bool = False) -> dict:
     """One f32 step of the configuration `argv` names (the flagship widths
-    at batch 2 by default), card against CPU: losses atol 1e-3, Adam mu
-    within 1e-3 x max|mu|.
+    at batch 2, d_steps 1, by default), card against CPU: losses atol 1e-3,
+    Adam mu within 1e-3 x max|mu|, for each draw set of `draw_seeds` (None:
+    z and indices from this check's own generator; an int s: the draws
+    `TorchDraws(s, 0, ...)` gives on the CPU, replayed on both devices).
+
+    d_steps 1: a second D step starts from Adam's first update, which is
+    sign-like (every weight moves by ±lr), so a gradient entry near zero
+    that differs by one f32 ulp between card and CPU moves its weight
+    apart by 2·lr, and the second step's gradient with it (ROADMAP Queue
+    3: the flagship check at d_steps 2 once read g_loss 5.3e-3 and DS mu
+    1.5e-3 x max|mu| apart with `TorchDraws(1, 0, …)`'s draws).
+    `start_off_init` starts from `off_init`'s state: from the init
+    (`start_off_init=False`) d_steps 1 still read g_loss 1.2e-4–2.6e-3
+    apart (|g_loss| 247–410: the G phase scores against the D that Adam's
+    sign-like first update left) and G's mu 1.2–1.8e-4 x max|mu| over the
+    three draw sets (an H100 80GB HBM3 at 700 W).
+
+    `f64_witness` also runs each step on the CPU in float64 (the state,
+    clip and z; the same draws) and holds g_loss by it instead of card
+    against CPU: over the draw sets, the card's largest distance from the
+    float64 g_loss within twice the CPU f32's plus 1e-3 (`F64_G_LOSS`).
+    The D losses and every Adam mu stay held card against CPU.
 
     With `--attn_fused on` both attention γ are set off their zero init (at
     γ = 0 the spatial pass returns x on either route), and the step also
     runs on the card with the route off: `on` is held to `off` on the same
     card as well (losses 1e-3, mu 1e-4 x max|mu|: the kernel's own
-    difference), and `off` against the CPU is printed as the witness. Run
-    such a step with `--d_steps 1`: a second D step starts from Adam's
-    first update, which is sign-like (every weight moves by ±lr), so a
-    gradient entry near zero that differs by one f32 ulp between two routes
-    moves its weight apart by 2·lr. Measured on an H100 at these widths,
-    `on` against `off` on the card: mu 6.3e-4 x max|mu| and g_loss 1e-2
-    apart with d_steps 2, 1.2e-5 and 1.5e-5 with d_steps 1."""
+    difference), and `off` against the CPU is printed as the witness.
+    Measured on an H100 at these widths, `on` against `off` on the card:
+    mu 6.3e-4 x max|mu| and g_loss 1e-2 apart with d_steps 2, 1.2e-5 and
+    1.5e-5 with d_steps 1."""
     from dvdgan_tpu_torch.core import tree
     from dvdgan_tpu_torch.kernels import convgru_blocked as k3
     from dvdgan_tpu_torch.train import state as train_state
@@ -1586,20 +1693,38 @@ def check_train_f32(device, name: str = "train f32",
                                   g_cfg.img_size, 3, generator=gen))
     y = torch.randint(0, g_cfg.n_classes, (b,), generator=gen)
     n_streams = 3 * tc.d_steps + 2     # z at multiples of 3, indices between
-    zs = {i: torch.randn(b, g_cfg.z_dim, generator=gen)
-          for i in range(0, n_streams, 3)}
-    ids = {i: torch.rand(b, g_cfg.n_frames, generator=gen).argsort(dim=1)[
-        :, :ds_cfg.k_frames] for i in range(n_streams) if i % 3}
+    own = (
+        {i: torch.randn(b, g_cfg.z_dim, generator=gen)
+         for i in range(0, n_streams, 3)},
+        {i: torch.rand(b, g_cfg.n_frames, generator=gen).argsort(dim=1)[
+            :, :ds_cfg.k_frames] for i in range(n_streams) if i % 3})
+
+    def draw_set(s):
+        if s is None:
+            return own
+        held = step.HeldDraws(tc.d_steps, b, g_cfg.z_dim, ds_cfg.k_frames,
+                              torch.float32, "cpu")
+        held.fill(step.TorchDraws(s, 0, b, g_cfg.z_dim, g_cfg.n_frames,
+                                  ds_cfg.k_frames, torch.float32, "cpu"))
+        return held.zs, held.ids
+
     state = train_state.create(seed, g_cfg, ds_cfg, dt_cfg)
+    if start_off_init:
+        state = off_init(state, seed + 2)
     fused_attn = g_cfg.attn_fused == "on"
     if fused_attn:
         for part, gamma in (("spatial", 0.6), ("temporal", -0.5)):
             state["g"]["params"]["attn"][part]["gamma"] = torch.tensor(gamma)
 
-    def run(dev, cfg):
+    def run(dev, cfg, draws, dtype=torch.float32):
+        def cast(v):
+            return v.to(dtype) if v.is_floating_point() else v
+
         return step.train_step(
-            train_state.to_device(state, dev), real.to(dev), y.to(dev),
-            Replay(zs, ids, dev), cfg, ds_cfg, dt_cfg, tc)
+            train_state.to_device(tree.tree_map(cast, state), dev),
+            real.to(dev, dtype), y.to(dev),
+            Replay({i: cast(v) for i, v in draws[0].items()}, draws[1], dev),
+            cfg, ds_cfg, dt_cfg, tc)
 
     def gaps(out, ref):
         """(loss |differences|, per model max |mu difference| / max|mu|)."""
@@ -1613,34 +1738,68 @@ def check_train_f32(device, name: str = "train f32",
                         for k, v in ref_mu.items()) / scale
         return loss, mu
 
-    t0 = time.perf_counter()
-    ref = run("cpu", g_cfg)
-    cpu_s = time.perf_counter() - t0
-    k3_before = k3.gru_sequence_blocked.launches
-    out = run(device, g_cfg)
-    k3_launches = k3.gru_sequence_blocked.launches - k3_before
-    loss_err, mu_err = gaps(out, ref)
     res = {"ups_fused": g_cfg.ups_fused, "attn_fused": g_cfg.attn_fused,
            "cond_frames": g_cfg.cond_frames, "d_steps": tc.d_steps,
-           "fake_gen": tc.fake_gen,
-           "losses": {k: float(v) for k, v in ref[1].items()},
-           "loss_abs_err": loss_err, "mu_err_over_max_mu": mu_err,
-           "cpu_step_s": cpu_s, "k3_launches": k3_launches}
-    if fused_attn:
-        off = run(device, dataclasses.replace(g_cfg, attn_fused="off"))
-        res["off_card_vs_cpu"] = gaps(off, ref)
-        res["on_vs_off_on_card"] = gaps(out, off)
+           "fake_gen": tc.fake_gen, "by_draws": []}
+    for s in draw_seeds:
+        draws = draw_set(s)
+        t0 = time.perf_counter()
+        ref = run("cpu", g_cfg, draws)
+        cpu_s = time.perf_counter() - t0
+        k3_before = k3.gru_sequence_blocked.launches
+        out = run(device, g_cfg, draws)
+        k3_launches = k3.gru_sequence_blocked.launches - k3_before
+        loss_err, mu_err = gaps(out, ref)
+        row = {"draws": "own" if s is None else f"TorchDraws({s}, 0)",
+               "losses": {k: float(v) for k, v in ref[1].items()},
+               "loss_abs_err": loss_err, "mu_err_over_max_mu": mu_err,
+               "cpu_step_s": cpu_s, "k3_launches": k3_launches}
+        if f64_witness:
+            t0 = time.perf_counter()
+            f64 = run("cpu", g_cfg, draws, torch.float64)[1]["g_loss"]
+            row["f64_step_s"] = time.perf_counter() - t0
+            row["g_loss_f64"] = float(f64)
+            row["g_loss_card_vs_f64"] = abs(float(out[1]["g_loss"]) - float(f64))
+            row["g_loss_cpu_vs_f64"] = abs(float(ref[1]["g_loss"]) - float(f64))
+        if fused_attn:
+            off = run(device, dataclasses.replace(g_cfg, attn_fused="off"),
+                      draws)
+            row["off_card_vs_cpu"] = gaps(off, ref)
+            row["on_vs_off_on_card"] = gaps(out, off)
+        res["by_draws"].append(row)
+    res["max_loss_abs_err"] = max(max(r["loss_abs_err"].values())
+                                  for r in res["by_draws"])
+    res["max_mu_err_over_max_mu"] = max(max(r["mu_err_over_max_mu"].values())
+                                        for r in res["by_draws"])
+    res["k3_launches"] = min(r["k3_launches"] for r in res["by_draws"])
+    if f64_witness:
+        res["g_loss_vs_f64"] = {
+            who: max(r[f"g_loss_{who}_vs_f64"] for r in res["by_draws"])
+            for who in ("card", "cpu")}
+        res["g_loss_vs_f64"]["limit"] = (
+            F64_G_LOSS[0] * res["g_loss_vs_f64"]["cpu"] + F64_G_LOSS[1])
     print(name + " card vs cpu " + json.dumps(res), flush=True)
-    if fused_attn and not (
-            max(res["on_vs_off_on_card"][0].values()) <= 1e-3
-            and max(res["on_vs_off_on_card"][1].values()) <= 1e-4):
-        raise AssertionError(f"f32 train step, fused attention vs unfused on "
-                             f"the card: {res['on_vs_off_on_card']}")
-    if not max(loss_err.values()) <= 1e-3:
-        raise AssertionError(f"f32 train losses, card vs CPU: {loss_err}")
-    if not max(mu_err.values()) <= 1e-3:
-        raise AssertionError(f"f32 gradients (Adam mu), card vs CPU: "
-                             f"{mu_err}")
+    if f64_witness and not (res["g_loss_vs_f64"]["card"]
+                            <= res["g_loss_vs_f64"]["limit"]):
+        raise AssertionError(f"f32 g_loss on the card farther from the "
+                             f"float64 step than the CPU's allows: "
+                             f"{res['g_loss_vs_f64']}")
+    for row in res["by_draws"]:
+        if fused_attn and not (
+                max(row["on_vs_off_on_card"][0].values()) <= 1e-3
+                and max(row["on_vs_off_on_card"][1].values()) <= 1e-4):
+            raise AssertionError(f"f32 train step, fused attention vs "
+                                 f"unfused on the card: "
+                                 f"{row['on_vs_off_on_card']}")
+        held = {k: v for k, v in row["loss_abs_err"].items()
+                if not (f64_witness and k == "g_loss")}
+        if not max(held.values()) <= 1e-3:
+            raise AssertionError(f"f32 train losses, card vs CPU "
+                                 f"({row['draws']}): {row['loss_abs_err']}")
+        if not max(row["mu_err_over_max_mu"].values()) <= 1e-3:
+            raise AssertionError(f"f32 gradients (Adam mu), card vs CPU "
+                                 f"({row['draws']}): "
+                                 f"{row['mu_err_over_max_mu']}")
     return res
 
 
@@ -2516,6 +2675,322 @@ def check_eval_runs(done: dict) -> dict:
     return res
 
 
+# ----------------------------------------------------------- the parallel phase
+# Each run is two train CLI processes started as the ranks of one
+# `--multihost` run on cuda:0 (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+# MASTER_PORT set as a launcher sets them): two ranks that share one card
+# talk over gloo through the host. What they measure is that path, not a
+# data-parallel speed-up.
+PAR_WORLD = 2
+PAR_RUNS = {
+    # DP2: the flagship's global batch 8 over 2 data ranks, 4 steps,
+    # checkpoints at 2 and 4 (DP2-B resumes from the first)
+    "dp2": (FLAGSHIP_ARGV + ["--model_save_step", "2"], 4),
+    # CP2: data 1 x time 2, DT time-sharded, G and DS replicated
+    "cp2": (FLAGSHIP_ARGV + ["--time_shards", "2"], 2),
+    # the f32 steps held to one process (TF32 off, deterministic cuDNN)
+    "dp2_f32": (["--mode", "train", "--preset", "ucf101_64", "--dataset",
+                 "synthetic", "--batch_size", "4", "--bf16", "0",
+                 "--d_steps", "1"], 1),
+}
+PAR_RUNS["cp2_f32"] = (PAR_RUNS["dp2_f32"][0] + ["--time_shards", "2"], 1)
+PAR_AFTER = {   # started as an earlier run ends ({name: (after, step, ...)})
+    "dp2_b": ("dp2", 2, PAR_RUNS["dp2"][0], 4),
+    # the long clip, where context parallelism is meant
+    "cp2_long": ("cp2", None, LONG_ARGV + ["--time_shards", "2"], 2),
+}
+PAR_F32 = ("dp2_f32", "cp2_f32")
+# one process at exact f32 (the step's rank 0 prelude for the f32 runs)
+F32_MAIN = ("import sys, torch; "
+            "torch.backends.cuda.matmul.allow_tf32 = False; "
+            "torch.backends.cudnn.allow_tf32 = False; "
+            "torch.backends.cudnn.deterministic = True; "
+            "from dvdgan_tpu_torch.cli import main; main(sys.argv[1:])")
+# the f32 limits, rank 0 against one process fed the same draws (PERF.md
+# §6): losses atol 1e-3; Adam mu (the gradient) within 1e-4 x max|mu| of
+# each model. G's under DP, off the init, read 1.5e-5 on the card and
+# 4.4e-5 on the CPU at test scale; a planted fault in its cross-replica BN
+# (each rank's own moments, or their all-reduce without its backward)
+# reads 0.83 and 0.62 there (`tools/torch_parallel_conditioning.py`)
+PAR_F32_LOSS_TOL = 1e-3
+PAR_F32_MU_TOL = 1e-4
+
+
+def start_ranks(argv, n_steps: int, tmp=None, first: int = 0) -> dict:
+    """Starts PAR_WORLD train CLI processes as the ranks of one --multihost
+    run on cuda:0 (`--device cuda:0`: a bare `cuda` gives each local rank
+    its own card), stdout and stderr to files (a full pipe would stall a
+    rank inside a collective); `finish_ranks` waits for them. `tmp`: the
+    out_dir of an earlier run to resume, at step `first`. An f32 run
+    (`--bf16 0`) runs with TF32 off and deterministic cuDNN (F32_MAIN)."""
+    from dvdgan_tpu_torch.parallel.mesh import free_port
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    argv = ["--log_step", "1", "--sample_step", "0", "--model_save_step",
+            str(n_steps), *argv, "--total_step", str(n_steps),
+            "--multihost", "1", "--device", "cuda:0"]
+    cfg = parse_config(argv)
+    tmp = tmp or tempfile.TemporaryDirectory()
+    logs = tempfile.TemporaryDirectory()
+    env = {**os.environ, "WORLD_SIZE": str(PAR_WORLD),
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    head = ([sys.executable, "-m", "dvdgan_tpu_torch"] if cfg.bf16
+            else [sys.executable, "-c", F32_MAIN])
+    procs, files = [], []
+    for r in range(PAR_WORLD):
+        out = open(os.path.join(logs.name, f"rank{r}.out"), "w")
+        err = open(os.path.join(logs.name, f"rank{r}.err"), "w")
+        files += [out, err]
+        procs.append(subprocess.Popen(
+            [*head, *argv, "--out_dir", tmp.name], cwd=REPO,
+            env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+            stdout=out, stderr=err, text=True))
+    return {"procs": procs, "files": files, "logs": logs, "tmp": tmp,
+            "cfg": cfg, "n_steps": n_steps, "first": first,
+            "t0": time.perf_counter()}
+
+
+def finish_ranks(run: dict, keep: bool = False) -> dict:
+    """Waits for a `start_ranks` run; any rank that failed fails it (the
+    others are stopped). Checked: the backend line, every rank's state
+    digest equal, every rank's kernel launches over the run (its last
+    lines) those of `launches_per_step`, and the leader's run as
+    `checked_run` checks a train run. -> `checked_run`'s result with each
+    rank's launches and peak memory, the backend line, the digests, the
+    collectives a step and ms a step."""
+    procs = run["procs"]
+    deadline = time.perf_counter() + 900
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        secs = time.perf_counter() - run["t0"]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in run["files"]:
+            f.close()
+    outs, errs = [], []
+    for r in range(PAR_WORLD):
+        with open(os.path.join(run["logs"].name, f"rank{r}.out")) as f:
+            outs.append(f.read())
+        with open(os.path.join(run["logs"].name, f"rank{r}.err")) as f:
+            errs.append(f.read())
+    run["logs"].cleanup()
+    for r, out in enumerate(outs):
+        print(f"--- rank {r}:\n{out}", end="", flush=True)
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        if not keep:
+            run["tmp"].cleanup()
+        raise AssertionError(
+            f"ranks {bad} of the run exited "
+            f"{[procs[r].returncode for r in bad]}:\n" + "\n".join(
+                f"rank {r} stderr:\n{errs[r][-3000:]}" for r in bad))
+    backend = [ln for ln in outs[0].splitlines()
+               if ln.startswith("parallel: backend ")]
+    digests = [re.findall(r"^rank \d+: state digest (\w+) over (\d+) leaves",
+                          out, re.M) for out in outs]
+    launched = [re.findall(r"^rank \d+: launches (\{.*\}) over (\d+) steps$",
+                           out, re.M) for out in outs]
+    res = checked_run(run, outs[0], secs, keep)
+    n_run = run["n_steps"] - run["first"]
+    by_rank = []
+    for r, found in enumerate(launched):
+        if not found or int(found[-1][1]) != n_run:
+            raise AssertionError(f"rank {r}: launches over {n_run} steps "
+                                 f"not printed: {found}")
+        counts = json.loads(found[-1][0])
+        want = {k[:-len("_launches")]: n_run * n
+                for k, n in res["per_step"].items()}
+        if counts != want:
+            raise AssertionError(f"rank {r}: launches over the run {counts}, "
+                                 f"want {want}")
+        by_rank.append(counts)
+    per_rank_step = [{k: n // max(n_run, 1) for k, n in c.items()}
+                     for c in by_rank]
+    rates = [parse_step(ln)["steps/s"] for ln in outs[0].splitlines()
+             if ln.startswith("step ")]
+    comm = [{k: int(v) for k, v in parse_step(ln).items()
+             if k.startswith("comm_")}
+            for ln in outs[0].splitlines() if ln.startswith("step ")]
+    peaks = [[float(ln.split()[3]) for ln in out.splitlines()
+              if ln.startswith("peak device memory ")] for out in outs]
+    res.update(backend=backend[0] if backend else None,
+               launches_by_rank=by_rank,
+               launches_per_rank_step=per_rank_step,
+               digests=[d[-1] if d else None for d in digests],
+               peak_mem_gib_by_rank=[p[0] if p else None for p in peaks],
+               comm_per_step=comm[-1] if comm else None,
+               # the last interval's rate (the first holds start-up)
+               ms_per_step=1e3 / rates[-1] if rates and rates[-1] else None)
+    if not res["backend"] or "gloo" not in res["backend"]:
+        raise AssertionError(f"backend line {res['backend']!r}: two ranks "
+                             f"on one card run over gloo")
+    if None in res["digests"] or len(set(res["digests"])) != 1:
+        raise AssertionError(f"the ranks' state digests differ: "
+                             f"{res['digests']}")
+    print(f"ranks: peak device memory {res['peak_mem_gib_by_rank']} GiB, "
+          f"{res['backend']}", flush=True)
+    return res
+
+
+def parse_step(line: str) -> dict[str, float]:
+    from dvdgan_tpu_torch.utils.logging import parse_step_line
+    return parse_step_line(line)[1]
+
+
+def par_f32_reference(device, argv) -> tuple[dict, dict]:
+    """One f32 step in this process of the run `argv` names, from its
+    `--weights` state, at its whole global batch (the loader's first batch,
+    as the ranks read it), fed the data ranks' draws (`ShardedDraws`;
+    `TorchDraws` with one data rank): TF32 off, deterministic cuDNN.
+    -> (flat state, losses)."""
+    from dvdgan_tpu_torch import interop
+    from dvdgan_tpu_torch.data import Loader
+    from dvdgan_tpu_torch.parallel import mesh as pmesh
+    from dvdgan_tpu_torch.train import state as train_state
+    from dvdgan_tpu_torch.train import step
+    from dvdgan_tpu_torch.train.trainer import build_dataset
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    cfg = parse_config(argv)
+    g_cfg, ds_cfg, dt_cfg = cfg.g_config(), cfg.ds_config(), cfg.dt_config()
+    n_data, _ = pmesh.plan(2, cfg.time_shards, cfg.batch_size,
+                           torch.device("cpu"))
+    loader = Loader(build_dataset(cfg), cfg.batch_size, seed=cfg.seed,
+                    num_threads=1)
+    data = loader.forever()
+    try:
+        clips, labels = next(data)
+    finally:
+        data.close()
+        loader.close()
+    draw_args = (cfg.seed, 0, cfg.batch_size, g_cfg.z_dim, g_cfg.n_frames,
+                 ds_cfg.k_frames, torch.float32, device)
+    draws = (step.ShardedDraws(n_data, *draw_args) if n_data > 1
+             else step.TorchDraws(*draw_args))
+    state = train_state.to_device(
+        interop.load_train_state_npz(cfg.weights), device)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        new, m = step.train_step(
+            state, torch.from_numpy(clips).to(device), torch.from_numpy(
+                labels).to(device).long(), draws, g_cfg, ds_cfg, dt_cfg,
+            cfg.train_config())
+    return interop.train_state_to_flat(new), {k: float(v)
+                                              for k, v in m.items()}
+
+
+def check_par_f32(device, name: str, run: dict, argv) -> dict:
+    """Rank 0's f32 step (its checkpoint, its scalars) against
+    `par_f32_reference` at the limits PAR_F32_*."""
+    ref, losses = par_f32_reference(device, argv)
+    got = run["state"]
+    scalars = {}
+    with open(os.path.join(run["out_dir"], "logs", "scalars.jsonl")) as f:
+        for ln in f:
+            r = json.loads(ln)
+            if r["step"] == 1:
+                scalars[r["tag"]] = r["value"]
+    loss_err = {k: abs(scalars[k] - v) for k, v in losses.items()}
+    mu_err = {}
+    for m in ("g", "ds", "dt"):
+        keys = [k for k in ref if k.startswith(f"{m}/opt/0/mu/")]
+        scale = max(float(np.abs(ref[k]).max()) for k in keys)
+        mu_err[m] = max(float(np.abs(got[k] - ref[k]).max())
+                        for k in keys) / scale
+    res = {"losses": losses, "loss_abs_err": loss_err,
+           "mu_err_over_max_mu": mu_err, "limits": {
+               "loss": PAR_F32_LOSS_TOL, "mu": PAR_F32_MU_TOL}}
+    print(f"{name} rank 0 vs one process " + json.dumps(res), flush=True)
+    if not max(loss_err.values()) <= PAR_F32_LOSS_TOL:
+        raise AssertionError(f"{name}: f32 losses, ranks vs one process: "
+                             f"{loss_err}")
+    for m, err in mu_err.items():
+        if not err <= PAR_F32_MU_TOL:
+            raise AssertionError(f"{name}: f32 {m} Adam mu, ranks vs one "
+                                 f"process: {err} > {PAR_F32_MU_TOL}")
+    return res
+
+
+def drive_parallel(device) -> dict:
+    """The parallel runs (PAR_RUNS, then PAR_AFTER as their runs end,
+    through `drive_trains`), two ranks each on cuda:0; meanwhile this
+    process holds the flagship f32 step card vs CPU (`check_train_f32`,
+    d_steps 1: from the init beside a float64 step, and off it). Checked:
+    every run as `finish_ranks` checks it; DP2-B resumed at 2 with DP2's
+    bits in every leaf; the f32 runs against one process; the long clip's
+    ms a step, each rank's peak memory and launches, and bytes all-reduced
+    a step printed."""
+    from dvdgan_tpu_torch import interop
+    from dvdgan_tpu_torch.train import state as train_state
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    torch.cuda.empty_cache()
+    # the f32 runs start off the init (`off_init`), from --weights
+    weights = tempfile.TemporaryDirectory()
+    path = os.path.join(weights.name, "off_init.npz")
+    cfg = parse_config(PAR_RUNS["dp2_f32"][0])
+    interop.save_train_state_npz(path, off_init(train_state.create(
+        cfg.seed, cfg.g_config(), cfg.ds_config(), cfg.dt_config()),
+        cfg.seed + 2))
+    runs = {name: (argv + ["--weights", path] if name in PAR_F32 else argv,
+                   n) for name, (argv, n) in PAR_RUNS.items()}
+
+    def meanwhile():
+        # the flagship f32 step card vs CPU at d_steps 1: from the init
+        # five draw sets beside a float64 step, off it three
+        check_train_f32(device, "train f32 from the init",
+                        draw_seeds=(None, 1, 2, 3, 4), f64_witness=True)
+        check_train_f32(device, "train f32 off the init",
+                        draw_seeds=(None, 1, 2), start_off_init=True)
+
+    done = {}
+    try:
+        done = drive_trains(runs, PAR_AFTER, ("dp2", "dp2_b", *PAR_F32),
+                            start_ranks, finish_ranks, meanwhile)
+        f32 = {name: check_par_f32(device, name, done[name], runs[name][0])
+               for name in PAR_F32}
+    finally:
+        for run in done.values():
+            if "tmp" in run:
+                run["tmp"].cleanup()
+        weights.cleanup()
+    a, b = done["dp2"], done["dp2_b"]
+    if "resumed from checkpoint step 2" not in b["stdout"]:
+        raise AssertionError("DP2-B did not resume from step 2")
+    differ = [k for k, v in b["state"].items()
+              if not np.array_equal(v, a["state"][k])]
+    long_run = done["cp2_long"]
+    res = {"dp2_b_resumed_bitwise": not differ, "differ": differ[:20],
+           "leaves": len(a["state"]), "digests": {
+               k: v["digests"] for k, v in done.items()},
+           "backend": done["dp2"]["backend"],
+           "by_run": {k: {"ms_per_step": v["ms_per_step"],
+                          "peak_mem_gib_by_rank": v["peak_mem_gib_by_rank"],
+                          "collectives_per_step": v["comm_per_step"],
+                          "launches_per_rank_step":
+                              v["launches_per_rank_step"],
+                          "cli_s": v["cli_s"]} for k, v in done.items()},
+           "longclip_cp2": {
+               "ms_per_step": long_run["ms_per_step"],
+               "peak_mem_gib_by_rank": long_run["peak_mem_gib_by_rank"],
+               "launches_per_rank_step": long_run["launches_per_rank_step"],
+               "launches_per_step_predicted": long_run["per_step"],
+               "collectives_per_step": long_run["comm_per_step"]},
+           "f32": f32}
+    print("parallel runs " + json.dumps(res), flush=True)
+    if differ:
+        raise AssertionError(f"DP2-B differs from DP2 in {len(differ)} "
+                             f"leaves: {differ[:20]}")
+    for v in done.values():
+        v.pop("state", None)
+        v.pop("stdout", None)
+    return done
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2592,12 +3067,14 @@ def main() -> int:
     evals = drive_eval(device)
     phase("the evaluation (--mode eval: i3d, c3d, cached, FP; the networks "
           "card vs CPU and timed; Trainer.evaluate() twice)")
+    par = drive_parallel(device)
+    phase("the parallel runs (two ranks on the card over gloo: DP2, DP2-B, "
+          "CP2, the long clip's CP2, the f32 DP2 and CP2 against one "
+          "process) and the flagship f32 step card vs CPU")
     rows_k2 = check_k2(device)
     phase("K2")
     time_train(device)
     phase("the flagship step's rate")
-    check_train_f32(device)
-    phase("the flagship f32 step, card vs CPU")
     check_train_f32(device, "fp f32", FP_F32)
     check_train_f32(device, "fp f32 per_step", FP_F32_PER_STEP)
     phase("the DVD-GAN-FP f32 steps, card vs CPU")
@@ -2702,10 +3179,12 @@ def main() -> int:
             "attn_kernels_ms_per_step", "softmax_kernels_ms_per_step",
             "peak_mem_gib")
     # (the profiler's view with a route's first reading only)
+    # (cut to one reading a route, the first profiled, for the parallel
+    # phase's room)
     long_rates = [
         time_train(device, "longclip_rate", LONG_ARGV + route, n_warm=1,
-                   n_steps=2, n_prof=int(i < 2), n_top=15 if i == 0 else 6)
-        for i, route in enumerate(([], ON, ON, []))]
+                   n_steps=2, n_prof=int(i == 0), n_top=15)
+        for i, route in enumerate(([], ON))]
     print("longclip_pairs " + json.dumps(
         [{k: r.get(k) for k in keys} for r in long_rates]), flush=True)
     phase("the long-clip routes in turns")
@@ -2725,7 +3204,7 @@ def main() -> int:
     # the trainer at steps_per_call 1 and K, in turns
     for argv, k, n, name in ((FLAGSHIP_ARGV, 4, 12, "flagship"),
                              (FP_ARGV, 2, 4, "fp"),
-                             (LONG_ARGV, 2, 4, "longclip"),
+                             (LONG_ARGV, 2, 2, "longclip"),
                              (PX128_ARGV, 2, 4, "px128")):
         time_steps_per_call(device, argv, k, n, f"steps_per_call_{name}")
         phase(f"the {name} trainer at steps_per_call 1 and {k} in turns")
@@ -2804,6 +3283,18 @@ def main() -> int:
         return {"x".join(map(str, r["shape"][1:])): r["launches_per_call"]
                 for r in rows if r["dtype"] == "bfloat16"}
 
+    def par_paths(kernel, names):
+        """A kernel's launches in the parallel runs, each rank's as it
+        printed them."""
+        return {f"{n}_rank{r}": c[kernel] for n in names
+                for r, c in enumerate(par[n]["launches_by_rank"])}
+
+    def par_per_step(kernel, names):
+        """... and per step."""
+        return {f"{n}_rank{r}": c[kernel] for n in names
+                for r, c in enumerate(par[n]["launches_per_rank_step"])}
+
+    flag_par = ("dp2", "dp2_b", "cp2", "dp2_f32", "cp2_f32")
     k1_src, k2_src, k5_src = ("convgru_seq.cu", "convgru_bwd.cu",
                               "ups2x_fused.cu")
     k1_at, k2_at = "convgru_seq.py:104", "convgru_bwd.py:194"
@@ -2817,9 +3308,11 @@ def main() -> int:
                "sample_fp": fp_sample["k1"], "fp": fp_k1["k1"],
                "fp_k2": fp_k2["k1"],
                **{f"eval_{name}": evals[name]["launches"]["k1"]
-                  for name in ("i3d", "c3d", "i3d_cached", "fp")}},
+                  for name in ("i3d", "c3d", "i3d_cached", "fp")},
+               **par_paths("k1", flag_par)},
               {"sample": sample_run["k1"],
                "trainer": trainer_a["per_step"]["k1_launches"],
+               **par_per_step("k1", ("dp2", "cp2")),
                "sample_fp": fp_sample["k1"],
                "fp": fp_k1["per_step"]["k1_launches"],
                "eval_batch_16": evals["i3d"]["k1_per_batch"],
@@ -2829,26 +3322,33 @@ def main() -> int:
               f"{long_shapes})",
               k1_src, k1_at, rows_long,
               {"longclip": long_run["k1"],
-               "longclip_fused": long_fused["k1"]},
-              {"longclip": long_run["per_step"]["k1_launches"]},
+               "longclip_fused": long_fused["k1"],
+               **par_paths("k1", ("cp2_long",))},
+              {"longclip": long_run["per_step"]["k1_launches"],
+               **par_per_step("k1", ("cp2_long",))},
               also=rows_long_fake),
         entry("convgru_bwd (K2, bf16, sum of the 4 ucf101_64 levels, B=8)",
               k2_src, k2_at, rows_k2,
               {"sample": 0, "train_fused": train_fused["k2"],
                "trainer": trainer_a["k2"], "fp": fp_k1["k2"],
-               "fp_k2": fp_k2["k2"]},
+               "fp_k2": fp_k2["k2"], **par_paths("k2", flag_par)},
               {"trainer": trainer_a["per_step"]["k2_launches"],
+               **par_per_step("k2", ("dp2", "cp2")),
                "fp": fp_k1["per_step"]["k2_launches"]},
               in_graph=graphs["K2"]),
         entry(f"convgru_bwd (K2, bf16, sum of the 6 {long_shapes})",
               k2_src, k2_at, rows_k2_long,
-              {"longclip": long_run["k2"], "longclip_fused": long_fused["k2"]},
-              {"longclip": long_run["per_step"]["k2_launches"]}),
+              {"longclip": long_run["k2"], "longclip_fused": long_fused["k2"],
+               **par_paths("k2", ("cp2_long",))},
+              {"longclip": long_run["per_step"]["k2_launches"],
+               **par_per_step("k2", ("cp2_long",))}),
         entry(f"convgru_blocked (K3, bf16, sum of its "
               f"{len(rows_k3_path) // 2} {long_shapes})",
               "convgru_blocked.cu", "convgru_blocked.py:182", rows_k3_path,
-              {"longclip": long_run["k3"], "longclip_fused": long_fused["k3"]},
-              {"longclip": long_run["per_step"]["k3_launches"]},
+              {"longclip": long_run["k3"], "longclip_fused": long_fused["k3"],
+               **par_paths("k3", ("cp2_long",))},
+              {"longclip": long_run["per_step"]["k3_launches"],
+               **par_per_step("k3", ("cp2_long",))},
               also=rows_k3_fake,
               k1_ms_same_shapes=sum(r["k1_ms"] for r in rows_k3_path
                                     if r["dtype"] == "bfloat16"),

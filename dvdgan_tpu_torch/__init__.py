@@ -16,5 +16,7 @@ the long-clip preset, and the trainer that runs it on the reference's
 schedule with checkpoints and auto-resume (`train.trainer`,
 `train.checkpoint`, `--mode train`), and the evaluation: FVD, video IS and
 frame FID of EMA-G samples with I3D, C3D and Inception-v3 (`eval`,
-`--mode eval`, `--eval_step`); ROADMAP.md lists the rest.
+`--mode eval`, `--eval_step`), and training over several ranks with data
+and time parallelism (`parallel`, `--n_devices`, `--time_shards`,
+`--multihost`); ROADMAP.md lists the rest.
 """

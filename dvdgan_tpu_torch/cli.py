@@ -22,6 +22,15 @@ GIFs, as the reference's main.py dumps them. `--grad_accum k` splits the
 batch into k micro-batches per update, and a preset with `remat`
 (kinetics_256_48f) rematerializes G's levels.
 
+Train mode over several ranks (`parallel/mesh.py`): `--n_devices N`
+spawns the ranks of one launch (one per visible card, or N gloo ranks on
+the CPU with `--device cpu`), `--time_shards n` splits them into data ×
+time ranks (DT context-parallel over the clip), and `--multihost` makes
+this process one rank of a cluster whose launcher set RANK, WORLD_SIZE,
+LOCAL_RANK, MASTER_ADDR and MASTER_PORT (two such processes on one card
+run over gloo). `--batch_size` is the global batch. A rank that fails
+stops the launch with an error. Sample and eval modes run in one process.
+
 Sample mode takes EMA-G from the checkpoint --pretrained_model names, or
 from --weights (an npz holding at least the EMA-G part; not both), or from
 the newest checkpoint under DIR/checkpoints, or else the seeded init
@@ -52,9 +61,11 @@ with the reference's keys.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -65,12 +76,13 @@ from dvdgan_tpu_torch.eval import (C3DClassifierProbs, I3DClassifierProbs,
                                    compute_real_features, evaluate_generator,
                                    file_stamp, load_or_compute_real_stats)
 from dvdgan_tpu_torch.models.generator import GeneratorState
+from dvdgan_tpu_torch.parallel import mesh as pmesh
 from dvdgan_tpu_torch.train import checkpoint as ckpt
 from dvdgan_tpu_torch.train import step
 from dvdgan_tpu_torch.train.trainer import (Trainer, build_dataset,
                                             dataset_prefixes, launch_counts,
                                             resolve_device)
-from dvdgan_tpu_torch.utils.config import Config, check_ported, parse_config
+from dvdgan_tpu_torch.utils.config import Config, parse_config
 from dvdgan_tpu_torch.utils.media import save_batch_gifs, save_video_grid_png
 
 
@@ -110,18 +122,55 @@ def run_sample(cfg: Config, device: torch.device,
                        cfg.g_config(), cond_video=cond)
 
 
-def run_train(cfg: Config) -> dict:
-    """Trains on the reference's schedule; returns the final state."""
-    trainer = Trainer(cfg)
+def _train(cfg: Config, par=None) -> dict:
+    trainer = Trainer(cfg, par)
     try:
         metrics = trainer.train()
-        print("final: " + " ".join(f"{k} {v:.6f}"
-                                   for k, v in sorted(metrics.items())),
-              flush=True)
+        if trainer.is_main:
+            print("final: " + " ".join(f"{k} {v:.6f}"
+                                       for k, v in sorted(metrics.items())),
+                  flush=True)
         trainer.dump_samples(cfg.total_step)
     finally:
         trainer.close()
     return trainer.state
+
+
+def train_rank(local_rank: int, cfg: Config) -> None:
+    """One rank of a `--n_devices` launch (`pmesh.spawn` sets its
+    environment): on cuda:<local_rank>, or the CPU."""
+    device = (torch.device("cuda", local_rank)
+              if torch.device(cfg.device).type == "cuda"
+              else torch.device("cpu"))
+    par = pmesh.init_from_env(device, cfg.time_shards, cfg.batch_size)
+    try:
+        _train(cfg, par)
+    finally:
+        par.close()
+
+
+def run_train(cfg: Config) -> Optional[dict]:
+    """Trains on the reference's schedule; returns the final state of a
+    run in this process (one rank, or this rank of `--multihost`), None
+    when `--n_devices` ran the ranks in child processes."""
+    device = resolve_device(cfg.device)
+    if cfg.multihost:
+        if cfg.n_devices > 0:
+            raise ValueError("--n_devices starts the ranks of one launch; "
+                             "under --multihost the launcher starts one "
+                             "process a rank")
+        par = pmesh.init_from_env(device, cfg.time_shards, cfg.batch_size)
+        try:
+            return _train(cfg, par)
+        finally:
+            par.close()
+    n_data, n_time = pmesh.plan(cfg.n_devices, cfg.time_shards,
+                                cfg.batch_size, device)
+    world = n_data * n_time
+    if world == 1:
+        return _train(dataclasses.replace(cfg, n_devices=1), None)
+    pmesh.spawn(train_rank, world, (cfg,))
+    return None
 
 
 def run_eval(cfg: Config) -> dict:
@@ -216,7 +265,9 @@ def main(argv=None):
         return run_train(cfg)
     if cfg.mode == "eval":
         return run_eval(cfg)
-    check_ported(cfg)
+    if cfg.multihost or cfg.time_shards > 1 or cfg.n_devices > 1:
+        raise ValueError("--mode sample runs in one process: drop "
+                         "--multihost, --time_shards and --n_devices")
     device = resolve_device(cfg.device)
     step_no, state = sample_state(cfg)
     videos = run_sample(cfg, device, state).float().cpu().numpy()

@@ -22,6 +22,8 @@ port's own checkpoints.
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
@@ -120,3 +122,15 @@ def save_train_state_npz(path: str, state: dict) -> None:
 def load_train_state_npz(path: str) -> dict:
     with np.load(path) as f:
         return load_train_state({k: f[k] for k in f.files})
+
+
+def state_digest(state: dict) -> tuple[str, int]:
+    """(sha256 hex, leaves) of a train state's flat arrays, path and bytes
+    in path order: equal digests mean bitwise equal states (the ranks of a
+    parallel run print theirs)."""
+    h = hashlib.sha256()
+    flat = train_state_to_flat(state)
+    for k in sorted(flat):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(flat[k]).tobytes())
+    return h.hexdigest(), len(flat)

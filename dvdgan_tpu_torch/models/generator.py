@@ -46,6 +46,19 @@ checkpoint regions for the same reason: the tail region ends before it, its
 kernel launches once per forward and never from a backward (its Function
 keeps only its input, which is the tail region's output, and five small
 tensors), and the temporal pass after it is a region of its own.
+
+Cross-replica BN (`group`, a process group of the data ranks; the
+reference's `axis_name`): every CBN and the head's BN average their batch
+moments over the group (`ops/norm.py`), each a collective that all ranks
+must issue in the same order. Under remat the CBNs sit inside the
+checkpoint regions, and the policy keeps only the upsample conv's output,
+so a backward that replays a region issues that region's all-reduces
+again. The port keeps that recompute rather than saving the moments:
+every rank runs the same program on the same shapes, so every rank
+replays the same regions in the same order (autograd's order for one
+graph), and a replay issues the same all-reduces as the forward did, on
+inputs that give the same moments. A test counts each rank's all-reduces
+over a step under remat and holds the step to the one without remat.
 """
 
 from __future__ import annotations
@@ -144,7 +157,7 @@ def _save_conv_outputs(ctx, op, *args, **kwargs):
 
 def _block(lvl: dict, lvl_stats: dict, h: torch.Tensor, cond_tb: torch.Tensor,
            t: int, attn: dict | None, train: bool, remat: bool,
-           ups_fused: str, attn_fused: str):
+           ups_fused: str, attn_fused: str, group=None):
     """One level after its GRU: the upsampling GResBlock on the folded
     (T·B, H, W, C) sequence, then attention where `attn` is given.
     -> (x_seq (T, B, 2H, 2W, C'), block stats). With `remat`, two
@@ -155,15 +168,17 @@ def _block(lvl: dict, lvl_stats: dict, h: torch.Tensor, cond_tb: torch.Tensor,
     p, b = lvl["block"], h.shape[0] // t
 
     def pre():
-        return resblocks.gresblock_pre(p, lvl_stats, h, cond_tb, train)
+        return resblocks.gresblock_pre(p, lvl_stats, h, cond_tb, train,
+                                       group)
 
     def head():
         return resblocks.gresblock_head(p, lvl_stats, h, cond_tb, train,
-                                        upsample=True, ups_fused=ups_fused)
+                                        upsample=True, ups_fused=ups_fused,
+                                        group=group)
 
     def tail(u):
         out, s2 = resblocks.gresblock_tail(p, lvl_stats, u, h, cond_tb, train,
-                                           upsample=True)
+                                           upsample=True, group=group)
         x_seq = out.reshape(t, b, *out.shape[1:])
         if attn is not None and not split_attn:
             x_seq = attention.separable_attn(attn, x_seq, attn_fused,
@@ -197,7 +212,8 @@ def _block(lvl: dict, lvl_stats: dict, h: torch.Tensor, cond_tb: torch.Tensor,
 
 def apply(params: dict, stats: dict, z: torch.Tensor, y: torch.Tensor,
           cfg: GConfig, train: bool, cond_video: torch.Tensor | None = None,
-          time_major_out: bool = False) -> tuple[torch.Tensor, dict]:
+          time_major_out: bool = False, group=None
+          ) -> tuple[torch.Tensor, dict]:
     """G(z, y[, cond_video]) -> (video (B, T, H, W, 3) in [-1, 1],
     new_stats).
 
@@ -205,7 +221,8 @@ def apply(params: dict, stats: dict, z: torch.Tensor, y: torch.Tensor,
     ids; with cfg.cond_frames > 0, cond_video is the real prefix (B,
     cond_frames, H, W, 3), cast to the compute dtype, and the video is the
     n_frames generated after it. time_major_out=True returns the internal
-    (T, B, H, W, 3) layout."""
+    (T, B, H, W, 3) layout. `group`: the data ranks' process group of
+    cross-replica BN (train mode only; None: this process's batch)."""
     b = z.shape[0]
     t = cfg.n_frames
     n = cfg.n_levels
@@ -245,12 +262,13 @@ def apply(params: dict, stats: dict, z: torch.Tensor, y: torch.Tensor,
         h = h_seq.reshape(t * b, hw, hw, h_seq.shape[-1])      # fold time
         x_seq, s = _block(lvl, stats["levels"][i], h, cond_tb, t,
                           params["attn"] if i == attn_idx else None, train,
-                          remat, cfg.ups_fused, cfg.attn_fused)
+                          remat, cfg.ups_fused, cfg.attn_fused, group)
         new_stats_levels.append(s)
 
     hw = x_seq.shape[2]
     h = x_seq.reshape(t * b, hw, hw, x_seq.shape[-1])
-    h, s_out = norm.bn(params["out_bn"], stats["out_bn"], h, train=train)
+    h, s_out = norm.bn(params["out_bn"], stats["out_bn"], h, train=train,
+                       group=group)
     h = torch.relu(h)
     h = layers.conv2d(params["out_conv"], h)
     video = torch.tanh(h.float()).to(dtype).reshape(t, b, hw, hw, 3)

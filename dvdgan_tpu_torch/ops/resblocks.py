@@ -42,10 +42,10 @@ def gresblock_stats_init(cin: int, cout: int) -> dict:
 
 
 def gresblock_pre(p: dict, stats: dict, x: torch.Tensor, cond: torch.Tensor,
-                  train: bool):
+                  train: bool, group=None):
     """The block before its first conv: CBN → ReLU.
     -> ((N, H, W, Cin), bn1 stats)."""
-    h, s1 = norm.cbn(p["cbn1"], stats["bn1"], x, cond, train)
+    h, s1 = norm.cbn(p["cbn1"], stats["bn1"], x, cond, train, group=group)
     return torch.relu(h), s1
 
 
@@ -59,19 +59,21 @@ def gresblock_conv1(p: dict, h: torch.Tensor, upsample: bool,
 
 
 def gresblock_head(p: dict, stats: dict, x: torch.Tensor, cond: torch.Tensor,
-                   train: bool, upsample: bool, ups_fused: str = "off"):
+                   train: bool, upsample: bool, ups_fused: str = "off",
+                   group=None):
     """The block up to its first conv's output: CBN → ReLU → conv1.
     -> ((N, H', W', Cout), bn1 stats)."""
-    h, s1 = gresblock_pre(p, stats, x, cond, train)
+    h, s1 = gresblock_pre(p, stats, x, cond, train, group)
     return gresblock_conv1(p, h, upsample, ups_fused), s1
 
 
 def gresblock_tail(p: dict, stats: dict, h: torch.Tensor, x: torch.Tensor,
-                   cond: torch.Tensor, train: bool, upsample: bool):
+                   cond: torch.Tensor, train: bool, upsample: bool,
+                   group=None):
     """The rest of the block, from conv1's output `h` and the block input
     `x`: CBN → ReLU → conv2, plus the skip. -> ((N, H', W', Cout), bn2
     stats)."""
-    h, s2 = norm.cbn(p["cbn2"], stats["bn2"], h, cond, train)
+    h, s2 = norm.cbn(p["cbn2"], stats["bn2"], h, cond, train, group=group)
     h = torch.relu(h)
     h = layers.conv2d(p["conv2"], h)
 
@@ -84,12 +86,15 @@ def gresblock_tail(p: dict, stats: dict, h: torch.Tensor, x: torch.Tensor,
 
 
 def gresblock(p: dict, stats: dict, x: torch.Tensor, cond: torch.Tensor,
-              train: bool, upsample: bool, ups_fused: str = "off"):
+              train: bool, upsample: bool, ups_fused: str = "off",
+              group=None):
     """x: (N, H, W, Cin), cond: (N, cond_dim) -> ((N, H', W', Cout), stats).
     Head and tail are separate functions so that a rematerializing caller
-    can keep conv1's output and recompute the rest (`models/generator.py`)."""
-    h, s1 = gresblock_head(p, stats, x, cond, train, upsample, ups_fused)
-    out, s2 = gresblock_tail(p, stats, h, x, cond, train, upsample)
+    can keep conv1's output and recompute the rest (`models/generator.py`).
+    `group`: the process group of cross-replica BN (`ops/norm.py`)."""
+    h, s1 = gresblock_head(p, stats, x, cond, train, upsample, ups_fused,
+                           group)
+    out, s2 = gresblock_tail(p, stats, h, x, cond, train, upsample, group)
     return out, {"bn1": s1, "bn2": s2}
 
 

@@ -59,6 +59,28 @@ leaves the old one as it was.
 reference's `scan_steps`: on a CUDA device the K steps are ONE CUDA graph,
 captured once and replayed once a call; on the CPU the same steps run
 eagerly on the same buffers.
+
+Data and time parallelism (`group`, `time_group`: this rank's process
+groups from `parallel/mesh.py`; the reference's `axis_name` and
+`time_axis`). Each rank holds its data index's rows of the global batch
+and draws with `TorchDraws(..., shard=data index)` (`ShardedDraws` replays
+an r-rank run's draws in one process, the reference's `rng_shards=r`).
+G's forwards normalize with batch moments averaged over `group`
+(cross-replica BN). With `time_group`, DT runs time-sharded
+(`parallel/time_shard.py`): each time rank takes its T/n window of every
+clip DT scores and the per-clip score is summed over the group; G and DS
+are replicated along time. The φ pre-pool stays: it is per frame, so the
+window of the pooled clip has the bits of the pooled window. After each
+update's gradient accumulation the gradients are averaged over `group`
+and then over `time_group` (`collectives.mean_tree`, one buffer a model
+and group), and so are the metrics. Under time sharding every rank
+computes the same loss from the summed score, so a rank's DT cotangent is
+n_time times its own partial; the mean over time gives back their sum,
+the unsharded gradient (the reference's argument, `step.py:40-48`). G's
+new BN running stats are averaged over `time_group` too: the time ranks
+compute them from the same inputs, so the mean leaves them as they are
+where the ranks agree, and makes them agree where a non-deterministic
+kernel made them differ.
 """
 
 from __future__ import annotations
@@ -67,12 +89,14 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from dvdgan_tpu_torch.core import tree as tru
 from dvdgan_tpu_torch.models import DSConfig, DTConfig, GConfig
 from dvdgan_tpu_torch.models import discriminator, generator
 from dvdgan_tpu_torch.ops import losses, resize
 from dvdgan_tpu_torch.ops import spectral_norm as sn
+from dvdgan_tpu_torch.parallel import collectives, time_shard
 from dvdgan_tpu_torch.train import state as train_state
 from dvdgan_tpu_torch.train.state import TrainConfig
 
@@ -89,11 +113,16 @@ def splitmix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, shard: Optional[int] = None) -> int:
     """The 64-bit seed of step `step`'s draws: splitmix64 of the run's own
     splitmix64(seed) plus the step, so that runs with neighbouring seeds do
-    not share streams (as seed + step would)."""
-    return splitmix64((splitmix64(seed) + step) & _MASK64)
+    not share streams (as seed + step would). A data rank's draws fold in
+    its index `shard` (the reference folds the data-axis index into the
+    step's key); None leaves the one-process streams."""
+    s = splitmix64((splitmix64(seed) + step) & _MASK64)
+    if shard is None:
+        return s
+    return splitmix64((s + splitmix64(shard + 1)) & _MASK64)
 
 
 class TorchDraws:
@@ -101,12 +130,14 @@ class TorchDraws:
     seeded with `step_seed(seed, step)`: z ∼ N(0, 1) in the compute dtype,
     frame indices as the first k of a per-clip random permutation of T.
     Draws come from the one generator in call order; `stream` only names
-    the draw (a replaying hook keys on it)."""
+    the draw (a replaying hook keys on it). `shard`: the data rank whose
+    rows these are (`step_seed`)."""
 
     def __init__(self, seed: int, step: int, batch: int, z_dim: int,
                  n_frames: int, k: int, dtype: torch.dtype,
-                 device: torch.device | str):
-        self.gen = torch.Generator(device).manual_seed(step_seed(seed, step))
+                 device: torch.device | str, shard: Optional[int] = None):
+        self.gen = torch.Generator(device).manual_seed(
+            step_seed(seed, step, shard))
         self.b, self.z_dim = batch, z_dim
         self.t, self.k, self.dtype = n_frames, k, dtype
 
@@ -118,6 +149,27 @@ class TorchDraws:
         u = torch.rand(self.b, self.t, generator=self.gen,
                        device=self.gen.device)
         return u.argsort(dim=1)[:, :self.k]
+
+
+class ShardedDraws:
+    """The draws an r-rank data-parallel run makes at step `step`, for one
+    process that holds the whole global batch: stream by stream, the r
+    ranks' `TorchDraws` (batch/r rows each, shard g for rank g) in rank
+    order — the counterpart of the reference's `rng_shards=r`."""
+
+    def __init__(self, r: int, seed: int, step: int, batch: int, z_dim: int,
+                 n_frames: int, k: int, dtype: torch.dtype,
+                 device: torch.device | str):
+        if batch % r:
+            raise ValueError(f"batch {batch} not divisible by {r} shards")
+        self.parts = [TorchDraws(seed, step, batch // r, z_dim, n_frames, k,
+                                 dtype, device, shard=g) for g in range(r)]
+
+    def z(self, stream: int) -> torch.Tensor:
+        return torch.cat([d.z(stream) for d in self.parts])
+
+    def idx(self, stream: int) -> torch.Tensor:
+        return torch.cat([d.idx(stream) for d in self.parts])
 
 
 def draw_order(d_steps: int) -> list[tuple[str, int]]:
@@ -210,12 +262,14 @@ def _adam(grads: Any, model: dict, lr: float, tc: TrainConfig
 
 def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
                g_cfg: GConfig, ds_cfg: DSConfig, dt_cfg: DTConfig,
-               tc: TrainConfig) -> tuple[dict, dict[str, torch.Tensor]]:
+               tc: TrainConfig, group=None, time_group=None
+               ) -> tuple[dict, dict[str, torch.Tensor]]:
     """(state, real (B, cond_frames + n_frames, H, W, 3) in [-1, 1] in the
     compute dtype, y (B,) class ids, draws) -> (new state, metrics {d_loss,
     d_loss_s, d_loss_t, g_loss} and with `tc.log_grad_norms` {d_grad_norm,
     g_grad_norm}, as f32 scalars on the device; the D losses and norm are
-    the last D step's)."""
+    the last D step's). `group`, `time_group`: this rank's data and time
+    process groups (module docstring); B is then the rank's rows."""
     if tc.fake_gen not in FAKE_GEN:
         raise ValueError(f"fake_gen must be one of {FAKE_GEN}, got "
                          f"{tc.fake_gen!r}")
@@ -231,6 +285,16 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
         raise ValueError(f"batch {b} not divisible by grad_accum {ka}")
     dtype = real.dtype
     d_steps = tc.d_steps
+    if collectives.size(time_group) == 1:
+        time_group = None
+    grad_groups = (group, time_group)
+
+    def dt_score(dt_sn, clip, yy, pooled=False):
+        if time_group is None:
+            return discriminator.dt_apply(dt_sn, clip, yy, dt_cfg,
+                                          pooled=pooled)
+        return time_shard.make_sharded_dt(dt_sn, dt_cfg, time_group,
+                                          pooled=pooled)(clip, yy)
 
     # ---- fakes for every D step, no grad ----------------------------------
     with torch.no_grad():
@@ -242,11 +306,13 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
                 d_steps, 1, 1, 1, 1)
             fake_all, _ = generator.apply(g_sn, state["g"]["stats"], z_all,
                                           y.repeat(d_steps), g_cfg,
-                                          train=True, cond_video=cond_all)
+                                          train=True, cond_video=cond_all,
+                                          group=group)
         else:       # per_step: a forward at batch B, own batch statistics
             fake_all = torch.cat([
                 generator.apply(g_sn, state["g"]["stats"], draws.z(3 * i), y,
-                                g_cfg, train=True, cond_video=cond)[0]
+                                g_cfg, train=True, cond_video=cond,
+                                group=group)[0]
                 for i in range(d_steps)])
         real_dt = resize.avg_pool_2x_video(real)
         fake_all_dt = resize.avg_pool_2x_video(fake_all)
@@ -273,8 +339,7 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
             yy = torch.cat([yj, yj])
             ds_both = discriminator.ds_apply(ds_sn, torch.cat([rf, ff]), yy,
                                              ds_cfg)
-            dt_both = discriminator.dt_apply(dt_sn, torch.cat([rh, fh]), yy,
-                                             dt_cfg, pooled=True)
+            dt_both = dt_score(dt_sn, torch.cat([rh, fh]), yy, pooled=True)
             l_ds = losses.d_hinge(ds_both[:n], ds_both[n:])
             l_dt = losses.d_hinge(dt_both[:n], dt_both[n:])
             return l_ds + l_dt, (l_ds.detach(), l_dt.detach(), ds_u, dt_u)
@@ -285,6 +350,7 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
         l_ds = torch.stack([a[0] for a in auxes]).mean()
         l_dt = torch.stack([a[1] for a in auxes]).mean()
         ds_u, dt_u = auxes[-1][2:]
+        grads = collectives.mean_tree(grads, grad_groups)
         ds_params, ds_opt = _adam(grads["ds"], ds, tc.lr_d, tc)
         dt_params, dt_opt = _adam(grads["dt"], dt, tc.lr_d, tc)
         ds = {"params": ds_params, "sn_u": ds_u, "opt": ds_opt}
@@ -307,11 +373,12 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
         g_sn, g_u = sn.sn_normalize(g_params, g["sn_u"], update=True,
                                     compute_dtype=dtype)
         fake, g_stats = generator.apply(g_sn, g["stats"], z_j, y_j, g_cfg,
-                                        train=True, cond_video=cond_j)
+                                        train=True, cond_video=cond_j,
+                                        group=group)
         s_ds = discriminator.ds_apply(ds_sn, take_frames(fake, idx_j), y_j,
                                       ds_cfg)
         dt_in = fake if cond_j is None else torch.cat([cond_j, fake], dim=1)
-        s_dt = discriminator.dt_apply(dt_sn, dt_in, y_j, dt_cfg)
+        s_dt = dt_score(dt_sn, dt_in, y_j)
         g_loss = losses.g_hinge(s_ds) + losses.g_hinge(s_dt)
         return g_loss, (g_u, tru.tree_map(torch.Tensor.detach, g_stats))
 
@@ -322,6 +389,8 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
     # the micros is one update with the mean micro-moment
     g_stats = auxes[0][1] if ka == 1 else tru.tree_map(
         lambda *s: torch.stack(s).mean(0), *(a[1] for a in auxes))
+    g_grads = collectives.mean_tree(g_grads, grad_groups)
+    g_stats = collectives.mean_tree(g_stats, (time_group,))
     g_params, g_opt = _adam(g_grads, g, tc.lr_g, tc)
     step = state["step"]
     new_state = {
@@ -336,7 +405,7 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
     metrics["g_loss"] = g_loss
     if tc.log_grad_norms:
         metrics["g_grad_norm"] = _global_norm(g_grads)
-    return new_state, metrics
+    return new_state, collectives.mean_tree(metrics, grad_groups)
 
 
 def _copy_tree(dst: Any, src: Any) -> None:
@@ -375,14 +444,37 @@ class MultiStep:
     raises. `launches` is each kernel's launches per step (`counts()`
     before and after, divided by K): around the capture on the card, where
     a replay moves no host counter, and around each call on the CPU.
+
+    Under data or time parallelism (`group`, `time_group` of more than one
+    rank; the draws folded by `shard`, as `train_step` takes them) the CPU
+    runs the K steps eagerly as ever. On a CUDA device the object refuses
+    to be built: gloo's collectives run on the host and a graph cannot
+    hold them, and K steps under NCCL (one card a rank) are ROADMAP Queue 1
+    item 6b, not run by any machine this port has been checked on.
     """
 
     def __init__(self, state: dict, k: int, batch: int, g_cfg: GConfig,
                  ds_cfg: DSConfig, dt_cfg: DTConfig, tc: TrainConfig,
                  seed: int, dtype: torch.dtype, device: torch.device | str,
-                 counts: Optional[Callable[[], dict[str, int]]] = None):
+                 counts: Optional[Callable[[], dict[str, int]]] = None,
+                 group=None, time_group=None, shard: Optional[int] = None):
         self.k, self.seed, self.dtype = k, seed, dtype
         self.device = torch.device(device)
+        groups = [g for g in (group, time_group) if collectives.size(g) > 1]
+        if groups and self.device.type == "cuda":
+            backend = dist.get_backend(groups[0])
+            why = ("gloo's collectives run on the host, and a CUDA graph "
+                   "cannot hold them" if backend == "gloo" else
+                   "K steps under NCCL are ROADMAP Queue 1 item 6b (not "
+                   "checked on any machine yet)")
+            raise NotImplementedError(
+                f"--steps_per_call {k} with {backend} process groups on "
+                f"{self.device}: {why}; run --steps_per_call 1")
+        # only where given: a one-process call keeps its signature
+        self.groups = {k: g for k, g in (("group", group),
+                                         ("time_group", time_group))
+                       if g is not None}
+        self.shard = shard
         self.cfgs = (g_cfg, ds_cfg, dt_cfg, tc)
         self.counts = counts or dict
         self.state = tru.tree_map(
@@ -404,7 +496,7 @@ class MultiStep:
         st, ms = self.state, []
         for j in range(self.k):
             st, m = train_step(st, self.reals[j], self.ys[j], self.draws[j],
-                               *self.cfgs)
+                               *self.cfgs, **self.groups)
             ms.append(m)
         _copy_tree(self.state, st)
         return {name: torch.stack([m[name] for m in ms]) for name in ms[0]}
@@ -453,7 +545,8 @@ class MultiStep:
         for j, held in enumerate(self.draws):
             held.fill(TorchDraws(self.seed, start + j, self.ys.shape[1],
                                  g_cfg.z_dim, g_cfg.n_frames,
-                                 ds_cfg.k_frames, self.dtype, self.device))
+                                 ds_cfg.k_frames, self.dtype, self.device,
+                                 shard=self.shard))
         if self.device.type == "cuda":
             if self.graph is None:
                 self.capture()

@@ -1,5 +1,4 @@
-"""The trainer — the counterpart of `dvdgan_tpu/train/trainer.py` on one
-device (no mesh, no multi-host branch).
+"""The trainer — the counterpart of `dvdgan_tpu/train/trainer.py`.
 
 `Trainer(cfg).train()` builds the train state from `--seed` (or from the
 `--weights` npz), auto-resumes from the newest checkpoint under
@@ -58,10 +57,28 @@ step are counted during the capture and divided by K.
 autograd's anomaly mode and checks every step's metrics, which reads the
 device each step (asked for); under K > 1 the graph cannot hold anomaly
 mode, so each call's stacked metrics are checked after the call.
+
+Several ranks (`Trainer(cfg, par)`, `par` from `parallel/mesh.py`; the CLI
+starts the processes): every rank computes everything, and the leader
+(rank 0, `is_main`) alone writes: scalars (the others get a `NullWriter`),
+stdout step lines, sample files and checkpoints. The leader's answer to
+"which step to resume" is broadcast, so every rank restores the same
+checkpoint, and `replicate_state` then gives every rank rank 0's bits.
+Each rank's loader decodes only its data index's rows of the global batch
+(`local_batch_rows`; time ranks share their rows), and its draws fold in
+its data index (`parallel.mesh.rank_shard`). The step is
+`make_parallel_train_step`. At the end every rank prints its state digest
+and its kernel launches over the run, so that each rank's are read.
+Checkpoints are written synchronously by the leader while the others wait
+at a barrier (`AsyncSaver` is single-process only, as the reference's
+async save is). Sampling and `evaluate()` run on every rank and write on
+the leader. The prefetch thread places batches only: every collective is
+issued from the train thread.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import queue
@@ -79,11 +96,13 @@ from dvdgan_tpu_torch.data import (FrameFolderDataset, Loader,
 from dvdgan_tpu_torch.eval import (I3DClassifierProbs, I3DFeatures,
                                    compute_real_features, evaluate_generator)
 from dvdgan_tpu_torch.ops import spectral_norm as sn
+from dvdgan_tpu_torch.parallel import collectives
+from dvdgan_tpu_torch.parallel import mesh as pmesh
 from dvdgan_tpu_torch.train import checkpoint as ckpt
 from dvdgan_tpu_torch.train import state as train_state
 from dvdgan_tpu_torch.train import step as step_mod
-from dvdgan_tpu_torch.utils.config import Config, check_ported
-from dvdgan_tpu_torch.utils.logging import MetricWriter, step_line
+from dvdgan_tpu_torch.utils.config import Config
+from dvdgan_tpu_torch.utils.logging import MetricWriter, NullWriter, step_line
 from dvdgan_tpu_torch.utils.media import save_batch_gifs, save_video_grid_png
 
 
@@ -222,12 +241,13 @@ class _Mark:
 
 class _Record(_Mark):
     """A step's metrics copied to pinned host memory without waiting for
-    the card, and its kernel launches."""
+    the card, its kernel launches and its collectives (host integers)."""
 
     def __init__(self, step: int, metrics: dict, launches: dict,
-                 device: torch.device):
+                 device: torch.device, comms: Optional[dict] = None):
         self.names = list(metrics)
         self.launches = launches
+        self.comms = comms or {}
         values = torch.stack([metrics[k].detach().float()
                               for k in self.names])
         if device.type == "cuda":
@@ -244,10 +264,16 @@ class _Record(_Mark):
 
 
 class Trainer:
-    def __init__(self, cfg: Config):
-        check_ported(cfg)
+    def __init__(self, cfg: Config, par: Optional[pmesh.Parallel] = None):
+        if par is None and (cfg.multihost or cfg.time_shards > 1
+                            or cfg.n_devices > 1):
+            raise ValueError("--multihost, --time_shards and --n_devices > 1 "
+                             "need one process a rank: `python -m "
+                             "dvdgan_tpu_torch --mode train` starts them")
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        self.par = par
+        self.is_main = par is None or par.is_main
+        self.device = par.device if par else resolve_device(cfg.device)
         self.g_cfg, self.ds_cfg = cfg.g_config(), cfg.ds_config()
         self.dt_cfg, self.tc = cfg.dt_config(), cfg.train_config()
         self.dtype = torch.bfloat16 if cfg.bf16 else torch.float32
@@ -255,28 +281,53 @@ class Trainer:
         self.out_dir = cfg.out_dir
         self.ckpt_dir = os.path.join(self.out_dir, "checkpoints")
         self.sample_dir = os.path.join(self.out_dir, "samples")
-        os.makedirs(self.out_dir, exist_ok=True)
-        self.writer = MetricWriter(os.path.join(self.out_dir, "logs"))
-        self.saver = ckpt.AsyncSaver() if cfg.async_save else None
+        if self.is_main:
+            os.makedirs(self.out_dir, exist_ok=True)
+            self.writer = MetricWriter(os.path.join(self.out_dir, "logs"))
+        else:
+            self.writer = NullWriter()
+        self.saver = (ckpt.AsyncSaver() if cfg.async_save and par is None
+                      else None)
+        if cfg.async_save and par is not None and self.is_main:
+            print("async_save: a multi-process run checkpoints synchronously "
+                  "(the leader writes, the others wait)", flush=True)
 
         state = (interop.load_train_state_npz(cfg.weights) if cfg.weights
                  else train_state.create(cfg.seed, self.g_cfg, self.ds_cfg,
                                          self.dt_cfg))
         self.start_step = int(state["step"])        # on the host still
         resume = cfg.pretrained_model
-        if resume is None:
+        if resume is None and self.is_main:
             resume = ckpt.latest_step(self.ckpt_dir)
+        if par is not None:     # every rank restores the leader's step
+            resume = par.broadcast_int(resume)
         if resume is not None:
             state = ckpt.restore(self.ckpt_dir, resume, state)
             self.start_step = int(resume)
-            print(f"resumed from checkpoint step {resume}", flush=True)
+            if self.is_main:
+                print(f"resumed from checkpoint step {resume}", flush=True)
         self.state = train_state.to_device(state, self.device)
         self.steps_per_call = effective_steps_per_call(cfg, self.start_step)
         self._multi: Optional[step_mod.MultiStep] = None
 
+        # this rank's rows of the global batch, its draws' fold, its step
+        self.rows: Optional[tuple[int, int]] = None
+        self.batch = cfg.batch_size
+        self.shard: Optional[int] = None
+        if par is not None:
+            self.state = pmesh.replicate_state(self.state, par)
+            if par.n_data > 1:
+                self.rows = pmesh.local_batch_rows(par.mesh, cfg.batch_size,
+                                                   [par.rank])
+                self.batch = self.rows[1] - self.rows[0]
+            self.shard = pmesh.rank_shard(par)
+        self.groups = pmesh.step_groups(par)
+        self.step_fn = pmesh.make_parallel_train_step(
+            self.g_cfg, self.ds_cfg, self.dt_cfg, self.tc, par)
+
         self.dataset = build_dataset(cfg)
         self.loader = Loader(self.dataset, cfg.batch_size, seed=cfg.seed,
-                             num_threads=cfg.loader_threads,
+                             rows=self.rows, num_threads=cfg.loader_threads,
                              prefetch=cfg.prefetch)
         # fixed latents and labels, so that the dumps compare over training
         gen = torch.Generator().manual_seed(cfg.seed + 1)
@@ -331,9 +382,9 @@ class Trainer:
         if self._multi is None:
             c = self.cfg
             self._multi = step_mod.MultiStep(
-                self.state, self.steps_per_call, c.batch_size, self.g_cfg,
+                self.state, self.steps_per_call, self.batch, self.g_cfg,
                 self.ds_cfg, self.dt_cfg, self.tc, c.seed, self.dtype,
-                self.device, launch_counts)
+                self.device, launch_counts, shard=self.shard, **self.groups)
             self.state = self._multi.state
             if self.device.type == "cuda":
                 self._multi.capture()
@@ -370,6 +421,8 @@ class Trainer:
         lagged: Optional[_Record] = None    # the last log step's record
         since = _Mark(self.start_step, self.device)
         metrics: dict[str, torch.Tensor] = {}
+        first = self.start_step
+        launched = dict.fromkeys(launch_counts(), 0)    # over the run
         anomaly = torch.is_anomaly_enabled()
         torch.autograd.set_detect_anomaly(anomaly or (c.nan_check and k == 1))
         prof = None
@@ -390,26 +443,33 @@ class Trainer:
                     pending = prefetch.submit(
                         lambda: self._place(self._next(data)))
                 real, y = self._take(batch)
+                comms_at = collectives.COUNTS.snapshot()
                 if multi is not None:   # the call's metrics stacked (K,)
                     self.state, out = multi(self.state, real, y, i)
                     launches = multi.launches
                     metrics = {name: v[-1] for name, v in out.items()}
                 else:
                     draws = step_mod.TorchDraws(
-                        c.seed, i, c.batch_size, self.g_cfg.z_dim,
+                        c.seed, i, self.batch, self.g_cfg.z_dim,
                         self.g_cfg.n_frames, self.ds_cfg.k_frames,
-                        self.dtype, self.device)
+                        self.dtype, self.device, shard=self.shard)
                     before = launch_counts()
-                    self.state, out = step_mod.train_step(
-                        self.state, real, y, draws, self.g_cfg, self.ds_cfg,
-                        self.dt_cfg, self.tc)
+                    self.state, out = self.step_fn(self.state, real, y,
+                                                   draws)
                     launches = {name: n - before[name]
                                 for name, n in launch_counts().items()}
                     metrics = out
                 step = i + k
+                for name, n in launches.items():
+                    launched[name] += n * k
                 if c.nan_check:
                     _check_finite(out, step)
-                record = _Record(step, metrics, launches, self.device)
+                comms = None
+                if self.par is not None:    # per step, this call's
+                    now = collectives.COUNTS.snapshot()
+                    comms = {name: (v - comms_at[name]) // k
+                             for name, v in now.items()}
+                record = _Record(step, metrics, launches, self.device, comms)
                 if step % c.log_step == 0:
                     if lagged is not None:
                         since = self._report(lagged, since)
@@ -421,8 +481,10 @@ class Trainer:
                 if c.eval_step and step % c.eval_step == 0:
                     ev = self.evaluate()
                     self.writer.scalars(ev, step)
-                    print(f"eval @ {step}: " + " ".join(
-                        f"{k} {v:.4f}" for k, v in ev.items()), flush=True)
+                    if self.is_main:
+                        print(f"eval @ {step}: " + " ".join(
+                            f"{k} {v:.4f}" for k, v in ev.items()),
+                            flush=True)
                 if c.model_save_step and step % c.model_save_step == 0:
                     self.save(step)
         except BaseException:
@@ -443,6 +505,12 @@ class Trainer:
         if lagged is not None:          # the last interval, not yet written
             self._report(lagged, since)
         self.start_step = max(self.start_step, total)
+        if self.par is not None:    # the replicas, compared by digest
+            digest, n = interop.state_digest(self.state)
+            print(f"rank {self.par.rank}: state digest {digest} over {n} "
+                  f"leaves", flush=True)
+            print(f"rank {self.par.rank}: launches {json.dumps(launched)} "
+                  f"over {max(0, total - first)} steps", flush=True)
         if self.device.type == "cuda":
             peak = torch.cuda.max_memory_allocated(self.device) / 2**30
             print(f"peak device memory {peak:.3f} GiB", flush=True)
@@ -456,17 +524,25 @@ class Trainer:
         sps = (rec.step - since.step) / secs if secs > 0 else 0.0
         self.writer.scalars(m, rec.step)
         self.writer.scalar("steps_per_sec", sps, rec.step)
-        print(" | ".join([step_line(rec.step, m, sps)]
-                         + [f"{k}_launches {n}"
-                            for k, n in rec.launches.items()]), flush=True)
+        if self.is_main:
+            print(" | ".join([step_line(rec.step, m, sps)]
+                             + [f"{k}_launches {n}"
+                                for k, n in rec.launches.items()]
+                             + [f"comm_{k} {n}"
+                                for k, n in rec.comms.items()]), flush=True)
         return rec
 
     def save(self, step: int) -> None:
+        """A checkpoint of the state at `step`: on a thread (`AsyncSaver`)
+        or here; with several ranks the leader writes, prunes and renames
+        while the others wait at a barrier."""
         keep = self.cfg.keep_checkpoints or None
         if self.saver is not None:
             self.saver.save(self.ckpt_dir, step, self.state, max_to_keep=keep)
-        else:
+        elif self.is_main:
             ckpt.save(self.ckpt_dir, step, self.state, max_to_keep=keep)
+        if self.par is not None:
+            self.par.barrier()
 
     def _flush_saver(self, unwinding: bool = False) -> None:
         """Joins the write in flight. On the normal path its failure
@@ -561,7 +637,12 @@ class Trainer:
                                z, y, self.g_cfg, cond_video=cond)
 
     def dump_samples(self, step: int) -> None:
-        videos = self.sample().float().cpu().numpy()
+        """EMA-G samples of the fixed z and y, computed on every rank and
+        written by the leader."""
+        videos = self.sample()
+        if not self.is_main:
+            return
+        videos = videos.float().cpu().numpy()
         save_video_grid_png(
             os.path.join(self.sample_dir, f"{step}_grid.png"), videos)
         save_batch_gifs(self.sample_dir, videos, step)

@@ -1,10 +1,9 @@
 """Config / CLI — the counterpart of `dvdgan_tpu/utils/config.py`.
 
 The flag names, defaults and PRESETS are the reference's, and `Config` has
-every field of the reference's. The fields of modules not ported yet
-(`NOT_PORTED`: multi-device) parse, and `check_ported` raises
-`NotImplementedError` naming their ROADMAP Queue 1 item when one is given
-a value other than its default.
+every field of the reference's. `--n_devices`, `--time_shards` and
+`--multihost` take train mode over several ranks (`parallel/mesh.py`,
+`cli.py`).
 `--ups_fused {off,fwd,full}` is the reference's environment variable
 DVDGAN_UPS_PALLAS as a flag (the route of G's upsample convs,
 `ops/layers.py`), and `--attn_fused {off,on}` its DVDGAN_ATTN_PALLAS (the
@@ -96,14 +95,15 @@ class Config:
     #                                   side -> mean and *_std
     pretrained_model: Optional[int] = None   # resume from this step
     # runtime
-    n_devices: int = 0                # > 1: item 6
+    n_devices: int = 0                # ranks of one launch; 0: every
+    #                                   visible card (one on the CPU)
     seed: int = 0
     bf16: bool = True
     out_dir: str = "runs/default"
     profile: bool = False             # torch.profiler trace of steps 10..15
     nan_check: bool = False           # anomaly mode, losses checked a step
     remat: bool = False               # rematerialize G levels (long clips)
-    multihost: bool = False           # item 6
+    multihost: bool = False           # ranks from the launcher's env
     time_shards: int = 1              # >1: DT context-parallel over time
     device: str = "cuda"              # torch device (cuda | cuda:N | cpu)
     ups_fused: str = "off"            # G's upsample convs: off | fwd | full
@@ -138,24 +138,6 @@ class Config:
                            grad_accum=self.grad_accum,
                            fake_gen=self.fake_gen,
                            log_grad_norms=self.log_grad_norms)
-
-
-# fields parsed but not run yet: {field: its ROADMAP Queue 1 item}
-NOT_PORTED = {"multihost": "6", "n_devices": "6", "time_shards": "6"}
-
-
-def check_ported(cfg: Config) -> None:
-    """Raises NotImplementedError for a field of `NOT_PORTED` off its
-    default (`n_devices` 1 is one card: the default's meaning)."""
-    default = Config()
-    for name, item in NOT_PORTED.items():
-        value = getattr(cfg, name)
-        if name == "n_devices" and value <= 1:
-            continue
-        if value != getattr(default, name):
-            raise NotImplementedError(
-                f"--{name} {value}: ROADMAP Queue 1 item {item} (not ported "
-                f"yet)")
 
 
 # The reference's five named configs, unchanged.

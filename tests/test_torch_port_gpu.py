@@ -1736,3 +1736,91 @@ def test_evaluate_generator_on_card_repeats_bitwise(cuda, tmp_path):
     assert k1.gru_sequence_fused.launches > before
     assert runs[0] == runs[1] and math.isfinite(runs[0]["fvd"])
     assert seen.count(True) == 6 and 1.0 <= runs[0]["is_mean"] <= 3.0
+
+
+# ------------------------------------------------- two gloo ranks on cuda:0
+def _two_ranks_on_the_card(local_rank: int, out: str) -> None:
+    """A rank of `test_collectives_on_two_gloo_ranks_on_the_card`: the
+    cross-replica moments and their gradient, the halos and their
+    cotangents, on CUDA tensors; and MultiStep refusing the group."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from dvdgan_tpu_torch.ops import norm
+    from dvdgan_tpu_torch.parallel import collectives
+    from dvdgan_tpu_torch.parallel import mesh as pmesh
+
+    device = torch.device("cuda", 0)
+    par = pmesh.init_from_env(device, 1, 2, timeout_s=60)
+    try:
+        g = torch.Generator().manual_seed(0)
+        x = torch.randn(6, 5, 5, 4, generator=g)
+        a, b = torch.randn(4, generator=g), torch.randn(4, generator=g)
+        clip = torch.randn(2, 6, 3, 3, 2, generator=g)
+        w = torch.randn(2, 3, 3, 2, generator=g)
+        r = par.rank
+        xr = x[3 * r:3 * (r + 1)].to(device).requires_grad_(True)
+        mean, var = norm._batch_moments(xr, par.data_group)
+        ((mean * a.to(device)).sum() + (var * b.to(device)).sum()).backward()
+        part = clip[:, 3 * r:3 * (r + 1)].to(device).requires_grad_(True)
+        left, right = collectives.halos(part, dist.group.WORLD)
+        ((left * w.to(device)).sum()
+         + 2 * (right * w.to(device)).sum()).backward()
+        cfgs = (GConfig(img_size=32, n_frames=4, ch=8, z_dim=120,
+                        n_classes=5, emb_dim=16, attn_res=16),
+                DSConfig(img_size=32, ch=8, n_classes=5, k_frames=2),
+                DTConfig(img_size=32, n_frames=4, ch=8, n_classes=5),
+                train_state.TrainConfig(d_steps=1))
+        try:
+            step.MultiStep({}, 2, 1, *cfgs, 0, torch.float32, device,
+                           group=par.data_group)
+            refused = ""
+        except NotImplementedError as e:
+            refused = str(e)
+        np.savez(f"{out}/r{r}.npz", mean=mean.detach().cpu().numpy(),
+                 var=var.detach().cpu().numpy(), dx=xr.grad.cpu().numpy(),
+                 left=left.detach().cpu().numpy(),
+                 right=right.detach().cpu().numpy(),
+                 dpart=part.grad.cpu().numpy(), backend=par.backend,
+                 refused=refused)
+    finally:
+        par.close()
+
+
+def test_collectives_on_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """Two ranks sharing cuda:0 (gloo, CUDA tensors): the moments and
+    `all_mean`'s gradient against the CPU's whole batch (the gradient of
+    the two ranks' summed losses: twice the one-process one), the halos
+    and their cotangents bitwise, and `MultiStep` refusing the group."""
+    import numpy as np
+
+    from dvdgan_tpu_torch.ops import norm
+    from dvdgan_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.spawn(_two_ranks_on_the_card, 2, (str(tmp_path),), timeout_s=120)
+    res = [dict(np.load(tmp_path / f"r{r}.npz")) for r in range(2)]
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(6, 5, 5, 4, generator=g).requires_grad_(True)
+    a, b = torch.randn(4, generator=g), torch.randn(4, generator=g)
+    clip = torch.randn(2, 6, 3, 3, 2, generator=g)
+    w = torch.randn(2, 3, 3, 2, generator=g)
+    mean, var = norm._batch_moments(x)
+    ((mean * a).sum() + (var * b).sum()).backward()
+    for r in res:
+        assert str(r["backend"]) == "gloo"
+        assert "CUDA graph cannot" in str(r["refused"])
+        torch.testing.assert_close(torch.from_numpy(r["mean"]),
+                                   mean.detach(), rtol=0, atol=1e-6)
+        torch.testing.assert_close(torch.from_numpy(r["var"]), var.detach(),
+                                   rtol=0, atol=1e-6)
+    dx = torch.from_numpy(np.concatenate([r["dx"] for r in res]))
+    torch.testing.assert_close(dx, 2 * x.grad, rtol=1e-5, atol=1e-6)
+    zero = torch.zeros_like(clip[:, 0])
+    assert torch.equal(torch.from_numpy(res[0]["left"]), zero)
+    assert torch.equal(torch.from_numpy(res[0]["right"]), clip[:, 3])
+    assert torch.equal(torch.from_numpy(res[1]["left"]), clip[:, 2])
+    assert torch.equal(torch.from_numpy(res[1]["right"]), zero)
+    want = torch.zeros(2, 6, 3, 3, 2)
+    want[:, 2], want[:, 3] = w, 2 * w
+    got = torch.cat([torch.from_numpy(r["dpart"]) for r in res], dim=1)
+    assert torch.equal(got, want)

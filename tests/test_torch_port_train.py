@@ -323,11 +323,16 @@ def test_train_cli_on_cpu_writes_state(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--time_shards", "2"], "item 6"),          # time-axis CP
-    (["--n_devices", "2"], "item 6"),            # data parallel
+    # time-axis CP needs as many ranks as shards: one CPU launch has one
+    (["--time_shards", "2"], "needs at least that many devices"),
+    # --n_devices starts a launch's ranks; --multihost's launcher does
+    (["--n_devices", "2", "--multihost", "1"], "launcher starts"),
 ], ids=["flags0-item 6", "flags2-item 6"])
 def test_train_cli_refuses_what_is_not_ported(flags, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match):
+    """Queue 1 item 6 is ported (`tests/test_torch_port_parallel.py`); the
+    CLI still refuses the multi-rank flags it cannot honour, before it
+    writes anything."""
+    with pytest.raises(ValueError, match=match):
         cli.main(["--mode", "train", "--device", "cpu", *TRAIN_FLAGS, *flags,
                   "--out_dir", str(tmp_path)])
     assert not os.listdir(tmp_path)
