@@ -110,6 +110,28 @@
    (`par_f32_reference`), losses atol 1e-3, Adam mu within 1e-4 x max|mu|;
    meanwhile this process holds the flagship f32 step card vs CPU (phase
    6);
+   then, from a thread of this process while it runs phases 5 to 8 (three
+   at a time; beside the train, evaluation or parallel children they
+   outlasted those and slowed them), the serving artifacts (`ARTIFACTS`):
+   for each, the EMA-G weights of the seeded init moved off it
+   (`g_off_init`: both attention γ ≠ 0), an export child
+   (`tools/torch_export_serving.py`), then a load child that imports
+   torch and `kernels.library` alone (`LOAD_CHILD`) and serves each batch
+   once, its launch counters from 0: A1
+   `ucf101_64` bf16 batch 16 (K1), A2 `ucf101_64` polymorphic bf16 with
+   `--ups_fused fwd --attn_fused on` served at 1, 16 and 32 (K1, K5a,
+   K6a), A3 `kinetics_128 --attn_res 64 --attn_fused on` bf16 batch 2 (K1,
+   K3, K6b), A4 DVD-GAN-FP at `kinetics_64` bf16 batch 8, A5 `ucf101_64`
+   f32 batch 2 for the card and for the CPU (`check_artifacts`): every
+   clip equal to eager `step.sample` of the same route, weights and inputs
+   in this process bitwise (else printed and held at atol 5e-3, rtol
+   5e-2), the launches a call `sample_launches` predicts, no model module
+   in the load child, A5 card vs CPU at atol 2e-3; then A1 and
+   `step.sample` of its weights at batch 16, each eager and from a CUDA
+   graph of 10 calls (`tools/torch_bench_sample.py`), ms a batch and
+   device idle share, and one sample call traced under `profiling.trace`
+   and `scope("sample")`, the trace holding the scope and K1's kernels
+   (`time_serving`);
 5. holds K2 against its plain version at the shapes the flagship step's G
    update gives it (the four levels, T=16, B=8), in f32 with TF32 off (atol
    1e-4 × max|ref| per output) and in bf16 (5e-2 × max|ref|), two runs
@@ -146,7 +168,13 @@
    and dh launches at 4²×512 and 8²×512;
 8. holds one f32 long-clip-shaped step (the 256 px schedules at ch 8, T 4,
    batch 2, grad_accum 2, remat on; its 64² and 128² levels go to K3) on
-   the card against the CPU, at phase 6's limits;
+   the card against the CPU, at phase 6's limits; then runs the long-clip
+   step under each `--remat_save` policy in this process
+   (`check_remat_policies`: gru+ups twice, then gru, ups and none, each 1
+   warm-up and 1 timed step from one state, batch and draws): ms, peak
+   memory, K1/K2/K3 launches as `launches_per_step` predicts (K1 and K3
+   rerun in the backward under ups and none), and each state equal to
+   gru+ups's bitwise if its two runs are, else within their gap;
 9. holds K5a and K5b (the fused upsample conv and its backward; bf16 on
    the tensor cores, f32 on the CUDA cores) against their plain versions
    at the four ucf101_64 levels (N = T·B = 128, and 256 as the fake pass
@@ -185,12 +213,12 @@
     CPU; flagship steps/s with both fused routes; and one f32 flagship step
     with them (d_steps 1, γ off zero) card vs CPU and against the unfused
     attention on the card;
-13. times the routes in turns in this one call: the long-clip step off
-    and on (one reading each, the first profiled) and the 128 px step off,
-    on, on, off (median of 2 steps after 1 warm-up, with peak memory; the
-    profiler's view with a route's first reading), and sampling off, on,
-    on, off; and `Trainer.train()` at steps_per_call 1 and K in turns 1,
-    K, K, 1 (`time_steps_per_call`): the flagship at K 4 (12 steps a
+13. times the routes in this one call: the long-clip step off and on
+    (one reading each, the first profiled) and the 128 px step off and on
+    (one reading each, both profiled; median of 2 steps after 1 warm-up,
+    with peak memory), and sampling off, on, on, off; and
+    `Trainer.train()` at steps_per_call 1 and K in turns 1, K, K, 1
+    (`time_steps_per_call`): the flagship at K 4 (12 steps a
     reading, log_step 4), FP and the 128 px step at K 2 (4 steps), the
     long clip at K 2 (2 steps), with
     ms a step, device time and idle share, the syncs of a train() of K
@@ -216,7 +244,8 @@ step's `--ups_fused full` pair is no longer timed in turns (its kernels are
 timed at the long-clip levels in phase 9, and the long-clip child runs
 it); and (to make room for the parallel phase) the long-clip routes are
 read once each, not in turns, and the long-clip K 1 vs K 2 turns take 2
-steps a reading instead of 4.
+steps a reading instead of 4; and (to make room for the serving
+artifacts) the 128 px routes are read once each, not in turns.
 
 Any failing phase raises, so the script exits non-zero without the result
 line; so does a machine without a CUDA device. Imports nothing of JAX or
@@ -534,7 +563,6 @@ def drive_sample(device, route=(), preset=("--preset", "ucf101_64"),
     from dvdgan_tpu_torch.kernels import convgru_seq as k1
     from dvdgan_tpu_torch.kernels import ups2x_fused as k5
     from dvdgan_tpu_torch.models.generator import GeneratorState
-    from dvdgan_tpu_torch.ops import convgru
     from dvdgan_tpu_torch.train import step, trainer
     from dvdgan_tpu_torch.utils.config import parse_config
 
@@ -560,27 +588,13 @@ def drive_sample(device, route=(), preset=("--preset", "ucf101_64"),
         raise AssertionError("non-finite values in the sampled clips")
     if videos.min() < -1.0 or videos.max() > 1.0:
         raise AssertionError(f"clip range [{videos.min()}, {videos.max()}]")
-    n_k3 = sum(convgru.uses_blocked(g_cfg.base_res * 2 ** i,
-                                    g_cfg.base_res * 2 ** i)
-               for i in range(g_cfg.n_levels))
     # FP: each level's GRU also runs over the prefix (the warm-up)
-    t = g_cfg.cond_frames + g_cfg.n_frames
-    want = ((g_cfg.n_levels - n_k3) * t * k1.LAUNCHES_PER_STEP,
-            n_k3 * t * k3.LAUNCHES_PER_STEP)
-    if (launches, k3_launches) != want:
-        raise AssertionError(f"K1, K3 launched {(launches, k3_launches)} "
-                             f"times in the sample run, want {want}")
-    want_k5a = 0 if cfg.ups_fused == "off" else (
-        g_cfg.n_levels * k5.LAUNCHES_PER_CALL)
-    if k5a != want_k5a:
-        raise AssertionError(f"K5a launched {k5a} times in the sample run "
-                             f"with --ups_fused {cfg.ups_fused}, want "
-                             f"{want_k5a}")
-    want_k6a = (cfg.attn_fused == "on") * k6.LAUNCHES_PER_CALL
-    if (k6a, k6b) != (want_k6a, 0):
-        raise AssertionError(f"K6a, K6b launched {(k6a, k6b)} times in the "
-                             f"sample run with --attn_fused {cfg.attn_fused}, "
-                             f"want {(want_k6a, 0)}")
+    got = {"k1": launches, "k3": k3_launches, "k5a": k5a, "k6a": k6a,
+           "k6b": k6b}
+    if got != sample_launches(g_cfg):
+        raise AssertionError(f"launches in the sample run with --ups_fused "
+                             f"{cfg.ups_fused} --attn_fused {cfg.attn_fused}: "
+                             f"{got}, want {sample_launches(g_cfg)}")
     print(f"sample {' '.join(preset[1:])} ups {cfg.ups_fused} attn "
           f"{cfg.attn_fused}: shape {videos.shape} range [{videos.min():.4f}, "
           f"{videos.max():.4f}] K1 launches {launches} K3 launches "
@@ -1254,7 +1268,11 @@ def launches_per_step(cfg) -> dict[str, int]:
     `ops/convgru.py` sends the plane, else K1) over T steps, and one K2 per
     level and micro-batch goes back over them. For FP (cond_frames > 0)
     every level's GRU also runs over the prefix before (the warm-up), and
-    its K2 goes back over it: cond_frames + T steps each."""
+    its K2 goes back over it: cond_frames + T steps each. With remat, a
+    policy that keeps no GRU output (`--remat_save ups` or `none`) reruns
+    each G forward's generation sequences in the backward, and one that
+    keeps no upsample output (`gru`, `ups`, `none`) reruns the fused conv
+    (`models/generator.py:_level`)."""
     from dvdgan_tpu_torch.kernels import convgru_blocked as k3
     from dvdgan_tpu_torch.kernels import convgru_bwd as k2
     from dvdgan_tpu_torch.kernels import convgru_seq as k1
@@ -1268,9 +1286,14 @@ def launches_per_step(cfg) -> dict[str, int]:
     t, ka = g_cfg.cond_frames + g_cfg.n_frames, cfg.grad_accum
     fwd = (1 if cfg.fake_gen == "pooled" else cfg.d_steps) + ka
     # the fused upsample conv: K5a once per level in every G forward (none
-    # from a remat backward), K5b once per level in every G backward
+    # from a remat backward under `gru+ups`), K5b once per level in every G
+    # backward
     k5a = cfg.ups_fused != "off"
     k5b = cfg.ups_fused == "full"
+    # the remat backward's reruns: the G forwards' sequences (not the FP
+    # warm-up's, which runs outside the regions) and fused convs
+    rerun_gru = ka * (g_cfg.remat and g_cfg.remat_save in ("ups", "none"))
+    rerun_ups = ka * (g_cfg.remat and g_cfg.remat_save != "gru+ups")
     # the fused spatial attention: one call (two launches) per G forward,
     # through the entry the map's size picks; none from a backward (the
     # backward recomputes the unfused math, and under remat the fused pass
@@ -1279,11 +1302,13 @@ def launches_per_step(cfg) -> dict[str, int]:
         fwd * k6.LAUNCHES_PER_CALL)
     tiled = g_cfg.attn_res is not None and attention.uses_tiled(
         g_cfg.attn_res, g_cfg.attn_res)
-    return {"k1_launches": (g_cfg.n_levels - n_k3) * t * fwd
+    n = g_cfg.n_frames
+    return {"k1_launches": (g_cfg.n_levels - n_k3) * (t * fwd + n * rerun_gru)
             * k1.LAUNCHES_PER_STEP,
             "k2_launches": g_cfg.n_levels * t * ka * k2.LAUNCHES_PER_STEP,
-            "k3_launches": n_k3 * t * fwd * k3.LAUNCHES_PER_STEP,
-            "k5a_launches": k5a * g_cfg.n_levels * fwd
+            "k3_launches": n_k3 * (t * fwd + n * rerun_gru)
+            * k3.LAUNCHES_PER_STEP,
+            "k5a_launches": k5a * g_cfg.n_levels * (fwd + rerun_ups)
             * k5.LAUNCHES_PER_CALL,
             "k5b_launches": k5b * g_cfg.n_levels * ka
             * k5.BWD_LAUNCHES_PER_CALL,
@@ -2498,16 +2523,8 @@ def time_extractors(device, nets: dict) -> list[dict]:
 
 
 def eval_k1_per_batch(cfg) -> int:
-    """K1 launches of one EMA-G sample batch of `cfg` (each level whose
-    plane K1 takes, over the prefix and the generated frames)."""
-    from dvdgan_tpu_torch.kernels import convgru_seq as k1
-    from dvdgan_tpu_torch.ops import convgru
-    g_cfg = cfg.g_config()
-    levels = sum(not convgru.uses_blocked(g_cfg.base_res * 2 ** i,
-                                          g_cfg.base_res * 2 ** i)
-                 for i in range(g_cfg.n_levels))
-    return levels * (g_cfg.cond_frames + g_cfg.n_frames) * \
-        k1.LAUNCHES_PER_STEP
+    """K1 launches of one EMA-G sample batch of `cfg`."""
+    return sample_launches(cfg.g_config())["k1"]
 
 
 def start_eval(argv, out_dir: str) -> dict:
@@ -2991,6 +3008,381 @@ def drive_parallel(device) -> dict:
     return done
 
 
+# ------------------------------------------------ the serving artifacts (7b)
+# Each artifact: the flags of `tools/torch_export_serving.py` (the model and
+# route), --serve_batch, --serve_dtype, the batches it serves, the device
+# it is exported for. A5 is exported twice, for the card and the CPU. In
+# the order their chains start (the longest first; `serving_children`).
+ARTIFACTS = {
+    # one polymorphic program with the fused routes (K1, K5a, K6a)
+    "a2": (["--preset", "ucf101_64", "--ups_fused", "fwd", "--attn_fused",
+            "on"], 0, "bfloat16", (1, 16, 32), "cuda"),
+    # the serving config: bf16 batch 16, default routes (K1)
+    "a1": (["--preset", "ucf101_64"], 16, "bfloat16", (16,), "cuda"),
+    # 128 px with the attention at 64² (K1, K3, K6b)
+    "a3": (["--preset", "kinetics_128", "--attn_res", "64", "--attn_fused",
+            "on"], 2, "bfloat16", (2,), "cuda"),
+    # DVD-GAN-FP: 5 real frames, 11 generated (K1 over both)
+    "a4": (FP_PRESET, 8, "bfloat16", (8,), "cuda"),
+    # f32: the card's artifact against the CPU's
+    "a5": (["--preset", "ucf101_64"], 2, "float32", (2,), "cuda"),
+    "a5_cpu": (["--preset", "ucf101_64"], 2, "float32", (2,), "cpu"),
+}
+# an artifact's clip against eager `step.sample` where they are not bitwise
+# equal: the reference's round trip (tests/test_tools.py)
+ARTIFACT_ATOL, ARTIFACT_RTOL = 5e-3, 5e-2
+# the load child: torch and the registered ops only, no model code
+LOAD_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from dvdgan_tpu_torch.kernels import library
+counters = {"k1": library.convgru_seq.gru_sequence_fused,
+            "k3": library.convgru_blocked.gru_sequence_blocked,
+            "k5a": library.ups2x_fused.ups2x,
+            "k6a": library.attention_spatial.spatial_attn_fused,
+            "k6b": library.attention_spatial.spatial_attn_tiled}
+device, path, out = sys.argv[1], sys.argv[2], sys.argv[3]
+# the parent's flags: f32 convs and matmuls in full f32 (cuDNN's default
+# runs f32 convs in TF32)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+t0 = time.perf_counter()
+serve = torch.export.load(path).module()
+load_s = time.perf_counter() - t0
+launches, clips = {}, {}
+for name in sys.argv[4:]:
+    with np.load(name) as f:
+        args = [torch.from_numpy(f[k]).to(device) for k in sorted(f.files)]
+    before = {k: c.launches for k, c in counters.items()}
+    clip = serve(*args)
+    launches[str(args[0].shape[0])] = {
+        k: c.launches - before[k] for k, c in counters.items()}
+    clips[str(args[0].shape[0])] = clip.float().cpu().numpy()
+np.savez(out, **clips)
+print(json.dumps({"launches": launches, "load_s": load_s, "modules": sorted(
+    m for m in sys.modules if m.startswith("dvdgan_tpu"))}))
+"""
+
+
+def g_off_init(state, seed: int):
+    """A `GeneratorState` moved off its init in place: every parameter
+    plus 0.05 N(0, 1) (so both attention γ leave 0), every BN running mean
+    N(0, 0.1) and var U(0.5, 1.5). -> the state."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in state.params.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        for name, v in state.stats.named_buffers():
+            if name.endswith("mean"):
+                v.normal_(0, 0.1, generator=gen)
+            else:
+                v.uniform_(0.5, 1.5, generator=gen)
+    return state
+
+
+def sample_launches(g_cfg) -> dict[str, int]:
+    """Kernel launches of one EMA-G sample call of `g_cfg`: each level's
+    sequence kernel (K3 where `ops/convgru.py` sends the plane, else K1)
+    over the prefix and the generated frames, K5a once a level with a
+    fused upsample, K6a or K6b once with the fused attention."""
+    from dvdgan_tpu_torch.kernels import attention_spatial as k6
+    from dvdgan_tpu_torch.kernels import convgru_blocked as k3
+    from dvdgan_tpu_torch.kernels import convgru_seq as k1
+    from dvdgan_tpu_torch.kernels import ups2x_fused as k5
+    from dvdgan_tpu_torch.ops import attention, convgru
+    res = [g_cfg.base_res * 2 ** i for i in range(g_cfg.n_levels)]
+    n_k3 = sum(convgru.uses_blocked(r, r) for r in res)
+    t = g_cfg.cond_frames + g_cfg.n_frames
+    attn = (g_cfg.attn_fused == "on" and g_cfg.attn_res is not None) * (
+        k6.LAUNCHES_PER_CALL)
+    tiled = g_cfg.attn_res is not None and attention.uses_tiled(
+        g_cfg.attn_res, g_cfg.attn_res)
+    return {"k1": (g_cfg.n_levels - n_k3) * t * k1.LAUNCHES_PER_STEP,
+            "k3": n_k3 * t * k3.LAUNCHES_PER_STEP,
+            "k5a": (g_cfg.ups_fused != "off") * g_cfg.n_levels
+            * k5.LAUNCHES_PER_CALL,
+            "k6a": 0 if tiled else attn, "k6b": attn if tiled else 0}
+
+
+def artifact_inputs(g_cfg, b: int, seed: int) -> dict[str, np.ndarray]:
+    """f32 z, int64 y and, for FP, an f32 prefix in [-1, 1]; the keys sort
+    in the artifact's argument order."""
+    rng = np.random.RandomState(seed)
+    out = {"0_z": rng.randn(b, g_cfg.z_dim).astype(np.float32),
+           "1_y": rng.randint(0, g_cfg.n_classes, b).astype(np.int64)}
+    if g_cfg.cond_frames:
+        out["2_cond"] = np.tanh(rng.randn(
+            b, g_cfg.cond_frames, g_cfg.img_size, g_cfg.img_size, 3)).astype(
+                np.float32)
+    return out
+
+
+def serving_children(root: str) -> dict[str, dict]:
+    """Per artifact: its weights (the seeded init moved off it,
+    `g_off_init`) and inputs written, an export child
+    (`tools/torch_export_serving.py`), then a load child (`LOAD_CHILD`:
+    torch and `kernels.library` only) that serves each batch once; three
+    chains at a time (two took 180 s, where the phases beside them take
+    ~130). -> {name: launches a call by batch, the modules the load child
+    imported, export and load seconds, files}."""
+    from dvdgan_tpu_torch import interop
+    from dvdgan_tpu_torch.models.generator import GeneratorState
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    def chain(name):
+        argv, batch, dtype, batches, dev = ARTIFACTS[name]
+        seed = int(name[1])
+        g_cfg = parse_config(argv).g_config()
+        weights = os.path.join(root, f"{name}_weights.npz")
+        interop.save_state_npz(weights, g_off_init(
+            GeneratorState.create(g_cfg, seed), seed))
+        ins = []
+        for b in batches:
+            ins.append(os.path.join(root, f"{name}_in_{b}.npz"))
+            np.savez(ins[-1], **artifact_inputs(g_cfg, b, seed + b))
+        path = os.path.join(root, f"{name}.pt2")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(REPO, "tools",
+                                          "torch_export_serving.py"), *argv,
+             "--weights", weights, "--export_path", path, "--serve_batch",
+             str(batch), "--serve_dtype", dtype, "--device", dev],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        export_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"export {name} exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        t0 = time.perf_counter()
+        outs = os.path.join(root, f"{name}_out.npz")
+        load = subprocess.run(
+            [sys.executable, "-c", LOAD_CHILD, dev, path, outs, *ins],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        if load.returncode != 0:
+            raise AssertionError(f"load {name} exited {load.returncode}:\n"
+                                 f"{load.stderr[-4000:]}")
+        res = json.loads(load.stdout.strip().splitlines()[-1])
+        print(f"artifact {name}: {proc.stdout.strip().splitlines()[-1]}; "
+              f"export child {export_s:.1f} s, load child "
+              f"{time.perf_counter() - t0:.1f} s (artifact load "
+              f"{res['load_s']:.2f} s)", flush=True)
+        return {**res, "export_s": export_s, "weights": weights, "ins": ins,
+                "outs": outs, "path": path, "bytes": os.path.getsize(path)}
+
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        futures = {name: pool.submit(chain, name) for name in ARTIFACTS}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def check_artifacts(device, runs: dict[str, dict]) -> dict[str, dict]:
+    """Each artifact's clips (from its load child) against eager
+    `step.sample` of the same route, weights and inputs in this process:
+    bitwise (else the gap is printed and held at the reference's round
+    trip, ARTIFACT_ATOL/RTOL); its launches a call as `sample_launches`
+    predicts; the load child without the model code. A5: the card's
+    artifact against the CPU's at SAMPLE_TOL."""
+    from dvdgan_tpu_torch import interop
+    from dvdgan_tpu_torch.train import step
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    out = {}
+    for name, run in runs.items():
+        argv, batch, dtype, batches, dev = ARTIFACTS[name]
+        bad = [m for m in run["modules"] if m.startswith(
+            ("dvdgan_tpu_torch.models", "dvdgan_tpu_torch.ops",
+             "dvdgan_tpu_torch.train")) or m.split(".")[0] == "dvdgan_tpu"]
+        if bad:
+            raise AssertionError(f"artifact {name}'s load child imported "
+                                 f"{bad}")
+        g_cfg = parse_config(argv).g_config()
+        want = sample_launches(g_cfg)
+        if dev == "cpu":
+            want = dict.fromkeys(want, 0)
+        for b, got in run["launches"].items():
+            if got != want:
+                raise AssertionError(f"artifact {name} at batch {b} "
+                                     f"launched {got}, want {want}")
+        compute = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        trees = interop.load_state_npz(run["weights"]).to(dev).trees()
+        gaps = {}
+        with np.load(run["outs"]) as clips:
+            for b, path in zip(batches, run["ins"]):
+                with np.load(path) as f:
+                    args = [torch.from_numpy(f[k]).to(dev)
+                            for k in sorted(f.files)]
+                cond = args[2].to(compute) if len(args) > 2 else None
+                ref = step.sample(*trees, args[0].to(compute), args[1], g_cfg,
+                                  cond_video=cond).float().cpu().numpy()
+                got = clips[str(b)]
+                if got.shape != ref.shape or not np.isfinite(got).all():
+                    raise AssertionError(f"artifact {name} at batch {b}: "
+                                         f"shape {got.shape}, want "
+                                         f"{ref.shape}, or non-finite")
+                gaps[b] = float(np.abs(got - ref).max())
+                if gaps[b] and not np.allclose(got, ref, atol=ARTIFACT_ATOL,
+                                               rtol=ARTIFACT_RTOL):
+                    raise AssertionError(f"artifact {name} at batch {b} "
+                                         f"off eager step.sample by "
+                                         f"{gaps[b]}")
+        out[name] = {"launches_per_call": want, "calls": len(batches),
+                     "bitwise": not any(gaps.values()), "max_abs_gap": gaps,
+                     "bytes": run["bytes"], "export_s": run["export_s"],
+                     "load_s": run["load_s"]}
+        print(f"artifact {name} ({' '.join(argv)}, batch {batch or 'any'}, "
+              f"{dtype}, {dev}): launches a call {want}, against eager "
+              f"step.sample max_abs {gaps} "
+              f"({'bitwise' if out[name]['bitwise'] else 'NOT bitwise'})",
+              flush=True)
+    with np.load(runs["a5"]["outs"]) as card, \
+            np.load(runs["a5_cpu"]["outs"]) as cpu:
+        err = float(np.abs(card["2"] - cpu["2"]).max())
+    print(f"artifact a5 f32 card vs cpu: max_abs_err {err:.3e} (atol "
+          f"{SAMPLE_TOL})", flush=True)
+    if not err <= SAMPLE_TOL:
+        raise AssertionError(f"the f32 artifact on the card disagrees with "
+                             f"the CPU's: {err}")
+    out["a5"]["card_vs_cpu"] = err
+    return out
+
+
+def time_serving(device, runs: dict[str, dict]) -> dict:
+    """A1 and `step.sample` of the same weights at batch 16, each eager and
+    from a CUDA graph of SCAN_STEPS calls (`tools/torch_bench_sample.py`),
+    host ms a batch and the device idle share (1 − profiler kernel time /
+    the unprofiled time) of each; then one sample call traced under
+    `profiling.trace` and `scope("sample")`: the trace must hold the
+    scope's range and K1's kernels."""
+    from dvdgan_tpu_torch import interop, serving
+    from dvdgan_tpu_torch.train import step
+    from dvdgan_tpu_torch.utils import profiling
+    from dvdgan_tpu_torch.utils.config import parse_config
+    from tools import torch_bench_sample as bench
+
+    argv, batch = ARTIFACTS["a1"][:2]
+    g_cfg = parse_config(argv).g_config()
+    trees = interop.load_state_npz(runs["a1"]["weights"]).to(device).trees()
+    serve = serving.load_sampler(runs["a1"]["path"])
+    calls = {"artifact": (lambda z, y: serve(z, y), torch.float32),
+             "step_sample": (lambda z, y: step.sample(*trees, z, y, g_cfg),
+                             torch.bfloat16)}
+    rows = {}
+    for name, (call, dtype) in calls.items():
+        for graph in (False, True):
+            draws = bench.Draws(batch, g_cfg.z_dim, g_cfg.n_classes, dtype,
+                                device)
+            run = (bench.graphed(call, draws) if graph else
+                   functools.partial(bench.scan, call, draws))
+            secs = bench.seconds_per_call(run, draws)
+            busy, _ = profile_busy_us(run)
+            per = busy / 1e3 / bench.SCAN_STEPS
+            rows[f"{name}_{'graph' if graph else 'eager'}"] = {
+                "ms_per_batch": secs * 1e3, "clips_per_s": batch / secs,
+                "device_ms_per_batch": per,
+                "device_idle_share": 1.0 - per / (secs * 1e3)}
+    print("serving_rate " + json.dumps({"batch": batch, **rows}), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        z = torch.randn(batch, g_cfg.z_dim, device=device).bfloat16()
+        y = torch.zeros(batch, dtype=torch.long, device=device)
+        with profiling.trace(tmp, device):
+            with profiling.scope("sample"):
+                step.sample(*trees, z, y, g_cfg)
+        (path,) = [os.path.join(tmp, f) for f in os.listdir(tmp)]
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    k1_names = sorted({n for n in names
+                       if any(k in n for k in CONVGRU_KERNELS)})
+    print(f"trace of one sample call: {len(names)} event names, scope "
+          f"'sample' {'sample' in names}, K1 kernels {k1_names[:3]}",
+          flush=True)
+    if "sample" not in names or not k1_names:
+        raise AssertionError("the sample trace lacks the scope or K1's "
+                             "kernels")
+    return rows
+
+
+REMAT_POLICY_ORDER = ("gru+ups", "gru+ups", "gru", "ups", "none")
+
+
+def check_remat_policies(device) -> dict[str, dict]:
+    """The long-clip step (`kinetics_256_48f`, batch 4 as 2 micro-batches)
+    under each `--remat_save` policy in this one process, from one state,
+    batch and draws: 1 warm-up step and 1 timed step each (ms, peak
+    memory, K1/K2/K3 launches of the timed step against
+    `launches_per_step`). `gru+ups` runs twice first: if its two states
+    are bitwise equal every other policy's must be too, else each model's
+    leaves within the largest gap between those two runs."""
+    from dvdgan_tpu_torch.core import tree
+    from dvdgan_tpu_torch.kernels import convgru_blocked as k3
+    from dvdgan_tpu_torch.kernels import convgru_bwd as k2
+    from dvdgan_tpu_torch.kernels import convgru_seq as k1
+    from dvdgan_tpu_torch.train import state as train_state
+    from dvdgan_tpu_torch.train import step
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    batch, seed, g_cfg, ds_cfg, dt_cfg, tc = step_configs(LONG_ARGV)
+    state0 = train_state.to_device(
+        train_state.create(seed, g_cfg, ds_cfg, dt_cfg), device)
+    gen = torch.Generator(device).manual_seed(seed)
+    real = torch.tanh(torch.randn(batch, dt_cfg.n_frames, g_cfg.img_size,
+                                  g_cfg.img_size, 3, generator=gen,
+                                  device=device)).to(torch.bfloat16)
+    y = torch.randint(0, g_cfg.n_classes, (batch,), generator=gen,
+                      device=device)
+    counters = {"k1": k1.gru_sequence_fused, "k2": k2.gru_sequence_bwd,
+                "k3": k3.gru_sequence_blocked}
+    rows, ref, gaps = [], None, None
+    for policy in REMAT_POLICY_ORDER:
+        cfg = dataclasses.replace(g_cfg, remat_save=policy)
+        state = tree.tree_map(torch.clone, state0)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(2):
+            draws = step.TorchDraws(seed, i, batch, g_cfg.z_dim,
+                                    g_cfg.n_frames, ds_cfg.k_frames,
+                                    torch.bfloat16, device)
+            before = {k: c.launches for k, c in counters.items()}
+            t0 = time.perf_counter()
+            state, _ = step.train_step(state, real, y, draws, cfg, ds_cfg,
+                                       dt_cfg, tc)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launched = {k: c.launches - before[k] for k, c in counters.items()}
+        want = launches_per_step(parse_config(
+            LONG_ARGV + ["--remat_save", policy]))
+        want = {k: want[f"{k}_launches"] for k in counters}
+        if launched != want:
+            raise AssertionError(f"remat {policy}: launches {launched}, "
+                                 f"want {want}")
+        # on the host: a state held on the card would count in the next
+        # run's peak
+        flat = {p: v.cpu() for p, v in tree.flatten_with_paths(state).items()
+                if torch.is_tensor(v) and v.is_floating_point()}
+        del state
+        row = {"remat_save": policy, "ms_step": secs * 1e3,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": launched}
+        if ref is None:
+            ref = flat
+        else:
+            model_gap = {}
+            for p, v in flat.items():
+                m = p.split("/")[0]
+                d = float((v - ref[p]).abs().max())
+                model_gap[m] = max(model_gap.get(m, 0.0), d)
+            row["max_abs_gap_vs_first"] = model_gap
+            if gaps is None:
+                gaps = model_gap
+                row["repeats_bitwise"] = not any(gaps.values())
+            elif any(d > gaps.get(m, 0.0) for m, d in model_gap.items()):
+                raise AssertionError(f"remat {policy}: state off gru+ups's "
+                                     f"by {model_gap}, beyond its repeat's "
+                                     f"{gaps}")
+        rows.append(row)
+        print("remat_policy " + json.dumps(row), flush=True)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3071,6 +3463,14 @@ def main() -> int:
     phase("the parallel runs (two ranks on the card over gloo: DP2, DP2-B, "
           "CP2, the long clip's CP2, the f32 DP2 and CP2 against one "
           "process) and the flagship f32 step card vs CPU")
+    # the serving artifacts' export and load children, from a thread,
+    # beside this process's kernel checks and steps up to the remat
+    # policies (beside the train, evaluation and parallel children they
+    # outlasted them and slowed them: the CPU was busy)
+    serving_tmp = tempfile.TemporaryDirectory()
+    serving_pool = concurrent.futures.ThreadPoolExecutor(1)
+    t_serving = time.perf_counter()
+    serving_future = serving_pool.submit(serving_children, serving_tmp.name)
     rows_k2 = check_k2(device)
     phase("K2")
     time_train(device)
@@ -3105,6 +3505,25 @@ def main() -> int:
     if res["k3_launches"] <= 0:
         raise AssertionError("the long-clip-shaped f32 step launched no K3")
     phase("the long-clip step")
+    serving_runs = serving_future.result()
+    serving_pool.shutdown()
+    print(f"the serving artifacts' children: "
+          f"{time.perf_counter() - t_serving:.1f} s from their start",
+          flush=True)
+    t0 = time.perf_counter()
+    artifacts = check_artifacts(device, serving_runs)
+    serving_rate = time_serving(device, serving_runs)
+    serving_tmp.cleanup()
+    print(f"the serving artifacts' checks in this process: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase("the serving artifacts' children and A1-A5 against eager "
+          "step.sample, A1 and step.sample eager and graphed, the sample "
+          "trace")
+    t0 = time.perf_counter()
+    remat_rows = check_remat_policies(device)
+    print(f"the remat policies: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    phase("the long-clip step under each remat policy")
 
     # the fused-upsample route (K5a, K5b) and the single-step entry (K4)
     bf16, both = (torch.bfloat16,), (torch.float32, torch.bfloat16)
@@ -3188,10 +3607,12 @@ def main() -> int:
     print("longclip_pairs " + json.dumps(
         [{k: r.get(k) for k in keys} for r in long_rates]), flush=True)
     phase("the long-clip routes in turns")
+    # (cut to one reading a route, each profiled, for the serving phase's
+    # room)
     px_rates = [
         time_train(device, "px128_rate", PX128_ARGV + route, n_warm=1,
-                   n_steps=2, n_prof=int(i < 2), n_top=15)
-        for i, route in enumerate(([], ON, ON, []))]
+                   n_steps=2, n_prof=1, n_top=15)
+        for route in ([], ON)]
     print("px128_pairs " + json.dumps(
         [{k: r.get(k) for k in keys} for r in px_rates]), flush=True)
     phase("the 128 px routes in turns")
@@ -3294,6 +3715,17 @@ def main() -> int:
         return {f"{n}_rank{r}": c[kernel] for n in names
                 for r, c in enumerate(par[n]["launches_per_rank_step"])}
 
+    def art_paths(kernel, names):
+        """A kernel's launches in the artifacts' load children (every
+        batch each served once)."""
+        return {f"artifact_{n}": artifacts[n]["launches_per_call"][kernel]
+                * artifacts[n]["calls"] for n in names}
+
+    def art_per_call(kernel, names):
+        """... and per sample call."""
+        return {f"artifact_{n}": artifacts[n]["launches_per_call"][kernel]
+                for n in names}
+
     flag_par = ("dp2", "dp2_b", "cp2", "dp2_f32", "cp2_f32")
     k1_src, k2_src, k5_src = ("convgru_seq.cu", "convgru_bwd.cu",
                               "ups2x_fused.cu")
@@ -3309,15 +3741,18 @@ def main() -> int:
                "fp_k2": fp_k2["k1"],
                **{f"eval_{name}": evals[name]["launches"]["k1"]
                   for name in ("i3d", "c3d", "i3d_cached", "fp")},
-               **par_paths("k1", flag_par)},
+               **par_paths("k1", flag_par),
+               **art_paths("k1", ("a1", "a2", "a4", "a5"))},
               {"sample": sample_run["k1"],
                "trainer": trainer_a["per_step"]["k1_launches"],
                **par_per_step("k1", ("dp2", "cp2")),
                "sample_fp": fp_sample["k1"],
                "fp": fp_k1["per_step"]["k1_launches"],
                "eval_batch_16": evals["i3d"]["k1_per_batch"],
-               "eval_fp_batch_16": evals["fp"]["k1_per_batch"]},
-              in_graph=graphs["K1"]),
+               "eval_fp_batch_16": evals["fp"]["k1_per_batch"],
+               **art_per_call("k1", ("a1", "a2", "a4", "a5"))},
+              in_graph=graphs["K1"], remat_policies=remat_rows,
+              serving_rate=serving_rate),
         entry(f"convgru_seq (K1, bf16, sum of its {len(k1_levels)} "
               f"{long_shapes})",
               k1_src, k1_at, rows_long,
@@ -3367,9 +3802,10 @@ def main() -> int:
               "ucf101_64 levels, N=128; fake pass and sampling N=256)", k5_src,
               "ups2x_fused.py:195", k5a_flag,
               {"sample_fused": sample_fused["k5a"],
-               "train_fused": train_fused["k5a"]},
+               "train_fused": train_fused["k5a"], **art_paths("k5a", ("a2",))},
               {"sample_fused": sample_fused["k5a"],
-               "train_fused": train_fused["per_step"]["k5a_launches"]},
+               "train_fused": train_fused["per_step"]["k5a_launches"],
+               **art_per_call("k5a", ("a2",))},
               also=k5a_flag_fake, in_graph=graphs["K5a"]),
         entry("ups2x_fused fwd (K5a, bf16 on mma.sync, sum of the 6 "
               "kinetics_256_48f levels, N=96; fake pass N=384)", k5_src,
@@ -3392,10 +3828,12 @@ def main() -> int:
               "calls: 32x32x64 at N=256 and 128, 32x32x256 at N=384 and 96)",
               "attention_spatial.cu", "attention_spatial.py:104", rows_k6a,
               {"sample_fused": sample_fused["k6a"], "train_fused": train_fused["k6a"],
-               "longclip_fused": long_fused["k6a"]},
+               "longclip_fused": long_fused["k6a"],
+               **art_paths("k6a", ("a2",))},
               {"sample_fused": sample_fused["k6a"],
                "train_fused": train_fused["per_step"]["k6a_launches"],
-               "longclip_fused": long_fused["per_step"]["k6a_launches"]},
+               "longclip_fused": long_fused["per_step"]["k6a_launches"],
+               **art_per_call("k6a", ("a2",))},
               in_graph=graphs["K6a"], **k6_extra(rows_k6a)),
         entry("attention_spatial (K6a, the fused entry's wide body, bf16, sum "
               "of its 2 calls: 8x8x512 at N=96 and 192, kinetics_128 "
@@ -3408,13 +3846,16 @@ def main() -> int:
         entry("attention_spatial (K6b, the tiled entry, bf16, sum of its 2 "
               "calls: 64x64x64 at N=192 and 96)",
               "attention_spatial.cu", "attention_spatial.py:217", rows_k6b,
-              {"px128_on": px_on["k6b"]},
-              {"px128_on": px_on["per_step"]["k6b_launches"]},
+              {"px128_on": px_on["k6b"], **art_paths("k6b", ("a3",))},
+              {"px128_on": px_on["per_step"]["k6b_launches"],
+               **art_per_call("k6b", ("a3",))},
               in_graph=graphs["K6b"], **k6_extra(rows_k6b)),
         entry(f"convgru_seq (K1, bf16, sum of its {len(px_k1_levels)} "
               f"{px_shapes})", k1_src, k1_at, rows_px_k1,
-              {"px128": px_off["k1"], "px128_on": px_on["k1"]},
-              {"px128": px_off["per_step"]["k1_launches"]},
+              {"px128": px_off["k1"], "px128_on": px_on["k1"],
+               **art_paths("k1", ("a3",))},
+              {"px128": px_off["per_step"]["k1_launches"],
+               **art_per_call("k1", ("a3",))},
               also=rows_px_k1_fake),
         entry(f"convgru_bwd (K2, bf16, sum of the 5 {px_shapes})",
               k2_src, k2_at, rows_px_k2,
@@ -3423,8 +3864,10 @@ def main() -> int:
         entry(f"convgru_blocked (K3, bf16, its {len(px_k3_levels)} "
               f"{px_shapes})", "convgru_blocked.cu", "convgru_blocked.py:182",
               [r for r in rows_px_k3 if r["shape"][1] == PX128_B],
-              {"px128": px_off["k3"], "px128_on": px_on["k3"]},
-              {"px128": px_off["per_step"]["k3_launches"]},
+              {"px128": px_off["k3"], "px128_on": px_on["k3"],
+               **art_paths("k3", ("a3",))},
+              {"px128": px_off["per_step"]["k3_launches"],
+               **art_per_call("k3", ("a3",))},
               also=[r for r in rows_px_k3 if r["shape"][1] == PX128_B_FAKE]),
     ]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]

@@ -431,7 +431,13 @@ class _SpatialAttn(torch.autograd.Function):
 
 
 def _apply(entry, force_bqr, *args) -> torch.Tensor:
-    """Without a graph to build nothing is saved."""
+    """Without a graph to build nothing is saved. While `torch.export`
+    traces it, the entry's registered op (`dvdgan::spatial_attn_fused`,
+    `dvdgan::spatial_attn_tiled`; forward only)."""
+    if torch.compiler.is_exporting():
+        if entry is spatial_attn_tiled:
+            return torch.ops.dvdgan.spatial_attn_tiled(*args, force_bqr)
+        return torch.ops.dvdgan.spatial_attn_fused(*args)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return _SpatialAttn.apply(entry, force_bqr, *args)
     return _forward(entry, *args, force_bqr)

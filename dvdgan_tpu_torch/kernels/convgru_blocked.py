@@ -164,7 +164,10 @@ _differentiable_forward = differentiable(_forward)
 
 def gru_sequence_blocked(gx, cx, h0, wg, wc):
     """K3 forward, K1's signature: -> hs (T,B,H,W,C), differentiable
-    (`convgru_seq.differentiable`)."""
+    (`convgru_seq.differentiable`). While `torch.export` traces it, the
+    registered op `dvdgan::gru_sequence_blocked`."""
+    if torch.compiler.is_exporting():
+        return torch.ops.dvdgan.gru_sequence_blocked(gx, cx, h0, wg, wc)
     return _differentiable_forward(gx, cx, h0, wg, wc)
 
 

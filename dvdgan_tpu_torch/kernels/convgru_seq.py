@@ -375,7 +375,10 @@ _differentiable_forward = differentiable(_forward)
 def gru_sequence_fused(gx, cx, h0, wg, wc):
     """K1 forward. gx (T,B,H,W,2C), cx (T,B,H,W,C), h0 (B,H,W,C),
     wg (3,3,C,2C), wc (3,3,C,C) -> hs (T,B,H,W,C), differentiable
-    (`differentiable`)."""
+    (`differentiable`). While `torch.export` traces it, the registered op
+    `dvdgan::gru_sequence_fused` (`kernels/library.py`)."""
+    if torch.compiler.is_exporting():
+        return torch.ops.dvdgan.gru_sequence_fused(gx, cx, h0, wg, wc)
     return _differentiable_forward(gx, cx, h0, wg, wc)
 
 

@@ -242,7 +242,11 @@ def ups2x(wall: torch.Tensor, xp: torch.Tensor, kernel_bwd: bool = True
     """Fused phase conv + interleave (K5a). wall (4·Cin, 4·Cout), xp
     (N, H+2, W+2, Cin) zero-padded -> (N, 2H, 2W, Cout). Differentiable in
     wall and xp: through K5b with `kernel_bwd`, else through the plain
-    version, recomputed. Without a graph to build nothing is saved."""
+    version, recomputed. Without a graph to build nothing is saved. While
+    `torch.export` traces it, the registered op `dvdgan::ups2x` (forward
+    only)."""
+    if torch.compiler.is_exporting():
+        return torch.ops.dvdgan.ups2x(wall, xp)
     if torch.is_grad_enabled() and (wall.requires_grad or xp.requires_grad):
         return _Ups2x.apply(wall, xp, kernel_bwd)
     return _forward(wall, xp)

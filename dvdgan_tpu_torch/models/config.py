@@ -18,6 +18,10 @@ _G_MULTS = {
     128: (16, 16, 8, 4, 2, 1),
     256: (16, 16, 8, 8, 4, 2, 1),
 }
+# what each level's remat region keeps (`models/generator.py`): the
+# reference's DVDGAN_REMAT_SAVE values, default "gru+ups"
+REMAT_SAVE_MODES = ("none", "gru", "ups", "gru+ups")
+
 # D width multipliers per input resolution: the channel multiplier after
 # each downsampling block, from the from-RGB block's output; the final
 # entry is the non-downsampling block.
@@ -49,6 +53,14 @@ class GConfig:
     # route of the attention's spatial pass (`ops/attention.spatial_attn`):
     # off | on. The reference reads it from DVDGAN_ATTN_PALLAS.
     attn_fused: str = "off"
+    # with remat: what a level keeps instead of recomputing (none | gru |
+    # ups | gru+ups). The reference reads it from DVDGAN_REMAT_SAVE.
+    remat_save: str = "gru+ups"
+
+    def __post_init__(self):
+        if self.remat_save not in REMAT_SAVE_MODES:
+            raise ValueError(f"remat_save={self.remat_save!r}: must be one "
+                             f"of {REMAT_SAVE_MODES}")
 
     @property
     def mults(self) -> Tuple[int, ...]:

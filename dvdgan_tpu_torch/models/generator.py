@@ -19,22 +19,27 @@ Parameters, BN running stats and SN `u` vectors are separate trees
 holds the three on one nn.Module for device moves and checkpoints.
 
 `cfg.remat` (the long-clip presets) rematerializes each level under a
-backward, with the reference's default policy (`_remat_save() ==
-"gru+ups"`): a level keeps its GRU hidden sequence (`gru_hs`; the sequence
-kernels never rerun) and its upsample conv's output (`ups_out`), and
-recomputes the rest of its GResBlock, and the attention after it, when the
-backward reaches the level. Remat changes what is recomputed, never a
-value: outputs, gradients and BN statistics (taken from the first forward)
-are those of the plain forward. Unlike the reference, the GRU's hoisted
-input conv is kept as well (the sequence Function saves its gx and cx).
+backward. `cfg.remat_save` is the policy (the reference's `_remat_save`;
+`_level` has each one's regions): the default "gru+ups" keeps a level's
+GRU hidden sequence (the sequence kernels never rerun) and its upsample
+conv's output, and recomputes the rest of its GResBlock, and the attention
+after it, when the backward reaches the level; "gru", "ups" and "none"
+keep less and recompute more, the GRU's kernels included under "ups" and
+"none". Remat changes what is recomputed, never a value: outputs,
+gradients and BN statistics (taken from the first forward) are those of
+the plain forward under every policy. Unlike the reference, the GRU's
+hoisted input conv is kept as well where the GRU runs outside the regions
+(the sequence Function saves its gx and cx).
 
 `cfg.ups_fused` is the route of every level's upsample conv
 (`ops/layers.py:upsample2x_conv3x3`; the reference reads it from the
 environment, `_ups_pallas`). With the fused route ("fwd", "full") and
-remat, the fused conv runs outside both checkpoint regions, as the GRU
-does: its kernel launches once per level and forward, never from a
-backward, and its Function keeps its padded input (which the "off" route
-recomputes); the CBN → ReLU before it is a region of its own. The FP
+remat under "gru+ups", the fused conv runs outside both checkpoint
+regions, as the GRU does: its kernel launches once per level and
+forward, never from a backward, and its Function keeps its padded input
+(which the "off" route recomputes); the CBN → ReLU before it is a region
+of its own. Under the other policies it runs inside a region and launches
+again from the backward. The FP
 encoder and the warm-up GRU run outside the regions as well: the warm-up's
 kernel launches once per forward, and its backward kernel once per
 backward.
@@ -42,9 +47,9 @@ backward.
 `cfg.attn_fused` is the route of the attention's spatial pass
 (`ops/attention.py`; the reference reads it from the environment,
 `_pallas_default`). With "on" and remat the fused pass runs outside the
-checkpoint regions for the same reason: the tail region ends before it, its
+checkpoint regions under every policy: the last region ends before it, its
 kernel launches once per forward and never from a backward (its Function
-keeps only its input, which is the tail region's output, and five small
+keeps only its input, which is the last region's output, and five small
 tensors), and the temporal pass after it is a region of its own.
 
 Cross-replica BN (`group`, a process group of the data ranks; the
@@ -147,36 +152,68 @@ def _attn_level_index(cfg: GConfig) -> int:
     raise ValueError(f"attn_res={cfg.attn_res} not on the resolution path")
 
 
-def _save_conv_outputs(ctx, op, *args, **kwargs):
-    """Selective-checkpoint policy of a region whose one conv is the
-    upsample conv: keep its output, recompute everything else."""
-    if op is torch.ops.aten.convolution.default:
+def _save_ups_conv(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy that keeps the upsample conv's output
+    (the unfused route's phase conv: G's one conv with a 2×2 kernel) and
+    recomputes everything else."""
+    if (op is torch.ops.aten.convolution.default
+            and tuple(args[1].shape[-2:]) == (2, 2)):
         return ckpt.CheckpointPolicy.MUST_SAVE
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _block(lvl: dict, lvl_stats: dict, h: torch.Tensor, cond_tb: torch.Tensor,
-           t: int, attn: dict | None, train: bool, remat: bool,
-           ups_fused: str, attn_fused: str, group=None):
-    """One level after its GRU: the upsampling GResBlock on the folded
-    (T·B, H, W, C) sequence, then attention where `attn` is given.
-    -> (x_seq (T, B, 2H, 2W, C'), block stats). With `remat`, two
-    checkpointed regions split at the upsample conv's output: the first
-    one keeps it (route "off"), or ends before the fused conv, which then
-    runs between the two; a fused spatial attention pass runs after the
-    second, and the temporal pass is a third."""
-    p, b = lvl["block"], h.shape[0] // t
+def _level(lvl: dict, lvl_stats: dict, x_seq: torch.Tensor,
+           h0: torch.Tensor | None, cond_tb: torch.Tensor, level0: bool,
+           attn: dict | None, train: bool, remat: bool, cfg: GConfig,
+           group=None):
+    """One level: its GRU over the T frames of x_seq (T, B, H, W, C), the
+    upsampling GResBlock on the folded (T·B, H, W, C) sequence, then
+    attention where `attn` is given. -> (x_seq (T, B, 2H, 2W, C'), block
+    stats).
 
-    def pre():
+    With `remat`, `cfg.remat_save` decides what the level keeps for the
+    backward (the reference's `_remat_save`, whose regions are the whole
+    level under a save-these-names policy):
+      "gru+ups": the GRU runs outside the regions (its hidden sequence is
+        kept), and two regions split at the upsample conv's output, which
+        the first keeps (route "off") or which the fused conv, run between
+        the two, keeps in its Function;
+      "gru": the GRU outside, the block one plain region: the upsample
+        conv is recomputed;
+      "ups": the GRU inside one region with the whole block, which keeps
+        the upsample conv's output (route "off");
+      "none": the whole level one plain region.
+    The sequence kernels (K1, K3) and the fused upsample conv (K5a) are
+    ctypes launches inside autograd Functions, which no policy can keep:
+    inside a region they run again when the backward reaches it. So under
+    "ups" and "none" the GRU's kernel launches twice per level and
+    forward, and under "gru", "ups" and "none" a fused conv runs inside the
+    region and launches twice too (kept outside, it would keep its output
+    and the policy would be "gru+ups"'s). A fused spatial attention pass
+    stays outside the regions under every policy (its Function keeps only
+    its input, the region's output, and five small tensors); the temporal
+    pass after it is a region of its own."""
+    t, b = x_seq.shape[:2]
+    p = lvl["block"]
+    ups_fused, attn_fused = cfg.ups_fused, cfg.attn_fused
+    # under remat a fused spatial pass leaves the regions
+    split_attn = remat and attn is not None and attn_fused != "off"
+
+    def gru(x_seq):
+        h_seq = convgru.convgru(lvl["gru"], x_seq, h0=h0, time_major=True,
+                                x_static=level0)              # (T,B,H,W,C)
+        return h_seq.reshape(t * b, *h_seq.shape[2:])         # fold time
+
+    def pre(h):
         return resblocks.gresblock_pre(p, lvl_stats, h, cond_tb, train,
                                        group)
 
-    def head():
+    def head(h):
         return resblocks.gresblock_head(p, lvl_stats, h, cond_tb, train,
                                         upsample=True, ups_fused=ups_fused,
                                         group=group)
 
-    def tail(u):
+    def tail(u, h):
         out, s2 = resblocks.gresblock_tail(p, lvl_stats, u, h, cond_tb, train,
                                            upsample=True, group=group)
         x_seq = out.reshape(t, b, *out.shape[1:])
@@ -185,28 +222,41 @@ def _block(lvl: dict, lvl_stats: dict, h: torch.Tensor, cond_tb: torch.Tensor,
                                              time_major=True)
         return x_seq, s2
 
-    # under remat a fused spatial pass leaves the tail region
-    split_attn = remat and attn is not None and attn_fused != "off"
+    def block(h):
+        u, s1 = head(h)
+        x_seq, s2 = tail(u, h)
+        return x_seq, s1, s2
 
-    if remat:
-        # nothing in a level draws random numbers
-        run = functools.partial(ckpt.checkpoint, use_reentrant=False,
-                                preserve_rng_state=False)
+    def level(x_seq):
+        return block(gru(x_seq))
+
+    if not remat:
+        x_seq, s1, s2 = level(x_seq)
+        return x_seq, {"bn1": s1, "bn2": s2}
+    # nothing in a level draws random numbers
+    run = functools.partial(ckpt.checkpoint, use_reentrant=False,
+                            preserve_rng_state=False)
+    keep_ups = functools.partial(run, context_fn=functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _save_ups_conv))
+    save = cfg.remat_save
+    if save == "gru+ups":
+        h = gru(x_seq)
         if ups_fused == "off":
-            u, s1 = run(head, context_fn=functools.partial(
-                ckpt.create_selective_checkpoint_contexts,
-                _save_conv_outputs))
+            u, s1 = keep_ups(head, h)
         else:
-            a, s1 = run(pre)
+            a, s1 = run(pre, h)
             u = resblocks.gresblock_conv1(p, a, upsample=True,
                                           ups_fused=ups_fused)
-        x_seq, s2 = run(tail, u)
-        if split_attn:
-            x_seq = attention.spatial_attn(attn, x_seq, attn_fused)
-            x_seq = run(attention.temporal_attn, attn, x_seq, time_major=True)
+        x_seq, s2 = run(tail, u, h)
+    elif save == "gru":
+        x_seq, s1, s2 = run(block, gru(x_seq))
+    elif save == "ups":
+        x_seq, s1, s2 = keep_ups(level, x_seq)
     else:
-        u, s1 = head()
-        x_seq, s2 = tail(u)
+        x_seq, s1, s2 = run(level, x_seq)
+    if split_attn:
+        x_seq = attention.spatial_attn(attn, x_seq, attn_fused)
+        x_seq = run(attention.temporal_attn, attn, x_seq, time_major=True)
     return x_seq, {"bn1": s1, "bn2": s2}
 
 
@@ -256,13 +306,9 @@ def apply(params: dict, stats: dict, z: torch.Tensor, y: torch.Tensor,
             h0 = convgru.convgru(lvl["gru"], enc_seqs[i], time_major=True)[-1]
         # level 0's input is the seed broadcast over time: the GRU input
         # conv runs once and broadcasts
-        h_seq = convgru.convgru(lvl["gru"], x_seq, h0=h0, time_major=True,
-                                x_static=(i == 0))             # (T,B,H,W,C)
-        hw = h_seq.shape[2]
-        h = h_seq.reshape(t * b, hw, hw, h_seq.shape[-1])      # fold time
-        x_seq, s = _block(lvl, stats["levels"][i], h, cond_tb, t,
+        x_seq, s = _level(lvl, stats["levels"][i], x_seq, h0, cond_tb, i == 0,
                           params["attn"] if i == attn_idx else None, train,
-                          remat, cfg.ups_fused, cfg.attn_fused, group)
+                          remat, cfg, group)
         new_stats_levels.append(s)
 
     hw = x_seq.shape[2]

@@ -53,10 +53,11 @@ after the call's replay, with no capture open. The launches logged per
 step are counted during the capture and divided by K.
 
 `--profile` traces steps 10 to 15 with torch.profiler into
-`out_dir/trace` (the window aligned to K); `--nan_check` turns on
-autograd's anomaly mode and checks every step's metrics, which reads the
-device each step (asked for); under K > 1 the graph cannot hold anomaly
-mode, so each call's stacked metrics are checked after the call.
+`out_dir/trace` (the window aligned to K; `utils/profiling.py`);
+`--nan_check` turns on autograd's anomaly mode and checks every step's
+metrics, which reads the device each step (asked for); under K > 1 the
+graph cannot hold anomaly mode, so each call's stacked metrics are checked
+after the call.
 
 Several ranks (`Trainer(cfg, par)`, `par` from `parallel/mesh.py`; the CLI
 starts the processes): every rank computes everything, and the leader
@@ -102,6 +103,7 @@ from dvdgan_tpu_torch.train import checkpoint as ckpt
 from dvdgan_tpu_torch.train import state as train_state
 from dvdgan_tpu_torch.train import step as step_mod
 from dvdgan_tpu_torch.utils.config import Config
+from dvdgan_tpu_torch.utils import profiling
 from dvdgan_tpu_torch.utils.logging import MetricWriter, NullWriter, step_line
 from dvdgan_tpu_torch.utils.media import save_batch_gifs, save_video_grid_png
 
@@ -423,84 +425,85 @@ class Trainer:
         metrics: dict[str, torch.Tensor] = {}
         first = self.start_step
         launched = dict.fromkeys(launch_counts(), 0)    # over the run
-        anomaly = torch.is_anomaly_enabled()
-        torch.autograd.set_detect_anomaly(anomaly or (c.nan_check and k == 1))
         prof = None
         prof_start = self.start_step + k * max(1, 10 // k)
         prof_stop = prof_start + k * max(1, 5 // k)
-        try:
-            for i in range(self.start_step, total, k):
-                if c.profile and i == prof_start:
-                    prof = self._profile_start()
-                if prof is not None and i == prof_stop:
-                    self._profile_stop(prof, prof_start, i)
-                    prof = None
-                if pending is not None:
-                    batch, pending = pending.result(), None
-                else:
-                    batch = self._place(self._next(data))
-                if i + k < total:       # the next call's batches meanwhile
-                    pending = prefetch.submit(
-                        lambda: self._place(self._next(data)))
-                real, y = self._take(batch)
-                comms_at = collectives.COUNTS.snapshot()
-                if multi is not None:   # the call's metrics stacked (K,)
-                    self.state, out = multi(self.state, real, y, i)
-                    launches = multi.launches
-                    metrics = {name: v[-1] for name, v in out.items()}
-                else:
-                    draws = step_mod.TorchDraws(
-                        c.seed, i, self.batch, self.g_cfg.z_dim,
-                        self.g_cfg.n_frames, self.ds_cfg.k_frames,
-                        self.dtype, self.device, shard=self.shard)
-                    before = launch_counts()
-                    self.state, out = self.step_fn(self.state, real, y,
-                                                   draws)
-                    launches = {name: n - before[name]
-                                for name, n in launch_counts().items()}
-                    metrics = out
-                step = i + k
-                for name, n in launches.items():
-                    launched[name] += n * k
-                if c.nan_check:
-                    _check_finite(out, step)
-                comms = None
-                if self.par is not None:    # per step, this call's
-                    now = collectives.COUNTS.snapshot()
-                    comms = {name: (v - comms_at[name]) // k
-                             for name, v in now.items()}
-                record = _Record(step, metrics, launches, self.device, comms)
-                if step % c.log_step == 0:
-                    if lagged is not None:
-                        since = self._report(lagged, since)
-                    lagged = record
-                if c.sample_step and step % c.sample_step == 0:
-                    self.dump_samples(step)
-                    if c.log_sigmas:
-                        self.writer.scalars(self.sn_diagnostics(), step)
-                if c.eval_step and step % c.eval_step == 0:
-                    ev = self.evaluate()
-                    self.writer.scalars(ev, step)
-                    if self.is_main:
-                        print(f"eval @ {step}: " + " ".join(
-                            f"{k} {v:.4f}" for k, v in ev.items()),
-                            flush=True)
-                if c.model_save_step and step % c.model_save_step == 0:
-                    self.save(step)
-        except BaseException:
-            self._flush_saver(unwinding=True)
-            raise
-        finally:
-            if pending is not None:     # let the thread leave `data` first
-                try:
-                    pending.result()
-                except Exception:
-                    pass
-            prefetch.shutdown()
-            data.close()
-            if prof is not None:
-                prof.stop()
-            torch.autograd.set_detect_anomaly(anomaly)
+        with profiling.anomaly_mode(c.nan_check and k == 1):
+            try:
+                for i in range(self.start_step, total, k):
+                    if c.profile and i == prof_start:
+                        prof = profiling.start_trace(self.device)
+                    if prof is not None and i == prof_stop:
+                        profiling.stop_trace(prof, os.path.join(
+                            self.out_dir, "trace",
+                            f"steps_{prof_start}_{i}.json"), self.device)
+                        prof = None
+                    if pending is not None:
+                        batch, pending = pending.result(), None
+                    else:
+                        batch = self._place(self._next(data))
+                    if i + k < total:       # the next call's batches meanwhile
+                        pending = prefetch.submit(
+                            lambda: self._place(self._next(data)))
+                    real, y = self._take(batch)
+                    comms_at = collectives.COUNTS.snapshot()
+                    if multi is not None:   # the call's metrics stacked (K,)
+                        self.state, out = multi(self.state, real, y, i)
+                        launches = multi.launches
+                        metrics = {name: v[-1] for name, v in out.items()}
+                    else:
+                        draws = step_mod.TorchDraws(
+                            c.seed, i, self.batch, self.g_cfg.z_dim,
+                            self.g_cfg.n_frames, self.ds_cfg.k_frames,
+                            self.dtype, self.device, shard=self.shard)
+                        before = launch_counts()
+                        self.state, out = self.step_fn(self.state, real, y,
+                                                       draws)
+                        launches = {name: n - before[name]
+                                    for name, n in launch_counts().items()}
+                        metrics = out
+                    step = i + k
+                    for name, n in launches.items():
+                        launched[name] += n * k
+                    if c.nan_check:
+                        _check_finite(out, step)
+                    comms = None
+                    if self.par is not None:    # per step, this call's
+                        now = collectives.COUNTS.snapshot()
+                        comms = {name: (v - comms_at[name]) // k
+                                 for name, v in now.items()}
+                    record = _Record(step, metrics, launches, self.device,
+                                     comms)
+                    if step % c.log_step == 0:
+                        if lagged is not None:
+                            since = self._report(lagged, since)
+                        lagged = record
+                    if c.sample_step and step % c.sample_step == 0:
+                        self.dump_samples(step)
+                        if c.log_sigmas:
+                            self.writer.scalars(self.sn_diagnostics(), step)
+                    if c.eval_step and step % c.eval_step == 0:
+                        ev = self.evaluate()
+                        self.writer.scalars(ev, step)
+                        if self.is_main:
+                            print(f"eval @ {step}: " + " ".join(
+                                f"{k} {v:.4f}" for k, v in ev.items()),
+                                flush=True)
+                    if c.model_save_step and step % c.model_save_step == 0:
+                        self.save(step)
+            except BaseException:
+                self._flush_saver(unwinding=True)
+                raise
+            finally:
+                if pending is not None:     # let the thread leave `data` first
+                    try:
+                        pending.result()
+                    except Exception:
+                        pass
+                prefetch.shutdown()
+                data.close()
+                if prof is not None:
+                    prof.stop()
         self._flush_saver()
         if lagged is not None:          # the last interval, not yet written
             self._report(lagged, since)
@@ -557,24 +560,6 @@ class Trainer:
             self.saver.wait()
         except RuntimeError as e:
             print(f"async checkpoint flush failed during teardown: {e}")
-
-    def _profile_start(self):
-        from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
-        prof.start()
-        return prof
-
-    def _profile_stop(self, prof, first: int, stop: int) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        prof.stop()
-        trace_dir = os.path.join(self.out_dir, "trace")
-        os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(
-            os.path.join(trace_dir, f"steps_{first}_{stop}.json"))
 
     # ---------------------------------------------------------- diagnostics
     @torch.no_grad()

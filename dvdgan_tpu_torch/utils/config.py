@@ -7,7 +7,9 @@ every field of the reference's. `--n_devices`, `--time_shards` and
 `--ups_fused {off,fwd,full}` is the reference's environment variable
 DVDGAN_UPS_PALLAS as a flag (the route of G's upsample convs,
 `ops/layers.py`), and `--attn_fused {off,on}` its DVDGAN_ATTN_PALLAS (the
-route of the attention's spatial pass, `ops/attention.py`). `--weights`
+route of the attention's spatial pass, `ops/attention.py`), and
+`--remat_save {none,gru,ups,gru+ups}` its DVDGAN_REMAT_SAVE (what each
+level's remat region keeps, `models/generator.py`). `--weights`
 and `--device` are the port's own: `--weights` is an npz written by
 `interop` (sample: any state holding the EMA-G part; train: a whole train
 state to start from), and `--device` names the torch device, `cuda` by
@@ -22,6 +24,7 @@ import dataclasses
 from typing import Optional
 
 from dvdgan_tpu_torch.models import DSConfig, DTConfig, GConfig
+from dvdgan_tpu_torch.models.config import REMAT_SAVE_MODES
 from dvdgan_tpu_torch.ops.attention import ATTN_FUSED_MODES
 from dvdgan_tpu_torch.ops.layers import UPS_FUSED_MODES
 from dvdgan_tpu_torch.train.state import TrainConfig
@@ -108,6 +111,8 @@ class Config:
     device: str = "cuda"              # torch device (cuda | cuda:N | cpu)
     ups_fused: str = "off"            # G's upsample convs: off | fwd | full
     attn_fused: str = "off"           # G's spatial attention: off | on
+    remat_save: str = "gru+ups"       # what remat keeps: none | gru | ups |
+    #                                   gru+ups
 
     def g_config(self) -> GConfig:
         attn = self.attn_res if self.attn_res <= self.img_size // 2 else None
@@ -118,7 +123,8 @@ class Config:
                        attn_res=attn, remat=self.remat,
                        cond_frames=self.cond_frames,
                        ups_fused=self.ups_fused,
-                       attn_fused=self.attn_fused)
+                       attn_fused=self.attn_fused,
+                       remat_save=self.remat_save)
 
     def ds_config(self) -> DSConfig:
         return DSConfig(img_size=self.img_size, ch=self.d_ch,
@@ -174,6 +180,8 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument(arg, choices=UPS_FUSED_MODES, default=None)
         elif f.name == "attn_fused":
             p.add_argument(arg, choices=ATTN_FUSED_MODES, default=None)
+        elif f.name == "remat_save":
+            p.add_argument(arg, choices=REMAT_SAVE_MODES, default=None)
         elif f.name == "mode":
             p.add_argument(arg, choices=("train", "sample", "eval"),
                            default=None)

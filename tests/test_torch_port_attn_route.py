@@ -60,6 +60,17 @@ TC_KW = dict(d_steps=2, ema_start=0)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module's torch work, restored after it:
+    the suite runs six workers on the machine's cores, where torch's default
+    of a thread a core oversubscribes them (`test_torch_port_fp.py`)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def interpreted(monkeypatch) -> dict:
     """Patches the reference's two Pallas entries to their interpreted
     forms; returns the hits of each."""

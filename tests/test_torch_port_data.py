@@ -27,7 +27,9 @@ DS_KW = dict(n_items=12, n_frames=4, img_size=16, n_classes=5, seed=3)
 
 
 def port_sources():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "tools", f"{name}.py")
+        for name in ("torch_export_serving", "torch_bench_sample")]
     for root, _, files in os.walk(os.path.join(REPO, "dvdgan_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)
@@ -35,7 +37,7 @@ def port_sources():
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     paths = port_sources()
-    assert len(paths) > 30
+    assert len(paths) > 30 and all(os.path.isfile(p) for p in paths)
     bad = []
     for path in paths:
         with open(path) as f:

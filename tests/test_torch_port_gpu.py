@@ -24,6 +24,7 @@ import math
 import pytest
 import torch
 
+from dvdgan_tpu_torch import serving
 from dvdgan_tpu_torch.core import tree
 from dvdgan_tpu_torch.kernels import attention_spatial as k6
 from dvdgan_tpu_torch.kernels import convgru_blocked as k3
@@ -1513,6 +1514,8 @@ def _graph_call(name, dtype, device):
         if name == "K5a":
             return lambda: k5.ups2x(wall, xp), k5.ups2x
         return lambda: k5.ups2x_bwd(wall, xp, up), k5.ups2x_bwd
+    if name == "artifact":
+        return _artifact_call(dtype, device)
     hw = 32 if name == "K6a" else 64
     args = _attn_inputs(2, hw, hw, 64, dtype, device)
     entry = _attn_entry(hw, hw)
@@ -1521,16 +1524,36 @@ def _graph_call(name, dtype, device):
     return lambda: entry(*args), entry
 
 
+def _artifact_call(dtype, device):
+    """A serving artifact (`serving.export_sampler`, both fused routes:
+    K1's, K5a's and K6a's ops; C 64 at the attention) saved, loaded and
+    called on fixed inputs; K1's counter counts its launches."""
+    import tempfile
+    cfg = GConfig(img_size=32, n_frames=4, ch=16, z_dim=120, n_classes=5,
+                  emb_dim=16, attn_res=16, ups_fused="fwd", attn_fused="on")
+    state = GeneratorState.create(cfg, seed=0)
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    program = serving.export_sampler(state, cfg, 2, device, name)
+    with tempfile.TemporaryDirectory() as d:
+        torch.export.save(program, f"{d}/a.pt2")
+        serve = serving.load_sampler(f"{d}/a.pt2")
+    g = torch.Generator().manual_seed(4)
+    z = torch.randn(2, cfg.z_dim, generator=g).to(device)
+    y = torch.tensor([1, 3], device=device)
+    return lambda: serve(z, y), k1.gru_sequence_fused
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "K5a", "K5b",
-                                  "K6a", "K6b"])
+                                  "K6a", "K6b", "artifact"])
 def test_kernel_replays_from_a_cuda_graph_with_its_eager_bits(cuda, name,
                                                                dtype):
     """Captured after a warm-up call, replayed twice with its outputs
     poisoned in between: the eager call's bits each time, the launches
     counted once, during the capture (`chip_smoke.graph_replay`). The
     per-launch `cudaFuncSetAttribute` calls, K1's and K5b's split-K
-    counters and K4's cluster launch (bf16) are all inside the graph."""
+    counters and K4's cluster launch (bf16) are all inside the graph; so
+    is a whole serving artifact's call (its K1, K5a and K6a ops)."""
     import chip_smoke
 
     if name == "K4" and dtype == torch.bfloat16:
@@ -1824,3 +1847,51 @@ def test_collectives_on_two_gloo_ranks_on_the_card(cuda, tmp_path):
     want[:, 2], want[:, 3] = w, 2 * w
     got = torch.cat([torch.from_numpy(r["dpart"]) for r in res], dim=1)
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------------ registered ops
+def _op_call(name, dtype, device):
+    """(op, args, eager entry, entry args, plain version) of a registered
+    op of `kernels/library.py` at a small shape."""
+    if name in ("gru_sequence_fused", "gru_sequence_blocked"):
+        hw = 4 if name == "gru_sequence_fused" else 64
+        args = _inputs(3, 2, hw, hw, 16, dtype, device)
+        entry = getattr(k1 if hw == 4 else k3, name)
+        return args, entry, args, k1.gru_sequence_reference
+    if name == "ups2x":
+        wall, xp, _ = _ups_inputs(2, 8, 8, 64, 32, dtype, device)
+        return (wall, xp), k5.ups2x, (wall, xp), k5.ups2x_reference
+    hw = 32 if name == "spatial_attn_fused" else 64
+    args = _attn_inputs(2, hw, hw, 64, dtype, device)
+    return (args, getattr(k6, name), args,
+            k6.spatial_attn_kernel_reference)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["gru_sequence_fused",
+                                  "gru_sequence_blocked", "ups2x",
+                                  "spatial_attn_fused", "spatial_attn_tiled"])
+def test_registered_op_matches_its_kernel_and_plain_version(cuda, name,
+                                                            dtype):
+    """Each `dvdgan::` op on CUDA tensors launches its kernel (the entry's
+    launches, counted on the entry) and gives the eager entry's bits; the
+    plain version on the same tensors agrees at the kernel tests' limits
+    (K6 in bf16: one ulp on at most 0.5% of the elements)."""
+    args, entry, entry_args, plain = _op_call(name, dtype, cuda)
+    op = getattr(torch.ops.dvdgan, name)
+    before = entry.launches
+    out = op(*args)
+    torch.cuda.synchronize()
+    launched = entry.launches - before
+    want = entry(*entry_args)
+    assert launched == entry.launches - before - launched > 0
+    assert torch.equal(out, want)
+    ref = plain(*args)
+    if name.startswith("spatial") and dtype == torch.bfloat16:
+        assert float((out != ref).float().mean()) <= 0.005
+        assert float((out.float() - ref.float()).abs().max()) <= _bf16_ulp(
+            float(ref.float().abs().max()))
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                                   atol=TOL[dtype])
+

@@ -73,6 +73,17 @@ DS256 = dict(img_size=256, ch=2, n_classes=5, k_frames=2)
 DT256 = dict(img_size=256, n_frames=2, ch=2, n_classes=5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module's torch work, restored after it:
+    the suite runs six workers on the machine's cores, where torch's default
+    of a thread a core oversubscribes them (`test_torch_port_fp.py`)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tt(x):
     """JAX/numpy tree -> torch tree of f32 leaves."""
     if isinstance(x, dict):

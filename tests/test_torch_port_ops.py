@@ -70,12 +70,14 @@ def test_presets_and_flags_match_reference():
         argv = ["--preset", name, "--seed", "3", "--bf16", "0"]
         ours = config.parse_config(argv + ["--mode", "sample"])
         ref = jconfig.parse_config(argv + ["--mode", "sample"])
-        # `ups_fused` and `attn_fused` are the port's fields for what the
-        # reference reads from the environment (DVDGAN_UPS_PALLAS,
-        # DVDGAN_ATTN_PALLAS): "off" by default, as there
+        # `ups_fused`, `attn_fused` and `remat_save` are the port's fields
+        # for what the reference reads from the environment
+        # (DVDGAN_UPS_PALLAS, DVDGAN_ATTN_PALLAS, DVDGAN_REMAT_SAVE), with
+        # its defaults
         g = dataclass_dict(ours.g_config())
         assert g.pop("ups_fused") == "off"
         assert g.pop("attn_fused") == "off"
+        assert g.pop("remat_save") == "gru+ups"
         assert g == dataclass_dict(ref.g_config())
         assert (ours.seed, ours.bf16, ours.n_samples) == (
             ref.seed, ref.bf16, ref.n_samples)

@@ -36,6 +36,17 @@ KW = dict(dataset="synthetic", n_classes=5, img_size=32, n_frames=4, ch=8,
 LOSSES = ("d_loss", "d_loss_s", "d_loss_t", "g_loss")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module's torch work, restored after it:
+    the suite runs six workers on the machine's cores, where torch's default
+    of a thread a core oversubscribes them (`test_torch_port_fp.py`)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def no_tensorboard(monkeypatch):
     monkeypatch.setattr(trainer_mod, "MetricWriter", functools.partial(

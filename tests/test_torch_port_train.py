@@ -57,6 +57,17 @@ TRAIN_FLAGS = ["--img_size", "32", "--n_frames", "4", "--ch", "8",
                "--d_steps", "2", "--ema_start", "0", "--bf16", "0"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module's torch work, restored after it:
+    the suite runs six workers on the machine's cores, where torch's default
+    of a thread a core oversubscribes them (`test_torch_port_fp.py`)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def reference_state(seed: int) -> dict:
     """A dvdgan_tpu train state off its init: weights perturbed (an
     orthogonal init makes every SN u a fixed point), attention γ ≠ 0, BN

@@ -67,6 +67,17 @@ JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module's torch work, restored after it:
+    the suite runs six workers on the machine's cores, where torch's default
+    of a thread a core oversubscribes them (`test_torch_port_fp.py`)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def ups_inputs(seed, n, h, w, cin, cout):
     """(wall, xp, g) as f32 numpy arrays; xp zero-padded."""
     rng = np.random.RandomState(seed)

@@ -19,12 +19,24 @@ gradient: β1 = 0):
      and the reference's f32 step (`dvdgan_tpu`, jitted) each against the
      port's one process in float64, after one and after two steps.
 
-Part 2 imports JAX (a machine with the JAX package, as the tests); part 1
-needs torch alone.
+  3. (`--bisect`) from that state, the port's float64 run with one module
+     at a time computed in f32 (its inputs rounded to f32, its output cast
+     back), against the port's float64 run after two steps: the convs
+     (`layers.conv2d`, `conv3d`), the linear maps (`layers.linear`), the
+     CBN affine, the BN normalization, the attention, Adam; and the
+     port's f32 run. The module whose f32 alone gives the f32 run's gap
+     carries it (σ, the BN moments and the GRU's plain version compute in
+     f32 in both runs).
+
+Parts 2 and 3 import JAX (a machine with the JAX package, as the tests);
+part 1 needs torch alone.
+
+    python tools/torch_parallel_conditioning.py --bisect    # part 3 alone
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import sys
@@ -166,8 +178,114 @@ def _one_process_f64(job: dict) -> dict:
             for k, v in interop.train_state_to_flat(state).items()}
 
 
+def _in_f32(fn):
+    """`fn` computed in f32 where its float64 tensor arguments (and those
+    of its dict arguments) are rounded to f32; its output cast back."""
+    def cast(v, dtype):
+        return tree.tree_map(
+            lambda x: x.to(dtype) if torch.is_tensor(x) and x.dtype in (
+                torch.float32, torch.float64) else x, v)
+
+    def wrapped(*args, **kwargs):
+        leaves = tree.flatten_with_paths(list(args)).values()
+        if not any(torch.is_tensor(a) and a.dtype == torch.float64
+                   for a in leaves):
+            return fn(*args, **kwargs)
+        out = fn(*(cast(a, torch.float32) for a in args),
+                 **{k: cast(v, torch.float32) for k, v in kwargs.items()})
+        return cast(out, torch.float64)
+    return wrapped
+
+
+def _cbn_affine_in_f32(p, stats, x, cond, train, momentum=0.1, eps=1e-5,
+                       group=None):
+    """`norm.cbn` with its normalization in x's dtype and its affine
+    (γ = 1 + W_g·cond, β, y·γ + β) in f32."""
+    from dvdgan_tpu_torch.ops import layers, norm
+    mean, var, new_stats = norm._select_moments(stats, x, train, momentum,
+                                                group)
+    y = norm._normalize(x, mean, var, eps).float()
+    p32 = {k: {"w": v["w"].float()} for k, v in p.items()}
+    gamma = 1.0 + layers.linear(p32["gamma"], cond.float())
+    beta = layers.linear(p32["beta"], cond.float())
+    y = y * gamma[:, None, None, :] + beta[:, None, None, :]
+    return y.to(x.dtype), new_stats
+
+
+def bisect(out: str) -> dict:
+    """Part 3: G's mu after two steps from `reference_state(3)`, the port
+    in float64 with one module at a time in f32, against the port in
+    float64."""
+    from unittest import mock
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from dvdgan_tpu_torch.ops import attention, layers, norm
+    import test_torch_port_time_shard as ts
+
+    jstate0 = ts.reference_state(3, ts.G_KW, ts.DS_KW, ts.DT_KW, ts.TC_KW)
+    job = {"state": os.path.join(out, "ref_state.npz"),
+           "batch": os.path.join(out, "ref_batch.npz"),
+           "draws": os.path.join(out, "ref_draws.npz"),
+           "steps": 2, "g": ts.G_KW, "tc": ts.TC_KW}
+    np.savez(job["state"], **ts.flat_np(jstate0))
+    rng = np.random.RandomState(7)
+    np.savez(job["batch"],
+             real=rng.uniform(-1, 1, (2, B, 4, 32, 32, 3)).astype(np.float32),
+             y=np.stack([rng.permutation(B) % 5 for _ in range(2)]))
+    ts.group_draws(job["draws"])
+    f64 = _one_process_f64(job)
+    f32 = one_process(job, 2)[0]
+    keys = [k for k in f64 if k.startswith("g/opt/0/mu/")]
+    scale = max(np.abs(f64[k]).max() for k in keys)
+    gaps = {k: np.abs(f64[k] - f32[k]) / scale for k in keys}
+    worst = max(gaps, key=lambda k: gaps[k].max())
+    print(f"the f32 step's G mu gap: largest in {worst} "
+          f"({gaps[worst].max():.2e}); elements over 1e-5 x max|mu|: "
+          + ", ".join(f"{k} {int((v > 1e-5).sum())}/{v.size}"
+                      for k, v in gaps.items() if (v > 1e-5).any()),
+          flush=True)
+    patches = {
+        "convs": [(layers, "conv2d"), (layers, "conv3d")],
+        "linear": [(layers, "linear")],
+        "bn_normalize": [(norm, "_normalize")],
+        "attention": [(attention, "spatial_attn"),
+                      (attention, "temporal_attn")],
+        "adam": [(train_state, "adam_update")]}
+    res = {"f32 (the whole step)": mu_gaps(f64, f32)}
+    # one at a time, all of them, all but one, and the convs (the one
+    # whose absence closes the gap) with each other one
+    runs = {name: [name] for name in (*patches, "cbn_affine")}
+    runs["all six"] = list(runs)
+    for left_out in runs["all six"]:
+        runs[f"all but {left_out}"] = [n for n in runs["all six"]
+                                       if n != left_out]
+    for other in runs["all six"][1:]:
+        runs[f"convs and {other}"] = ["convs", other]
+    for run, names in runs.items():
+        with contextlib.ExitStack() as stack:
+            for name in names:
+                if name == "cbn_affine":
+                    stack.enter_context(mock.patch.object(
+                        norm, "cbn", _cbn_affine_in_f32))
+                    continue
+                for mod, fn in patches[name]:
+                    stack.enter_context(mock.patch.object(
+                        mod, fn, _in_f32(getattr(mod, fn))))
+            res[run] = mu_gaps(f64, _one_process_f64(job))
+    return res
+
+
 def main() -> None:
     os.environ.update(OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
+    if "--bisect" in sys.argv[1:]:
+        with tempfile.TemporaryDirectory() as out:
+            for name, gaps in bisect(out).items():
+                print(f"reference_state(3), 2 steps, {name} in f32 vs the "
+                      f"port in float64: "
+                      + ", ".join(f"{m} {v:.2e}" for m, v in gaps.items()),
+                      flush=True)
+        return
     with tempfile.TemporaryDirectory() as out:
         for start, f64 in (("init", False), ("off_init", False),
                            ("init", True)):
