@@ -1,7 +1,43 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (dvdgan_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py        # from the repository root; needs one GPU
+    python3 chip_smoke.py            # from the repository root; one GPU
+    python3 chip_smoke.py --cards 4  # the NCCL phase alone; four GPUs
+
+The NCCL phase needs `--cards 4`: NCCL takes one rank a device, so it
+cannot run on the one card of the default run, whose parallel phase puts
+two gloo ranks on that card instead. With `--cards 4` the script prints
+every card's name and power limit, builds the kernels, then runs the
+train CLI as four `--multihost` ranks with
+`--device cuda` (rank i on cuda:i; `start_ranks`, `finish_ranks`,
+`drive_trains`, three runs at a time; `drive_cards`): dp4 (the flagship,
+global batch 8 over 4 data ranks, 4 steps, checkpoints at 2 and 4), dp4_b
+(resumed at 2 in a copy of dp4's out_dir), dp4_k2 (dp4 at
+`--steps_per_call 2`), cp and cp_k2 (data 2 × time 2, 2 steps), long_dp4
+and long_dp4_k2 (`kinetics_256_48f`, 1 clip a rank, 2 steps), long_cp4
+(the long clip over 4 time ranks, batch 4 as 2 × 2), dp4_f32 and cp_f32
+(f32 batch 4, d_steps 1, from `off_init`, against one process fed the same
+draws at PAR_F32_*), and the default train command with neither
+`--n_devices` nor `--multihost` at K 4 (`plan` takes all four cards,
+`spawn` starts the ranks). Checked (`check_card_runs`): backend nccl with
+4 ranks in every run, the default's too; equal digests; each rank's
+launches as `launches_per_step` predicts; dp4_b and dp4_k2 with dp4's
+bits, cp_k2 with cp's, long_dp4_k2 with long_dp4's, in every leaf; the
+f32 runs within the limits. Then the rates alone on the cards
+(`time_cards`, `card_rates_rank`): one rank on cuda:0 against the four
+ranks, each at steps_per_call 1 and at the trainer's K (flagship 4, long
+clip 2), one reading each in turns, at strong scaling (global batch 8)
+and, for the flagship, weak (8 clips a rank): ms a step (the trainer's
+own steps/s of each logged interval of a reading but its first,
+`steady_ms`, both sides alike), clips/s per card, idle share, NCCL's
+device ms a step (`device_view` of the K graph's replay), collectives and
+bytes a rank-step, peak memory a rank, and the syncs of one K call (none
+allowed). Every phase runs even where an
+earlier one failed; any failure makes the exit code non-zero and drops
+the result line. It exits non-zero when fewer than four cards are
+visible, and its last line is the result line.
+
+The default run, on one card:
 
 1. prints the card's name and power limit (nvidia-smi) and builds every
    kernel of the port from csrc/ with nvcc (one process per source, all
@@ -268,6 +304,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import types
 
 import numpy as np
@@ -343,12 +380,18 @@ PX128_T, PX128_B, PX128_B_FAKE = 12, 8, 16
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
-def gpu_line() -> str:
+def gpu_lines() -> list[str]:
+    """Every visible card's name and power limit, as nvidia-smi prints
+    them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip()
-    return out.splitlines()[0]
+    return out.splitlines()
+
+
+def gpu_line() -> str:
+    return gpu_lines()[0]
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -461,6 +504,7 @@ def device_view(fn, launches: int, names=CONVGRU_KERNELS,
         seen = sum(count.values())
         view = {"device_ms": sum(dev_us(e) for e in kernels) / 1e3,
                 "launch_device_us": {k: total[k] / count[k] for k in total},
+                "launch_count": count,
                 "profiled_launches": seen,
                 "profiled_kernels": sum(e.count for e in kernels)}
         if best is None or seen > best["profiled_launches"]:
@@ -469,7 +513,8 @@ def device_view(fn, launches: int, names=CONVGRU_KERNELS,
             break
     if best["profiled_launches"] < launches:
         best["device_ms"] = None
-    return {**best, "host_us_per_launch": host_s * 1e6 / launches}
+    return {**best, "host_us_per_launch": (host_s * 1e6 / launches
+                                           if launches else None)}
 
 
 def k1_inputs(h: int, w: int, c: int, dtype, device, seed: int, b: int = B,
@@ -2733,28 +2778,30 @@ PAR_F32_LOSS_TOL = 1e-3
 PAR_F32_MU_TOL = 1e-4
 
 
-def start_ranks(argv, n_steps: int, tmp=None, first: int = 0) -> dict:
-    """Starts PAR_WORLD train CLI processes as the ranks of one --multihost
-    run on cuda:0 (`--device cuda:0`: a bare `cuda` gives each local rank
-    its own card), stdout and stderr to files (a full pipe would stall a
-    rank inside a collective); `finish_ranks` waits for them. `tmp`: the
-    out_dir of an earlier run to resume, at step `first`. An f32 run
-    (`--bf16 0`) runs with TF32 off and deterministic cuDNN (F32_MAIN)."""
+def start_ranks(argv, n_steps: int, tmp=None, first: int = 0,
+                world: int = PAR_WORLD, device: str = "cuda:0") -> dict:
+    """Starts `world` train CLI processes as the ranks of one --multihost
+    run on `device` (`cuda:0`: all on the one card, over gloo; a bare
+    `cuda` gives each local rank its own card, over NCCL), stdout and
+    stderr to files (a full pipe would stall a rank inside a collective);
+    `finish_ranks` waits for them. `tmp`: the out_dir of an earlier run to
+    resume, at step `first`. An f32 run (`--bf16 0`) runs with TF32 off
+    and deterministic cuDNN (F32_MAIN)."""
     from dvdgan_tpu_torch.parallel.mesh import free_port
     from dvdgan_tpu_torch.utils.config import parse_config
 
     argv = ["--log_step", "1", "--sample_step", "0", "--model_save_step",
             str(n_steps), *argv, "--total_step", str(n_steps),
-            "--multihost", "1", "--device", "cuda:0"]
+            "--multihost", "1", "--device", device]
     cfg = parse_config(argv)
     tmp = tmp or tempfile.TemporaryDirectory()
     logs = tempfile.TemporaryDirectory()
-    env = {**os.environ, "WORLD_SIZE": str(PAR_WORLD),
+    env = {**os.environ, "WORLD_SIZE": str(world),
            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
     head = ([sys.executable, "-m", "dvdgan_tpu_torch"] if cfg.bf16
             else [sys.executable, "-c", F32_MAIN])
     procs, files = [], []
-    for r in range(PAR_WORLD):
+    for r in range(world):
         out = open(os.path.join(logs.name, f"rank{r}.out"), "w")
         err = open(os.path.join(logs.name, f"rank{r}.err"), "w")
         files += [out, err]
@@ -2767,16 +2814,18 @@ def start_ranks(argv, n_steps: int, tmp=None, first: int = 0) -> dict:
             "t0": time.perf_counter()}
 
 
-def finish_ranks(run: dict, keep: bool = False) -> dict:
+def finish_ranks(run: dict, keep: bool = False,
+                 expect: str = "gloo", timeout_s: float = 900) -> dict:
     """Waits for a `start_ranks` run; any rank that failed fails it (the
-    others are stopped). Checked: the backend line, every rank's state
-    digest equal, every rank's kernel launches over the run (its last
-    lines) those of `launches_per_step`, and the leader's run as
-    `checked_run` checks a train run. -> `checked_run`'s result with each
-    rank's launches and peak memory, the backend line, the digests, the
-    collectives a step and ms a step."""
+    others are stopped). Checked: the backend line (`expect`, every rank
+    of the run), every rank's state digest equal, every rank's kernel
+    launches over the run (its last lines) those of `launches_per_step`,
+    and the leader's run as `checked_run` checks a train run. ->
+    `checked_run`'s result with each rank's launches and peak memory, the
+    backend line, the digests, the collectives a step and ms a step."""
     procs = run["procs"]
-    deadline = time.perf_counter() + 900
+    world = len(procs)
+    deadline = time.perf_counter() + timeout_s
     try:
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.perf_counter()))
@@ -2789,7 +2838,7 @@ def finish_ranks(run: dict, keep: bool = False) -> dict:
         for f in run["files"]:
             f.close()
     outs, errs = [], []
-    for r in range(PAR_WORLD):
+    for r in range(world):
         with open(os.path.join(run["logs"].name, f"rank{r}.out")) as f:
             outs.append(f.read())
         with open(os.path.join(run["logs"].name, f"rank{r}.err")) as f:
@@ -2842,9 +2891,11 @@ def finish_ranks(run: dict, keep: bool = False) -> dict:
                comm_per_step=comm[-1] if comm else None,
                # the last interval's rate (the first holds start-up)
                ms_per_step=1e3 / rates[-1] if rates and rates[-1] else None)
-    if not res["backend"] or "gloo" not in res["backend"]:
-        raise AssertionError(f"backend line {res['backend']!r}: two ranks "
-                             f"on one card run over gloo")
+    if not (res["backend"] or "").startswith(
+            f"parallel: backend {expect} ") or (
+            f" {world} ranks," not in res["backend"]):
+        raise AssertionError(f"backend line {res['backend']!r}: {world} "
+                             f"ranks over {expect} expected")
     if None in res["digests"] or len(set(res["digests"])) != 1:
         raise AssertionError(f"the ranks' state digests differ: "
                              f"{res['digests']}")
@@ -2858,7 +2909,8 @@ def parse_step(line: str) -> dict[str, float]:
     return parse_step_line(line)[1]
 
 
-def par_f32_reference(device, argv) -> tuple[dict, dict]:
+def par_f32_reference(device, argv, world: int = PAR_WORLD
+                      ) -> tuple[dict, dict]:
     """One f32 step in this process of the run `argv` names, from its
     `--weights` state, at its whole global batch (the loader's first batch,
     as the ranks read it), fed the data ranks' draws (`ShardedDraws`;
@@ -2874,7 +2926,7 @@ def par_f32_reference(device, argv) -> tuple[dict, dict]:
 
     cfg = parse_config(argv)
     g_cfg, ds_cfg, dt_cfg = cfg.g_config(), cfg.ds_config(), cfg.dt_config()
-    n_data, _ = pmesh.plan(2, cfg.time_shards, cfg.batch_size,
+    n_data, _ = pmesh.plan(world, cfg.time_shards, cfg.batch_size,
                            torch.device("cpu"))
     loader = Loader(build_dataset(cfg), cfg.batch_size, seed=cfg.seed,
                     num_threads=1)
@@ -2900,10 +2952,11 @@ def par_f32_reference(device, argv) -> tuple[dict, dict]:
                                               for k, v in m.items()}
 
 
-def check_par_f32(device, name: str, run: dict, argv) -> dict:
+def check_par_f32(device, name: str, run: dict, argv,
+                  world: int = PAR_WORLD, ref=None) -> dict:
     """Rank 0's f32 step (its checkpoint, its scalars) against
-    `par_f32_reference` at the limits PAR_F32_*."""
-    ref, losses = par_f32_reference(device, argv)
+    `par_f32_reference` (or `ref`, its result) at the limits PAR_F32_*."""
+    ref, losses = ref or par_f32_reference(device, argv, world)
     got = run["state"]
     scalars = {}
     with open(os.path.join(run["out_dir"], "logs", "scalars.jsonl")) as f:
@@ -3383,10 +3436,475 @@ def check_remat_policies(device) -> dict[str, dict]:
     return rows
 
 
-def main() -> int:
+# ------------------------------------- four cards, NCCL one card a rank (6b)
+# `python3 chip_smoke.py --cards 4`: the train CLI as `--multihost` ranks
+# with `--device cuda` (rank i on cuda:i, NCCL), all full width, bf16
+# unless said, on synthetic clips. {name: (flags, steps)}; the global batch
+# splits over the data ranks.
+CARDS = 4
+K2_ARGV = ["--steps_per_call", "2", "--log_step", "2"]
+DP4_ARGV = FLAGSHIP_ARGV + ["--model_save_step", "2"]     # 2 clips a rank
+CP_ARGV = FLAGSHIP_ARGV + ["--time_shards", "2"]          # data 2 x time 2
+LONG_DP4_ARGV = LONG_ARGV + ["--grad_accum", "1"]         # 1 clip a rank
+CARD_RUNS = {
+    "dp4": (DP4_ARGV, 4),
+    "dp4_k2": (DP4_ARGV + K2_ARGV, 4),
+    # the flagship train command with neither --n_devices nor --multihost:
+    # `plan` takes every visible card, `spawn` starts the ranks (K 4)
+    "default": (FLAGSHIP_ARGV + ["--steps_per_call", "4", "--log_step", "4"],
+                4),
+}
+CARD_AFTER = {  # started as an earlier run ends ({name: (after, step, ...)})
+    "dp4_b": ("dp4", 2, DP4_ARGV, 4),
+    "cp": ("dp4_k2", None, CP_ARGV, 2),
+    "cp_k2": ("default", None, CP_ARGV + K2_ARGV, 2),
+    "long_dp4": ("dp4_b", None, LONG_DP4_ARGV, 2),
+    "long_dp4_k2": ("cp", None, LONG_DP4_ARGV + K2_ARGV, 2),
+    # the reference's long-clip topology: the clip over 4 time ranks,
+    # batch 4 as 2 micro-batches of 2
+    "long_cp4": ("cp_k2", None, LONG_ARGV + ["--time_shards", "4"], 2),
+    # the f32 steps held to one process (PAR_F32_*), from `off_init`
+    "dp4_f32": ("long_dp4", None, PAR_RUNS["dp2_f32"][0], 1),
+    "cp_f32": ("long_dp4_k2", None, PAR_RUNS["cp2_f32"][0], 1),
+}
+CARD_F32 = ("dp4_f32", "cp_f32")
+# pairs that must have the same bits in every leaf: (run, its reference)
+CARD_BITS = (("dp4_b", "dp4"), ("dp4_k2", "dp4"), ("cp_k2", "cp"),
+             ("long_dp4_k2", "long_dp4"))
+# the rates: one rank alone on cuda:0 against the CARDS ranks, each at
+# steps_per_call 1 and at the trainer's K; strong scaling (the global
+# batch of one card over the ranks) and weak (one card's batch a rank).
+# {name: (the ranks' flags, the one rank's flags, K, steps a reading)}
+CARD_RATES = {
+    "flagship_strong": (FLAGSHIP_ARGV, FLAGSHIP_ARGV, 4, 12),
+    "flagship_weak": (FLAGSHIP_ARGV + ["--batch_size", str(CARDS * B_TRAIN)],
+                      FLAGSHIP_ARGV, 4, 12),
+    # (the long clip's weak point, 8 clips a rank, would add ~1 minute)
+    "longclip_strong": (
+        LONG_ARGV + ["--batch_size", "8", "--grad_accum", "1"],
+        LONG_ARGV + ["--batch_size", "8", "--grad_accum", "4"], 2, 6),
+}
+# in turns: (who, steps_per_call 1 or K); a reading's rate is the trainer's
+# own steps_per_sec of each logged interval but its first (`steady_ms`)
+RATE_TURNS = (("one", 1), ("ranks", 1), ("ranks", "K"), ("one", "K"))
+NCCL_KERNELS = ("nccl",)
+
+
+def check_card_runs(done: dict, refs: dict) -> dict:
+    """The four-card runs: each as `finish_ranks` checked it (nccl, equal
+    digests, launches), the `default` run's ranks; the pairs of CARD_BITS
+    bitwise (else the differing leaves named); dp4_b resumed at 2; the f32
+    runs against one process (`refs`: `par_f32_reference` of each)."""
+    res = {}
+    out = done["default"]["stdout"]
+    backend = [ln for ln in out.splitlines()
+               if ln.startswith("parallel: backend ")]
+    digests = re.findall(r"^rank \d+: state digest (\w+) over", out, re.M)
+    res["default"] = {"backend": backend, "digests": digests,
+                      "captured": out.count("into one CUDA graph")}
+    if (len(backend) != 1 or not backend[0].startswith(
+            "parallel: backend nccl ") or f" {CARDS} ranks," not in backend[0]
+            or len(digests) != CARDS or len(set(digests)) != 1
+            or res["default"]["captured"] != CARDS):
+        raise AssertionError(f"the default train command: {res['default']}")
+    if "resumed from checkpoint step 2" not in done["dp4_b"]["stdout"]:
+        raise AssertionError("dp4_b did not resume from step 2")
+    bits = {}
+    for run, ref in CARD_BITS:
+        a, b = done[ref]["state"], done[run]["state"]
+        differ = [k for k, v in b.items() if not np.array_equal(v, a[k])]
+        bits[f"{run} vs {ref}"] = {
+            "bitwise": not differ, "leaves": len(a), "differ": differ[:20],
+            "max_abs": state_gaps(b, a) if differ else None}
+    res["bits"] = bits
+    res["f32"] = {name: check_par_f32(None, name, done[name], None, CARDS,
+                                      refs[name]) for name in CARD_F32}
+    res["by_run"] = {
+        k: {"ms_per_step": v.get("ms_per_step"),
+            "peak_mem_gib_by_rank": v.get("peak_mem_gib_by_rank"),
+            "collectives_per_rank_step": v.get("comm_per_step"),
+            # every rank's launches and digest checked by `finish_ranks`
+            "launches_per_rank_step": (v.get("launches_per_rank_step")
+                                       or [None])[0],
+            "launches_per_step_predicted": v["per_step"],
+            "digest": (v.get("digests") or [None])[0], "cli_s": v["cli_s"]}
+        for k, v in done.items()}
+    print("four-card runs " + json.dumps(res), flush=True)
+    bad = [k for k, v in bits.items() if not v["bitwise"]]
+    if bad:
+        raise AssertionError(f"runs without their reference's bits: "
+                             f"{ {k: bits[k]['differ'] for k in bad} }")
+    return res
+
+
+def drive_cards(device) -> dict:
+    """The four-card runs (CARD_RUNS, then CARD_AFTER as their runs end,
+    through `drive_trains`; `start_ranks` with `--device cuda` and a world
+    of CARDS, `finish_ranks` expecting nccl; the `default` run through
+    `start_train`); meanwhile this process computes the f32 runs' one
+    process step on cuda:0. Checked by `check_card_runs`."""
+    from dvdgan_tpu_torch import interop
+    from dvdgan_tpu_torch.train import state as train_state
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    weights = tempfile.TemporaryDirectory()
+    path = os.path.join(weights.name, "off_init.npz")
+    cfg = parse_config(PAR_RUNS["dp2_f32"][0])
+    interop.save_train_state_npz(path, off_init(train_state.create(
+        cfg.seed, cfg.g_config(), cfg.ds_config(), cfg.dt_config()),
+        cfg.seed + 2))
+    after = {name: (src, at, argv + ["--weights", path], n)
+             if name in CARD_F32 else (src, at, argv, n)
+             for name, (src, at, argv, n) in CARD_AFTER.items()}
+    refs = {}
+
+    def meanwhile():
+        for name in CARD_F32:
+            refs[name] = par_f32_reference(device, after[name][2], CARDS)
+
+    def start(argv, n_steps, tmp=None, first=0):
+        if argv is CARD_RUNS["default"][0]:     # one CLI process, 4 ranks
+            return start_train(argv, n_steps)
+        return start_ranks(argv, n_steps, tmp, first, CARDS, "cuda")
+
+    def finish(run, keep=False):
+        if len(run["procs"]) == 1:
+            return finish_train(run, keep)
+        return finish_ranks(run, keep, "nccl", timeout_s=300)
+
+    keep = {k for pair in CARD_BITS for k in pair} | set(CARD_F32)
+    # up to three runs of CARD_RUNS' ranks at a time share the host's
+    # cores: their threads, as a launcher sets them (`pmesh.share_cores`)
+    saved = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = str(max(1, len(os.sched_getaffinity(0))
+                                            // (3 * CARDS)))
+    done = {}
+    try:
+        done = drive_trains(CARD_RUNS, after, tuple(keep), start, finish,
+                            meanwhile)
+        return check_card_runs(done, refs)
+    finally:
+        if saved is None:
+            os.environ.pop("OMP_NUM_THREADS")
+        else:
+            os.environ["OMP_NUM_THREADS"] = saved
+        for run in done.values():
+            if "tmp" in run:
+                run["tmp"].cleanup()
+        weights.cleanup()
+
+
+def profile_kernels(fn) -> dict:
+    """fn() once under torch.profiler (after one unprofiled call): the
+    device µs of all its kernels and of NCCL's (`NCCL_KERNELS`, through
+    `device_view` with one try: every rank must run fn the same number of
+    times), and how many NCCL launches it saw."""
+    view = device_view(fn, 0, NCCL_KERNELS, tries=1)
+    nccl = sum(view["launch_device_us"][k] * view["launch_count"][k]
+               for k in view["launch_device_us"])
+    return {"device_ms": view["device_ms"], "nccl_ms": nccl / 1e3,
+            "nccl_launches": view["profiled_launches"]}
+
+
+def steady_ms(log_dir: str, after: int, upto: int, every: int
+              ) -> list[float]:
+    """ms a step of each interval the trainer logged (its `steps_per_sec`,
+    the train stream's time between two log steps) that ends in
+    (after + every, upto]: a reading's steady state. Its first interval is
+    left out (it holds the loader's start, the first batch placed
+    synchronously, a capture), and so is the digest and the launch line a
+    multi-rank run prints after its last step."""
+    out = []
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if (rec["tag"] == "steps_per_sec"
+                    and after + every < rec["step"] <= upto):
+                out.append(1e3 / rec["value"])
+    return out
+
+
+def _rate_trainer(argv, k: int, par, tmp: str):
+    """A trainer of `argv` for both steps_per_call 1 and k (logging every k
+    steps, no dump or save), warmed up over k steps at 1 and k at k (the
+    capture): -> (trainer, its peak device memory in GiB above what was
+    allocated before it was built). Its `steps_per_call` picks the mode of
+    the next `train` call."""
+    from dvdgan_tpu_torch.train.trainer import Trainer
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(parse_config(argv + [
+        "--steps_per_call", str(k), "--log_step", str(k), "--sample_step",
+        "0", "--model_save_step", "0", "--out_dir", tmp]), par)
+    for kk in (1, k):
+        tr.steps_per_call = kk
+        tr.train(total_step=tr.start_step + k)
+    return tr, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def card_rates_rank(local_rank: int, out: str) -> None:
+    """One rank of the rates (`time_cards`): for each entry of CARD_RATES,
+    the CARDS ranks' trainer and, on rank 0, one rank's (no process group:
+    cuda:0 alone), each warmed up at steps_per_call 1 and K; then the
+    readings in RATE_TURNS (a gloo barrier between turns; the other ranks
+    wait out the one rank's), each `steady_ms` of its own trainer, both
+    sides alike; then each K graph replayed under the profiler
+    (`profile_kernels`), the syncs of one bare K call, the collectives and
+    bytes a step. Its stdout goes to a file; the rows to
+    out/rates_rank<r>.json. Rank 0 also prints each step of the phase,
+    with its seconds, and each entry's row as it ends to the launcher's
+    stdout, so that a call cut short keeps what was done."""
+    import warnings
+
+    from dvdgan_tpu_torch.parallel import collectives
+    from dvdgan_tpu_torch.parallel import mesh as pmesh
+
+    sys.stdout = open(os.path.join(out, f"rank{local_rank}.log"), "w")
+    t0 = time.perf_counter()
+
+    def note(msg: str) -> None:
+        if local_rank == 0:
+            print(f"[rates {time.perf_counter() - t0:6.1f} s] {msg}",
+                  file=sys.__stdout__, flush=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    par = pmesh.init_from_env(torch.device("cuda"), 1, CARDS * B_TRAIN)
+    coord = torch.distributed.new_group(backend="gloo")
+    tmp = tempfile.TemporaryDirectory()
+    rows, ones, one_rows = {}, {}, {}
+    try:
+        for name, (argv, one_argv, k, n) in CARD_RATES.items():
+            model = name.rsplit("_", 1)[0]
+            if par.is_main and model not in ones:   # one card's, for both
+                for tr, _ in ones.values():
+                    tr.close()
+                ones = {model: _rate_trainer(one_argv, k, None, os.path.join(
+                    tmp.name, f"one_{name}"))}
+                torch.cuda.empty_cache()
+            who = {"ranks": _rate_trainer(argv, k, par, os.path.join(
+                tmp.name, name))}
+            note(f"{name}: trainers built and warmed up")
+            if par.is_main:
+                who["one"] = ones[model]
+            turns = []
+            for side, kk in RATE_TURNS:
+                kk = k if kk == "K" else kk
+                torch.distributed.barrier(group=coord)
+                if side == "one" and not par.is_main:
+                    continue
+                tr = who[side][0]
+                tr.steps_per_call = kk
+                first = tr.start_step
+                comms = collectives.COUNTS.snapshot()
+                tr.train(total_step=first + n)
+                if kk > 1:      # a replay moves no counter
+                    comms = tr._multi.comms
+                else:
+                    comms = {c: (v - comms[c]) // n for c, v in
+                             collectives.COUNTS.snapshot().items()}
+                turns.append({"who": side, "k": kk, "ms_per_step": (
+                    steady_ms(os.path.join(tr.out_dir, "logs"), first,
+                              first + n, k) if tr.is_main else None),
+                    "comms_per_step": comms})
+                note(f"{name}: read {side} at K {kk}")
+            row = {"turns": turns}
+            for side in ("ranks", "one"):     # the ranks' K call on all
+                torch.distributed.barrier(group=coord)
+                if side not in who:
+                    continue
+                if side == "one" and model in one_rows:     # read already
+                    row[side] = one_rows[model]
+                    continue
+                multi = who[side][0]._multi
+                view = profile_kernels(lambda: multi.graph.replay())
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        multi(multi.state, multi.reals, multi.ys, 0)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                row[side] = {
+                    "peak_mem_gib": who[side][1],
+                    "capture_s": multi.capture_s,
+                    "device_ms_per_step": view["device_ms"] / k,
+                    "nccl_ms_per_step": view["nccl_ms"] / k,
+                    "nccl_launches_per_step": view["nccl_launches"] / k,
+                    "comms_per_step_k": multi.comms,
+                    "syncs_in_a_k_call": len(caught),
+                    "sync_sites": sorted({str(w.message)[:100]
+                                          for w in caught})[:4]}
+                if side == "one":
+                    one_rows[model] = row[side]
+            torch.distributed.barrier(group=coord)
+            rows[name] = row
+            note(f"{name}: {json.dumps(row)}")
+            with open(os.path.join(out, f"rates_rank{local_rank}.json"),
+                      "w") as f:            # what is done so far
+                json.dump(rows, f)
+            who["ranks"][0].close()
+            who = multi = tr = None
+            torch.cuda.empty_cache()
+    finally:
+        for tr, _ in ones.values():
+            tr.close()
+        ones.clear()
+        who = multi = tr = None     # their graphs, before the group goes
+        tmp.cleanup()
+        par.close()
+        sys.stdout.close()
+
+
+def time_cards() -> dict:
+    """The rates (`card_rates_rank` on CARDS ranks, one card each): for
+    each entry of CARD_RATES and each of one rank and the CARDS ranks at
+    steps_per_call 1 and K, rank 0's ms a step (each steady interval of
+    its reading, `steady_ms`; their median), the clips/s per card, the
+    device ms a step (the K graph's replay under the profiler) and NCCL's
+    share of it, the idle share, the collectives and bytes a rank-step,
+    the peak memory a rank and the syncs of one K call. The ranks' K call
+    must make none."""
+    from dvdgan_tpu_torch.parallel import mesh as pmesh
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    try:
+        try:
+            pmesh.spawn(card_rates_rank, CARDS, (tmp.name,), timeout_s=480)
+        finally:
+            ranks = []
+            for r in range(CARDS):
+                path = os.path.join(tmp.name, f"rates_rank{r}.json")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        ranks.append(json.load(f))
+            print("four-card rates, each rank's rows "
+                  + json.dumps(ranks), flush=True)
+    finally:
+        for r in range(CARDS):      # the ranks' own lines, the end of each
+            path = os.path.join(tmp.name, f"rank{r}.log")
+            if os.path.exists(path):
+                with open(path) as f:
+                    tail = f.read()[-2000:]
+                print(f"--- rates rank {r} (end of its stdout):\n{tail}",
+                      flush=True)
+        tmp.cleanup()
+    out = {}
+    for name, (argv, one_argv, k, n) in CARD_RATES.items():
+        batch = {"ranks": parse_config(argv).batch_size,
+                 "one": parse_config(one_argv).batch_size}
+        lead = ranks[0][name]
+        res = {"batch": batch, "k": k, "steps_a_reading": n}
+        for side in ("one", "ranks"):
+            cards = CARDS if side == "ranks" else 1
+            dev = lead[side]["device_ms_per_step"]
+            for kk in (1, k):
+                turn, = [t for t in lead["turns"]
+                         if t["who"] == side and t["k"] == kk]
+                mid = statistics.median(turn["ms_per_step"])
+                res[f"{side}_k{kk}"] = {
+                    "ms_per_step": turn["ms_per_step"],
+                    "median_ms_per_step": mid,
+                    "clips_per_s_per_card": batch[side] / mid * 1e3 / cards,
+                    "idle_share": 1.0 - dev / mid,
+                    "comms_per_rank_step": turn["comms_per_step"]}
+            views = [r[name][side] for r in ranks if side in r[name]]
+            res[side] = {
+                "device_ms_per_step": [v["device_ms_per_step"]
+                                       for v in views],
+                "nccl_ms_per_step": [v["nccl_ms_per_step"] for v in views],
+                "nccl_launches_per_step": [v["nccl_launches_per_step"]
+                                           for v in views],
+                "peak_mem_gib_by_rank": [v["peak_mem_gib"] for v in views],
+                "capture_s": [v["capture_s"] for v in views],
+                "comms_per_step_k": views[0]["comms_per_step_k"],
+                "syncs_in_a_k_call": [v["syncs_in_a_k_call"] for v in views],
+                "sync_sites": views[0]["sync_sites"]}
+        for kk in (1, k):
+            one, many = res[f"one_k{kk}"], res[f"ranks_k{kk}"]
+            many["per_card_vs_one"] = (many["clips_per_s_per_card"]
+                                       / one["clips_per_s_per_card"])
+        out[name] = res
+    out["seconds"] = time.perf_counter() - t0
+    print("four-card rates " + json.dumps(out), flush=True)
+    bad = {name: out[name]["ranks"]["syncs_in_a_k_call"] for name in CARD_RATES
+           if any(out[name]["ranks"]["syncs_in_a_k_call"])}
+    if bad:
+        raise AssertionError(f"syncs in the ranks' K call: {bad}")
+    return out
+
+
+def main_cards() -> int:
+    """`--cards 4`: the kernels built, the four-card runs (`drive_cards`)
+    and rates (`time_cards`), then the result line."""
+    from dvdgan_tpu_torch.kernels import _build
+
+    n = torch.cuda.device_count()
+    if n < CARDS:
+        print(f"chip_smoke --cards {CARDS}: {n} CUDA devices visible",
+              file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+
+    def phase(name: str) -> None:
+        print(f"[{time.perf_counter() - t_start:7.1f} s] done: {name}",
+              flush=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    for line in gpu_lines():
+        print(line, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} nccl "
+          f"{'.'.join(map(str, torch.cuda.nccl.version()))} devices "
+          f"{[torch.cuda.get_device_name(i) for i in range(n)]}", flush=True)
+    t0 = time.perf_counter()
+    logs = _build.build()
+    print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    # every phase runs even where an earlier one failed; a failure fails
+    # the script at the end, without the result line
+    failed, res = {}, {}
+    for name, fn in (("the four-card runs", lambda: drive_cards(device)),
+                     ("the four-card rates", time_cards)):
+        try:
+            res[name] = fn()
+        except Exception as e:
+            traceback.print_exc()
+            failed[name] = repr(e)[:500]
+        phase(name + (" (failed)" if name in failed else ""))
+    if failed:
+        print(f"chip_smoke --cards {CARDS}: failed: {json.dumps(failed)}",
+              file=sys.stderr, flush=True)
+        return 1
+    runs = res["the four-card runs"]
+    print(gpu_line(), flush=True)    # again, beside the numbers it goes with
+    print(json.dumps({"four_cards": {
+        "bits": runs["bits"], "f32": runs["f32"],
+        "rates_s": res["the four-card rates"]["seconds"]}}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(description="the port's smoke run on the card")
+    p.add_argument("--cards", type=int, choices=(1, CARDS), default=1,
+                   help=f"{CARDS}: the NCCL phase alone (one rank a card)")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.cards > 1:
+        return main_cards()
     from dvdgan_tpu_torch.kernels import _build
     from dvdgan_tpu_torch.kernels import attention_spatial as k6
     from dvdgan_tpu_torch.ops import convgru

@@ -33,6 +33,13 @@ for each.
 
 `COUNTS` counts the all-reduces and all-gathers issued and the bytes they
 carried; it is read around a step, as the kernels' launch counters are.
+
+Under NCCL a CUDA graph can hold every function here (`train/step.py:
+MultiStep`): none reads a device value on the host, their buffers (the
+clone, the flat buffers, the gathered ends) are allocated inside the call
+and so come from the graph's pool, and the halos read only the group's
+rank and size. `COUNTS` moves when a call is captured, never when it is
+replayed.
 """
 
 from __future__ import annotations

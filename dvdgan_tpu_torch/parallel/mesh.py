@@ -30,15 +30,26 @@ How processes start (`cli.py`):
 The backend is chosen once, at init, from every rank's device
 (`choose_backend`): `nccl` when each rank has a card of its own, `gloo`
 when ranks share a card or run on the CPU (NCCL refuses two ranks on one
-device). It is printed and never switched afterwards. The process group
-gets a finite timeout, so a rank that dies makes the others fail instead
-of hang.
+device). It is printed and never switched afterwards: a failed NCCL init
+raises, with no fallback to gloo. The process group gets a finite
+timeout, so a rank that dies makes the others fail instead of hang (an
+eager collective; a collective replayed from a CUDA graph is outside the
+watchdog's sight, `train/step.py:MultiStep`).
+
+Under NCCL (`init_from_env`): the process group is bound to the rank's
+card (`device_id`), so the world's communicator is made at init and a
+failed init raises there; the data and time groups' are made by their
+creation or first collective, before any capture (`MultiStep`'s warm-up
+issues every collective of the step: a communicator cannot be made
+inside a capture). The ranks of one host move their data card to card
+over NVLink, not through the host, and share its cores (`share_cores`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
 import os
 import socket
 from typing import Callable, Optional, Sequence
@@ -228,10 +239,18 @@ class Parallel:
         return None if v < 0 else v
 
     def barrier(self) -> None:
-        dist.barrier()
+        if self.backend == "nccl":      # on this rank's card, not a guess
+            dist.barrier(device_ids=[self.device.index])
+        else:
+            dist.barrier()
 
     def close(self) -> None:
+        """Destroys the process group. NCCL's destruction waits until every
+        CUDA graph that captured its collectives is freed: callers drop
+        theirs first (`Trainer.close`), and a collection pass frees any
+        left in reference cycles."""
         if dist.is_initialized():
+            gc.collect()
             dist.destroy_process_group()
 
 
@@ -253,6 +272,7 @@ def init_from_env(device: torch.device, time_shards: int, batch_size: int,
     if batch_size % n_data:
         raise ValueError(f"global batch {batch_size} does not split over "
                          f"{n_data} data ranks")
+    share_cores(int(os.environ.get("LOCAL_WORLD_SIZE", world)))
     device = rank_device(device, int(os.environ["LOCAL_RANK"]))
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -263,8 +283,11 @@ def init_from_env(device: torch.device, time_shards: int, batch_size: int,
     store.set(f"device/{rank}", device_identity(device))
     idents = [store.get(f"device/{r}").decode() for r in range(world)]
     backend, why = choose_backend(idents)
+    bind = {}
+    if backend == "nccl":
+        bind = {"device_id": device}
     dist.init_process_group(backend, store=store, rank=rank,
-                            world_size=world, timeout=timeout)
+                            world_size=world, timeout=timeout, **bind)
     mesh = (Mesh((n_data,)) if n_time == 1
             else Mesh((n_data, n_time), (DATA_AXIS, TIME_AXIS)))
     groups = {}
@@ -282,6 +305,21 @@ def init_from_env(device: torch.device, time_shards: int, batch_size: int,
               flush=True)
     return Parallel(mesh, rank, device, backend, groups[DATA_AXIS],
                     groups[TIME_AXIS])
+
+
+def share_cores(local_ranks: int) -> None:
+    """Gives this rank its share of the host's cores for torch's CPU work
+    (the seeded init's factorizations, checkpoint copies), unless the
+    launcher set OMP_NUM_THREADS (as torchrun does). With a thread pool of
+    every core in each of several ranks, OpenMP's spinning threads
+    oversubscribe the host: a four-rank flagship train run on four H100s
+    of a 32-core host took 156–159 s on pools of every core, 27–86 s with
+    its share (`chip_smoke.py --cards 4`)."""
+    if "OMP_NUM_THREADS" in os.environ:
+        return
+    cores = (len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
+             else os.cpu_count() or 1)
+    torch.set_num_threads(max(1, cores // max(1, local_ranks)))
 
 
 def free_port() -> int:

@@ -416,6 +416,19 @@ def _copy_tree(dst: Any, src: Any) -> None:
     torch._foreach_copy_(list(d.values()), [s[p] for p in d])
 
 
+def capture_mode() -> str:
+    """The CUDA-graph capture mode of `MultiStep`: the default global mode,
+    which fails the capture when another thread makes an unsafe CUDA call,
+    except in a process with an NCCL process group. Its watchdog thread
+    polls the CUDA events of the collectives in flight, outside any
+    capture; "thread_local" confines the capture's restrictions to the
+    capturing thread, so that such a poll cannot break it. The trainer's
+    own threads stay idle during a capture under either mode."""
+    nccl = dist.is_available() and dist.is_initialized() and (
+        dist.get_backend() == "nccl")
+    return "thread_local" if nccl else "global"
+
+
 class MultiStep:
     """K train steps per call — the counterpart of the reference's
     `scan_steps` (`dvdgan_tpu/train/step.py`). Step j of a call takes
@@ -442,15 +455,23 @@ class MultiStep:
 
     The graph cannot hold autograd's anomaly mode: capturing under it
     raises. `launches` is each kernel's launches per step (`counts()`
-    before and after, divided by K): around the capture on the card, where
-    a replay moves no host counter, and around each call on the CPU.
+    before and after, divided by K) and `comms` the collectives and bytes
+    per step (`collectives.COUNTS` the same way): around the capture on
+    the card, where a replay moves no host counter, and around each call
+    on the CPU.
 
     Under data or time parallelism (`group`, `time_group` of more than one
     rank; the draws folded by `shard`, as `train_step` takes them) the CPU
-    runs the K steps eagerly as ever. On a CUDA device the object refuses
-    to be built: gloo's collectives run on the host and a graph cannot
-    hold them, and K steps under NCCL (one card a rank) are ROADMAP Queue 1
-    item 6b, not run by any machine this port has been checked on.
+    runs the K steps eagerly as ever. On a CUDA device the groups must be
+    NCCL's (one card a rank): the graph then holds the steps' collectives
+    (BN's all-reduces, the gradient and metric means, DT's halo
+    all-gathers and score sums) on NCCL's stream, and a replay issues them
+    on every rank in the order of the capture. The warm-up step issues the
+    same collectives, so every group's communicator exists before the
+    capture and the ranks' calls stay matched. Gloo's collectives run on
+    the host, which a graph cannot hold: such groups on CUDA raise. A
+    replayed collective is outside the process group's watchdog: a rank
+    that dies mid-replay leaves the others waiting in NCCL's kernels.
     """
 
     def __init__(self, state: dict, k: int, batch: int, g_cfg: GConfig,
@@ -461,15 +482,13 @@ class MultiStep:
         self.k, self.seed, self.dtype = k, seed, dtype
         self.device = torch.device(device)
         groups = [g for g in (group, time_group) if collectives.size(g) > 1]
-        if groups and self.device.type == "cuda":
-            backend = dist.get_backend(groups[0])
-            why = ("gloo's collectives run on the host, and a CUDA graph "
-                   "cannot hold them" if backend == "gloo" else
-                   "K steps under NCCL are ROADMAP Queue 1 item 6b (not "
-                   "checked on any machine yet)")
+        backends = {dist.get_backend(g) for g in groups}
+        if self.device.type == "cuda" and backends - {"nccl"}:
             raise NotImplementedError(
-                f"--steps_per_call {k} with {backend} process groups on "
-                f"{self.device}: {why}; run --steps_per_call 1")
+                f"--steps_per_call {k} with {sorted(backends)} process "
+                f"groups on {self.device}: their collectives run on the "
+                f"host, and a CUDA graph cannot hold them; run "
+                f"--steps_per_call 1, or one card a rank (nccl)")
         # only where given: a one-process call keeps its signature
         self.groups = {k: g for k, g in (("group", group),
                                          ("time_group", time_group))
@@ -490,6 +509,7 @@ class MultiStep:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.metrics: dict[str, torch.Tensor] = {}
         self.launches: dict[str, int] = {}
+        self.comms: dict[str, int] = {}
         self.capture_s: Optional[float] = None   # warm-up + capture, host
 
     def _steps(self) -> dict[str, torch.Tensor]:
@@ -501,14 +521,29 @@ class MultiStep:
         _copy_tree(self.state, st)
         return {name: torch.stack([m[name] for m in ms]) for name in ms[0]}
 
-    def _per_step(self, before: dict[str, int]) -> dict[str, int]:
-        return {name: (n - before[name]) // self.k
-                for name, n in self.counts().items()}
+    def _tallies(self) -> tuple[dict[str, int], dict[str, int]]:
+        return self.counts(), collectives.COUNTS.snapshot()
+
+    def _per_step(self, before: tuple[dict[str, int], dict[str, int]]
+                  ) -> None:
+        """`launches` and `comms` a step since the `_tallies()` `before`."""
+        self.launches, self.comms = (
+            {name: (n - was[name]) // self.k for name, n in now.items()}
+            for now, was in zip(self._tallies(), before))
+
+    def warm_up(self) -> dict[str, torch.Tensor]:
+        """One eager step from the buffers, its outputs dropped (the step
+        writes nothing in place, so the state is as it was), with the
+        groups' collectives: the same calls, in the same order and sizes,
+        as each step of the capture."""
+        return train_step(self.state, self.reals[0], self.ys[0],
+                          self.draws[0], *self.cfgs, **self.groups)[1]
 
     def capture(self) -> None:
-        """Warm-up step, then the K steps captured into one CUDA graph.
-        Nothing else may issue CUDA calls meanwhile (the global capture
-        mode): callers capture before their own threads start."""
+        """Warm-up step, then the K steps captured into one CUDA graph
+        (`capture_mode()`). No other thread of the caller may issue CUDA
+        calls meanwhile: callers capture before their own threads start.
+        Under NCCL every rank captures at the same point of its run."""
         if self.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not "
                              f"{self.device}")
@@ -520,14 +555,13 @@ class MultiStep:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(train)
         with torch.cuda.stream(side):
-            train_step(self.state, self.reals[0], self.ys[0], self.draws[0],
-                       *self.cfgs)
+            self.warm_up()
         train.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        before = self.counts()
-        with torch.cuda.graph(graph):
+        before = self._tallies()
+        with torch.cuda.graph(graph, capture_error_mode=capture_mode()):
             self.metrics = self._steps()
-        self.launches = self._per_step(before)
+        self._per_step(before)
         self.graph = graph
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
@@ -552,9 +586,9 @@ class MultiStep:
                 self.capture()
             self.graph.replay()
         else:
-            before = self.counts()
+            before = self._tallies()
             self.metrics = self._steps()
-            self.launches = self._per_step(before)
+            self._per_step(before)
         return self.state, self.metrics
 
 

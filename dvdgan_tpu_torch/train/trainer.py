@@ -50,7 +50,9 @@ sample and save keep their cadence, which the schedule rule
 (`effective_steps_per_call`, the reference's) puts on call boundaries,
 and read the state buffers the graph writes; an evaluation runs eagerly
 after the call's replay, with no capture open. The launches logged per
-step are counted during the capture and divided by K.
+step, and under several ranks the collectives (`comm_*`), are counted
+during the capture and divided by K (`MultiStep.launches`, `.comms`): a
+replay moves no host counter.
 
 `--profile` traces steps 10 to 15 with torch.profiler into
 `out_dir/trace` (the window aligned to K; `utils/profiling.py`);
@@ -74,7 +76,9 @@ Checkpoints are written synchronously by the leader while the others wait
 at a barrier (`AsyncSaver` is single-process only, as the reference's
 async save is). Sampling and `evaluate()` run on every rank and write on
 the leader. The prefetch thread places batches only: every collective is
-issued from the train thread.
+issued from the train thread. Under `--steps_per_call K` on the card
+(NCCL, one card a rank) every rank captures its graph, collectives
+inside, at the same point: before its prefetch thread starts.
 """
 
 from __future__ import annotations
@@ -446,12 +450,12 @@ class Trainer:
                         pending = prefetch.submit(
                             lambda: self._place(self._next(data)))
                     real, y = self._take(batch)
-                    comms_at = collectives.COUNTS.snapshot()
                     if multi is not None:   # the call's metrics stacked (K,)
                         self.state, out = multi(self.state, real, y, i)
-                        launches = multi.launches
+                        launches, comms = multi.launches, multi.comms
                         metrics = {name: v[-1] for name, v in out.items()}
                     else:
+                        comms_at = collectives.COUNTS.snapshot()
                         draws = step_mod.TorchDraws(
                             c.seed, i, self.batch, self.g_cfg.z_dim,
                             self.g_cfg.n_frames, self.ds_cfg.k_frames,
@@ -461,19 +465,16 @@ class Trainer:
                                                        draws)
                         launches = {name: n - before[name]
                                     for name, n in launch_counts().items()}
+                        comms = {name: v - comms_at[name] for name, v
+                                 in collectives.COUNTS.snapshot().items()}
                         metrics = out
                     step = i + k
                     for name, n in launches.items():
                         launched[name] += n * k
                     if c.nan_check:
                         _check_finite(out, step)
-                    comms = None
-                    if self.par is not None:    # per step, this call's
-                        now = collectives.COUNTS.snapshot()
-                        comms = {name: (v - comms_at[name]) // k
-                                 for name, v in now.items()}
                     record = _Record(step, metrics, launches, self.device,
-                                     comms)
+                                     comms if self.par is not None else None)
                     if step % c.log_step == 0:
                         if lagged is not None:
                             since = self._report(lagged, since)
@@ -633,10 +634,14 @@ class Trainer:
         save_batch_gifs(self.sample_dir, videos, step)
 
     def close(self) -> None:
+        """Ends the run's writers and loader, and drops the K-step call's
+        CUDA graph: under NCCL the process group's destruction waits until
+        every graph that captured its collectives is freed."""
         if self.saver is not None:
             self.saver.wait()
         self.writer.close()
         self.loader.close()
+        self._multi = None
 
 
 def _check_finite(metrics: dict[str, torch.Tensor], step: int) -> None:

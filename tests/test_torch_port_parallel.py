@@ -83,15 +83,17 @@ TRAINER_KW = dict(dataset="synthetic", n_classes=5, img_size=32, n_frames=4,
 
 
 # ------------------------------------------------------------- the ranks --
-def run_ranks(world: int, n_time: int, jobs: list[dict], out: str) -> None:
+def run_ranks(world: int, n_time: int, jobs: list[dict], out: str,
+              main=None) -> None:
     """Runs `jobs` in order on `world` gloo ranks (data world/n_time ×
     time n_time), one torch and one OpenBLAS thread each; each job writes
-    its results under `out`."""
+    its results under `out`. `main(local_rank, n_time, jobs, out)` runs in
+    each rank (default `_rank_main`, this file's jobs)."""
     env = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS",
                                           "OPENBLAS_NUM_THREADS")}
     os.environ.update(OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
     try:
-        pmesh.spawn(_rank_main, world, (n_time, jobs, out),
+        pmesh.spawn(main or _rank_main, world, (n_time, jobs, out),
                     timeout_s=LAUNCH_TIMEOUT_S)
     finally:
         for k, v in env.items():
