@@ -52,7 +52,7 @@ The default run, on one card:
    K5a, K5b, K6a, K6b) at one driven shape in bf16 captured into a CUDA
    graph and replayed twice, its outputs poisoned in between: the eager
    call's bits each time, its launches counted once, during the capture
-   (`graph_replay`);
+   (`graph_replay`), and K6 so at each shape of K6_DOMAIN_SHAPES;
 3. drives the sample entry (`python -m dvdgan_tpu_torch --mode sample
    --preset ucf101_64 --n_samples 16 --bf16 1`) with the launch counters
    zeroed just before, checks the clip (shape, finite, in [-1, 1]) and that
@@ -62,7 +62,15 @@ The default run, on one card:
    --cond_frames 5`: the first 5 frames of the CLI's dataset items
    condition the 11 frames G generates; K1 also runs the warm-up over the
    prefix at every level), whose clips/s are printed beside ucf101_64's,
-   and the same z with other items' prefixes must give other clips;
+   and the same z with other items' prefixes must give other clips; then
+   the paths of K6's whole domain: P1 (`--preset ucf101_64 --ch 48
+   --attn_fused on`, batch 16: its 32²×96 attention, c8 12 on weights
+   zero-padded to 16), P2 (`--preset kinetics_128 --ch 96 --attn_fused
+   on`, batch 8: BigGAN's 128 px base width, 32²×384 in the wide sweep)
+   and P3 (DVD-GAN-FP at 128 px, `--preset kinetics_128 --n_frames 16
+   --cond_frames 5`, batch 8: K3 at 64² over the warm-up's 5 frames, then
+   over the 11 generated ones from the warm-up's last state, each K3 call
+   recorded (`k3_calls`); an f32 batch-2 clip card vs CPU);
 4. drives the train entry (`python -m dvdgan_tpu_torch --mode train
    --dataset synthetic ...`, `train.trainer.Trainer`: every step logged, a
    checkpoint at the last step) in child processes whose launch counters
@@ -102,6 +110,10 @@ The default run, on one card:
      frame encoder among the trees that moved (per step K1 256, K2 256:
      the warm-up's and the generation's steps, K2's dh0 feeding the
      warm-up's K2);
+   - P1, P2 (`--remat 1`) and P3, 2 steps at batch 8 (P_TRAIN; started
+     as the 128 px and the long-clip runs end), their launches a step
+     printed (K6a 4 on P1 and P2; K3 at 64² on P2 and P3, P3's over the
+     warm-up and the generation);
    - the trainer's A and A_K with `--eval_step 2 --eval_samples 16`
      (started as the two long-clip runs end): `fvd`, `is_mean`, `is_std`
      in the scalars and an `eval @` line at steps 2 and 4, and A's bits in
@@ -240,7 +252,11 @@ The default run, on one card:
     where it missed one) and a second bound `bound_ms_tc` with the logits
     at the 3×TF32 rate (the bf16 kernel's bound; `bound_ms` keeps them at
     the f32 CUDA-core rate, as the f32-logit kernel's rows were counted,
-    and so overstates the bf16 kernel's least time); and K1, K2, K3 at the shapes the 128 px path
+    and so overstates the bf16 kernel's least time); and so at the shapes
+    of K6_DOMAIN_SHAPES (the 4² map at C 256 and 512, P1's and P2's calls,
+    16²×768, 8²×1536 and 64²×384, at N 96 but P1's 256: the `kernels`
+    line lists the off-path ones under K6a's and K6b's entries); and K1,
+    K2, K3 at the shapes the 128 px path
     gives them (the kinetics_128 levels, T = 12, B = 8 and 16);
 12. drives the sample CLI with both fused routes (4 K5a and 2 K6a launches,
     the bf16 clip within 0.05 of the unfused one, an f32 batch-2 sample
@@ -254,9 +270,9 @@ The default run, on one card:
     (one reading each, both profiled; median of 2 steps after 1 warm-up,
     with peak memory), and sampling off, on, on, off; and
     `Trainer.train()` at steps_per_call 1 and K in turns 1, K, K, 1
-    (`time_steps_per_call`): the flagship at K 4 (12 steps a
-    reading, log_step 4), FP and the 128 px step at K 2 (4 steps), the
-    long clip at K 2 (2 steps), with
+    (`time_steps_per_call`): the flagship at K 4 (8 steps a
+    reading, log_step 4), FP, the 128 px step and the long clip at K 2 (2
+    steps), with
     ms a step, device time and idle share, the syncs of a train() of K
     steps, the capture's one-time cost and the peak memory;
 14. prints one JSON line of the kernels, each with its launches on the
@@ -281,7 +297,9 @@ timed at the long-clip levels in phase 9, and the long-clip child runs
 it); and (to make room for the parallel phase) the long-clip routes are
 read once each, not in turns, and the long-clip K 1 vs K 2 turns take 2
 steps a reading instead of 4; and (to make room for the serving
-artifacts) the 128 px routes are read once each, not in turns.
+artifacts) the 128 px routes are read once each, not in turns; and (to
+make room for K6's domain paths) the K 1 vs K turns take 8 flagship steps
+a reading instead of 12, and 2 FP and 128 px steps instead of 4.
 
 Any failing phase raises, so the script exits non-zero without the result
 line; so does a machine without a CUDA device. Imports nothing of JAX or
@@ -292,6 +310,7 @@ clips, `dvdgan_tpu_torch.data`).
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -361,6 +380,40 @@ K6A_WIDE_SHAPES = [(96, 8, 8, 512), (192, 8, 8, 512)]
 # the sample CLI on that path: bf16, batch 8, with `--attn_fused` off / on
 PX128_ATTN8 = ["--preset", "kinetics_128", "--attn_res", "8"]
 PX128_ATTN8_B = 8
+# K6 over the rest of the shapes the reference's kernels take, (N, H, W, C)
+# each with the name of its `kernels` entry: the 4² map (4 keys, padded to
+# 16 and masked; no model's: G's attention sits after an upsampling level)
+# at C 256 and 512; the attention of the driven paths P1 (32²×96: c8 12,
+# weights zero-padded; its sample's N 16·16) and P2 (32²×384: the wide
+# sweep; its sample's N 8·12); kinetics_128 at ch 96 with `--attn_res 16`
+# and `8` (16²×768, 8²×1536: the wide body in 3 and 6 passes) and 256 px
+# at ch 96 with `--attn_res 64` (64²×384, K6b: the wide sweep), at N 96
+K6_DOMAIN_SHAPES = {"K6a 4x4": [(96, 4, 4, 256), (96, 4, 4, 512)],
+                    "K6a P1": [(256, 32, 32, 96)],
+                    "K6a P2": [(96, 32, 32, 384)],
+                    "K6a wide widths": [(96, 16, 16, 768), (96, 8, 8, 1536)],
+                    "K6b wide sweep": [(96, 64, 64, 384)]}
+# the driven paths of K6's whole domain: P1, the flagship at ch 48 (its
+# attention 32²×96); P2, kinetics_128 at BigGAN's 128 px base width ch 96
+# (32²×384); P3, DVD-GAN-FP at 128 px (K3 at 64² over the warm-up's T 5,
+# then from its last state over the 11 generated frames). Each: the sample
+# CLI (bf16; P3 also an f32 batch-2 clip card vs CPU) and a 2-step train
+# child. Cut: the batches (P1 sample 16, train 8; P2 and P3 8) and, for P2's
+# child, its activations recomputed (`--remat 1`)
+P1_PRESET = ["--preset", "ucf101_64", "--ch", "48"]
+P2_PRESET = ["--preset", "kinetics_128", "--ch", "96"]
+P3_PRESET = ["--preset", "kinetics_128", "--n_frames", "16",
+             "--cond_frames", "5", "--dataset", "synthetic"]
+P_SAMPLE_B = {"p1": 16, "p2": 8, "p3": 8}
+P_STEPS = 2
+P_TRAIN = {
+    "p1": ["--mode", "train", *P1_PRESET, "--dataset", "synthetic",
+           "--batch_size", str(B_TRAIN), "--bf16", "1", "--attn_fused", "on"],
+    "p2": ["--mode", "train", *P2_PRESET, "--dataset", "synthetic",
+           "--batch_size", "8", "--remat", "1", "--bf16", "1",
+           "--attn_fused", "on"],
+    "p3": ["--mode", "train", *P3_PRESET, "--batch_size", "8", "--bf16",
+           "1"]}
 ATTN_KERNELS = ("attn_kv_kernel", "attn_fwd_kernel")
 K6_DIFFER = 0.005       # bf16: share of K6's output elements that may differ
 #                         from the plain version by their one ulp
@@ -591,6 +644,30 @@ def time_sample(device, g_cfg, seed: int = 0, batch: int = B, cond=None):
     return clips, trees, z, y
 
 
+@contextlib.contextmanager
+def k3_calls():
+    """Records each call `ops/convgru.py` makes of K3's entry while the
+    block runs: its T, plane, the largest |h0| it starts from and its
+    launches."""
+    from dvdgan_tpu_torch import kernels
+    from dvdgan_tpu_torch.kernels import convgru_blocked as k3
+    real, log = kernels.gru_sequence_blocked, []
+
+    def recorded(gx, cx, h0, wg, wc):
+        n0 = k3.gru_sequence_blocked.launches
+        out = real(gx, cx, h0, wg, wc)
+        log.append({"t": gx.shape[0], "plane": list(h0.shape[1:]),
+                    "h0_max_abs": float(h0.float().abs().max()),
+                    "launches": k3.gru_sequence_blocked.launches - n0})
+        return out
+
+    kernels.gru_sequence_blocked = recorded
+    try:
+        yield log
+    finally:
+        kernels.gru_sequence_blocked = real
+
+
 def drive_sample(device, route=(), preset=("--preset", "ucf101_64"),
                  batch: int = B, f32_vs_cpu: bool = True
                  ) -> tuple[dict, dict, np.ndarray]:
@@ -601,7 +678,10 @@ def drive_sample(device, route=(), preset=("--preset", "ucf101_64"),
     `preset`) the clips are the frames generated after the CLI's dataset
     prefixes; K1 also runs the warm-up over them at every level, and the
     same z with the prefixes of other dataset items must give other clips.
-    -> (launches of K1, K3, K5a and K6a, the serving rate, the clips)."""
+    Each K3 call is recorded (`k3_calls`); for FP, K3 must run the warm-up
+    over the prefix and then the generated frames from its last state (h0
+    ≠ 0). -> (launches of K1, K3, K5a and K6a, the serving rate, the
+    clips)."""
     from dvdgan_tpu_torch import cli
     from dvdgan_tpu_torch.kernels import attention_spatial as k6
     from dvdgan_tpu_torch.kernels import convgru_blocked as k3
@@ -619,7 +699,8 @@ def drive_sample(device, route=(), preset=("--preset", "ucf101_64"),
         k1.gru_sequence_fused.launches = k5.ups2x.launches = 0
         k3.gru_sequence_blocked.launches = 0
         k6.spatial_attn_fused.launches = k6.spatial_attn_tiled.launches = 0
-        videos = cli.main(argv + ["--out_dir", tmp])
+        with k3_calls() as k3_log:
+            videos = cli.main(argv + ["--out_dir", tmp])
         launches = k1.gru_sequence_fused.launches
         k3_launches = k3.gru_sequence_blocked.launches
         k5a = k5.ups2x.launches
@@ -643,7 +724,18 @@ def drive_sample(device, route=(), preset=("--preset", "ucf101_64"),
     print(f"sample {' '.join(preset[1:])} ups {cfg.ups_fused} attn "
           f"{cfg.attn_fused}: shape {videos.shape} range [{videos.min():.4f}, "
           f"{videos.max():.4f}] K1 launches {launches} K3 launches "
-          f"{k3_launches} K5a launches {k5a} K6a launches {k6a}", flush=True)
+          f"{k3_launches} K5a launches {k5a} K6a launches {k6a} K6b "
+          f"launches {k6b}", flush=True)
+    if k3_log:
+        print(f"sample {' '.join(preset[1:])}: K3 calls {json.dumps(k3_log)}",
+              flush=True)
+    if k3_log and cfg.cond_frames > 0:
+        warm = [c for c in k3_log if c["t"] == g_cfg.cond_frames]
+        gen = [c for c in k3_log if c["t"] == g_cfg.n_frames
+               and c["h0_max_abs"] > 0]
+        if not (warm and gen and all(c["launches"] > 0 for c in k3_log)):
+            raise AssertionError(f"K3 did not run the warm-up and then the "
+                                 f"generation from its last state: {k3_log}")
 
     cond = None
     if cfg.cond_frames > 0:     # the CLI's prefixes
@@ -1299,6 +1391,12 @@ FP_STEPS = 2
 FP_AFTER = {"fp_k1": ("train_fused", None, FP_ARGV, FP_STEPS),
             "fp_k2": ("frames_k1", None, FP_ARGV + [
                 "--steps_per_call", "2", "--log_step", "2"], FP_STEPS)}
+# K6's domain paths' train children (P_TRAIN), each started as a child of
+# the flagship's or the long clip's size ends: P2 (ch 96) and P3 (FP at
+# 128 px, 21 frames) where a long-clip child leaves its ~10 GB
+P_AFTER = {"p1_train": ("px128", None, P_TRAIN["p1"], P_STEPS),
+           "p2_train": ("longclip", None, P_TRAIN["p2"], P_STEPS),
+           "p3_train": ("longclip_fused", None, P_TRAIN["p3"], P_STEPS)}
 # the f32 step card vs CPU at the FP widths, batch 2: d_steps 1 (ROADMAP
 # Queue 3: f32 steps at d_steps 2 are chaotic), and the per_step fakes
 FP_F32 = ("--preset", "kinetics_64", "--n_frames", "16", "--cond_frames",
@@ -2149,7 +2247,7 @@ def check_graphs(device) -> dict[str, dict]:
     the flagship's 4²×256 level (B 16, T 16 for K1), K2 there at B 8, K3
     at the long clip's 64²×128 plane (T 48, B 2), K5a/K5b at the flagship's
     8²→16² level (N 128, 256→128), K6a at (128, 32², 64), K6b at (96, 64²,
-    64)."""
+    64); and K6 at each shape of K6_DOMAIN_SHAPES."""
     from dvdgan_tpu_torch.kernels import attention_spatial as k6
     from dvdgan_tpu_torch.kernels import convgru_blocked as k3
     from dvdgan_tpu_torch.kernels import convgru_bwd as k2
@@ -2186,6 +2284,14 @@ def check_graphs(device) -> dict[str, dict]:
     a6b = k6_inputs(96, 64, 64, 64, bf16, device, 97)
     rows["K6b"] = graph_replay("K6b", lambda: k6.spatial_attn_tiled(*a6b),
                                k6.spatial_attn_tiled)
+    from dvdgan_tpu_torch.ops import attention
+    for group, shapes in K6_DOMAIN_SHAPES.items():
+        for i, (n, h, w, c) in enumerate(shapes):
+            a = k6_inputs(n, h, w, c, bf16, device, 98 + i)
+            entry = (k6.spatial_attn_tiled if attention.uses_tiled(h, w)
+                     else k6.spatial_attn_fused)
+            name = f"{group} {h}x{w}x{c}"
+            rows[name] = graph_replay(name, lambda: entry(*a), entry)
     return rows
 
 
@@ -3487,6 +3593,10 @@ CARD_RATES = {
 # in turns: (who, steps_per_call 1 or K); a reading's rate is the trainer's
 # own steps_per_sec of each logged interval but its first (`steady_ms`)
 RATE_TURNS = (("one", 1), ("ranks", 1), ("ranks", "K"), ("one", "K"))
+# a reading longer than this dumps every thread's stack into its rank's log
+# and ends the rank: a stalled reading then fails the phase with a trace of
+# where, not at the ranks' overall limit without one
+TURN_LIMIT_S = 240
 NCCL_KERNELS = ("nccl",)
 
 
@@ -3657,6 +3767,8 @@ def card_rates_rank(local_rank: int, out: str) -> None:
     out/rates_rank<r>.json. Rank 0 also prints each step of the phase,
     with its seconds, and each entry's row as it ends to the launcher's
     stdout, so that a call cut short keeps what was done."""
+    import faulthandler
+    import gc
     import warnings
 
     from dvdgan_tpu_torch.parallel import collectives
@@ -3676,6 +3788,7 @@ def card_rates_rank(local_rank: int, out: str) -> None:
     coord = torch.distributed.new_group(backend="gloo")
     tmp = tempfile.TemporaryDirectory()
     rows, ones, one_rows = {}, {}, {}
+    failed = False
     try:
         for name, (argv, one_argv, k, n) in CARD_RATES.items():
             model = name.rsplit("_", 1)[0]
@@ -3700,7 +3813,10 @@ def card_rates_rank(local_rank: int, out: str) -> None:
                 tr.steps_per_call = kk
                 first = tr.start_step
                 comms = collectives.COUNTS.snapshot()
+                faulthandler.dump_traceback_later(TURN_LIMIT_S, exit=True,
+                                                  file=sys.stdout)
                 tr.train(total_step=first + n)
+                faulthandler.cancel_dump_traceback_later()
                 if kk > 1:      # a replay moves no counter
                     comms = tr._multi.comms
                 else:
@@ -3748,14 +3864,25 @@ def card_rates_rank(local_rank: int, out: str) -> None:
                 json.dump(rows, f)
             who["ranks"][0].close()
             who = multi = tr = None
+            gc.collect()                # the graphs and their pools
             torch.cuda.empty_cache()
+    except BaseException:
+        # the error to the launcher's stderr first: the group's destruction
+        # waits on any graph that still holds its collectives, and so a
+        # failed rank leaves the group to its process's end
+        failed = True
+        traceback.print_exc(file=sys.__stderr__)
+        sys.__stderr__.flush()
+        raise
     finally:
+        faulthandler.cancel_dump_traceback_later()
         for tr, _ in ones.values():
             tr.close()
         ones.clear()
         who = multi = tr = None     # their graphs, before the group goes
         tmp.cleanup()
-        par.close()
+        if not failed:
+            par.close()
         sys.stdout.close()
 
 
@@ -3790,7 +3917,7 @@ def time_cards() -> dict:
             path = os.path.join(tmp.name, f"rank{r}.log")
             if os.path.exists(path):
                 with open(path) as f:
-                    tail = f.read()[-2000:]
+                    tail = f.read()[-6000:]
                 print(f"--- rates rank {r} (end of its stdout):\n{tail}",
                       flush=True)
         tmp.cleanup()
@@ -3940,6 +4067,17 @@ def main(argv=None) -> int:
     print("sample_rate_fp_beside_ucf101_64 " + json.dumps(
         {"fp": fp_rate, "ucf101_64": sample_rate}), flush=True)
     phase("the sample CLI (ucf101_64, and DVD-GAN-FP at kinetics_64)")
+    # K6's domain: P1 and P2 with the fused attention, P3 (FP at 128 px; its
+    # f32 batch-2 clip card vs CPU at SAMPLE_TOL, as FP-64's)
+    p_samples = {
+        "p1": drive_sample(device, ON, P1_PRESET, P_SAMPLE_B["p1"], False),
+        "p2": drive_sample(device, ON, P2_PRESET, P_SAMPLE_B["p2"], False),
+        "p3": drive_sample(device, (), P3_PRESET, P_SAMPLE_B["p3"])}
+    print("p_samples " + json.dumps({k: {"launches": v[0], "rate": v[1]}
+                                     for k, v in p_samples.items()}),
+          flush=True)
+    phase("the sample CLI of P1 (ucf101_64 at ch 48), P2 (kinetics_128 at "
+          "ch 96) with the fused attention, and P3 (DVD-GAN-FP at 128 px)")
     frames_tmp = tempfile.TemporaryDirectory()
     frames = write_frames(os.path.join(frames_tmp.name, "data"),
                           **FRAMES_SHAPE)
@@ -3957,7 +4095,8 @@ def main(argv=None) -> int:
         "frames_k1": (frames_argv, FRAMES_STEPS),
         "frames_k2": (frames_argv + ["--steps_per_call", "2", "--log_step",
                                      "2"], FRAMES_STEPS)},
-        {**TRAINER_RESUMES, **TRAINER_RESUMES_K, **FP_AFTER, **EVAL_AFTER},
+        {**TRAINER_RESUMES, **TRAINER_RESUMES_K, **FP_AFTER, **EVAL_AFTER,
+         **P_AFTER},
         TRAINER_KEEP + ("trainer_AK", "trainer_BK", "frames_k1", "frames_k2",
                         *FP_AFTER, *EVAL_AFTER))
     frames_tmp.cleanup()
@@ -3966,6 +4105,9 @@ def main(argv=None) -> int:
     px_off, px_on = runs["px128"], runs["px128_on"]
     trainer_a = runs["trainer_A"]
     fp_k1, fp_k2 = runs["fp_k1"], runs["fp_k2"]
+    p_runs = {name: runs[f"{name}_train"] for name in P_TRAIN}
+    print("p_train_launches_per_step " + json.dumps(
+        {k: v["per_step"] for k, v in p_runs.items()}), flush=True)
     check_k_runs(runs)
     check_eval_runs(runs)
     check_trainer_runs(runs)
@@ -4064,6 +4206,8 @@ def main(argv=None) -> int:
     rows_k6a = check_k6(device, "K6a", K6A_SHAPES, reps_k6, views)
     rows_k6b = check_k6(device, "K6b", K6B_SHAPES, reps_k6, views)
     rows_k6w = check_k6(device, "K6a wide", K6A_WIDE_SHAPES, reps_k6, views)
+    rows_k6d = {group: check_k6(device, group, shapes, reps_k6, views)
+                for group, shapes in K6_DOMAIN_SHAPES.items()}
     px_k1_levels = [lv for lv in PX128_LEVELS
                     if not convgru.uses_blocked(*lv[:2])]
     px_k3_levels = [lv for lv in PX128_LEVELS if convgru.uses_blocked(*lv[:2])]
@@ -4141,10 +4285,12 @@ def main(argv=None) -> int:
     print("sample_pairs " + json.dumps(serve), flush=True)
     phase("sampling's routes in turns")
     # the trainer at steps_per_call 1 and K, in turns
-    for argv, k, n, name in ((FLAGSHIP_ARGV, 4, 12, "flagship"),
-                             (FP_ARGV, 2, 4, "fp"),
+    # (cut to 8 steps a flagship reading and 2 an FP and 128 px one, for
+    # the room of K6's domain paths)
+    for argv, k, n, name in ((FLAGSHIP_ARGV, 4, 8, "flagship"),
+                             (FP_ARGV, 2, 2, "fp"),
                              (LONG_ARGV, 2, 2, "longclip"),
-                             (PX128_ARGV, 2, 4, "px128")):
+                             (PX128_ARGV, 2, 2, "px128")):
         time_steps_per_call(device, argv, k, n, f"steps_per_call_{name}")
         phase(f"the {name} trainer at steps_per_call 1 and {k} in turns")
 
@@ -4203,6 +4349,15 @@ def main(argv=None) -> int:
                         else None)
                     for k in ATTN_KERNELS}}
 
+    def k6_off_path(rows):
+        """K6's bf16 rows at shapes no driven path gives it: each with
+        its numbers, apart from the entry's sums."""
+        keys = ("shape", "entry", "max_abs_err", "limit", "n_differ", "n",
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_ms_tc",
+                "bound_by", "tflops", "plan", "launch_device_us")
+        return [{k: r.get(k) for k in keys} for r in rows
+                if r["dtype"] == "bfloat16"]
+
     def k4_extra(rows):
         """K4's launches alone (`kernel_ms`, back to back: a call's event
         ms holds the wrapper's host work) and, for its one-launch rows, K1's
@@ -4244,6 +4399,24 @@ def main(argv=None) -> int:
         return {f"artifact_{n}": artifacts[n]["launches_per_call"][kernel]
                 for n in names}
 
+    def p_paths(kernel, names, sample=True):
+        """A kernel's launches in K6's domain paths' sample CLI and train
+        children."""
+        out = {f"{n}_train": p_runs[n][kernel] for n in names}
+        if sample:
+            out.update({f"sample_{n}": p_samples[n][0][kernel]
+                        for n in names})
+        return out
+
+    def p_per_step(kernel, names, sample=True):
+        """... per train step (and per sample call)."""
+        out = {f"{n}_train": p_runs[n]["per_step"][f"{kernel}_launches"]
+               for n in names}
+        if sample:
+            out.update({f"sample_{n}": p_samples[n][0][kernel]
+                        for n in names})
+        return out
+
     flag_par = ("dp2", "dp2_b", "cp2", "dp2_f32", "cp2_f32")
     k1_src, k2_src, k5_src = ("convgru_seq.cu", "convgru_bwd.cu",
                               "ups2x_fused.cu")
@@ -4260,8 +4433,11 @@ def main(argv=None) -> int:
                **{f"eval_{name}": evals[name]["launches"]["k1"]
                   for name in ("i3d", "c3d", "i3d_cached", "fp")},
                **par_paths("k1", flag_par),
-               **art_paths("k1", ("a1", "a2", "a4", "a5"))},
+               **art_paths("k1", ("a1", "a2", "a4", "a5")),
+               "sample_p1": p_samples["p1"][0]["k1"],
+               "p1_train": p_runs["p1"]["k1"]},
               {"sample": sample_run["k1"],
+               "p1_train": p_runs["p1"]["per_step"]["k1_launches"],
                "trainer": trainer_a["per_step"]["k1_launches"],
                **par_per_step("k1", ("dp2", "cp2")),
                "sample_fp": fp_sample["k1"],
@@ -4284,8 +4460,10 @@ def main(argv=None) -> int:
               k2_src, k2_at, rows_k2,
               {"sample": 0, "train_fused": train_fused["k2"],
                "trainer": trainer_a["k2"], "fp": fp_k1["k2"],
-               "fp_k2": fp_k2["k2"], **par_paths("k2", flag_par)},
+               "fp_k2": fp_k2["k2"], **par_paths("k2", flag_par),
+               "p1_train": p_runs["p1"]["k2"]},
               {"trainer": trainer_a["per_step"]["k2_launches"],
+               "p1_train": p_runs["p1"]["per_step"]["k2_launches"],
                **par_per_step("k2", ("dp2", "cp2")),
                "fp": fp_k1["per_step"]["k2_launches"]},
               in_graph=graphs["K2"]),
@@ -4352,7 +4530,33 @@ def main(argv=None) -> int:
                "train_fused": train_fused["per_step"]["k6a_launches"],
                "longclip_fused": long_fused["per_step"]["k6a_launches"],
                **art_per_call("k6a", ("a2",))},
-              in_graph=graphs["K6a"], **k6_extra(rows_k6a)),
+              in_graph=graphs["K6a"],
+              off_path=k6_off_path(rows_k6d["K6a 4x4"]
+                                   + rows_k6d["K6a wide widths"]),
+              off_path_in_graph=[graphs[f"{g} {h}x{w}x{c}"]
+                                 for g in ("K6a 4x4", "K6a wide widths")
+                                 for _, h, w, c in K6_DOMAIN_SHAPES[g]],
+              **k6_extra(rows_k6a)),
+        entry("attention_spatial (K6a, the fused entry, bf16, P1's call: "
+              "32x32x96 at N=256, ucf101_64 --ch 48: c8 12, the weights "
+              "zero-padded to 16)", "attention_spatial.cu",
+              "attention_spatial.py:104", rows_k6d["K6a P1"],
+              {"sample_p1": p_samples["p1"][0]["k6a"],
+               "p1_train": p_runs["p1"]["k6a"]},
+              {"sample_p1": p_samples["p1"][0]["k6a"],
+               "p1_train": p_runs["p1"]["per_step"]["k6a_launches"]},
+              in_graph=graphs["K6a P1 32x32x96"],
+              **k6_extra(rows_k6d["K6a P1"])),
+        entry("attention_spatial (K6a, the fused entry's wide sweep, bf16, "
+              "P2's call: 32x32x384 at N=96, kinetics_128 --ch 96)",
+              "attention_spatial.cu", "attention_spatial.py:104",
+              rows_k6d["K6a P2"],
+              {"sample_p2": p_samples["p2"][0]["k6a"],
+               "p2_train": p_runs["p2"]["k6a"]},
+              {"sample_p2": p_samples["p2"][0]["k6a"],
+               "p2_train": p_runs["p2"]["per_step"]["k6a_launches"]},
+              in_graph=graphs["K6a P2 32x32x384"],
+              **k6_extra(rows_k6d["K6a P2"])),
         entry("attention_spatial (K6a, the fused entry's wide body, bf16, sum "
               "of its 2 calls: 8x8x512 at N=96 and 192, kinetics_128 "
               "--attn_res 8)", "attention_spatial.cu",
@@ -4367,25 +4571,34 @@ def main(argv=None) -> int:
               {"px128_on": px_on["k6b"], **art_paths("k6b", ("a3",))},
               {"px128_on": px_on["per_step"]["k6b_launches"],
                **art_per_call("k6b", ("a3",))},
-              in_graph=graphs["K6b"], **k6_extra(rows_k6b)),
+              in_graph=graphs["K6b"],
+              off_path=k6_off_path(rows_k6d["K6b wide sweep"]),
+              off_path_in_graph=[graphs[f"K6b wide sweep {h}x{w}x{c}"]
+                                 for _, h, w, c in
+                                 K6_DOMAIN_SHAPES["K6b wide sweep"]],
+              **k6_extra(rows_k6b)),
         entry(f"convgru_seq (K1, bf16, sum of its {len(px_k1_levels)} "
               f"{px_shapes})", k1_src, k1_at, rows_px_k1,
               {"px128": px_off["k1"], "px128_on": px_on["k1"],
-               **art_paths("k1", ("a3",))},
+               **art_paths("k1", ("a3",)), **p_paths("k1", ("p2", "p3"))},
               {"px128": px_off["per_step"]["k1_launches"],
-               **art_per_call("k1", ("a3",))},
+               **art_per_call("k1", ("a3",)),
+               **p_per_step("k1", ("p2", "p3"))},
               also=rows_px_k1_fake),
         entry(f"convgru_bwd (K2, bf16, sum of the 5 {px_shapes})",
               k2_src, k2_at, rows_px_k2,
-              {"px128": px_off["k2"], "px128_on": px_on["k2"]},
-              {"px128": px_off["per_step"]["k2_launches"]}),
+              {"px128": px_off["k2"], "px128_on": px_on["k2"],
+               **p_paths("k2", ("p2", "p3"), sample=False)},
+              {"px128": px_off["per_step"]["k2_launches"],
+               **p_per_step("k2", ("p2", "p3"), sample=False)}),
         entry(f"convgru_blocked (K3, bf16, its {len(px_k3_levels)} "
               f"{px_shapes})", "convgru_blocked.cu", "convgru_blocked.py:182",
               [r for r in rows_px_k3 if r["shape"][1] == PX128_B],
               {"px128": px_off["k3"], "px128_on": px_on["k3"],
-               **art_paths("k3", ("a3",))},
+               **art_paths("k3", ("a3",)), **p_paths("k3", ("p2", "p3"))},
               {"px128": px_off["per_step"]["k3_launches"],
-               **art_per_call("k3", ("a3",))},
+               **art_per_call("k3", ("a3",)),
+               **p_per_step("k3", ("p2", "p3"))},
               also=[r for r in rows_px_k3 if r["shape"][1] == PX128_B_FAKE]),
     ]
     idle = [k["name"] for k in kernels if k["launches"] <= 0]

@@ -28,6 +28,16 @@ rows each from x to out, with the logits on the tensor cores as 3×TF32
 CUDA-core body of the first version. `plan` picks the body, the queries of
 a work item and the grid; the C interface checks what it is given.
 
+The kernel takes every x with even H and W. A map whose H·W/4 keys are not
+a multiple of 16 (4×4: 4 keys) runs with its k and v padded by zero tokens
+and the padded keys' logits masked to −inf (in the kernel). Widths the
+bodies do not read in place run zero-padded: `plan` gives the widths the
+kernel runs at (`Plan.c`, `c8`, `c2`), and `_forward` pads the weights to
+them (zero columns of Wq, Wk and Wv, zero rows of Wo: exact, a few KB).
+Only where C itself is padded (C % 16 ≠ 0, in bf16 C % 32 ≠ 0: the bf16
+bodies read x in 32-channel chunks; no preset width) is x copied into a
+wider tensor, and out sliced back.
+
 Under autograd both are `torch.autograd.Function`s with the reference's
 `custom_vjp` policy: the forward saves x, the four weights and γ, and the
 backward is autograd through `spatial_attn_reference` — the reference's
@@ -145,12 +155,17 @@ def spatial_attn_reference(x, wq, wk, wv, wo, gamma) -> torch.Tensor:
 # OT/4 q n-tiles of 8 channels (c2 ≤ 8·OT, c8 ≤ 2·OT). The most warps a CTA
 # is also what an SM holds by registers (255 a thread at 8 warps, 128 at
 # 16), so the persistent grid takes one such CTA an SM. Mode 3 takes the
-# widths the others refuse on maps of at most WIDE_KEYS keys (c8 ≤ 64 in
-# two q passes, c2 ≤ 256 in two o passes, c2 % 32 == 0: the 8×8 and 16×16
-# attention at C 384–512), Wq^T and Wo^T read from L2 (the wrapper hands it
-# them transposed) and each warp's o in a shared-memory buffer.
+# widths the others refuse on maps of at most WIDE_KEYS keys (the 4×4, 8×8
+# and 16×16 attention at C 384 and up: q and the logits in passes of 32 q
+# channels, attn·v in passes of 128 o channels), Wq^T and Wo^T read from L2
+# (the wrapper hands it them transposed) and each warp's o in a
+# shared-memory buffer; mode 4 the same widths on larger maps (the 32×32
+# attention at C 384–1024, 64×64 at C 384–512) in mode 1's three sweeps,
+# k and vᵀ read from L2, each warp's q, attn and o in shared-memory buffers.
+# Modes 3 and 4 take any width (c2 % 32 == 0; their OT is no limit) and run
+# as many warps a CTA as their buffers fit, at most the table's.
 BODIES = ((0, 4, 8), (0, 16, 8), (1, 4, 16), (1, 8, 8), (1, 16, 8),
-          (2, 4, 16), (2, 8, 8), (2, 16, 8), (3, 32, 8))
+          (2, 4, 16), (2, 8, 8), (2, 16, 8), (3, 32, 8), (4, 32, 8))
 RES_KEYS = 256
 WIDE_KEYS = 64
 # dynamic shared memory a CTA may ask for on sm_90 (227 KB); an SM's 228 KB
@@ -166,12 +181,27 @@ class Plan:
     """How the second launch runs: `body` (bf16: an index into BODIES; f32:
     -1, the CUDA-core body), `tq` queries a work item (f32: a CTA), the
     `items` (frame, tile) and the grid's `ctas` (f32: one an item), each
-    CTA's `smem_bytes`."""
+    CTA's `smem_bytes`; the widths C, c8 and c2 the kernel runs at (the
+    call's, or zero-padded up to what the body reads)."""
     body: int
     tq: int
     items: int
     ctas: int
     smem_bytes: int
+    c: int
+    c8: int
+    c2: int
+
+
+def _up(v: int, m: int) -> int:
+    """v rounded up to a multiple of m."""
+    return -(-v // m) * m
+
+
+def keys_padded(kvn: int) -> int:
+    """The keys k and v hold for a frame of `kvn` pooled tokens: the next
+    multiple of 16 (the kernel's `keys_padded`)."""
+    return _up(kvn, 16)
 
 
 def _f32_smem(tq: int, kvn: int, c: int, c8: int, c2: int) -> int:
@@ -195,6 +225,11 @@ def _wide_smem(kvn: int, c8: int, c2: int, warps: int) -> int:
     return 8 * c8 * kvn + 2 * c2 * (kvn + 8) + warps * 32 * (c2 + 8)
 
 
+def _wide_sweep_smem(kvn: int, c8: int, c2: int, warps: int) -> int:
+    """Mode 4's q, attn and o buffers a warp (its `wide_sweep_layout`)."""
+    return warps * (128 * c8 + 32 * kvn + 32 * (c2 + 8))
+
+
 def _kv_fits(dtype: torch.dtype, kvn: int, c: int) -> bool:
     """The first launch's pooled tokens fit for some token tile (its
     `plan_kt`)."""
@@ -206,9 +241,9 @@ def _kv_fits(dtype: torch.dtype, kvn: int, c: int) -> bool:
 
 def _body(mode: int, c8: int, c2: int) -> int | None:
     """The bf16 body of `mode` with the fewest o n-tiles that hold c2 and
-    c8; None where none does."""
+    c8 (modes 3 and 4: any width); None where none does."""
     for i, (m, ot, _) in enumerate(BODIES):
-        if m == mode and c2 <= 8 * ot and c8 <= 2 * ot:
+        if m == mode and (mode >= 3 or c2 <= 8 * ot and c8 <= 2 * ot):
             return i
     return None
 
@@ -217,54 +252,60 @@ def _body(mode: int, c8: int, c2: int) -> int | None:
 def plan(dtype: torch.dtype, n: int, h: int, w: int, c: int, c8: int,
          c2: int, force_tq: int = 0, ctas: int | None = None,
          sms: int = SMS) -> Plan:
-    """The second launch's plan for x (n, h, w, c) with c8, c2. Work items
-    of `tq` queries: `force_tq` if given (a multiple of 16 that divides
-    H·W and that the body takes), else the most the body takes that divides
-    H·W (bf16: 16 per warp; f32: 64, 32 or 16 as shared memory allows).
-    bf16: one CTA of the body's size an SM as registers and shared memory
-    allow, `sms` SMs, at most one CTA an item (`ctas` forces a grid; it
-    changes no output bit). Raises ValueError for what the kernel does not
-    take."""
-    hw, kvn = h * w, (h // 2) * (w // 2)
+    """The second launch's plan for x (n, h, w, c) with c8, c2. The widths
+    the kernel runs at: C a multiple of 16 (bf16: 32), c8 of 8, c2 of 16
+    (modes 3 and 4: 32). Work items of `tq` queries: `force_tq` if given (a
+    multiple of 16 that divides H·W and that the body takes), else the most
+    the body takes that divides H·W (bf16: 16 per warp, as many warps as
+    shared memory holds; f32: 64, 32 or 16 as shared memory allows).
+    bf16: mode 0 on maps of RES_KEYS keys, else mode 1, mode 2 where k and
+    vᵀ do not fit shared memory beside the weights, and where no warp of
+    those holds the widths, mode 3 (at most WIDE_KEYS keys) or 4; one CTA of
+    the body's size an SM as registers and shared memory allow, `sms` SMs,
+    at most one CTA an item (`ctas` forces a grid; it changes no output
+    bit). Raises ValueError for what the kernel does not take: odd H or W,
+    a forced tile that does not divide H·W or fit, or a map whose buffers
+    fit no CTA."""
+    hw, kvn = h * w, keys_padded((h // 2) * (w // 2))
     what = (f"spatial_attn: the kernel does not take x {(n, h, w, c)} with "
             f"c8={c8}, c2={c2}")
     bf16 = dtype == torch.bfloat16
-    if (h % 2 or w % 2 or c < 16 or c % (32 if bf16 else 16) or c8 < 8
-            or c8 % 8 or c2 < 16 or c2 % 16 or kvn < 16 or kvn % 16
-            or not _kv_fits(dtype, kvn, c)):
-        raise ValueError(what + (
-            ": it needs C % 16 == 0 (bf16: % 32), c8 % 8 == 0, c2 % 16 == "
-            "0, H·W/4 % 16 == 0 and projections that fit shared memory"))
+    if h % 2 or w % 2 or min(n, h, w, c, c8, c2) < 1:
+        raise ValueError(what + ": it needs even H and W (the 2×2 kv pool)")
+    c, c8, c2 = _up(c, 32 if bf16 else 16), _up(c8, 8), _up(c2, 16)
+    if not _kv_fits(dtype, kvn, c):
+        raise ValueError(what + ": the first launch's pooled tokens do not "
+                         "fit shared memory")
+    fits = None                 # modes 3 and 4: their buffers for tq queries
     if bf16:
         # the mode by the keys; mode 2 where the frame's k and v^T do not fit
-        mode = 0 if kvn == RES_KEYS else 1
+        mode = 0 if (h // 2) * (w // 2) == RES_KEYS else 1
         smem = _bf16_smem(kvn, c, c8, c2, True)
         if smem > MAX_SMEM_BYTES:
             mode, smem = 2, _bf16_smem(kvn, c, c8, c2, False)
         body = _body(mode, c8, c2)
-        if ((body is None or smem > MAX_SMEM_BYTES) and kvn <= WIDE_KEYS
-                and c2 % 32 == 0):
-            body = _body(3, c8, c2)
-            smem = 0 if body is None else _wide_smem(kvn, c8, c2,
-                                                     BODIES[body][2])
         if body is None or smem > MAX_SMEM_BYTES:
-            raise ValueError(what + ": in bf16 a warp holds c8 ≤ 32 and "
-                             "c2 ≤ 128 (C ≤ 256), and the weights must fit "
-                             "shared memory; maps of at most "
-                             f"{WIDE_KEYS} keys also c8 ≤ 64 and c2 ≤ 256 "
-                             "with c2 % 32 == 0")
+            c2 = _up(c2, 32)
+            mode = 3 if kvn <= WIDE_KEYS else 4
+            body = _body(mode, c8, c2)
+            layout = _wide_smem if mode == 3 else _wide_sweep_smem
+            fits = functools.partial(layout, kvn, c8, c2)
         most = 16 * BODIES[body][2]
         sizes = [tq for tq in (most, most // 2, most // 4, most // 8,
                                most // 16) if tq >= 16]
+        if fits is not None:
+            sizes = [tq for tq in sizes if fits(tq // 16) <= MAX_SMEM_BYTES]
     else:
         body, most = -1, 64
         sizes = [tq for tq in (most, 32, 16)
                  if _f32_smem(tq, kvn, c, c8, c2) <= MAX_SMEM_BYTES]
     if force_tq:
-        fits = force_tq % 16 == 0 and (
-            force_tq <= most if bf16 else
+        ok = force_tq % 16 == 0 and (
+            force_tq <= most and (fits is None
+                                  or fits(force_tq // 16) <= MAX_SMEM_BYTES)
+            if bf16 else
             _f32_smem(force_tq, kvn, c, c8, c2) <= MAX_SMEM_BYTES)
-        sizes = [force_tq] if fits else []
+        sizes = [force_tq] if ok else []
     sizes = [tq for tq in sizes if hw % tq == 0]
     if not sizes:
         raise ValueError(what + f", {force_tq or 'any'} queries a tile: no "
@@ -274,14 +315,15 @@ def plan(dtype: torch.dtype, n: int, h: int, w: int, c: int, c8: int,
     tq = sizes[0]
     items = n * (hw // tq)
     if not bf16:
-        return Plan(-1, tq, items, items, _f32_smem(tq, kvn, c, c8, c2))
+        return Plan(-1, tq, items, items, _f32_smem(tq, kvn, c, c8, c2),
+                    c, c8, c2)
     warps = tq // 16
-    if BODIES[body][0] == 3:
-        smem = _wide_smem(kvn, c8, c2, warps)
+    if fits is not None:
+        smem = fits(warps)
     per_sm = min(SM_SMEM_BYTES // (smem + CTA_RESERVED_BYTES),
                  BODIES[body][2] // warps, MAX_WARPS_PER_SM // warps)
     grid = sms * per_sm if ctas is None else ctas
-    return Plan(body, tq, items, max(1, min(grid, items)), smem)
+    return Plan(body, tq, items, max(1, min(grid, items)), smem, c, c8, c2)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -363,19 +405,30 @@ def _forward(entry, x, wq, wk, wv, wo, gamma, force_bqr=None) -> torch.Tensor:
         return spatial_attn_kernel_reference(x, wq, wk, wv, wo, gamma)
     dev = device_index(device)
     pl = plan(x.dtype, n, h, w, c, c8, c2, force_tq=force_tq, sms=_sms(dev))
+    # zero-padded to the widths the kernel runs at: columns of Wq, Wk and
+    # Wv and rows of Wo (exact); C: rows of the first three, columns of Wo,
+    # and x's channels (a copy; out is sliced back)
+    dc, d8, d2 = pl.c - c, pl.c8 - c8, pl.c2 - c2
+    if dc or d8 or d2:
+        pad = torch.nn.functional.pad
+        wq, wk = pad(wq, (0, d8, 0, dc)), pad(wk, (0, d8, 0, dc))
+        wv, wo = pad(wv, (0, d2, 0, dc)), pad(wo, (0, dc, 0, d2))
+        if dc:
+            x = pad(x, (0, dc))
+    c, c8, c2 = pl.c, pl.c8, pl.c2
     lib = _lib()
     code = _DTYPE_CODES[x.dtype]
     stream = torch.cuda.current_stream(device).cuda_stream
-    kvn = (h // 2) * (w // 2)
+    kvn = keys_padded((h // 2) * (w // 2))
     # the first launch reads the k and v projections transposed, and so do
-    # the f32 body and the bf16 mode 3 the q and out projections (B operands
-    # n-major); the other bf16 bodies stage those two transposed themselves.
-    # In bf16 k goes out split for the 3×TF32 logits (c8/8 k-steps × keys ×
-    # 16 floats).
+    # the f32 body and the bf16 modes 3 and 4 the q and out projections (B
+    # operands n-major); the other bf16 bodies stage those two transposed
+    # themselves. In bf16 k goes out split for the 3×TF32 logits (c8/8
+    # k-steps × keys × 16 floats).
     bf16 = x.dtype == torch.bfloat16
     wk_t, wv_t = wk.t().contiguous(), wv.t().contiguous()
     wq_k, wo_k = ((wq.contiguous(), wo.contiguous())
-                  if bf16 and BODIES[pl.body][0] != 3
+                  if bf16 and BODIES[pl.body][0] < 3
                   else (wq.t().contiguous(), wo.t().contiguous()))
     k_shape = (n, c8 // 8, kvn, 16) if bf16 else (n, c8, kvn)
     k_t = torch.empty(k_shape, dtype=torch.float32, device=device)
@@ -393,7 +446,7 @@ def _forward(entry, x, wq, wk, wv, wo, gamma, force_bqr=None) -> torch.Tensor:
                                stream)
     _check(lib, err, "attention")
     entry.launches += 1
-    return out
+    return out[..., :c - dc].contiguous() if dc else out
 
 
 class _SpatialAttn(torch.autograd.Function):

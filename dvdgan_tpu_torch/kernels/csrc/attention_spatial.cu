@@ -68,16 +68,35 @@
 //            lane's accumulators are 8 neighbouring channels: x read and out
 //            written as 16-byte vectors.
 //
-// Wide attention on small maps (mode 3: at most WIDE_KEYS keys, c8 up to 64
-// and c2 up to 256, the 8x8 and 16x16 attention at C 384-512): the weights
-// do not fit shared memory (Wo^T alone is 264 KB at C 512) and a warp's
-// registers do not hold the widths in one pass, so Wq^T and Wo^T are read
-// from L2 (transposed by the wrapper) and the widths are split: q and the
-// logits in passes of 32 q channels added into the same accumulators in k
-// order (the bits of one pass), attn v in passes of 128 o channels each
+// Wide attention on small maps (mode 3: at most WIDE_KEYS keys, any c8 and
+// c2, the 4x4, 8x8 and 16x16 attention at C 384 and up): the weights do not
+// fit shared memory (Wo^T alone is 264 KB at C 512) and a warp's registers
+// do not hold the widths in one pass, so Wq^T and Wo^T are read from L2
+// (transposed by the wrapper) and the widths are split: q and the logits in
+// passes of 32 q channels, each k-step's logits summed from zero and added
+// into f32 totals in k order, attn v in passes of 128 o channels each
 // rounded into a per-warp o buffer in shared memory, o Wo from that buffer
 // by ldmatrix with each pass of 128 o channels summed apart and added into
 // f32 totals (rows_wide).
+//
+// Wide attention on larger maps (mode 4: more than WIDE_KEYS keys at widths
+// past modes 0-2's, the 32x32 attention at C 384-1024 and 64x64 at C
+// 384-512): the widths go in passes as in mode 3 and the keys in sweeps as in
+// mode 1, with the frame's k and v^T read from L2 and three buffers a warp in
+// shared memory: q's split A fragments (formed in passes of 32 q channels,
+// block sums promoted, then read back one k-step at a time by the logit
+// sweeps), attn's bf16 A fragments of every key (the third sweep writes them
+// once), and o (passes of 64 o channels, each a sum over blocks of SWEEP_KEYS
+// keys promoted into f32 totals, rounded into o_to_buffer's columns) for
+// out_wide (rows_wide_sweep).
+//
+// Keys that are not a multiple of 16 (the 4x4 map's 4): the first launch
+// writes the frame's k and v^T padded with zero tokens to the next multiple
+// of 16 (keys_padded), and the second sets the padded keys' logits to -inf
+// before the row's max (mask_keys; f32: its softmax skips them and writes 0),
+// so they add exactly 0 to the softmax's sum and to o. Widths the bodies do
+// not take in place (c8 % 8, c2 % 16, modes 3 and 4 c2 % 32, C % 16, bf16
+// C % 32) arrive zero-padded from the wrapper (`attention_spatial.plan`).
 //
 // A query's output does not depend on which CTA, tile size or grid took it:
 // every row runs the same instructions in the same order. Bodies by the map
@@ -132,12 +151,15 @@ constexpr int SMEM_MAX = 232448;       // 227 KB: a block's most on sm_90
 // its split k too where k does not fit beside the weights: for maps whose k
 // and v^T do not fit shared memory together (64x64 at C >= 128, larger
 // maps). Mode 3 takes maps of at most WIDE_KEYS keys at widths past the
-// others' (c8 <= 64, c2 <= 256 with c2 % 32 == 0: the 8x8 and 16x16
-// attention at C 384-512), the weights read from L2 (rows_wide).
-constexpr int N_BODIES = 9;
+// others' (the 4x4, 8x8 and 16x16 attention at C 384 and up), the weights
+// read from L2 (rows_wide); mode 4 the same widths on larger maps
+// (rows_wide_sweep). Modes 3 and 4 take any width in passes (c2 % 32 == 0):
+// their OT is no limit, and their CTAs may run fewer warps than the most,
+// as their per-warp buffers fit shared memory.
+constexpr int N_BODIES = 10;
 constexpr int BODY_TABLE[N_BODIES][3] = {
-    {0, 4, 8}, {0, 16, 8}, {1, 4, 16}, {1, 8, 8},
-    {1, 16, 8}, {2, 4, 16}, {2, 8, 8}, {2, 16, 8}, {3, 32, 8}};
+    {0, 4, 8}, {0, 16, 8}, {1, 4, 16}, {1, 8, 8},  {1, 16, 8},
+    {2, 4, 16}, {2, 8, 8}, {2, 16, 8}, {3, 32, 8}, {4, 32, 8}};
 template <int B>
 struct BodyOf {
   static constexpr int kMode = BODY_TABLE[B][0];
@@ -147,6 +169,12 @@ struct BodyOf {
 constexpr int RES_KEYS = 256;
 constexpr int SWEEP_KEYS = 64;
 constexpr int WIDE_KEYS = 64;
+
+// The keys k and v^T hold for a frame of `keys` pooled tokens: the next
+// multiple of 16 (one attn v k-step), the padding zero tokens.
+__host__ __device__ inline int keys_padded(int keys) {
+  return (keys + 15) / 16 * 16;
+}
 
 // With -DK6_PROFILE the bf16 body adds the cycles lane 0 of every warp spends
 // in each phase of a work item to k6_cycles (read and zeroed through
@@ -281,7 +309,12 @@ __host__ __device__ inline size_t kv_smem_bytes(int kt, int C) {
 // channels 32j + 8t .. + 7 of a row, k-step 0 the first four, k-step 1 the
 // last four, for A and B alike. k: units of 16 tokens x 8 channels (two
 // chains, one a k-step, added in f32), written split for the logits. v^T:
-// units of 16 channels x 16 tokens, rounded once.
+// units of 16 channels x 16 tokens, rounded once. Each block of KV_BLOCK
+// chunks sums from zero and is added into f32 totals: with one chain of 128
+// mmas at C 2048 (the tensor cores' accumulation truncates) v's rounding
+// moved, and 1.9% of the 4x4 map's outputs differed from the plain
+// version by an ulp (0.2% with the blocks).
+constexpr int KV_BLOCK = 4;
 __device__ __forceinline__ void kv_project(const bf16* kv, int ld,
                                            const bf16* __restrict__ wk_t,
                                            const bf16* __restrict__ wv_t,
@@ -299,14 +332,22 @@ __device__ __forceinline__ void kv_project(const bf16* kv, int ld,
     const bf16* bp = wk_t + (size_t)(n0 + g) * C + 8 * t;
     float acc[2][4];
     zero(acc);
-    for (int j = 0; j < chunks; ++j) {
-      const uint4 a0 = *reinterpret_cast<const uint4*>(a0p + 32 * j);
-      const uint4 a1 = *reinterpret_cast<const uint4*>(a1p + 32 * j);
-      const uint4 b = __ldg(reinterpret_cast<const uint4*>(bp + 32 * j));
-      const uint32_t k0[4] = {a0.x, a1.x, a0.y, a1.y};
-      const uint32_t k1[4] = {a0.z, a1.z, a0.w, a1.w};
-      mma_16816(acc[0], k0, b.x, b.y);
-      mma_16816(acc[1], k1, b.z, b.w);
+    for (int j0 = 0; j0 < chunks; j0 += KV_BLOCK) {
+      float blk[2][4];
+      zero(blk);
+      for (int j = j0; j < j0 + KV_BLOCK && j < chunks; ++j) {
+        const uint4 a0 = *reinterpret_cast<const uint4*>(a0p + 32 * j);
+        const uint4 a1 = *reinterpret_cast<const uint4*>(a1p + 32 * j);
+        const uint4 b = __ldg(reinterpret_cast<const uint4*>(bp + 32 * j));
+        const uint32_t k0[4] = {a0.x, a1.x, a0.y, a1.y};
+        const uint32_t k1[4] = {a0.z, a1.z, a0.w, a1.w};
+        mma_16816(blk[0], k0, b.x, b.y);
+        mma_16816(blk[1], k1, b.z, b.w);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] += blk[i][e];
     }
     // rows m0 + g (+ 8) at channels n0 + 2t, + 1: hi, hi, lo, lo
     const int c = n0 + 2 * t;
@@ -330,18 +371,26 @@ __device__ __forceinline__ void kv_project(const bf16* kv, int ld,
     const bf16* bp = kv + (size_t)(t0 + g) * ld + 8 * t;
     float acc[2][4];
     zero(acc);
-    for (int j = 0; j < chunks; ++j) {
-      const uint4 a0 = __ldg(reinterpret_cast<const uint4*>(a0p + 32 * j));
-      const uint4 a1 = __ldg(reinterpret_cast<const uint4*>(a1p + 32 * j));
-      const uint32_t k0[4] = {a0.x, a1.x, a0.y, a1.y};
-      const uint32_t k1[4] = {a0.z, a1.z, a0.w, a1.w};
+    for (int j0 = 0; j0 < chunks; j0 += KV_BLOCK) {
+      float blk[2][4];
+      zero(blk);
+      for (int j = j0; j < j0 + KV_BLOCK && j < chunks; ++j) {
+        const uint4 a0 = __ldg(reinterpret_cast<const uint4*>(a0p + 32 * j));
+        const uint4 a1 = __ldg(reinterpret_cast<const uint4*>(a1p + 32 * j));
+        const uint32_t k0[4] = {a0.x, a1.x, a0.y, a1.y};
+        const uint32_t k1[4] = {a0.z, a1.z, a0.w, a1.w};
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const uint4 b = *reinterpret_cast<const uint4*>(
-            bp + (size_t)8 * i * ld + 32 * j);
-        mma_16816(acc[i], k0, b.x, b.y);
-        mma_16816(acc[i], k1, b.z, b.w);
+        for (int i = 0; i < 2; ++i) {
+          const uint4 b = *reinterpret_cast<const uint4*>(
+              bp + (size_t)8 * i * ld + 32 * j);
+          mma_16816(blk[i], k0, b.x, b.y);
+          mma_16816(blk[i], k1, b.z, b.w);
+        }
       }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] += blk[i][e];
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -354,7 +403,9 @@ __device__ __forceinline__ void kv_project(const bf16* kv, int ld,
 
 // x (N, H, W, C); wk_t (c8, C), wv_t (c2, C): the transposed projections;
 // vT (N, c2, kvn) out, and k: in f32 kT (N, c8, kvn); in bf16 split for the
-// 3xTF32 logits, kS (N, c8 / 8, kvn, 16) f32, where the 16 floats of key m
+// 3xTF32 logits, kS (N, c8 / 8, kvn, 16) f32, kvn the frame's tokens padded
+// (keys_padded; a padded token pools to zero, so its k and v are zero).
+// The 16 floats of key m
 // and k-step s are, for t = 0..3, {hi(k[m][8s + 2t]), hi(k[m][8s + 2t + 1]),
 // lo(..), lo(..)} (hi = tf32(k), lo = tf32(k - hi)): a lane's B fragments of
 // one key in one 16-byte load. A CTA takes KT kv tokens: it pools them into
@@ -370,7 +421,7 @@ attn_kv_kernel(const T* __restrict__ x, const T* __restrict__ wk_t,
   const int ld = kv_ld<T>(C);
   T* kv = reinterpret_cast<T*>(smem);               // [KT][ld] pooled tokens
   const int n = blockIdx.y, tok0 = blockIdx.x * KT;
-  const int W2 = W / 2, kvn = (H / 2) * W2;
+  const int W2 = W / 2, keys = (H / 2) * W2, kvn = keys_padded(keys);
   const T* xn = x + (size_t)n * H * W * C;
 
   const int cv = C / V;
@@ -378,12 +429,15 @@ attn_kv_kernel(const T* __restrict__ x, const T* __restrict__ wk_t,
   for (int u = threadIdx.x; u < KT * cv; u += NT) {
     const int tk = u / cv, c0 = (u % cv) * V;
     const int m = tok0 + tk, i = m / W2, j = m % W2;
-    const T* p = xn + ((size_t)(2 * i) * W + 2 * j) * C + c0;
-    const size_t row = (size_t)W * C;
-    uint4 best = *reinterpret_cast<const uint4*>(p);
-    best = vmax<T>(best, *reinterpret_cast<const uint4*>(p + C));
-    best = vmax<T>(best, *reinterpret_cast<const uint4*>(p + row));
-    best = vmax<T>(best, *reinterpret_cast<const uint4*>(p + row + C));
+    uint4 best = make_uint4(0u, 0u, 0u, 0u);
+    if (m < keys) {
+      const T* p = xn + ((size_t)(2 * i) * W + 2 * j) * C + c0;
+      const size_t row = (size_t)W * C;
+      best = *reinterpret_cast<const uint4*>(p);
+      best = vmax<T>(best, *reinterpret_cast<const uint4*>(p + C));
+      best = vmax<T>(best, *reinterpret_cast<const uint4*>(p + row));
+      best = vmax<T>(best, *reinterpret_cast<const uint4*>(p + row + C));
+    }
     *reinterpret_cast<uint4*>(kv + (size_t)tk * ld + c0) = best;
   }
   __syncthreads();
@@ -484,12 +538,13 @@ __device__ __forceinline__ void logits_tile(const float* __restrict__ kTn,
   }
 }
 
-// The softmax of rows r0 .. r0 + R - 1 of S over their kvn columns, f32, by
-// one warp: the R rows' chains (max, exp and sum, scale) run side by side.
-// attn = e * (1 / sum): one division per row.
+// The softmax of rows r0 .. r0 + R - 1 of S over their first `keys`
+// columns, f32, by one warp: the R rows' chains (max, exp and sum, scale)
+// run side by side. attn = e * (1 / sum): one division per row. Columns
+// keys .. kvn - 1 (padded keys) get attn 0.
 template <int R>
-__device__ __forceinline__ void softmax_rows(float* S, int lds, int kvn,
-                                             int r0) {
+__device__ __forceinline__ void softmax_rows(float* S, int lds, int keys,
+                                             int kvn, int r0) {
   const int lane = threadIdx.x & 31;
   float* row[R];
   float mx[R], sum[R];
@@ -499,7 +554,7 @@ __device__ __forceinline__ void softmax_rows(float* S, int lds, int kvn,
     mx[j] = -INFINITY;
     sum[j] = 0.f;
   }
-  for (int m = lane; m < kvn; m += 32)
+  for (int m = lane; m < keys; m += 32)
 #pragma unroll
     for (int j = 0; j < R; ++j) mx[j] = fmaxf(mx[j], row[j][m]);
 #pragma unroll
@@ -507,7 +562,7 @@ __device__ __forceinline__ void softmax_rows(float* S, int lds, int kvn,
 #pragma unroll
     for (int j = 0; j < R; ++j)
       mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], o));
-  for (int m = lane; m < kvn; m += 32)
+  for (int m = lane; m < keys; m += 32)
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       const float e = expf(row[j][m] - mx[j]);
@@ -523,7 +578,7 @@ __device__ __forceinline__ void softmax_rows(float* S, int lds, int kvn,
   for (int j = 0; j < R; ++j) sum[j] = 1.f / sum[j];
   for (int m = lane; m < kvn; m += 32)
 #pragma unroll
-    for (int j = 0; j < R; ++j) row[j][m] *= sum[j];
+    for (int j = 0; j < R; ++j) row[j][m] = m < keys ? row[j][m] * sum[j] : 0.f;
 }
 
 // The same for rows of exactly 32 * EPL columns, each lane's EPL values of
@@ -571,7 +626,8 @@ __device__ __forceinline__ void softmax_rows_reg(float* S, int lds, int r0) {
 }
 
 // x, out (N, HW, C); wq_t (c8, C), wo_t (C, c2); kT (N, c8, kvn) and
-// vT (N, c2, kvn) from attn_kv_kernel; gamma: one f32 on the device. DC:
+// vT (N, c2, kvn) from attn_kv_kernel (kvn = keys_padded(keys), keys the
+// frame's pooled tokens); gamma: one f32 on the device. DC:
 // the channels of k a thread keeps in registers for the logits (8, or 16
 // where c8 is a multiple of 16: a kernel of its own).
 template <int DC>
@@ -579,8 +635,9 @@ __device__ __forceinline__ void fwd_f32(
     const float* __restrict__ x, const float* __restrict__ wq_t,
     const float* __restrict__ wo_t, const float* __restrict__ kT,
     const float* __restrict__ vT, const float* __restrict__ gamma,
-    float* __restrict__ out, int HW, int kvn, int C, int c8, int c2, int TQ) {
+    float* __restrict__ out, int HW, int keys, int C, int c8, int c2, int TQ) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const int kvn = keys_padded(keys);
   const Layout L = make_layout(TQ, kvn, C, c8, c2);
   float* xs = reinterpret_cast<float*>(smem);          // [TQ][ldx]
   float* S = reinterpret_cast<float*>(smem + L.u);     // [TQ][lds]
@@ -611,15 +668,15 @@ __device__ __forceinline__ void fwd_f32(
   // softmax over the full rows: a warp takes TQ / 8 neighbouring rows
   {
     const int rpw = TQ / NWARPS, r_lo = (threadIdx.x >> 5) * rpw;
-    if (kvn == 256 && rpw % 4 == 0)         // 32 x 32 maps
+    if (keys == 256 && rpw % 4 == 0)        // 32 x 32 maps
       for (int r = r_lo; r < r_lo + rpw; r += 4)
         softmax_rows_reg<8, 4>(S, L.lds, r);
-    else if (kvn == 1024)                   // 64 x 64 maps
+    else if (keys == 1024)                  // 64 x 64 maps
       for (int r = r_lo; r < r_lo + rpw; ++r)
         softmax_rows_reg<32, 1>(S, L.lds, r);
     else                                    // any other map
       for (int r = r_lo; r < r_lo + rpw; r += 2)
-        softmax_rows<2>(S, L.lds, kvn, r);
+        softmax_rows<2>(S, L.lds, keys, kvn, r);
   }
   __syncthreads();
 
@@ -660,6 +717,7 @@ __device__ __forceinline__ void fwd_f32(
 struct TcLayout {
   int ldq, ldo, ldv, ldb;
   size_t wo, v, k, ob, total;     // offsets; Wq^T starts at 0
+  size_t warp_bytes;              // modes 3 and 4: a warp's buffers from ob
   bool k_staged;
 };
 
@@ -677,6 +735,7 @@ __host__ __device__ inline TcLayout tc_layout(int kvn, int C, int c8, int c2,
   L.total = L.k_staged ? k_end : L.k;
   L.ldb = 0;
   L.ob = L.total;
+  L.warp_bytes = 0;
   return L;
 }
 
@@ -694,8 +753,28 @@ __host__ __device__ inline TcLayout wide_layout(int kvn, int C, int c8, int c2,
   L.wo = L.k = 0;
   L.v = (size_t)c8 * kvn * 8;
   L.ob = L.v + (size_t)c2 * L.ldv * 2;
-  L.total = L.ob + (size_t)warps * 16 * L.ldb * 2;
+  L.warp_bytes = (size_t)16 * L.ldb * 2;
+  L.total = L.ob + (size_t)warps * L.warp_bytes;
   L.k_staged = true;
+  return L;
+}
+
+// Mode 4 stages nothing of the frame (its split k and v^T are read from L2)
+// and no weights: a warp's q buffer (c8 / 8 k-steps x hi, lo x 32 lanes x
+// 16 bytes: a lane's tf32 A fragments), attn buffer (kvn / 16 k-steps x 32
+// lanes x 16 bytes: a lane's bf16 A fragments) and o buffer [16][ldb], one
+// after the other, a warp's after the last's.
+__host__ __device__ inline TcLayout wide_sweep_layout(int kvn, int C, int c8,
+                                                      int c2, int warps) {
+  TcLayout L;
+  L.ldq = C;
+  L.ldo = c2;
+  L.ldv = kvn;
+  L.ldb = c2 + 8;
+  L.wo = L.k = L.v = L.ob = 0;
+  L.warp_bytes = (size_t)c8 * 128 + (size_t)kvn * 32 + (size_t)16 * L.ldb * 2;
+  L.total = (size_t)warps * L.warp_bytes;
+  L.k_staged = false;
   return L;
 }
 
@@ -707,6 +786,7 @@ struct TcCtx {
   const float* k_s;
   int ldq, ldo, ldv, kvn, C, c8, c2;
   float gm;
+  int keys;                       // the frame's tokens; kvn, padded, at most 15 more
 };
 
 // The warp body's mmas, D += A B with f32 accumulators: tf32 m16n8k8 (A rows
@@ -894,8 +974,44 @@ __device__ __forceinline__ void q_frags(const bf16* __restrict__ xr,
 // hi_q hi_k into each tile's f32 accumulator, the tiles' mmas interleaved. kp: this
 // lane's 16 bytes of its key (g) in the first tile at k-step 0; kstride:
 // floats from one k-step to the next. Every caller forms a logit with the
-// same instructions, so a recomputed logit has the same bits.
-template <int QT, int NB>
+// same instructions, so a recomputed logit has the same bits. With
+// PROMOTE, each k-step's three mmas sum from zero and are added into s in
+// f32 (the tensor cores' accumulation truncates; a logit at c8 64-256 is a
+// chain of 24-96 mmas).
+template <int NB>
+__device__ __forceinline__ void logit_step(float (&s)[NB][4], const float* kp,
+                                           int valid, int kstride, int kk,
+                                           const uint32_t (&qh)[4],
+                                           const uint32_t (&ql)[4]) {
+  uint4 b[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    if (j < valid)
+      b[j] = *reinterpret_cast<const uint4*>(kp + (size_t)j * 128 +
+                                             (size_t)kk * kstride);
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    if (j < valid) mma_tf32(s[j], ql, b[j].x, b[j].y);
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    if (j < valid) mma_tf32(s[j], qh, b[j].z, b[j].w);
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    if (j < valid) mma_tf32(s[j], qh, b[j].x, b[j].y);
+}
+template <int NB>
+__device__ __forceinline__ void logit_step_promoted(
+    float (&s)[NB][4], const float* kp, int valid, int kstride, int kk,
+    const uint32_t (&qh)[4], const uint32_t (&ql)[4]) {
+  float t[NB][4];
+  zero(t);
+  logit_step<NB>(t, kp, valid, kstride, kk, qh, ql);
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] += t[j][e];
+}
+template <int QT, int NB, bool PROMOTE = false>
 __device__ __forceinline__ void logit_acc(float (&s)[NB][4], const float* kp,
                                           int valid, int kstride, int nq,
                                           const uint32_t (&qh)[QT][4],
@@ -903,21 +1019,10 @@ __device__ __forceinline__ void logit_acc(float (&s)[NB][4], const float* kp,
 #pragma unroll
   for (int kk = 0; kk < QT; ++kk)
     if (kk < nq) {
-      uint4 b[NB];
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-        if (j < valid)
-          b[j] = *reinterpret_cast<const uint4*>(kp + (size_t)j * 128 +
-                                                 (size_t)kk * kstride);
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-        if (j < valid) mma_tf32(s[j], ql[kk], b[j].x, b[j].y);
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-        if (j < valid) mma_tf32(s[j], qh[kk], b[j].z, b[j].w);
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-        if (j < valid) mma_tf32(s[j], qh[kk], b[j].x, b[j].y);
+      if constexpr (PROMOTE)
+        logit_step_promoted<NB>(s, kp, valid, kstride, kk, qh[kk], ql[kk]);
+      else
+        logit_step<NB>(s, kp, valid, kstride, kk, qh[kk], ql[kk]);
     }
 }
 // The same from zero.
@@ -950,6 +1055,19 @@ __device__ __forceinline__ void block_max(const float (&s)[NB][4], int valid,
       m[0] = fmaxf(m[0], fmaxf(s[j][0], s[j][1]));
       m[1] = fmaxf(m[1], fmaxf(s[j][2], s[j][3]));
     }
+}
+
+// The logits of padded keys (key0 + 8j + 2t (+ 1) >= keys) to -inf, so that
+// they add exp(-inf) = 0 to the row's sum and attn 0 to o.
+template <int NB>
+__device__ __forceinline__ void mask_keys(float (&s)[NB][4], int key0,
+                                          int keys) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (key0 + 8 * j + 2 * t + (e & 1) >= keys) s[j][e] = -INFINITY;
 }
 
 // This lane's ldmatrix row address in a pair of n-tiles of an n-major B
@@ -1210,11 +1328,13 @@ __device__ __forceinline__ void rows_sweep(const bf16* __restrict__ xr,
   K6_LAP(1);
 
   const float* kp = c.k_s + (size_t)g * 16 + 4 * t;
+  const bool masked = c.keys != c.kvn;
   float m[2] = {-INFINITY, -INFINITY};
 #pragma unroll 2
   for (int j0 = 0; j0 < nj; j0 += NB) {
     float s[NB][4];
     logit_block<QT, NB>(s, kp + (size_t)j0 * 128, nj - j0, ks, nq, qh, ql);
+    if (masked) mask_keys<NB>(s, 8 * j0, c.keys);
     block_max<NB>(s, nj - j0, m);
   }
   const float mb[2] = {-quad_max(m[0]) * LOG2E, -quad_max(m[1]) * LOG2E};
@@ -1225,6 +1345,7 @@ __device__ __forceinline__ void rows_sweep(const bf16* __restrict__ xr,
   for (int j0 = 0; j0 < nj; j0 += NB) {
     float s[NB][4];
     logit_block<QT, NB>(s, kp + (size_t)j0 * 128, nj - j0, ks, nq, qh, ql);
+    if (masked) mask_keys<NB>(s, 8 * j0, c.keys);
     float y0 = 0.f, y1 = 0.f;
 #pragma unroll
     for (int j = 0; j < NB; ++j)
@@ -1259,6 +1380,7 @@ __device__ __forceinline__ void rows_sweep(const bf16* __restrict__ xr,
             float s[NB][4];
             logit_block<QT, NB>(s, kp + (size_t)(j0 + h) * 128, nj - j0 - h,
                                 ks, nq, qh, ql);
+            if (masked) mask_keys<NB>(s, 8 * (j0 + h), c.keys);
 #pragma unroll
             for (int kk = 0; kk < NB / 2; ++kk)
               if (j0 + h + 2 * kk < nj) {
@@ -1294,18 +1416,19 @@ __device__ __forceinline__ void rows_sweep(const bf16* __restrict__ xr,
 }
 
 // Mode 3: maps of at most WIDE_KEYS keys at widths one pass of the other
-// bodies does not hold (c8 <= 64, c2 <= 256, c2 % 32 == 0: the 8x8 and 16x16
-// attention at C 384-512). A row's logits stay in registers (at most eight
-// n-tiles of 8 keys, as mode 0's), formed in passes of 32 q channels: each
-// pass's q (its four n-tiles, from x and Wq^T's rows in L2, block sums
-// promoted) adds its k-steps into the same accumulators, in k order, so the
-// logits have the bits of one pass. attn v runs in passes of 128 o channels
+// bodies does not hold (any c8 and c2, c2 % 32 == 0: the 4x4, 8x8 and 16x16
+// attention at C 384 and up). A row's logits stay in registers (at most
+// eight n-tiles of 8 keys, as mode 0's), formed in passes of 32 q channels:
+// each pass's q (its four n-tiles, from x and Wq^T's rows in L2, block sums
+// promoted), then its k-steps, each summed from zero and added into the
+// f32 logits in k order. attn v runs in passes of 128 o channels
 // (16 n-tiles of accumulators, <= 4 k-steps of keys); each pass's o is
 // rounded to bf16 into this warp's o buffer ob (16 rows, row stride ldb),
 // channel 32J + 8t + 4s + 2h + e at column 32J + 16s + 8h + 2t + e, so that
 // ldmatrix of columns 32J + 16s .. + 15 is the A fragment of o Wo's k-step
 // 2J + s with the contraction permuted to match Wo^T's rows read as 16-byte
-// pieces from L2 (out_wide).
+// pieces from L2 (out_wide). Each k-step's logits sum from zero and are
+// added into the row's f32 logits (logit_acc's PROMOTE).
 template <int OP>
 __device__ __forceinline__ void o_to_buffer(const float (&o)[OP][4], bf16* ob,
                                             int ldb, int ch0, int valid) {
@@ -1402,8 +1525,10 @@ __device__ __forceinline__ void rows_wide(const bf16* __restrict__ xr,
     cq.c8 = c.c8 - 8 * q0;
     uint32_t qh[QT][4], ql[QT][4];
     q_frags<QT, true>(xr, cq, qh, ql);
-    logit_acc<QT, NJ>(s, kp + (size_t)q0 * ks, nj, ks, nq - q0, qh, ql);
+    logit_acc<QT, NJ, true>(s, kp + (size_t)q0 * ks, nj, ks, nq - q0, qh,
+                            ql);
   }
+  if (c.keys != c.kvn) mask_keys<NJ>(s, 0, c.keys);
   K6_LAP(2);
 
   float m[2] = {-INFINITY, -INFINITY};
@@ -1450,22 +1575,169 @@ __device__ __forceinline__ void rows_wide(const bf16* __restrict__ xr,
   K6_LAP(5);
 }
 
+// Mode 4: maps of more than WIDE_KEYS keys at widths past modes 0-2's (the
+// 32x32 attention at C 384-1024, 64x64 at C 384-512). q is formed as in
+// mode 3, in passes of 32 q channels with block sums promoted, and its split
+// A fragments go to this lane's slots of the warp's q buffer qb; the three
+// sweeps of mode 1 read them back one k-step at a time (logit_block_buf:
+// each k-step's three mmas from zero, added in f32, as mode 3's); the third
+// sweep writes attn's bf16
+// A fragments to this lane's slots of the attn buffer ab; attn v then runs in
+// passes of OP o n-tiles (64 channels), each over blocks of SWEEP_KEYS keys
+// summed from zero and added into f32 totals, v^T's fragments from L2, and
+// each pass's o goes rounded into the o buffer ob (o_to_buffer's columns)
+// for out_wide. Only ob is read by other lanes than the one that wrote it.
+template <int NB>
+__device__ __forceinline__ void logit_block_buf(float (&s)[NB][4],
+                                                const float* kp, int valid,
+                                                int kstride, int nq,
+                                                const uint4* qb) {
+  const int lane = threadIdx.x & 31;
+  zero(s);
+#pragma unroll 1
+  for (int kk = 0; kk < nq; ++kk) {
+    const uint4 h = qb[(size_t)64 * kk + lane];
+    const uint4 l = qb[(size_t)64 * kk + 32 + lane];
+    const uint32_t qh[4] = {h.x, h.y, h.z, h.w};
+    const uint32_t ql[4] = {l.x, l.y, l.z, l.w};
+    logit_step_promoted<NB>(s, kp, valid, kstride, kk, qh, ql);
+  }
+}
+
+__device__ __forceinline__ void rows_wide_sweep(const bf16* __restrict__ xr,
+                                                bf16* __restrict__ outr,
+                                                const TcCtx& c,
+                                                unsigned char* wb, int ldb) {
+  constexpr int QT = 4, NB = 4, OP = 8, BJ = SWEEP_KEYS / 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nq = c.c8 / 8, nj = c.kvn / 8, ks = c.kvn * 16, nt = c.c2 / 8;
+  uint4* qb = reinterpret_cast<uint4*>(wb);             // [nq][2][32]
+  uint4* ab = qb + (size_t)64 * nq;                     // [nj / 2][32]
+  bf16* ob = reinterpret_cast<bf16*>(ab + (size_t)16 * nj);
+  K6_START();
+#pragma unroll 1
+  for (int q0 = 0; q0 < nq; q0 += QT) {
+    TcCtx cq = c;
+    cq.wq_s = c.wq_s + (size_t)q0 * 8 * c.ldq;
+    cq.c8 = c.c8 - 8 * q0;
+    uint32_t qh[QT][4], ql[QT][4];
+    q_frags<QT, true>(xr, cq, qh, ql);
+#pragma unroll
+    for (int i = 0; i < QT; ++i)
+      if (q0 + i < nq) {
+        qb[(size_t)64 * (q0 + i) + lane] =
+            make_uint4(qh[i][0], qh[i][1], qh[i][2], qh[i][3]);
+        qb[(size_t)64 * (q0 + i) + 32 + lane] =
+            make_uint4(ql[i][0], ql[i][1], ql[i][2], ql[i][3]);
+      }
+  }
+  K6_LAP(1);
+
+  const float* kp = c.k_s + (size_t)g * 16 + 4 * t;
+  const bool masked = c.keys != c.kvn;
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll 1
+  for (int j0 = 0; j0 < nj; j0 += NB) {
+    float s[NB][4];
+    logit_block_buf<NB>(s, kp + (size_t)j0 * 128, nj - j0, ks, nq, qb);
+    if (masked) mask_keys<NB>(s, 8 * j0, c.keys);
+    block_max<NB>(s, nj - j0, m);
+  }
+  const float mb[2] = {-quad_max(m[0]) * LOG2E, -quad_max(m[1]) * LOG2E};
+  K6_LAP(2);
+
+  float z0 = 0.f, z1 = 0.f;
+#pragma unroll 1
+  for (int j0 = 0; j0 < nj; j0 += NB) {
+    float s[NB][4];
+    logit_block_buf<NB>(s, kp + (size_t)j0 * 128, nj - j0, ks, nq, qb);
+    if (masked) mask_keys<NB>(s, 8 * j0, c.keys);
+    float y0 = 0.f, y1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      if (j0 + j < nj) {
+        y0 += exp_shifted(s[j][0], mb[0]);
+        y0 += exp_shifted(s[j][1], mb[0]);
+        y1 += exp_shifted(s[j][2], mb[1]);
+        y1 += exp_shifted(s[j][3], mb[1]);
+      }
+    z0 += y0;
+    z1 += y1;
+  }
+  const float i0 = 1.f / quad_sum(z0), i1 = 1.f / quad_sum(z1);
+  K6_LAP(3);
+
+#pragma unroll 1
+  for (int j0 = 0; j0 < nj; j0 += NB) {
+    float s[NB][4];
+    logit_block_buf<NB>(s, kp + (size_t)j0 * 128, nj - j0, ks, nq, qb);
+    if (masked) mask_keys<NB>(s, 8 * j0, c.keys);
+#pragma unroll
+    for (int kk = 0; kk < NB / 2; ++kk)
+      if (j0 + 2 * kk < nj) {
+        float (&e0)[4] = s[2 * kk];
+        float (&e1)[4] = s[2 * kk + 1];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          e0[e] = exp_shifted(e0[e], mb[e >> 1]);
+          e1[e] = exp_shifted(e1[e], mb[e >> 1]);
+        }
+        uint32_t a[4];
+        attn_frag(a, e0, e1, i0, i1);
+        ab[(size_t)32 * (j0 / 2 + kk) + lane] = make_uint4(a[0], a[1], a[2],
+                                                           a[3]);
+      }
+  }
+  const bf16* vp = c.v_s + (size_t)g * c.ldv + 2 * t;
+#pragma unroll 1
+  for (int n0 = 0; n0 < nt; n0 += OP) {
+    const bf16* vg = vp + (size_t)n0 * 8 * c.ldv;
+    float o[OP][4];
+    zero(o);
+#pragma unroll 1
+    for (int j0 = 0; j0 < nj; j0 += BJ) {
+      float ok[OP][4];
+      zero(ok);
+#pragma unroll
+      for (int kk = 0; kk < BJ / 2; ++kk)
+        if (j0 + 2 * kk < nj) {
+          const uint4 a4 = ab[(size_t)32 * (j0 / 2 + kk) + lane];
+          const uint32_t a[4] = {a4.x, a4.y, a4.z, a4.w};
+          attn_v_step<OP / 2, true>(ok, a, vg, 8 * j0 + 16 * kk,
+                                    (nt - n0) / 2, c.ldv);
+        }
+#pragma unroll
+      for (int i = 0; i < OP; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][e] += ok[i][e];
+    }
+    o_to_buffer<OP>(o, ob, ldb, 8 * n0, nt - n0);
+  }
+  __syncwarp();                   // the o buffer, written by every lane
+  K6_LAP(4);
+  out_wide(ob, ldb, xr, outr, c);
+  __syncwarp();                   // read by every lane before the next item
+  K6_LAP(5);
+}
+
 // The persistent loop: this CTA's contiguous range of work items (frame n,
 // TQ queries from q0), a warp per 16 rows. x, out (N, HW, C); wq (C, c8),
-// wo (c2, C) as the module holds them; kS and vT from attn_kv_kernel (bf16
-// layout).
+// wo (c2, C) as the module holds them (modes 3 and 4: transposed); kS and
+// vT from attn_kv_kernel (bf16 layout, keys_padded(keys) tokens a frame).
 template <int MODE, int OT>
 __device__ __forceinline__ void fwd_tc(
     const bf16* __restrict__ x, const bf16* __restrict__ wq,
     const bf16* __restrict__ wo, const float* __restrict__ kS,
     const bf16* __restrict__ vT, const float* __restrict__ gamma,
-    bf16* __restrict__ out, int N, int HW, int kvn, int C, int c8, int c2,
+    bf16* __restrict__ out, int N, int HW, int keys, int C, int c8, int c2,
     int TQ) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr bool kStaged = MODE != 2;     // v^T (and k) in shared memory
-  constexpr bool kWide = MODE == 3;       // the weights read from L2
-  const TcLayout L = kWide ? wide_layout(kvn, C, c8, c2, blockDim.x / 32)
-                           : tc_layout(kvn, C, c8, c2, kStaged);
+  constexpr bool kStaged = MODE != 2 && MODE != 4;  // v^T (and k) in smem
+  constexpr bool kWide = MODE >= 3;       // the weights read from L2
+  const int kvn = keys_padded(keys), warps = blockDim.x / 32;
+  const TcLayout L = MODE == 4 ? wide_sweep_layout(kvn, C, c8, c2, warps)
+                     : kWide   ? wide_layout(kvn, C, c8, c2, warps)
+                               : tc_layout(kvn, C, c8, c2, kStaged);
   bf16* wq_s = reinterpret_cast<bf16*>(smem);
   bf16* wo_s = reinterpret_cast<bf16*>(smem + L.wo);
   bf16* v_s = reinterpret_cast<bf16*>(smem + L.v);
@@ -1489,8 +1761,8 @@ __device__ __forceinline__ void fwd_tc(
   }
   __syncthreads();                // mode 2 without k staged has no other
   TcCtx c{kWide ? wq : wq_s, kWide ? wo : wo_s, v_s, k_s, L.ldq, L.ldo,
-          kStaged ? L.ldv : kvn, kvn, C, c8, c2, __ldg(gamma)};
-  bf16* ob = reinterpret_cast<bf16*>(smem + L.ob) + (size_t)warp * 16 * L.ldb;
+          kStaged ? L.ldv : kvn, kvn, C, c8, c2, __ldg(gamma), keys};
+  unsigned char* wb = smem + L.ob + (size_t)warp * L.warp_bytes;
 
   int frame = -1;
   for (int it = first; it < last; ++it) {
@@ -1531,8 +1803,11 @@ __device__ __forceinline__ void fwd_tc(
     const size_t row0 = (size_t)n * HW + q0 + 16 * warp;
     if constexpr (MODE == 0)
       rows_resident<OT>(x + row0 * C, out + row0 * C, c);
-    else if constexpr (kWide)
-      rows_wide(x + row0 * C, out + row0 * C, c, ob, L.ldb);
+    else if constexpr (MODE == 3)
+      rows_wide(x + row0 * C, out + row0 * C, c,
+                reinterpret_cast<bf16*>(wb), L.ldb);
+    else if constexpr (MODE == 4)
+      rows_wide_sweep(x + row0 * C, out + row0 * C, c, wb, L.ldb);
     else
       rows_sweep<OT, !kStaged>(x + row0 * C, out + row0 * C, c);
   }
@@ -1556,30 +1831,29 @@ __global__ void __launch_bounds__(FwdThreads<T, V>::value, 1)
 attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wq,
                 const T* __restrict__ wo, const float* __restrict__ kT,
                 const T* __restrict__ vT, const float* __restrict__ gamma,
-                T* __restrict__ out, int N, int HW, int kvn, int C, int c8,
+                T* __restrict__ out, int N, int HW, int keys, int C, int c8,
                 int c2, int TQ) {
   if constexpr (Traits<T>::kBf16)
     fwd_tc<BodyOf<V>::kMode, BodyOf<V>::kOT>(x, wq, wo, kT, vT, gamma,
-                                             out, N, HW, kvn, C, c8, c2, TQ);
+                                             out, N, HW, keys, C, c8, c2, TQ);
   else
-    fwd_f32<V>(x, wq, wo, kT, vT, gamma, out, HW, kvn, C, c8, c2, TQ);
+    fwd_f32<V>(x, wq, wo, kT, vT, gamma, out, HW, keys, C, c8, c2, TQ);
 }
 
 // ---- plans and launches ----------------------------------------------------
 
 bool bad_shape(int N, int H, int W, int C, int c8, int c2) {
   if (N < 1 || H < 2 || W < 2 || (H & 1) || (W & 1)) return true;
-  const int kvn = (H / 2) * (W / 2);
   return C < 16 || C % 16 || c8 < 8 || c8 % 8 || c2 < 16 || c2 % 16 ||
-         kvn % 16 || N > 65535;
+         N > 65535;
 }
 
 // kv tokens per CTA of the first launch: the most of 64, 32, 16 that divides
-// the frame's tokens and fits (bf16: C % 32 == 0 for its fragment loads);
-// 0 where none does. A token's k and v do not depend on the tile.
+// the frame's padded tokens and fits (bf16: C % 32 == 0 for its fragment
+// loads); 0 where none does. A token's k and v do not depend on the tile.
 template <typename T>
 int plan_kt(int H, int W, int C) {
-  const int kvn = (H / 2) * (W / 2);
+  const int kvn = keys_padded((H / 2) * (W / 2));
   if (Traits<T>::kBf16 && C % 32) return 0;
   for (int kt = 64; kt >= 16; kt >>= 1)
     if (kvn % kt == 0 && kv_smem_bytes<T>(kt, C) <= SMEM_MAX) return kt;
@@ -1590,24 +1864,26 @@ int plan_kt(int H, int W, int C) {
 // does not take: f32 (body -1) a multiple of 16 queries dividing HW; bf16 a
 // body whose mode and widths take the shape, C % 32 == 0, TQ a multiple of
 // 16 dividing HW of at most the body's warps (mode 0: maps of RES_KEYS keys;
-// modes 1 and 2: any; mode 3: at most WIDE_KEYS keys, c2 % 32 == 0). Either
-// must fit SMEM_MAX.
+// modes 1 and 2: any; mode 3: at most WIDE_KEYS keys padded, c2 % 32 == 0;
+// mode 4: any, c2 % 32 == 0; modes 3 and 4 any width). Either must fit
+// SMEM_MAX.
 size_t fwd_smem(int dtype, int body, int tq, int H, int W, int C, int c8,
                 int c2) {
-  const int HW = H * W, kvn = HW / 4;
+  const int HW = H * W, keys = HW / 4, kvn = keys_padded(keys);
   if (tq < 16 || tq % 16 || HW % tq) return 0;
   size_t bytes = 0;
   if (dtype == 0 && body == -1) {
     bytes = make_layout(tq, kvn, C, c8, c2).total;
   } else if (dtype == 1 && body >= 0 && body < N_BODIES) {
     const int mode = BODY_TABLE[body][0], ot = BODY_TABLE[body][1];
-    if (C % 32 || c8 > 2 * ot || c2 > 8 * ot ||
-        (mode == 0 && kvn != RES_KEYS) ||
-        (mode == 3 && (kvn > WIDE_KEYS || c2 % 32)) ||
+    if (C % 32 || (mode < 3 && (c8 > 2 * ot || c2 > 8 * ot)) ||
+        (mode == 0 && keys != RES_KEYS) ||
+        (mode == 3 && kvn > WIDE_KEYS) || (mode >= 3 && c2 % 32) ||
         tq / 16 > BODY_TABLE[body][2])
       return 0;
-    bytes = mode == 3 ? wide_layout(kvn, C, c8, c2, tq / 16).total
-                      : tc_layout(kvn, C, c8, c2, mode != 2).total;
+    bytes = mode == 4   ? wide_sweep_layout(kvn, C, c8, c2, tq / 16).total
+            : mode == 3 ? wide_layout(kvn, C, c8, c2, tq / 16).total
+                        : tc_layout(kvn, C, c8, c2, mode != 2).total;
   }
   return bytes <= SMEM_MAX ? bytes : 0;
 }
@@ -1623,7 +1899,7 @@ int kv_launch(const void* x, const void* wk_t, const void* wv_t, float* kT,
       attn_kv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((H / 2) * (W / 2) / kt, N);
+  const dim3 grid(keys_padded((H / 2) * (W / 2)) / kt, N);
   attn_kv_kernel<T><<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wk_t),
       static_cast<const T*>(wv_t), kT, static_cast<T*>(vT), H, W, C, c8, c2,
@@ -1692,9 +1968,10 @@ int spatial_attn_body(int body, int* out) {
   return 0;
 }
 
-// First launch: vT (N, c2, HW/4) and k (f32: kT (N, c8, HW/4); bf16: kS
-// (N, c8 / 8, HW/4, 16)) from x (N, H, W, C) and the transposed projections
-// wk_t (c8, C), wv_t (c2, C).
+// First launch: vT (N, c2, kvn) and k (f32: kT (N, c8, kvn); bf16: kS
+// (N, c8 / 8, kvn, 16)) from x (N, H, W, C) and the transposed projections
+// wk_t (c8, C), wv_t (c2, C); kvn = HW/4 rounded up to a multiple of 16 (the
+// padded tokens' k and v are zero).
 int spatial_attn_kv(int dtype, int device, const void* x, const void* wk_t,
                     const void* wv_t, float* kT, void* vT, int N, int H, int W,
                     int C, int c8, int c2, void* stream) {
@@ -1711,7 +1988,7 @@ int spatial_attn_kv(int dtype, int device, const void* x, const void* wk_t,
 }
 
 // Second launch: out (N, H, W, C) from x, the projections wq, wo (f32 and
-// the bf16 mode 3 transposed: (c8, C), (C, c2); the other bf16 bodies as
+// the bf16 modes 3 and 4 transposed: (c8, C), (C, c2); the other bf16 bodies as
 // the module holds them: (C, c8), (c2, C)), the first launch's k and vT and
 // gamma (one f32 on the device),
 // by the plan:

@@ -11,10 +11,11 @@ f32 softmax and no 1/√d, and adds the result scaled by its own γ.
 carried here by `GConfig.attn_fused`, no environment variable): "off" is
 plain PyTorch, as the reference's default is plain XLA; "on" sends it to the
 hand-written kernel, through `kernels.spatial_attn_tiled` for maps of 64×64
-and up and `kernels.spatial_attn_fused` below (`uses_tiled`, the line the
-reference's `fits_vmem`/`fits_tiled` pair draws for every preset width).
-Under "on" an odd H or W raises (the reference gives way to its XLA path;
-the port changes no route quietly). The temporal pass is always plain. The
+and up and `kernels.spatial_attn_fused` below: `uses_tiled` chooses the
+entry (and so which launch counter counts the call), and the kernel takes
+every shape either of the reference's gates (`fits_vmem`, `fits_tiled`)
+admits, through either entry. Under "on" an odd H or W raises (the
+reference gives way to its XLA path; the port changes no route quietly). The temporal pass is always plain. The
 reference's projection mode "fused" and temporal mode "einsum" are TPU A/B
 knobs that lost there: no counterpart.
 """

@@ -1112,10 +1112,21 @@ ATTN_SHAPES = [(256, 32, 32, 64), (128, 32, 32, 64),    # ucf101_64
 # presets at C 512 (c8 64, c2 256; `--attn_res 8`) and 16² at C 384 (c8 48,
 # c2 192)
 WIDE_SHAPES = [(2, 8, 8, 512), (2, 16, 16, 384)]
+# every shape the reference's kernels take: the 4² map (4 keys, padded to
+# 16, the padded logits masked) in mode 1 (C 128) and mode 3 (C 512, 2048);
+# c8 ∉ 8ℕ (C 32: c8 4; C 96: c8 12; zero-padded weights); bf16 C % 32 ==
+# 16 (x padded); the wide widths on small maps in more passes (mode 3:
+# 16²×768, 8²×1536) and on larger ones (mode 4: 32²×384 at the
+# `--ch 96` attention, 32²×1024, 64²×384 of 256 px at ch 96)
+DOMAIN_SHAPES = [(3, 4, 4, 128), (4, 4, 4, 256), (4, 4, 4, 512),
+                 (2, 4, 4, 2048), (2, 32, 32, 32), (2, 32, 32, 96),
+                 (2, 16, 16, 80), (2, 16, 16, 768), (2, 8, 8, 1536),
+                 (4, 32, 32, 384), (2, 32, 32, 1024), (1, 64, 64, 384)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,h,w,c", ATTN_SHAPES + WIDE_SHAPES)
+@pytest.mark.parametrize("n,h,w,c", ATTN_SHAPES + WIDE_SHAPES
+                         + DOMAIN_SHAPES)
 def test_k6_kernel_matches_plain(cuda, dtype, n, h, w, c):
     args = _attn_inputs(n, h, w, c, dtype, cuda, seed=n + c)
     entry = _attn_entry(h, w)
@@ -1163,11 +1174,24 @@ def test_k6_forced_tiles_compute_the_same_function(cuda, dtype):
 
 # one shape per bf16 body (`k6.BODIES`): 32² with C 64 and 256 (logits in
 # registers), 64²×64, 48²×128 and 16²×256 (key sweeps), 96²×64, 64²×128
-# and 64²×256 (key sweeps from L2), 8²×512 and 16²×384 (the wide body)
+# and 64²×256 (key sweeps from L2), 8²×512 and 16²×384 (the wide body),
+# 32²×384 and 64²×384 (the wide sweep)
 BODY_SHAPES = [(4, 32, 32, 64), (3, 32, 32, 256), (2, 64, 64, 64),
                (2, 48, 48, 128), (4, 16, 16, 256), (2, 96, 96, 64),
                (2, 64, 64, 128), (1, 64, 64, 256), (3, 8, 8, 512),
-               (2, 16, 16, 384)]
+               (2, 16, 16, 384), (3, 32, 32, 384), (1, 64, 64, 384)]
+
+
+def _k6_tiles(n, h, w, c):
+    """The query tiles the bf16 plan takes when forced."""
+    out = []
+    for tq in (16, 32, 64, 128, 256):
+        try:
+            k6.plan(torch.bfloat16, n, h, w, c, c // 8, c // 2, force_tq=tq)
+        except ValueError:
+            continue
+        out.append(tq)
+    return out
 
 
 @pytest.mark.parametrize("n,h,w,c", BODY_SHAPES)
@@ -1180,12 +1204,32 @@ def test_k6_bf16_has_the_same_bits_under_every_plan(cuda, monkeypatch, n, h,
     own = k6.spatial_attn_fused(*args)
     assert torch.equal(k6.spatial_attn_fused(*args), own)        # two runs
     plan = k6.plan
-    body = plan(torch.bfloat16, n, h, w, c, c // 8, c // 2).body
-    tiles = [tq for tq in (16, 32, 64, 128, 256)
-             if tq <= 16 * k6.BODIES[body][2] and (h * w) % tq == 0]
+    tiles = _k6_tiles(n, h, w, c)
     assert len(tiles) >= 3
     for tq in tiles:
         for ctas in (1, 5, None):
+            monkeypatch.setattr(k6, "plan", lambda *a, tq=tq, ctas=ctas, **kw:
+                                plan(*a, **{**kw, "force_tq": tq,
+                                            "ctas": ctas}))
+            assert torch.equal(k6.spatial_attn_fused(*args), own), (tq, ctas)
+    monkeypatch.setattr(k6, "plan", plan)
+
+
+@pytest.mark.parametrize("n,h,w,c", [s for s in DOMAIN_SHAPES
+                                     if s[1] * s[2] < 32 * 32])
+def test_k6_bf16_small_maps_have_the_same_bits_under_every_plan(
+        cuda, monkeypatch, n, h, w, c):
+    """The padded 4² map (masked keys) and the wide body in more passes:
+    two runs, every tile the plan takes and grids of 1, 2 and the plan's
+    give the same bits."""
+    args = _attn_inputs(n, h, w, c, torch.bfloat16, cuda, seed=8)
+    own = k6.spatial_attn_fused(*args)
+    assert torch.equal(k6.spatial_attn_fused(*args), own)
+    plan = k6.plan
+    tiles = _k6_tiles(n, h, w, c)
+    assert tiles
+    for tq in tiles:
+        for ctas in (1, 2, None):
             monkeypatch.setattr(k6, "plan", lambda *a, tq=tq, ctas=ctas, **kw:
                                 plan(*a, **{**kw, "force_tq": tq,
                                             "ctas": ctas}))
@@ -1216,10 +1260,11 @@ def test_k6_bf16_l2_body_has_the_bits_of_the_staged_body(cuda, monkeypatch,
     (2, 32, 32, 384, 48, 192)])   # C 384 on a map of more than 64 keys
 def test_k6_bf16_refuses_what_its_bodies_do_not_hold(cuda, n, h, w, c, c8,
                                                      c2):
-    """In bf16 the kernel takes C % 32 == 0 (x is read in 16-byte pieces of
-    32 channels a quad), and C ≤ 256 (a warp's registers hold c8 ≤ 32, c2 ≤
-    128) but on maps of at most 64 keys (the wide body: c8 ≤ 64, c2 ≤ 256);
-    it refuses other widths with no launch, and the f32 body takes them."""
+    """What the bf16 bodies once refused they now take (C % 32 == 16
+    through a zero-padded copy of x, C 384 on 256 keys in the wide sweep):
+    within one ulp of the plain version, as the f32 body is within 1e-4.
+    What they still refuse is a forced tile that does not fit, with no
+    launch."""
     gen = torch.Generator().manual_seed(7)
     args = [torch.randn(n, h, w, c, generator=gen)] + [
         a ** -0.5 * torch.randn(a, b, generator=gen)
@@ -1228,9 +1273,14 @@ def test_k6_bf16_refuses_what_its_bodies_do_not_hold(cuda, n, h, w, c, c8,
         torch.tensor(0.7, device=cuda)]
     entry = _attn_entry(h, w)
     before = entry.launches
+    out = entry(*args)
+    assert entry.launches - before == k6.LAUNCHES_PER_CALL
+    ref = k6.spatial_attn_kernel_reference(*args).float()
+    torch.testing.assert_close(out.float(), ref, rtol=0,
+                               atol=_bf16_ulp(float(ref.abs().max())))
     with pytest.raises(ValueError, match="does not take"):
-        entry(*args)
-    assert entry.launches == before
+        k6.spatial_attn_tiled(*args, force_bqr=h)      # H·W queries: no fit
+    assert entry.launches - before == k6.LAUNCHES_PER_CALL
     f32 = [a.float() for a in args]
     out = entry(*f32)
     torch.testing.assert_close(out, k6.spatial_attn_kernel_reference(*f32),
@@ -1238,7 +1288,8 @@ def test_k6_bf16_refuses_what_its_bodies_do_not_hold(cuda, n, h, w, c, c8,
 
 
 @pytest.mark.parametrize("n,h,w,c", ATTN_SHAPES[:6] + ATTN_SHAPES[-2:]
-                         + WIDE_SHAPES + [(96, 8, 8, 512), (192, 8, 8, 512)])
+                         + WIDE_SHAPES + [(96, 8, 8, 512), (192, 8, 8, 512)]
+                         + DOMAIN_SHAPES)
 def test_k6_bf16_differs_from_plain_on_at_most_half_a_percent(cuda, n, h, w,
                                                               c):
     """At the driven calls the bf16 kernel's output differs from the plain
@@ -1280,11 +1331,12 @@ def test_k6_plan_matches_the_kernel(cuda, dtype):
         assert lib.spatial_attn_body(i, ctypes.addressof(out)) == 0
         assert tuple(out) == row
     assert lib.spatial_attn_body(len(k6.BODIES), ctypes.addressof(out)) != 0
-    for n, h, w, c in ATTN_SHAPES + BODY_SHAPES:
+    for n, h, w, c in ATTN_SHAPES + BODY_SHAPES + DOMAIN_SHAPES:
         plan = k6.plan(dtype, n, h, w, c, c // 8, c // 2)
-        assert lib.spatial_attn_smem_bytes(code, plan.body, plan.tq, h, w, c,
-                                           c // 8, c // 2) == plan.smem_bytes
-        assert lib.spatial_attn_kv_tokens(code, h, w, c) > 0
+        assert lib.spatial_attn_smem_bytes(
+            code, plan.body, plan.tq, h, w, plan.c, plan.c8,
+            plan.c2) == plan.smem_bytes
+        assert lib.spatial_attn_kv_tokens(code, h, w, plan.c) > 0
     # 1024 queries a tile: no fit in either body
     assert lib.spatial_attn_smem_bytes(code, -1 if dtype == torch.float32
                                        else 0, 1024, 32, 32, 64, 8, 32) == 0
@@ -1294,10 +1346,12 @@ def test_k6_refuses_what_the_kernel_does_not_take(cuda):
     args = _attn_inputs(2, 8, 8, 64, torch.float32, cuda)
     x = args[0]
     for fn in (k6.spatial_attn_fused, k6.spatial_attn_tiled):
-        with pytest.raises(ValueError, match="does not take"):
-            fn(*_attn_inputs(2, 8, 8, 72, torch.float32, cuda))   # c8 = 9
-        with pytest.raises(ValueError, match="does not take"):
-            fn(*_attn_inputs(2, 4, 4, 64, torch.float32, cuda))   # 4 keys
+        # once refused, now taken: c8 = 9 (zero-padded weights), 4 keys
+        for shape in ((2, 8, 8, 72), (2, 4, 4, 64)):
+            a = _attn_inputs(*shape, torch.float32, cuda)
+            torch.testing.assert_close(
+                fn(*a), k6.spatial_attn_kernel_reference(*a), rtol=0,
+                atol=1e-4)
         with pytest.raises(ValueError, match="even H and W"):
             fn(x[:, :7].contiguous(), *args[1:])
         with pytest.raises(ValueError, match="contiguous"):
@@ -1516,8 +1570,12 @@ def _graph_call(name, dtype, device):
         return lambda: k5.ups2x_bwd(wall, xp, up), k5.ups2x_bwd
     if name == "artifact":
         return _artifact_call(dtype, device)
-    hw = 32 if name == "K6a" else 64
-    args = _attn_inputs(2, hw, hw, 64, dtype, device)
+    if "@" in name:             # K6a@HxC: a shape of DOMAIN_SHAPES
+        name, shape = name.split("@")
+        hw, c = map(int, shape.split("x"))
+    else:
+        hw, c = (32 if name == "K6a" else 64), 64
+    args = _attn_inputs(2, hw, hw, c, dtype, device)
     entry = _attn_entry(hw, hw)
     assert entry is (k6.spatial_attn_fused if name == "K6a"
                      else k6.spatial_attn_tiled)
@@ -1545,7 +1603,9 @@ def _artifact_call(dtype, device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", ["K1", "K2", "K3", "K4", "K5a", "K5b",
-                                  "K6a", "K6b", "artifact"])
+                                  "K6a", "K6b", "artifact", "K6a@4x256",
+                                  "K6a@4x512", "K6a@32x384", "K6a@16x768",
+                                  "K6a@8x1536", "K6b@64x384", "K6a@32x96"])
 def test_kernel_replays_from_a_cuda_graph_with_its_eager_bits(cuda, name,
                                                                dtype):
     """Captured after a warm-up call, replayed twice with its outputs

@@ -159,21 +159,30 @@ def test_every_driven_call_gets_a_plan_within_shared_memory(dtype, n, h, w,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_plan_refuses_what_the_kernel_does_not_take(dtype):
-    for shape in [(2, 8, 8, 72, 9, 36),      # c8 = 9
-                  (2, 4, 4, 64, 8, 32),      # 4 keys
-                  (2, 7, 8, 64, 8, 32),      # odd H
-                  (2, 8, 8, 64, 8, 24)]:     # c2 = 24
-        with pytest.raises(ValueError, match="does not take"):
-            ka.plan(dtype, *shape)
-    # what the bf16 bodies refuse and the CUDA-core body takes
-    for shape, f32_tq in [((2, 8, 8, 48, 8, 16), 64),    # C % 32: x chunks
-                          ((2, 16, 16, 80, 16, 32), 64),
-                          ((2, 32, 32, 384, 48, 192), 64)]:  # wider than a
-        if dtype == torch.bfloat16:                        # warp holds
-            with pytest.raises(ValueError, match="does not take"):
-                ka.plan(dtype, *shape)
+    """Odd H still raises. The shapes once refused (c8 = 9, 4 keys, c2 =
+    24; in bf16 C % 32 == 16 and 32²×384) now get a plan at the widths the
+    wrapper zero-pads them to, 4 keys padded to 16 in the kernel
+    (`tests/test_torch_port_k6_domain.py`)."""
+    with pytest.raises(ValueError, match="does not take"):
+        ka.plan(dtype, 2, 7, 8, 64, 8, 32)         # odd H
+    bf16 = dtype == torch.bfloat16
+    for shape, widths in [((2, 8, 8, 72, 9, 36),   # c8 = 9
+                           (96 if bf16 else 80, 16, 48)),
+                          ((2, 4, 4, 64, 8, 32), (64, 8, 32)),   # 4 keys
+                          ((2, 8, 8, 64, 8, 24), (64, 8, 32))]:  # c2 = 24
+        p = ka.plan(dtype, *shape)
+        assert (p.c, p.c8, p.c2) == widths, shape
+        assert p.tq == 16 if shape[1] == 4 else p.tq == 64
+    # what the bf16 bodies once refused and the CUDA-core body takes: x
+    # padded to C % 32 == 0, the wide sweep (mode 4) at 32²×384
+    for shape, f32_tq, mode in [((2, 8, 8, 48, 8, 16), 64, 1),
+                                ((2, 16, 16, 80, 16, 32), 64, 1),
+                                ((2, 32, 32, 384, 48, 192), 64, 4)]:
+        p = ka.plan(dtype, *shape)
+        if dtype == torch.bfloat16:
+            assert ka.BODIES[p.body][0] == mode and p.c % 32 == 0
         else:
-            assert ka.plan(dtype, *shape).tq == f32_tq
+            assert p.tq == f32_tq and p.c == shape[3]
     # the 8×8 attention at C 512: both take it, bf16 in its wide body
     # (mode 3, `tests/test_torch_port_k6_wide.py`)
     wide = ka.plan(dtype, 2, 8, 8, 512, 64, 256)

@@ -94,11 +94,19 @@ def test_plan_takes_the_wide_attention_in_bf16(n, h, w, c):
 
 
 def test_plan_still_refuses_what_no_bf16_body_takes():
-    for shape in [(2, 16, 16, 80, 16, 32),      # C % 32 == 16
-                  (2, 8, 8, 48, 8, 16),
-                  (2, 4, 4, 512, 64, 256),      # 4 keys
-                  (2, 32, 32, 384, 48, 192),    # 256 keys at C 384
-                  (2, 8, 8, 576, 72, 288),      # c8 over 64
-                  (2, 8, 8, 544, 64, 272)]:     # c2 % 32 == 16
-        with pytest.raises(ValueError, match="does not take"):
-            ka.plan(torch.bfloat16, *shape)
+    """What no bf16 body took before now has one: C % 32 == 16 through x
+    padded to the next 32 channels, the 4² map (keys padded to 16) and c8
+    over 64 or c2 % 32 == 16 in the wide body's passes (c2 padded to 32),
+    256 keys at C 384 in the wide sweep. An odd H still raises."""
+    for shape, mode, c, c2 in [
+            ((2, 16, 16, 80, 16, 32), 1, 96, 32),     # C % 32 == 16
+            ((2, 8, 8, 48, 8, 16), 1, 64, 16),
+            ((2, 4, 4, 512, 64, 256), 3, 512, 256),   # 4 keys
+            ((2, 32, 32, 384, 48, 192), 4, 384, 192),  # 256 keys at C 384
+            ((2, 8, 8, 576, 72, 288), 3, 576, 288),   # c8 over 64
+            ((2, 8, 8, 544, 64, 272), 3, 544, 288)]:  # c2 % 32 == 16
+        p = ka.plan(torch.bfloat16, *shape)
+        assert (ka.BODIES[p.body][0], p.c, p.c2) == (mode, c, c2), shape
+        assert p.smem_bytes <= ka.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="does not take"):
+        ka.plan(torch.bfloat16, 2, 9, 8, 512, 64, 256)

@@ -3,7 +3,9 @@
 calls of the driven paths, the two 8² calls of `kinetics_128 --attn_res 8`
 (C 512: the wide body) and at two 64² calls of wider attention
 (`kinetics_256_48f --attn_res 64`, C 128, and C 256), whose frame k and vᵀ
-the bf16 kernel reads from L2: for each shape one JSON line with the
+the bf16 kernel reads from L2, and at the shapes of `chip_smoke.py`'s
+K6_DOMAIN_SHAPES (the 4² map, P1's and P2's calls, the wide widths): for
+each shape one JSON line with the
 profiler's view of one call (`chip_smoke.device_view`: device µs of
 `attn_kv_kernel` and `attn_fwd_kernel`, the call's device ms, None where
 the profiler missed a launch), the call's CUDA-event ms and the `off`
@@ -45,8 +47,10 @@ def main() -> int:
         print("torch_k6_launches: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    domain = [s for shapes in chip_smoke.K6_DOMAIN_SHAPES.values()
+              for s in shapes]
     for n, h, w, c in (chip_smoke.K6A_SHAPES + chip_smoke.K6B_SHAPES
-                       + chip_smoke.K6A_WIDE_SHAPES + L2_SHAPES):
+                       + chip_smoke.K6A_WIDE_SHAPES + L2_SHAPES + domain):
         call_args = chip_smoke.k6_inputs(n, h, w, c, torch.bfloat16, dev,
                                          seed=0)
         fn = (k6.spatial_attn_tiled if attention.uses_tiled(h, w)
