@@ -140,6 +140,18 @@ The default run, on one card:
    `Trainer.evaluate()` twice in this process (the same fvd bitwise);
    after the children, each network's CUDA-event ms for a batch of 16
    clips with TF32 off and on, and its peak memory;
+   meanwhile, from a thread of this process (`migration_children`), the
+   migration to and from PyTorch state dicts: trainer run A's newest
+   checkpoint exported (`tools/torch_export_checkpoint.py`, a child
+   process) as G, G_ema, DS and DT `.pth` state dicts, imported back into
+   a fresh out_dir (`tools/torch_import_checkpoint.py`), G, G_ema, DS and
+   DT params and G's BN stats bitwise A's, the step A's; the imported
+   checkpoint through `--mode sample --pretrained_model` in child
+   processes (`SAMPLE_CHILD`): bf16 batch 16 with the launches
+   `sample_launches` predicts (K1 128), and the f32 batch-2 clip card vs
+   CPU at SAMPLE_TOL; and `--mode train --pretrained_model` resumed for
+   MIGRATE_STEPS steps (finite losses, launches per step as
+   `launches_per_step`: K1 256, K2 256); the phase's seconds printed;
    then the parallel phase (`drive_parallel`): each run is two train CLI
    processes started as the ranks of one `--multihost` run on cuda:0
    (ranks that share one card talk over gloo through the host: what is
@@ -269,7 +281,7 @@ The default run, on one card:
     (one reading each, the first profiled) and the 128 px step off and on
     (one reading each, both profiled; median of 2 steps after 1 warm-up,
     with peak memory), and sampling off, on, on, off; and
-    `Trainer.train()` at steps_per_call 1 and K in turns 1, K, K, 1
+    `Trainer.train()` at steps_per_call 1 and K in turns 1, K
     (`time_steps_per_call`): the flagship at K 4 (8 steps a
     reading, log_step 4), FP, the 128 px step and the long clip at K 2 (2
     steps), with
@@ -299,7 +311,11 @@ read once each, not in turns, and the long-clip K 1 vs K 2 turns take 2
 steps a reading instead of 4; and (to make room for the serving
 artifacts) the 128 px routes are read once each, not in turns; and (to
 make room for K6's domain paths) the K 1 vs K turns take 8 flagship steps
-a reading instead of 12, and 2 FP and 128 px steps instead of 4.
+a reading instead of 12, and 2 FP and 128 px steps instead of 4; and (to
+make room for the migration phase) the K 1 vs K turns are read once
+each, 1 then K, not 1, K, K, 1, on one trainer a configuration instead of
+one a mode, and children started side by side take a share of the host's
+cores (`child_threads`).
 
 Any failing phase raises, so the script exits non-zero without the result
 line; so does a machine without a CUDA device. Imports nothing of JAX or
@@ -1459,6 +1475,24 @@ def launches_per_step(cfg) -> dict[str, int]:
             "k6b_launches": n_k6 if tiled else 0}
 
 
+@contextlib.contextmanager
+def child_threads(n_children: int):
+    """Inside the block, child processes started take a share of the host's
+    cores for torch's CPU work (OMP_NUM_THREADS), as a launcher sets them
+    (`pmesh.share_cores`): children side by side with a thread a core each
+    oversubscribe the host."""
+    saved = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = str(max(
+        1, len(os.sched_getaffinity(0)) // n_children))
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("OMP_NUM_THREADS")
+        else:
+            os.environ["OMP_NUM_THREADS"] = saved
+
+
 def start_train(argv, n_steps: int, tmp=None, first: int = 0) -> dict:
     """Starts the train CLI in a child process (its launch counters start
     at 0), every step logged and a checkpoint at the last one unless `argv`
@@ -2436,53 +2470,51 @@ def time_steps_per_call(device, argv, k: int, n_steps: int,
                         name: str) -> dict:
     """One configuration through `Trainer.train()` in this process at
     steps_per_call 1 and k, synthetic clips, log_step k, no save or dump:
-    each trainer warmed up over k steps (the K one captures its graph
-    there: the capture's one-time cost), then `n_steps`-step readings in
-    turns 1, k, k, 1 (host clock around train(), which waits for its last
-    step). Per trainer: ms a step; the device time a step (the graph's
-    replay in CUDA events, and torch.profiler's kernel time over one call
-    at k: the same work at either K) and the idle share against the turns'
-    step time; the syncs of a train() of k steps
-    (`torch.cuda.set_sync_debug_mode`); and the peak device memory of its
-    warm-up above what was allocated before it was built (the graph's pool
-    and the state buffers under k)."""
+    one trainer warmed up over k steps at 1, then k at k (the capture of
+    its graph: the one-time cost), then `n_steps`-step readings in turns
+    1, k (host clock around train(), which waits for its last step). Per
+    mode: ms a step; the device time a step (the graph's replay in CUDA
+    events, and torch.profiler's kernel time over one call at k: the same
+    work at either K) and the idle share against the turns' step time;
+    the syncs of a train() of k steps (`torch.cuda.set_sync_debug_mode`);
+    and the peak device memory by the end of its warm-up above what was
+    allocated before the trainer was built (at k: with the graph's pool
+    and the state buffers)."""
     import warnings
 
     from dvdgan_tpu_torch.train.trainer import Trainer
     from dvdgan_tpu_torch.utils.config import parse_config
 
     t_in = time.perf_counter()
-    trainers, tmps, rows = {}, [], {}
+    tmp = tempfile.TemporaryDirectory()
+    rows, tr = {}, None
     try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(parse_config(argv + [
+            "--steps_per_call", str(k), "--log_step", str(k),
+            "--sample_step", "0", "--model_save_step", "0",
+            "--out_dir", tmp.name]))
         for kk in (1, k):
-            tmp = tempfile.TemporaryDirectory()
-            tmps.append(tmp)
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            tr = Trainer(parse_config(argv + [
-                "--steps_per_call", str(kk), "--log_step", str(k),
-                "--sample_step", "0", "--model_save_step", "0",
-                "--out_dir", tmp.name]))
+            tr.steps_per_call = kk
             t0 = time.perf_counter()
-            tr.train(total_step=k)
-            warm_s = time.perf_counter() - t0
-            trainers[kk] = tr
-            rows[kk] = {"steps_per_call": kk, "warmup_s": warm_s,
-                        "capture_s": (tr._multi.capture_s
-                                      if tr._multi is not None else None),
+            tr.train(total_step=tr.start_step + k)
+            rows[kk] = {"steps_per_call": kk,
+                        "warmup_s": time.perf_counter() - t0,
+                        "capture_s": tr._multi.capture_s if kk > 1 else None,
                         "peak_mem_gib": (torch.cuda.max_memory_allocated()
                                          - base) / 2**30}
         turns = []
-        for kk in (1, k, k, 1):
-            tr = trainers[kk]
+        for kk in (1, k):
+            tr.steps_per_call = kk
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             tr.train(total_step=tr.start_step + n_steps)
             turns.append((kk, (time.perf_counter() - t0) / n_steps * 1e3))
-        for kk, tr in trainers.items():
-            row = rows[kk]
+        for kk, row in rows.items():
             row["ms_per_step"] = [ms for x, ms in turns if x == kk]
+            tr.steps_per_call = kk
             torch.cuda.set_sync_debug_mode("warn")
             try:
                 with warnings.catch_warnings(record=True) as caught:
@@ -2498,21 +2530,19 @@ def time_steps_per_call(device, argv, k: int, n_steps: int,
         # the device's work a step, the same at either K: the graph's
         # replay in CUDA events, and torch.profiler over one call (its
         # trace takes far longer to read than the steps take to run)
-        multi = trainers[k]._multi
-        device_ms = cuda_ms(multi.graph.replay, reps=3, warmup=1) / k
-        busy_us, _ = profile_busy_us(lambda: trainers[k].train(
-            total_step=trainers[k].start_step + k))
+        device_ms = cuda_ms(tr._multi.graph.replay, reps=3, warmup=1) / k
+        busy_us, _ = profile_busy_us(lambda: tr.train(
+            total_step=tr.start_step + k))
         rows[k]["device_ms_per_step_profiler"] = busy_us / k / 1e3
         for kk, row in rows.items():
             row["device_ms_per_step"] = device_ms
             row["device_idle_share"] = (
                 1.0 - device_ms / statistics.mean(row["ms_per_step"]))
     finally:
-        for tr in trainers.values():
+        if tr is not None:
             tr.close()
-        trainers.clear()
-        for tmp in tmps:
-            tmp.cleanup()
+        tr = None
+        tmp.cleanup()
         torch.cuda.empty_cache()
     out = {"name": name, "turns_ms_per_step": turns,
            "rows": [rows[1], rows[k]], "seconds": time.perf_counter() - t_in}
@@ -3542,6 +3572,186 @@ def check_remat_policies(device) -> dict[str, dict]:
     return rows
 
 
+# ----------------------- the migration to and from PyTorch state dicts
+# trainer run A's newest checkpoint out as state dicts in the interchange
+# naming and back into a fresh out_dir, in child processes; the import then
+# sampled and resumed for MIGRATE_STEPS steps
+MIGRATE_STEPS = 2
+MIGRATE_TREES = ("g/params/", "g_ema/", "ds/params/", "dt/params/",
+                 "g/stats/")
+MIGRATE_FILES = {"g": "G", "g_ema": "G_ema", "ds": "DS", "dt": "DT"}
+# the sample CLI in a child, the parent's f32 flags set (cuDNN's default
+# runs f32 convs in TF32), its launch counters printed after it
+SAMPLE_CHILD = r"""
+import json, sys
+import torch
+from dvdgan_tpu_torch import cli
+from dvdgan_tpu_torch.kernels import attention_spatial as k6
+from dvdgan_tpu_torch.kernels import convgru_blocked as k3
+from dvdgan_tpu_torch.kernels import convgru_seq as k1
+from dvdgan_tpu_torch.kernels import ups2x_fused as k5
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+cli.main(sys.argv[1:])
+print("launches " + json.dumps({
+    "k1": k1.gru_sequence_fused.launches,
+    "k3": k3.gru_sequence_blocked.launches, "k5a": k5.ups2x.launches,
+    "k6a": k6.spatial_attn_fused.launches,
+    "k6b": k6.spatial_attn_tiled.launches}))
+"""
+
+
+def migration_source(run: dict) -> dict:
+    """A copy of a kept train CLI run's newest checkpoint (its out_dir
+    goes with the run's own check) and its final flat state."""
+    step = int(run["state"]["step"])
+    tmp = tempfile.TemporaryDirectory()
+    shutil.copytree(os.path.join(run["out_dir"], "checkpoints", str(step)),
+                    os.path.join(tmp.name, "checkpoints", str(step)))
+    return {"tmp": tmp, "step": step, "state": dict(run["state"])}
+
+
+def _tool(args, timeout_s: float = 300) -> tuple[str, float]:
+    """A child process of this interpreter from the repository's root;
+    -> (its stdout, its seconds). Raises with its stderr if it fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout_s)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(args[:2])} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def migration_children(src: dict, argv=FLAGSHIP_ARGV) -> dict:
+    """The migration of `migration_source(A)`: `tools/
+    torch_export_checkpoint.py` writes its {G,G_ema,DS,DT}.pth, `tools/
+    torch_import_checkpoint.py` takes them (and the step) into a fresh
+    out_dir (all with A's flags, `argv`); G, G_ema, DS and DT params and
+    G's BN stats must be A's bitwise, the step A's. Then, side by side,
+    the sample CLI on the
+    imported checkpoint (`--pretrained_model`; `SAMPLE_CHILD`): bf16 batch
+    B with `sample_launches`' launches and a clip of the right shape,
+    finite, in [-1, 1]; f32 batch 2 on the card and on the CPU, within
+    SAMPLE_TOL; and the train CLI resumed from it for MIGRATE_STEPS steps
+    (`start_train`, checked by `finish_train`: finite losses, launches per
+    step as `launches_per_step`). -> seconds, bytes, launches, the gap."""
+    from dvdgan_tpu_torch.train import checkpoint as ckpt
+    from dvdgan_tpu_torch.utils.config import parse_config
+
+    t_in = time.perf_counter()
+    step, root = src["step"], src["tmp"].name
+    exported = os.path.join(root, "exported")
+    imported = tempfile.TemporaryDirectory()
+    res: dict = {"step": step}
+    resume = None
+    try:
+        out, res["export_s"] = _tool([
+            "tools/torch_export_checkpoint.py", *argv, "--out_dir",
+            root, "--export_dir", exported])
+        print(f"migration: {out.strip()}", flush=True)
+        files = {k: os.path.join(exported, f"{n}.pth")
+                 for k, n in MIGRATE_FILES.items()}
+        res["state_dict_bytes"] = {k: os.path.getsize(p)
+                                   for k, p in files.items()}
+        out, res["import_s"] = _tool([
+            "tools/torch_import_checkpoint.py", *argv, "--out_dir",
+            imported.name, "--step", str(step),
+            *(a for k, p in files.items() for a in (f"--{k}_ckpt", p))])
+        print(f"migration: {out.strip()}", flush=True)
+        with np.load(os.path.join(imported.name, "checkpoints", str(step),
+                                  ckpt.STATE_FILE)) as f:
+            back = {k: f[k] for k in f.files}
+        a = src["state"]
+        held = [k for k in a if k.startswith(MIGRATE_TREES)]
+        differ = [k for k in held if k not in back
+                  or back[k].dtype != a[k].dtype
+                  or not np.array_equal(back[k], a[k])]
+        res["round_trip"] = {"leaves": len(held), "differ": differ[:20],
+                             "step": int(back["step"]),
+                             "same_paths": back.keys() == a.keys()}
+        if differ or int(back["step"]) != step or back.keys() != a.keys():
+            raise AssertionError(f"the migration's round trip: "
+                                 f"{res['round_trip']}")
+
+        # the sample CLI (each child in an out_dir of its own that links
+        # the imported checkpoints) beside the resumed train CLI
+        t0 = time.perf_counter()
+        samples = {}
+        for name, flags in (
+                ("bf16", ["--n_samples", str(B), "--bf16", "1"]),
+                ("f32_card", ["--n_samples", "2", "--bf16", "0"]),
+                ("f32_cpu", ["--n_samples", "2", "--bf16", "0", "--device",
+                             "cpu"])):
+            out_dir = os.path.join(root, f"sample_{name}")
+            os.makedirs(out_dir)
+            os.symlink(os.path.join(imported.name, "checkpoints"),
+                       os.path.join(out_dir, "checkpoints"))
+            samples[name] = (out_dir, subprocess.Popen(
+                [sys.executable, "-c", SAMPLE_CHILD, *argv, "--mode",
+                 "sample", *flags, "--out_dir", out_dir,
+                 "--pretrained_model", str(step)], cwd=REPO,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        resume = start_train(argv + ["--pretrained_model", str(step)],
+                             step + MIGRATE_STEPS, imported, step)
+        clips, launches = {}, {}
+        try:
+            for name, (out_dir, proc) in samples.items():
+                stdout, stderr = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    raise AssertionError(f"the sample CLI ({name}) on the "
+                                         f"imported checkpoint exited "
+                                         f"{proc.returncode}:\n"
+                                         f"{stderr[-4000:]}")
+                launches[name] = json.loads(
+                    stdout.strip().splitlines()[-1][len("launches "):])
+                clips[name] = np.load(os.path.join(out_dir, "samples.npy"))
+            res["sample_s"] = time.perf_counter() - t0
+        finally:
+            for _, proc in samples.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        g_cfg = parse_config(argv).g_config()
+        want = sample_launches(g_cfg)
+        bf16 = clips["bf16"]
+        shape = (B, g_cfg.n_frames, g_cfg.img_size, g_cfg.img_size, 3)
+        res["sample_launches"] = launches["bf16"]
+        gap = float(np.abs(clips["f32_card"] - clips["f32_cpu"]).max())
+        res["f32_card_vs_cpu"] = gap
+        print(f"migration: the imported checkpoint sampled, bf16 {shape}: "
+              f"range [{bf16.min():.4f}, {bf16.max():.4f}], launches "
+              f"{launches['bf16']} (want {want}); f32 batch 2 card vs cpu "
+              f"max_abs_err {gap:.3e} (atol {SAMPLE_TOL})", flush=True)
+        if (bf16.shape != shape or not np.isfinite(bf16).all()
+                or bf16.min() < -1.0 or bf16.max() > 1.0):
+            raise AssertionError(f"the imported checkpoint's bf16 clips: "
+                                 f"{bf16.shape}, [{bf16.min()}, "
+                                 f"{bf16.max()}]")
+        if launches["bf16"] != want:
+            raise AssertionError(f"launches in the imported checkpoint's "
+                                 f"sample: {launches['bf16']}, want {want}")
+        if not gap <= SAMPLE_TOL:
+            raise AssertionError(f"the imported checkpoint's f32 sample, "
+                                 f"card vs CPU: {gap}")
+        imported = None     # the run's check cleans its out_dir up
+        run = finish_train(resume)
+        if f"resumed from checkpoint step {step}" not in run["stdout"]:
+            raise AssertionError(f"the train CLI did not resume the imported "
+                                 f"checkpoint at step {step}")
+        res["resume"] = {k: run[k] for k in ("per_step", "cli_s",
+                                             "peak_mem_gib", "k1", "k2")}
+    finally:
+        if resume is not None and resume["procs"][0].poll() is None:
+            resume["procs"][0].kill()
+            resume["procs"][0].communicate()
+        if imported is not None:
+            imported.cleanup()
+    res["seconds"] = time.perf_counter() - t_in
+    print("migration " + json.dumps(res), flush=True)
+    return res
+
+
 # ------------------------------------- four cards, NCCL one card a rank (6b)
 # `python3 chip_smoke.py --cards 4`: the train CLI as `--multihost` ranks
 # with `--device cuda` (rank i on cuda:i, NCCL), all full width, bf16
@@ -3683,21 +3893,14 @@ def drive_cards(device) -> dict:
         return finish_ranks(run, keep, "nccl", timeout_s=300)
 
     keep = {k for pair in CARD_BITS for k in pair} | set(CARD_F32)
-    # up to three runs of CARD_RUNS' ranks at a time share the host's
-    # cores: their threads, as a launcher sets them (`pmesh.share_cores`)
-    saved = os.environ.get("OMP_NUM_THREADS")
-    os.environ["OMP_NUM_THREADS"] = str(max(1, len(os.sched_getaffinity(0))
-                                            // (3 * CARDS)))
     done = {}
     try:
-        done = drive_trains(CARD_RUNS, after, tuple(keep), start, finish,
-                            meanwhile)
+        # up to three runs of CARD_RUNS' ranks at a time share the host
+        with child_threads(3 * CARDS):
+            done = drive_trains(CARD_RUNS, after, tuple(keep), start, finish,
+                                meanwhile)
         return check_card_runs(done, refs)
     finally:
-        if saved is None:
-            os.environ.pop("OMP_NUM_THREADS")
-        else:
-            os.environ["OMP_NUM_THREADS"] = saved
         for run in done.values():
             if "tmp" in run:
                 run["tmp"].cleanup()
@@ -3736,10 +3939,10 @@ def steady_ms(log_dir: str, after: int, upto: int, every: int
 
 def _rate_trainer(argv, k: int, par, tmp: str):
     """A trainer of `argv` for both steps_per_call 1 and k (logging every k
-    steps, no dump or save), warmed up over k steps at 1 and k at k (the
-    capture): -> (trainer, its peak device memory in GiB above what was
-    allocated before it was built). Its `steps_per_call` picks the mode of
-    the next `train` call."""
+    steps, no dump or save), warmed up over k steps at 1; its K graph is
+    captured by its first `train` call at k: -> (trainer, its peak device
+    memory in GiB above what was allocated before it was built). Its
+    `steps_per_call` picks the mode of the next `train` call."""
     from dvdgan_tpu_torch.train.trainer import Trainer
     from dvdgan_tpu_torch.utils.config import parse_config
 
@@ -3749,24 +3952,32 @@ def _rate_trainer(argv, k: int, par, tmp: str):
     tr = Trainer(parse_config(argv + [
         "--steps_per_call", str(k), "--log_step", str(k), "--sample_step",
         "0", "--model_save_step", "0", "--out_dir", tmp]), par)
-    for kk in (1, k):
-        tr.steps_per_call = kk
-        tr.train(total_step=tr.start_step + k)
+    tr.steps_per_call = 1
+    tr.train(total_step=tr.start_step + k)
     return tr, (torch.cuda.max_memory_allocated() - base) / 2**30
 
 
-def card_rates_rank(local_rank: int, out: str) -> None:
-    """One rank of the rates (`time_cards`): for each entry of CARD_RATES,
-    the CARDS ranks' trainer and, on rank 0, one rank's (no process group:
-    cuda:0 alone), each warmed up at steps_per_call 1 and K; then the
-    readings in RATE_TURNS (a gloo barrier between turns; the other ranks
-    wait out the one rank's), each `steady_ms` of its own trainer, both
-    sides alike; then each K graph replayed under the profiler
-    (`profile_kernels`), the syncs of one bare K call, the collectives and
-    bytes a step. Its stdout goes to a file; the rows to
-    out/rates_rank<r>.json. Rank 0 also prints each step of the phase,
-    with its seconds, and each entry's row as it ends to the launcher's
-    stdout, so that a call cut short keeps what was done."""
+def card_rates_rank(local_rank: int, out: str, rates=None,
+                    cards: int = CARDS, device: str = "cuda") -> None:
+    """One rank of the rates (`time_cards`): for each entry of `rates`
+    (default CARD_RATES) in a world of `cards` ranks, the readings in
+    RATE_TURNS (a gloo barrier between turns; the other ranks wait out the
+    one rank's), each `steady_ms` of its own trainer, both sides alike: on
+    rank 0 one rank's trainer (no process group: cuda:0 alone), and the
+    ranks' trainer. Each is built at its first turn and warmed up at
+    steps_per_call 1, captures its K graph at its first K turn, and is
+    closed after its last turn, once its K graph has been replayed under
+    the profiler (`profile_kernels`) and one bare K call has been run for
+    its syncs; with the collectives and bytes a step and the peak memory
+    (the larger of its warm-up's and its first K turn's). A trainer keeps
+    its K graph's private pool until it is closed: the long clip's one-card
+    graph (batch 8, the fake pass at 16) reserves ~44 GiB, its eager step
+    ~20 GiB more, so on rank 0 no graph is alive at the one card's K 1
+    reading, nor the ranks' trainer at its capture (`ROADMAP.md` Queue 3).
+    Its stdout goes to a file; the rows to out/rates_rank<r>.json. Rank 0
+    also prints each step of the phase, with its seconds and memory, and
+    each entry's row as it ends to the launcher's stdout, so that a call
+    cut short keeps what was done."""
     import faulthandler
     import gc
     import warnings
@@ -3779,93 +3990,105 @@ def card_rates_rank(local_rank: int, out: str) -> None:
 
     def note(msg: str) -> None:
         if local_rank == 0:
-            print(f"[rates {time.perf_counter() - t0:6.1f} s] {msg}",
+            mem = (f", allocated {torch.cuda.memory_allocated() / 2**30:.2f}"
+                   f" GiB, reserved {torch.cuda.memory_reserved() / 2**30:.2f}"
+                   f" GiB" if torch.cuda.is_available() else "")
+            print(f"[rates {time.perf_counter() - t0:6.1f} s{mem}] {msg}",
                   file=sys.__stdout__, flush=True)
+
+    def release() -> None:
+        gc.collect()                # the graphs and their pools
+        torch.cuda.empty_cache()
+
+    def read(name: str, side: str, tr, k: int, kk: int, n: int) -> dict:
+        """One reading of `tr` at steps_per_call kk over n steps; its first
+        K turn (the capture) also measures the peak memory."""
+        tr.steps_per_call = kk
+        first = tr.start_step
+        comms = collectives.COUNTS.snapshot()
+        capture = kk > 1 and tr._multi is None
+        if capture:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        faulthandler.dump_traceback_later(TURN_LIMIT_S, exit=True,
+                                          file=sys.stdout)
+        tr.train(total_step=first + n)
+        faulthandler.cancel_dump_traceback_later()
+        if capture:
+            peaks[side] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        if kk > 1:      # a replay moves no counter
+            comms = tr._multi.comms
+        else:
+            comms = {c: (v - comms[c]) // n for c, v in
+                     collectives.COUNTS.snapshot().items()}
+        note(f"{name}: read {side} at K {kk}")
+        return {"who": side, "k": kk, "ms_per_step": (
+            steady_ms(os.path.join(tr.out_dir, "logs"), first, first + n, k)
+            if tr.is_main else None), "comms_per_step": comms}
+
+    def profiled(side: str, k: int) -> dict:
+        """The K graph of `side`'s trainer replayed under the profiler and
+        one bare K call's syncs; then the trainer is closed."""
+        tr, warm_peak = who.pop(side)
+        multi = tr._multi
+        view = profile_kernels(lambda: multi.graph.replay())
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                multi(multi.state, multi.reals, multi.ys, 0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        row = {
+            "peak_mem_gib": max(warm_peak, peaks.pop(side)),
+            "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+            "capture_s": multi.capture_s,
+            "device_ms_per_step": view["device_ms"] / k,
+            "nccl_ms_per_step": view["nccl_ms"] / k,
+            "nccl_launches_per_step": view["nccl_launches"] / k,
+            "comms_per_step_k": multi.comms,
+            "syncs_in_a_k_call": len(caught),
+            "sync_sites": sorted({str(w.message)[:100] for w in caught})[:4]}
+        tr.close()
+        return row
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    par = pmesh.init_from_env(torch.device("cuda"), 1, CARDS * B_TRAIN)
+    par = pmesh.init_from_env(torch.device(device), 1, cards * B_TRAIN)
     coord = torch.distributed.new_group(backend="gloo")
     tmp = tempfile.TemporaryDirectory()
-    rows, ones, one_rows = {}, {}, {}
+    rows, who, peaks = {}, {}, {}
+    last = {side: i for i, (side, _) in enumerate(RATE_TURNS)}
     failed = False
     try:
-        for name, (argv, one_argv, k, n) in CARD_RATES.items():
-            model = name.rsplit("_", 1)[0]
-            if par.is_main and model not in ones:   # one card's, for both
-                for tr, _ in ones.values():
-                    tr.close()
-                ones = {model: _rate_trainer(one_argv, k, None, os.path.join(
-                    tmp.name, f"one_{name}"))}
-                torch.cuda.empty_cache()
-            who = {"ranks": _rate_trainer(argv, k, par, os.path.join(
-                tmp.name, name))}
-            note(f"{name}: trainers built and warmed up")
-            if par.is_main:
-                who["one"] = ones[model]
-            turns = []
-            for side, kk in RATE_TURNS:
-                kk = k if kk == "K" else kk
+        for name, (argv, one_argv, k, n) in (rates or CARD_RATES).items():
+            row, turns = {}, []
+            for i, (side, kk) in enumerate(RATE_TURNS):
                 torch.distributed.barrier(group=coord)
                 if side == "one" and not par.is_main:
                     continue
-                tr = who[side][0]
-                tr.steps_per_call = kk
-                first = tr.start_step
-                comms = collectives.COUNTS.snapshot()
-                faulthandler.dump_traceback_later(TURN_LIMIT_S, exit=True,
-                                                  file=sys.stdout)
-                tr.train(total_step=first + n)
-                faulthandler.cancel_dump_traceback_later()
-                if kk > 1:      # a replay moves no counter
-                    comms = tr._multi.comms
-                else:
-                    comms = {c: (v - comms[c]) // n for c, v in
-                             collectives.COUNTS.snapshot().items()}
-                turns.append({"who": side, "k": kk, "ms_per_step": (
-                    steady_ms(os.path.join(tr.out_dir, "logs"), first,
-                              first + n, k) if tr.is_main else None),
-                    "comms_per_step": comms})
-                note(f"{name}: read {side} at K {kk}")
-            row = {"turns": turns}
-            for side in ("ranks", "one"):     # the ranks' K call on all
-                torch.distributed.barrier(group=coord)
                 if side not in who:
-                    continue
-                if side == "one" and model in one_rows:     # read already
-                    row[side] = one_rows[model]
-                    continue
-                multi = who[side][0]._multi
-                view = profile_kernels(lambda: multi.graph.replay())
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    with warnings.catch_warnings(record=True) as caught:
-                        warnings.simplefilter("always")
-                        multi(multi.state, multi.reals, multi.ys, 0)
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-                row[side] = {
-                    "peak_mem_gib": who[side][1],
-                    "capture_s": multi.capture_s,
-                    "device_ms_per_step": view["device_ms"] / k,
-                    "nccl_ms_per_step": view["nccl_ms"] / k,
-                    "nccl_launches_per_step": view["nccl_launches"] / k,
-                    "comms_per_step_k": multi.comms,
-                    "syncs_in_a_k_call": len(caught),
-                    "sync_sites": sorted({str(w.message)[:100]
-                                          for w in caught})[:4]}
-                if side == "one":
-                    one_rows[model] = row[side]
+                    release()
+                    who[side] = _rate_trainer(
+                        argv if side == "ranks" else one_argv, k,
+                        par if side == "ranks" else None,
+                        os.path.join(tmp.name, f"{side}_{name}"))
+                    note(f"{name}: the {side} side's trainer built and "
+                         f"warmed up at K 1, peak {who[side][1]:.2f} GiB")
+                turns.append(read(name, side, who[side][0], k,
+                                  k if kk == "K" else kk, n))
+                if i == last[side]:
+                    if side == "ranks":     # the ranks' K call on all
+                        torch.distributed.barrier(group=coord)
+                    row[side] = profiled(side, k)
+                    release()
             torch.distributed.barrier(group=coord)
-            rows[name] = row
-            note(f"{name}: {json.dumps(row)}")
+            rows[name] = {"turns": turns, **row}
+            note(f"{name}: {json.dumps(rows[name])}")
             with open(os.path.join(out, f"rates_rank{local_rank}.json"),
                       "w") as f:            # what is done so far
                 json.dump(rows, f)
-            who["ranks"][0].close()
-            who = multi = tr = None
-            gc.collect()                # the graphs and their pools
-            torch.cuda.empty_cache()
     except BaseException:
         # the error to the launcher's stderr first: the group's destruction
         # waits on any graph that still holds its collectives, and so a
@@ -3876,10 +4099,9 @@ def card_rates_rank(local_rank: int, out: str) -> None:
         raise
     finally:
         faulthandler.cancel_dump_traceback_later()
-        for tr, _ in ones.values():
+        for tr, _ in who.values():
             tr.close()
-        ones.clear()
-        who = multi = tr = None     # their graphs, before the group goes
+        who.clear()     # their graphs, before the group goes
         tmp.cleanup()
         if not failed:
             par.close()
@@ -4085,7 +4307,7 @@ def main(argv=None) -> int:
     # every train CLI run of this script, side by side; this process hands
     # its cached blocks back first, for the children
     torch.cuda.empty_cache()
-    runs = drive_trains({
+    train_runs = {
         **TRAINER_RUNS, **TRAINER_RUNS_K,
         "longclip": (LONG_ARGV, LONG_STEPS),
         "longclip_fused": (LONG_ARGV + FUSED, LONG_STEPS),
@@ -4094,11 +4316,13 @@ def main(argv=None) -> int:
         "px128_on": (PX128_ARGV + ON, PX128_STEPS),
         "frames_k1": (frames_argv, FRAMES_STEPS),
         "frames_k2": (frames_argv + ["--steps_per_call", "2", "--log_step",
-                                     "2"], FRAMES_STEPS)},
-        {**TRAINER_RESUMES, **TRAINER_RESUMES_K, **FP_AFTER, **EVAL_AFTER,
-         **P_AFTER},
-        TRAINER_KEEP + ("trainer_AK", "trainer_BK", "frames_k1", "frames_k2",
-                        *FP_AFTER, *EVAL_AFTER))
+                                     "2"], FRAMES_STEPS)}
+    with child_threads(len(train_runs)):
+        runs = drive_trains(
+            train_runs, {**TRAINER_RESUMES, **TRAINER_RESUMES_K, **FP_AFTER,
+                         **EVAL_AFTER, **P_AFTER},
+            TRAINER_KEEP + ("trainer_AK", "trainer_BK", "frames_k1",
+                            "frames_k2", *FP_AFTER, *EVAL_AFTER))
     frames_tmp.cleanup()
     train_fused = runs["train_fused"]
     long_run, long_fused = runs["longclip"], runs["longclip_fused"]
@@ -4110,15 +4334,32 @@ def main(argv=None) -> int:
         {k: v["per_step"] for k, v in p_runs.items()}), flush=True)
     check_k_runs(runs)
     check_eval_runs(runs)
+    migrate_src = migration_source(trainer_a)
     check_trainer_runs(runs)
     phase("the train CLI runs (the trainer's, under --steps_per_call 2, on "
           "frame folders, the long clip, the 128 px step, DVD-GAN-FP, with "
           "--eval_step)")
     time_frames_loader()
     phase("the frames loader at UCF-101's frame size")
-    evals = drive_eval(device)
-    phase("the evaluation (--mode eval: i3d, c3d, cached, FP; the networks "
-          "card vs CPU and timed; Trainer.evaluate() twice)")
+    # the migration's children from a thread, beside the evaluation's
+    # (up to four and three at a time)
+    migrate_pool = concurrent.futures.ThreadPoolExecutor(1)
+    with child_threads(7):
+        migrate_future = migrate_pool.submit(migration_children, migrate_src)
+        evals = drive_eval(device)
+        phase("the evaluation (--mode eval: i3d, c3d, cached, FP; the "
+              "networks card vs CPU and timed; Trainer.evaluate() twice)")
+        try:
+            migration = migrate_future.result()
+        finally:
+            migrate_pool.shutdown()
+            migrate_src["tmp"].cleanup()
+    print(f"the migration: {migration['seconds']:.1f} s (export "
+          f"{migration['export_s']:.1f}, import {migration['import_s']:.1f}, "
+          f"samples {migration['sample_s']:.1f}, resume "
+          f"{migration['resume']['cli_s']:.1f})", flush=True)
+    phase("the migration to and from PyTorch state dicts (export, import, "
+          "A's bits, the imported checkpoint sampled and resumed)")
     par = drive_parallel(device)
     phase("the parallel runs (two ranks on the card over gloo: DP2, DP2-B, "
           "CP2, the long clip's CP2, the f32 DP2 and CP2 against one "
@@ -4435,8 +4676,13 @@ def main(argv=None) -> int:
                **par_paths("k1", flag_par),
                **art_paths("k1", ("a1", "a2", "a4", "a5")),
                "sample_p1": p_samples["p1"][0]["k1"],
-               "p1_train": p_runs["p1"]["k1"]},
+               "p1_train": p_runs["p1"]["k1"],
+               "migrated_sample": migration["sample_launches"]["k1"],
+               "migrated_resume": migration["resume"]["k1"]},
               {"sample": sample_run["k1"],
+               "migrated_sample": migration["sample_launches"]["k1"],
+               "migrated_resume": migration["resume"]["per_step"][
+                   "k1_launches"],
                "p1_train": p_runs["p1"]["per_step"]["k1_launches"],
                "trainer": trainer_a["per_step"]["k1_launches"],
                **par_per_step("k1", ("dp2", "cp2")),
@@ -4461,8 +4707,11 @@ def main(argv=None) -> int:
               {"sample": 0, "train_fused": train_fused["k2"],
                "trainer": trainer_a["k2"], "fp": fp_k1["k2"],
                "fp_k2": fp_k2["k2"], **par_paths("k2", flag_par),
-               "p1_train": p_runs["p1"]["k2"]},
+               "p1_train": p_runs["p1"]["k2"],
+               "migrated_resume": migration["resume"]["k2"]},
               {"trainer": trainer_a["per_step"]["k2_launches"],
+               "migrated_resume": migration["resume"]["per_step"][
+                   "k2_launches"],
                "p1_train": p_runs["p1"]["per_step"]["k2_launches"],
                **par_per_step("k2", ("dp2", "cp2")),
                "fp": fp_k1["per_step"]["k2_launches"]},

@@ -29,7 +29,9 @@ DS_KW = dict(n_items=12, n_frames=4, img_size=16, n_classes=5, seed=3)
 def port_sources():
     paths = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(REPO, "tools", f"{name}.py")
-        for name in ("torch_export_serving", "torch_bench_sample")]
+        for name in ("torch_export_serving", "torch_bench_sample",
+                     "torch_import_checkpoint", "torch_export_checkpoint",
+                     "torch_card_rates_one")]
     for root, _, files in os.walk(os.path.join(REPO, "dvdgan_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)
