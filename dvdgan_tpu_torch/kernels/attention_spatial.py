@@ -156,14 +156,24 @@ def spatial_attn_reference(x, wq, wk, wv, wo, gamma) -> torch.Tensor:
 # is also what an SM holds by registers (255 a thread at 8 warps, 128 at
 # 16), so the persistent grid takes one such CTA an SM. Mode 3 takes the
 # widths the others refuse on maps of at most WIDE_KEYS keys (the 4×4, 8×8
-# and 16×16 attention at C 384 and up: q and the logits in passes of 32 q
-# channels, attn·v in passes of 128 o channels), Wq^T and Wo^T read from L2
-# (the wrapper hands it them transposed) and each warp's o in a
-# shared-memory buffer; mode 4 the same widths on larger maps (the 32×32
-# attention at C 384–1024, 64×64 at C 384–512) in mode 1's three sweeps,
-# k and vᵀ read from L2, each warp's q, attn and o in shared-memory buffers.
-# Modes 3 and 4 take any width (c2 % 32 == 0; their OT is no limit) and run
-# as many warps a CTA as their buffers fit, at most the table's.
+# and 16×16 attention at C 384 and up), mode 4 the same widths on larger
+# maps (the 32×32 attention at C 384–1024, 64×64 at C 384–512). Neither the
+# weights nor, in mode 4, the frame's k and vᵀ fit shared memory, and a warp
+# that read them from L2 for its own 16 rows would read 0.58–2.95 MB a warp
+# item. So a work item of theirs is tq queries of
+# one frame on all of a CTA's warps at once, and Wq^T, the frame's split k,
+# its vᵀ and Wo^T (the wrapper hands the weights transposed) stream through
+# a ring of 10,240-byte tiles in shared memory that the warps take turns to
+# copy (cp.async, full and empty mbarriers): each byte read from L2 serves
+# the item's tq rows. The widths go in passes (q and the logits 32 q
+# channels, attn·v 64 o channels, o·Wo 128 o channels a pass, each pass's
+# sums promoted into f32 totals); mode 4 keeps a 32×32 row's 256 logits in
+# registers and sweeps larger maps three times. Each warp keeps its o (mode
+# 4 also q, and on maps of other than RES_KEYS keys attn) in a shared-memory
+# buffer. Their products stay on mma.sync: what bounds them is the latency
+# of each warp's chains at 8 warps an SM or fewer. Modes 3 and 4 take any
+# width (c2 % 32 == 0; their OT is no limit) and run as many warps a CTA as
+# their buffers fit beside the ring, at most the table's.
 BODIES = ((0, 4, 8), (0, 16, 8), (1, 4, 16), (1, 8, 8), (1, 16, 8),
           (2, 4, 16), (2, 8, 8), (2, 16, 8), (3, 32, 8), (4, 32, 8))
 RES_KEYS = 256
@@ -174,6 +184,11 @@ MAX_SMEM_BYTES = 232448
 SM_SMEM_BYTES, CTA_RESERVED_BYTES = 233472, 1024
 SMS = 132          # H100 SXM; `_forward` asks the card
 MAX_WARPS_PER_SM = 64
+# modes 3 and 4: the ring of tiles their warps share, as many stages of
+# TILE_BYTES as fit beside the warps' buffers, MIN_STAGES to MAX_STAGES,
+# and its barriers (two mbarriers a stage, MAX_STAGES of them)
+TILE_BYTES, MIN_STAGES, MAX_STAGES = 10240, 3, 8
+BAR_BYTES = 16 * MAX_STAGES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,15 +234,48 @@ def _bf16_smem(kvn: int, c: int, c8: int, c2: int, v_staged: bool) -> int:
     return with_k if v_staged or with_k <= MAX_SMEM_BYTES else head
 
 
-def _wide_smem(kvn: int, c8: int, c2: int, warps: int) -> int:
-    """Mode 3's split k, vᵀ and a 16-row o buffer a warp (its
+def wide_tiles(mode: int, kvn: int, c: int, c8: int, c2: int) -> int:
+    """The ring's tiles of a work item of mode 3 or 4 (its `wide_tiles`):
+    q passes × blocks of C, the k tiles (mode 3: each q pass's; mode 4:
+    each of the three sweeps', one on maps of RES_KEYS keys), vᵀ's, Wo^T's."""
+    qp, cb = -(-c8 // 32), -(-c // 128)
+    kb, vp, wo = -(-kvn // 32), -(-c2 // 64), (c // 32) * -(-c2 // 128)
+    if mode == 3:
+        return qp * (cb + kb) + vp + wo
+    return (qp * cb + (1 if kvn == RES_KEYS else 3) * kb * qp
+            + vp * -(-kvn // 64) + wo)
+
+
+def _ring(mode: int, kvn: int, c: int, c8: int, c2: int, warps: int,
+          warps_bytes: int) -> int:
+    """The wide bodies' ring beside `warps_bytes` of the warps' buffers:
+    its barriers, its table of an item's tiles (16 bytes each) and as many
+    stages as fit, MIN_STAGES to MAX_STAGES, in the CTA's share of an SM
+    that holds as many CTAs of `warps` as registers allow (8 / warps) where
+    the least ring fits in it, else in MAX_SMEM_BYTES."""
+    fixed = BAR_BYTES + 16 * wide_tiles(mode, kvn, c, c8, c2) + warps_bytes
+    share = SM_SMEM_BYTES // max(1, 8 // warps) - CTA_RESERVED_BYTES
+    budget = (share if share < MAX_SMEM_BYTES
+              and fixed + MIN_STAGES * TILE_BYTES <= share
+              else MAX_SMEM_BYTES)
+    room = max(0, budget - fixed) // TILE_BYTES
+    fixed -= warps_bytes
+    return fixed + min(max(room, MIN_STAGES), MAX_STAGES) * TILE_BYTES
+
+
+def _wide_smem(kvn: int, c: int, c8: int, c2: int, warps: int) -> int:
+    """Mode 3's ring and a 16-row o buffer a warp (its `wide_layout`)."""
+    own = warps * 32 * (c2 + 8)
+    return _ring(3, kvn, c, c8, c2, warps, own) + own
+
+
+def _wide_sweep_smem(kvn: int, c: int, c8: int, c2: int, warps: int) -> int:
+    """Mode 4's ring and, a warp, its q buffer (which its o buffer reuses)
+    and, on maps of other than RES_KEYS keys, its attn buffer (its
     `wide_layout`)."""
-    return 8 * c8 * kvn + 2 * c2 * (kvn + 8) + warps * 32 * (c2 + 8)
-
-
-def _wide_sweep_smem(kvn: int, c8: int, c2: int, warps: int) -> int:
-    """Mode 4's q, attn and o buffers a warp (its `wide_sweep_layout`)."""
-    return warps * (128 * c8 + 32 * kvn + 32 * (c2 + 8))
+    attn = 32 * kvn if kvn != RES_KEYS else 0
+    own = warps * (max(128 * c8, 32 * (c2 + 8)) + attn)
+    return _ring(4, kvn, c, c8, c2, warps, own) + own
 
 
 def _kv_fits(dtype: torch.dtype, kvn: int, c: int) -> bool:
@@ -289,7 +337,7 @@ def plan(dtype: torch.dtype, n: int, h: int, w: int, c: int, c8: int,
             mode = 3 if kvn <= WIDE_KEYS else 4
             body = _body(mode, c8, c2)
             layout = _wide_smem if mode == 3 else _wide_sweep_smem
-            fits = functools.partial(layout, kvn, c8, c2)
+            fits = functools.partial(layout, kvn, c, c8, c2)
         most = 16 * BODIES[body][2]
         sizes = [tq for tq in (most, most // 2, most // 4, most // 8,
                                most // 16) if tq >= 16]

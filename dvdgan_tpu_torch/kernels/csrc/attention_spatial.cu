@@ -68,28 +68,46 @@
 //            lane's accumulators are 8 neighbouring channels: x read and out
 //            written as 16-byte vectors.
 //
-// Wide attention on small maps (mode 3: at most WIDE_KEYS keys, any c8 and
-// c2, the 4x4, 8x8 and 16x16 attention at C 384 and up): the weights do not
-// fit shared memory (Wo^T alone is 264 KB at C 512) and a warp's registers
-// do not hold the widths in one pass, so Wq^T and Wo^T are read from L2
-// (transposed by the wrapper) and the widths are split: q and the logits in
-// passes of 32 q channels, each k-step's logits summed from zero and added
-// into f32 totals in k order, attn v in passes of 128 o channels each
-// rounded into a per-warp o buffer in shared memory, o Wo from that buffer
-// by ldmatrix with each pass of 128 o channels summed apart and added into
-// f32 totals (rows_wide).
+// The wide bodies (modes 3 and 4: widths past what a warp's registers hold
+// in one pass, C 384 and up): neither Wq^T and Wo^T (Wo^T alone is 264 KB at
+// C 512) nor, on larger maps, the frame's split k and v^T (~390 KB each at
+// 64x64 x 384) fit shared memory, so a warp would read them from L2 for its
+// 16 rows alone: per 16 rows 0.58 MB at 32x32 x 384 (k three times, v^T,
+// both weights), 1.75 MB at 64x64 x 384, 2.95 MB of weights at 8x8 x 1536.
+// What bounds these bodies on this card is so the bytes each row reads from
+// L2 and, once those are shared, the latency of the warps' mma.sync chains
+// (the weights' products, and mode 4's three 3xTF32 logit sweeps) at one or
+// two warps an SM sub-partition. The design: a work item is TQ queries of
+// one frame on all of a CTA's warps (16 rows each) at once, and what they
+// read in common streams through a ring of tiles in shared memory
+// (Wide::tile: Wq^T 32 q channels x 128 channels of C, split k 4 k-steps x
+// 32 keys, v^T 64 channels x 64 keys, Wo^T 32 output channels x 128 o
+// channels), each tile copied once for the item's TQ rows by one warp in
+// turn with cp.async, handed over by full and empty mbarriers (no block
+// barrier, no warp copies for another's rows). A warp's arithmetic is what
+// its 16 rows need and in the order below whatever tile or grid it runs
+// under; the widths go in passes:
 //
-// Wide attention on larger maps (mode 4: more than WIDE_KEYS keys at widths
-// past modes 0-2's, the 32x32 attention at C 384-1024 and 64x64 at C
-// 384-512): the widths go in passes as in mode 3 and the keys in sweeps as in
-// mode 1, with the frame's k and v^T read from L2 and three buffers a warp in
-// shared memory: q's split A fragments (formed in passes of 32 q channels,
-// block sums promoted, then read back one k-step at a time by the logit
-// sweeps), attn's bf16 A fragments of every key (the third sweep writes them
-// once), and o (passes of 64 o channels, each a sum over blocks of SWEEP_KEYS
-// keys promoted into f32 totals, rounded into o_to_buffer's columns) for
-// out_wide (rows_wide_sweep).
+// Mode 3 (maps of at most WIDE_KEYS keys: the 4x4, 8x8 and 16x16
+// attention): q and the logits in passes of 32 q channels (block sums over
+// 128 channels of C promoted), each k-step's logits summed from zero and
+// added into the row's f32 logits (in registers) in k order; attn v in
+// passes of 64 o channels rounded into a per-warp o buffer in shared
+// memory; o Wo from that buffer by ldmatrix, two groups of 32 output
+// channels at a time, each pass of 128 o channels summed apart and added
+// into f32 totals (rows_wide, out_wide).
 //
+// Mode 4 (larger maps: the 32x32 attention at C 384-1024, 64x64 at C
+// 384-512): q as in mode 3, its split A fragments in a per-warp q buffer;
+// on maps of RES_KEYS keys (32x32) each logit formed once and a row's 256
+// kept in registers, on others mode 1's three sweeps over the k tiles (the
+// same bits each time) with attn's bf16 A fragments in a per-warp buffer;
+// attn v in passes of 64 o channels, each a sum over blocks of 64 keys
+// promoted into f32 totals; o into the o buffer (over the q buffer) and
+// out_wide (rows_wide_resident, rows_wide_sweep). The products stay on
+// mma.sync, not wgmma, so a wide body remains bound by the latency of its
+// warps' chains at 8 warps an SM or fewer (tools/torch_k6_phases.py).
+
 // Keys that are not a multiple of 16 (the 4x4 map's 4): the first launch
 // writes the frame's k and v^T padded with zero tokens to the next multiple
 // of 16 (keys_padded), and the second sets the padded keys' logits to -inf
@@ -118,8 +136,8 @@
 // What bounds it on the H100: in bf16 the tensor cores and the exps' MUFU
 // (two exps a logit at 64x64) more than the bytes (x read twice, out written
 // once); this version is still bound by latency at one CTA of 8 or 16 warps
-// an SM. Per-phase cycles of the bf16 body: build with -DK6_PROFILE
-// (tools/torch_k6_phases.py).
+// an SM (the wide bodies: above). Per-phase cycles of the bf16 body: build
+// with -DK6_PROFILE (tools/torch_k6_phases.py).
 
 #include <cmath>
 #include <cstddef>
@@ -178,12 +196,16 @@ __host__ __device__ inline int keys_padded(int keys) {
 
 // With -DK6_PROFILE the bf16 body adds the cycles lane 0 of every warp spends
 // in each phase of a work item to k6_cycles (read and zeroed through
-// spatial_attn_profile): 0 frame staging, 1 q, 2 logits (sweep: the max
-// sweep), 3 softmax (sweep: the sum sweep), 4 attn v (sweep: the third
-// sweep), 5 o Wo and the store; 6 counts warp items, 7 frames staged. Without
-// it the marks compile to nothing.
+// spatial_attn_profile): 0 frame staging (modes 3 and 4: the next item's x
+// prefetch), 1 q, 2 logits (sweep: the max sweep; mode 3: with q), 3
+// softmax (sweep: the sum sweep), 4 attn v (sweep: the third sweep), 5 o Wo
+// and the store; 6 counts warp items, 7 frames staged. Modes 3 and 4 also:
+// 8 the cycles a warp waits for a tile of the ring, 9 counts the tiles, 10
+// the cycles a warp waits, at its turn to copy a tile, for its stage to be
+// released, 11 the cycles it then spends issuing the copies (8, 10 and 11
+// lie inside the phases' cycles). Without it the marks compile to nothing.
 #ifdef K6_PROFILE
-__device__ unsigned long long k6_cycles[8];
+__device__ unsigned long long k6_cycles[12];
 #define K6_START() long long k6_t = clock64()
 #define K6_LAP(i)                                                          \
   do {                                                                     \
@@ -715,9 +737,8 @@ __device__ __forceinline__ void fwd_f32(
 // quarter warp's 16-byte loads of two rows hit all 32 banks), ldo and ldv
 // are odd multiples of 16 bytes (conflict-free ldmatrix).
 struct TcLayout {
-  int ldq, ldo, ldv, ldb;
-  size_t wo, v, k, ob, total;     // offsets; Wq^T starts at 0
-  size_t warp_bytes;              // modes 3 and 4: a warp's buffers from ob
+  int ldq, ldo, ldv;
+  size_t wo, v, k, total;         // offsets; Wq^T starts at 0
   bool k_staged;
 };
 
@@ -733,48 +754,80 @@ __host__ __device__ inline TcLayout tc_layout(int kvn, int C, int c8, int c2,
   const size_t k_end = L.k + (size_t)c8 * kvn * 8;
   L.k_staged = v_staged || k_end <= SMEM_MAX;
   L.total = L.k_staged ? k_end : L.k;
-  L.ldb = 0;
-  L.ob = L.total;
-  L.warp_bytes = 0;
   return L;
 }
 
-// Mode 3 stages no weights (Wq^T and Wo^T are read from L2: ldq and ldo are
-// their global row strides): the frame's split k [c8 / 8][kvn][16] f32 at
-// 0, its v^T [c2][ldv], and a 16-row o buffer [16][ldb] for each of the
-// CTA's warps (ldb an odd multiple of 16 bytes: conflict-free ldmatrix).
-__host__ __device__ inline TcLayout wide_layout(int kvn, int C, int c8, int c2,
-                                                int warps) {
-  TcLayout L;
-  L.ldq = C;
-  L.ldo = c2;
-  L.ldv = kvn + 8;
-  L.ldb = c2 + 8;
-  L.wo = L.k = 0;
-  L.v = (size_t)c8 * kvn * 8;
-  L.ob = L.v + (size_t)c2 * L.ldv * 2;
-  L.warp_bytes = (size_t)16 * L.ldb * 2;
-  L.total = L.ob + (size_t)warps * L.warp_bytes;
-  L.k_staged = true;
-  return L;
+// Modes 3 and 4 (the wide bodies) run the CTA's warps on one work item at a
+// time and stream what they read in common through a ring of tiles of at
+// most TILE_BYTES (Wide::tile): Wq^T as 32 q channels x 128
+// channels of C, the frame's split k as K_STEPS k-steps x K_KEYS keys, its
+// v^T as 64 channels x 64 keys, Wo^T as 32 output channels x 128 o
+// channels. Weight tiles keep two rows 64 bytes apart modulo 128 (W_LD: the
+// 16-byte fragment loads of eight rows hit all banks), v^T tiles an odd
+// multiple of 16 bytes (V_LD: ldmatrix).
+constexpr int MIN_STAGES = 3, MAX_STAGES = 8;
+constexpr int SM_SMEM = 233472, CTA_RESERVED = 1024;  // an SM's, a CTA's own
+constexpr int WIDE_WARPS = 8;   // the wide bodies' most warps (BODY_TABLE)
+constexpr int TILE_BYTES = 10240;
+constexpr int BAR_BYTES = 16 * MAX_STAGES;   // a full and an empty mbarrier a stage
+constexpr int W_LD = 160;
+constexpr int V_LD = 72;
+constexpr int K_STEPS = 4;
+constexpr int K_KEYS = 32;
+
+// Their shared memory: the ring's barriers at 0, its stages (as many as fit
+// beside the warps' regions, MIN_STAGES to MAX_STAGES, in the CTA's share
+// of an SM where that holds the least ring), then a region a warp. Mode 3: the warp's o buffer [16][ldb]. Mode 4: its
+// q buffer (c8 / 8 k-steps x hi, lo x 32 lanes x 16 bytes: a lane's tf32 A
+// fragments), which its o buffer [16][ldb] reuses once the logits are done,
+// then, where the map has other than RES_KEYS keys, its attn buffer (kvn /
+// 16 k-steps x 32 lanes x 16 bytes: a lane's bf16 A fragments). ldb is an
+// odd multiple of 16 bytes (conflict-free ldmatrix).
+struct WideLayout {
+  int ldb, stages;
+  size_t table_bytes, qo_bytes, warp_bytes, total;
+};
+
+// The tiles of a work item (Wide::tile): q passes x C blocks, the k tiles
+// (mode 3: each q pass's; mode 4: every sweep's, one sweep on maps of
+// RES_KEYS keys), the v^T tiles, Wo^T's.
+__host__ __device__ inline int wide_tiles(int mode, int kvn, int C, int c8,
+                                          int c2) {
+  const int qp = (c8 / 8 + K_STEPS - 1) / K_STEPS, cb = (C + 127) / 128;
+  const int kb = (kvn + K_KEYS - 1) / K_KEYS, vp = (c2 + 63) / 64;
+  const int wo = (C / 32) * ((c2 + 127) / 128);
+  if (mode == 3) return qp * (cb + kb) + vp + wo;
+  return qp * cb + (kvn == RES_KEYS ? 1 : 3) * kb * qp +
+         vp * ((kvn + 63) / 64) + wo;
 }
 
-// Mode 4 stages nothing of the frame (its split k and v^T are read from L2)
-// and no weights: a warp's q buffer (c8 / 8 k-steps x hi, lo x 32 lanes x
-// 16 bytes: a lane's tf32 A fragments), attn buffer (kvn / 16 k-steps x 32
-// lanes x 16 bytes: a lane's bf16 A fragments) and o buffer [16][ldb], one
-// after the other, a warp's after the last's.
-__host__ __device__ inline TcLayout wide_sweep_layout(int kvn, int C, int c8,
-                                                      int c2, int warps) {
-  TcLayout L;
-  L.ldq = C;
-  L.ldo = c2;
-  L.ldv = kvn;
+// ... and the table of an item's tiles (TileEntry, 16 bytes each) after the
+// barriers.
+__host__ __device__ inline WideLayout wide_layout(int mode, int kvn, int C,
+                                                  int c8, int c2, int warps) {
+  WideLayout L;
   L.ldb = c2 + 8;
-  L.wo = L.k = L.v = L.ob = 0;
-  L.warp_bytes = (size_t)c8 * 128 + (size_t)kvn * 32 + (size_t)16 * L.ldb * 2;
-  L.total = (size_t)warps * L.warp_bytes;
-  L.k_staged = false;
+  L.table_bytes = (size_t)16 * wide_tiles(mode, kvn, C, c8, c2);
+  const size_t ob = (size_t)32 * L.ldb, qb = (size_t)128 * c8;
+  L.qo_bytes = mode == 4 && qb > ob ? qb : ob;
+  L.warp_bytes =
+      L.qo_bytes + (mode == 4 && kvn != RES_KEYS ? (size_t)32 * kvn : 0);
+  const size_t fixed = (size_t)warps * L.warp_bytes + BAR_BYTES +
+                       L.table_bytes;
+  // the CTA's share of an SM that holds as many of its size as registers
+  // allow (WIDE_WARPS / warps), where the least ring fits in it; else
+  // SMEM_MAX
+  const int per_sm = warps < WIDE_WARPS ? WIDE_WARPS / warps : 1;
+  const size_t share = (size_t)SM_SMEM / per_sm - CTA_RESERVED;
+  const size_t budget =
+      share < SMEM_MAX && fixed + (size_t)MIN_STAGES * TILE_BYTES <= share
+          ? share
+          : SMEM_MAX;
+  const size_t room = fixed < budget ? (budget - fixed) / TILE_BYTES : 0;
+  L.stages = room < MIN_STAGES   ? MIN_STAGES
+             : room > MAX_STAGES ? MAX_STAGES
+                                 : (int)room;
+  L.total = (size_t)L.stages * TILE_BYTES + fixed;
   return L;
 }
 
@@ -883,6 +936,29 @@ __device__ __forceinline__ void fence(uint32_t (&a)[4]) {
   asm volatile("" : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]));
 }
 
+// The accumulators of q (two chains an n-tile: the k-steps of a chunk)
+// added in f32 and split into the hi and lo tf32 A fragments of the logits:
+// the accumulator holds q[g][8nt + 2t, + 1] and q[g + 8][..], the tf32 A
+// fragment's k = t and t + 4, with channel 8nt + 2t as k = t.
+template <int QT>
+__device__ __forceinline__ void q_split(const float (&qa)[QT][4],
+                                        const float (&qb)[QT][4],
+                                        uint32_t (&qh)[QT][4],
+                                        uint32_t (&ql)[QT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < QT; ++nt) {
+    const float a[4] = {qa[nt][0] + qb[nt][0], qa[nt][2] + qb[nt][2],
+                        qa[nt][1] + qb[nt][1], qa[nt][3] + qb[nt][3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      qh[nt][e] = tf32_rna(a[e]);
+      ql[nt][e] = tf32_rna(a[e] - __uint_as_float(qh[nt][e]));
+    }
+    fence(qh[nt]);
+    fence(ql[nt]);
+  }
+}
+
 // q of the warp's 16 rows xr[0 .. 15] (row stride C), f32 sums of bf16
 // products on mma.sync, split into the hi and lo tf32 A fragments of the
 // logits. Lane (g, t) loads 16 bytes of rows g and g + 8 at channels
@@ -891,15 +967,7 @@ __device__ __forceinline__ void fence(uint32_t (&a)[4]) {
 // and Wq^T read in the same order, also 16 bytes a lane. Four chunks' loads
 // are in flight at once; the two k-steps sum into two accumulators (two
 // chains an n-tile), added in f32 at the end.
-template <bool P, class A>
-__device__ __forceinline__ A& pick(A& if_true, A& if_false) {
-  if constexpr (P) return if_true; else return if_false;
-}
-
-// With PROMOTE, each block of four chunks sums from zero into its own two
-// accumulators, added into the totals in f32 (the wide body's C 384-512
-// make chains of 12-16 mmas).
-template <int QT, bool PROMOTE = false>
+template <int QT>
 __device__ __forceinline__ void q_frags(const bf16* __restrict__ xr,
                                         const TcCtx& c, uint32_t (&qh)[QT][4],
                                         uint32_t (&ql)[QT][4]) {
@@ -912,13 +980,6 @@ __device__ __forceinline__ void q_frags(const bf16* __restrict__ xr,
   zero(qa);
   zero(qb);
   for (int j0 = 0; j0 < chunks; j0 += 4) {
-    float pa[QT][4], pb[QT][4];          // PROMOTE: this block's sums
-    if constexpr (PROMOTE) {
-      zero(pa);
-      zero(pb);
-    }
-    float (&da)[QT][4] = pick<PROMOTE>(pa, qa);
-    float (&db)[QT][4] = pick<PROMOTE>(pb, qb);
     uint4 a0[4], a1[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u)
@@ -939,34 +1000,13 @@ __device__ __forceinline__ void q_frags(const bf16* __restrict__ xr,
         const uint32_t k1[4] = {a0[u].z, a1[u].z, a0[u].w, a1[u].w};
 #pragma unroll
         for (int nt = 0; nt < QT; ++nt)
-          if (nt < nq) mma_bf16(da[nt], k0, w[nt].x, w[nt].y);
+          if (nt < nq) mma_bf16(qa[nt], k0, w[nt].x, w[nt].y);
 #pragma unroll
         for (int nt = 0; nt < QT; ++nt)
-          if (nt < nq) mma_bf16(db[nt], k1, w[nt].z, w[nt].w);
+          if (nt < nq) mma_bf16(qb[nt], k1, w[nt].z, w[nt].w);
       }
-    if constexpr (PROMOTE)
-#pragma unroll
-      for (int nt = 0; nt < QT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          qa[nt][e] += pa[nt][e];
-          qb[nt][e] += pb[nt][e];
-        }
   }
-  // the accumulator holds q[g][8nt + 2t, + 1] and q[g + 8][..]: the tf32 A
-  // fragment's k = t and t + 4, with channel 8nt + 2t as k = t
-#pragma unroll
-  for (int nt = 0; nt < QT; ++nt) {
-    const float a[4] = {qa[nt][0] + qb[nt][0], qa[nt][2] + qb[nt][2],
-                        qa[nt][1] + qb[nt][1], qa[nt][3] + qb[nt][3]};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      qh[nt][e] = tf32_rna(a[e]);
-      ql[nt][e] = tf32_rna(a[e] - __uint_as_float(qh[nt][e]));
-    }
-    fence(qh[nt]);
-    fence(ql[nt]);
-  }
+  q_split(qa, qb, qh, ql);
 }
 
 // Adds the logits of the warp's 16 rows at NB n-tiles of 8 keys (the first
@@ -974,10 +1014,10 @@ __device__ __forceinline__ void q_frags(const bf16* __restrict__ xr,
 // hi_q hi_k into each tile's f32 accumulator, the tiles' mmas interleaved. kp: this
 // lane's 16 bytes of its key (g) in the first tile at k-step 0; kstride:
 // floats from one k-step to the next. Every caller forms a logit with the
-// same instructions, so a recomputed logit has the same bits. With
-// PROMOTE, each k-step's three mmas sum from zero and are added into s in
-// f32 (the tensor cores' accumulation truncates; a logit at c8 64-256 is a
-// chain of 24-96 mmas).
+// same instructions, so a recomputed logit has the same bits.
+// logit_step_promoted (the wide bodies): each k-step's three mmas sum from
+// zero and are added into s in f32 (the tensor cores' accumulation
+// truncates; a logit at c8 64-256 is a chain of 24-96 mmas).
 template <int NB>
 __device__ __forceinline__ void logit_step(float (&s)[NB][4], const float* kp,
                                            int valid, int kstride, int kk,
@@ -1011,19 +1051,14 @@ __device__ __forceinline__ void logit_step_promoted(
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] += t[j][e];
 }
-template <int QT, int NB, bool PROMOTE = false>
+template <int QT, int NB>
 __device__ __forceinline__ void logit_acc(float (&s)[NB][4], const float* kp,
                                           int valid, int kstride, int nq,
                                           const uint32_t (&qh)[QT][4],
                                           const uint32_t (&ql)[QT][4]) {
 #pragma unroll
   for (int kk = 0; kk < QT; ++kk)
-    if (kk < nq) {
-      if constexpr (PROMOTE)
-        logit_step_promoted<NB>(s, kp, valid, kstride, kk, qh[kk], ql[kk]);
-      else
-        logit_step<NB>(s, kp, valid, kstride, kk, qh[kk], ql[kk]);
-    }
+    if (kk < nq) logit_step<NB>(s, kp, valid, kstride, kk, qh[kk], ql[kk]);
 }
 // The same from zero.
 template <int QT, int NB>
@@ -1415,20 +1450,393 @@ __device__ __forceinline__ void rows_sweep(const bf16* __restrict__ xr,
   K6_LAP(5);
 }
 
-// Mode 3: maps of at most WIDE_KEYS keys at widths one pass of the other
-// bodies does not hold (any c8 and c2, c2 % 32 == 0: the 4x4, 8x8 and 16x16
-// attention at C 384 and up). A row's logits stay in registers (at most
-// eight n-tiles of 8 keys, as mode 0's), formed in passes of 32 q channels:
-// each pass's q (its four n-tiles, from x and Wq^T's rows in L2, block sums
-// promoted), then its k-steps, each summed from zero and added into the
-// f32 logits in k order. attn v runs in passes of 128 o channels
-// (16 n-tiles of accumulators, <= 4 k-steps of keys); each pass's o is
-// rounded to bf16 into this warp's o buffer ob (16 rows, row stride ldb),
+// ---- modes 3 and 4: a CTA's warps on one item, operands through a ring ----
+//
+// A work item of the wide bodies is TQ consecutive queries of one frame; the
+// CTA's warps take 16 rows each. What they read in common (Wq^T, the frame's
+// split k and v^T, Wo^T) comes in the item's fixed order of tiles
+// (Wide::tile) through a ring in shared memory. The warps take turns to copy
+// the tiles, tile h by warp h % warps, `stages - 2` tiles ahead of use: the
+// warp waits for the stage's empty mbarrier (every warp done with the tile
+// that held it), its lanes copy the tile with cp.async and arrive on the
+// stage's full mbarrier as their copies land. A warp takes a tile by waiting
+// for its full barrier and gives it back on the empty one. A byte read from
+// L2 so serves the item's TQ rows, not one warp's 16; no warp waits for
+// another except through a stage two tiles back, and the tile's bookkeeping
+// is one warp's. A tile changes where a warp's B fragments come from, not
+// what they hold: every row runs the same instructions on the same values
+// under any tile or grid.
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   tc::smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   tc::smem_addr(bar))
+               : "memory");
+}
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(tc::smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// An arrival on `bar` once this thread's earlier cp.async copies have
+// landed (counted against the barrier's expected arrivals).
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   tc::smem_addr(bar))
+               : "memory");
+}
+
+// One tile of the ring, in the CTA's table of an item's tiles: `rows` rows
+// of `row_bytes` (a multiple of 16) from `off` bytes past the base of its
+// kind (0 Wq^T, 1 the frame's split k, 2 the frame's v^T, 3 Wo^T; row
+// stride src_ld bytes) to a stage (row stride dst_ld bytes).
+struct TileEntry {
+  uint32_t off, src_ld;
+  uint16_t dst_ld, row_bytes;
+  uint8_t rows, kind, pad[2];
+};
+static_assert(sizeof(TileEntry) == 16, "wide_layout counts 16 bytes a tile");
+
+template <int MODE>
+struct Wide {
+  const bf16* wq_t;               // (c8, C)
+  const bf16* wo_t;               // (C, c2)
+  const float* kS;                // (N, c8 / 8, kvn, 16)
+  const bf16* vT;                 // (N, c2, kvn)
+  int C, c8, c2, kvn, keys, ldb;
+  float gm;
+  // tiles of an item by kind: q passes (32 q channels, also the k tiles'
+  // K_STEPS groups) x C blocks (128); k key blocks (K_KEYS) x q passes,
+  // `sweeps` times; v^T passes (64 channels) x key blocks (64); o passes
+  // (128 o channels) a group of 32 output channels; in all, per_item
+  int qp, cb, kb, sweeps, vp, vb, op, per_item;
+  // the ring: stages, their full and empty barriers, the table of an
+  // item's tiles, the copies' lead, the CTA's first item and items a
+  // frame, its warps and this one, the tiles taken and released by this
+  // warp, the CTA's tiles in all
+  unsigned char* ring;
+  uint64_t* bars;
+  const TileEntry* table;
+  int stages, lead, first, frame_items, warps, warp, used, released, total;
+
+  // Tile i of an item, in the order the warps take them. Mode 3: per q
+  // pass its C blocks of Wq^T, then its k at every key block; v^T by passes
+  // of 64 channels. Mode 4: every q pass's C blocks; each sweep's k by key
+  // blocks x k-step groups; v^T by passes x key blocks. Then Wo^T by pairs
+  // of groups of 32 output channels (per o pass, both groups' tiles; an odd
+  // last group alone).
+  __device__ TileEntry tile(int i) const {
+    if (MODE == 3) {
+      const int per_pass = cb + kb;
+      if (i < qp * per_pass) {
+        const int p = i / per_pass, r = i - p * per_pass;
+        return r < cb ? wq_tile(p, r) : k_tile(p, r - cb);
+      }
+      i -= qp * per_pass;
+      if (i < vp) return v_tile(i, 0);
+      i -= vp;
+    } else {
+      if (i < qp * cb) return wq_tile(i / cb, i % cb);
+      i -= qp * cb;
+      if (i < sweeps * kb * qp) {
+        const int r = i % (kb * qp);
+        return k_tile(r % qp, r / qp);
+      }
+      i -= sweeps * kb * qp;
+      if (i < vp * vb) return v_tile(i / vb, i % vb);
+      i -= vp * vb;
+    }
+    const int pairs = C / 64, full = pairs * 2 * op;
+    if (i >= full) return wo_tile(2 * pairs, i - full);
+    const int p = i / (2 * op), r = i - p * 2 * op;
+    return wo_tile(2 * p + (r & 1), r >> 1);
+  }
+  __device__ TileEntry entry(size_t off, size_t src_ld, int dst_ld, int rows,
+                             int row_bytes, int kind) const {
+    return {(uint32_t)off, (uint32_t)src_ld, (uint16_t)dst_ld,
+            (uint16_t)row_bytes, (uint8_t)rows, (uint8_t)kind, {0, 0}};
+  }
+  __device__ TileEntry wq_tile(int p, int b) const {
+    return entry(2 * ((size_t)32 * p * C + 128 * b), (size_t)2 * C, 2 * W_LD,
+                 min(32, c8 - 32 * p), 2 * min(128, C - 128 * b), 0);
+  }
+  __device__ TileEntry k_tile(int s, int b) const {
+    return entry(64 * ((size_t)K_STEPS * s * kvn + K_KEYS * b),
+                 (size_t)64 * kvn, 64 * K_KEYS,
+                 min(K_STEPS, c8 / 8 - K_STEPS * s),
+                 64 * min(K_KEYS, kvn - K_KEYS * b), 1);
+  }
+  __device__ TileEntry v_tile(int v, int b) const {
+    return entry(2 * ((size_t)64 * v * kvn + 64 * b), (size_t)2 * kvn,
+                 2 * V_LD, min(64, c2 - 64 * v), 2 * min(64, kvn - 64 * b),
+                 2);
+  }
+  __device__ TileEntry wo_tile(int G, int P) const {
+    return entry(2 * ((size_t)32 * G * c2 + 128 * P), (size_t)2 * c2,
+                 2 * W_LD, 32, 2 * min(128, c2 - 128 * P), 3);
+  }
+  // The table of an item's tiles, every thread of the CTA a share.
+  __device__ void fill_table(TileEntry* out) const {
+    for (int i = threadIdx.x; i < per_item; i += blockDim.x) out[i] = tile(i);
+  }
+  __device__ uint64_t* full(int s) const { return bars + s; }
+  __device__ uint64_t* empty(int s) const { return bars + MAX_STAGES + s; }
+
+  // This warp's turn: tile h into its stage once every warp has released
+  // the tile that held it; each lane's copies arrive on the full barrier.
+  __device__ void issue(int h) {
+    const int lane = threadIdx.x & 31, s = h % stages;
+#ifdef K6_PROFILE
+    const long long t0 = clock64();
+#endif
+    if (h >= stages) mbar_wait(empty(s), (h / stages - 1) & 1);
+#ifdef K6_PROFILE
+    const long long t1 = clock64();
+#endif
+    const int item = first + h / per_item, n = item / frame_items;
+    const TileEntry t = table[h % per_item];
+    const unsigned char* src =
+        reinterpret_cast<const unsigned char*>(
+            t.kind == 0 ? (const void*)wq_t
+            : t.kind == 1 ? (const void*)(kS + (size_t)n * c8 * kvn * 2)
+            : t.kind == 2 ? (const void*)(vT + (size_t)n * c2 * kvn)
+                          : (const void*)wo_t) + t.off;
+    unsigned char* dst = ring + (size_t)s * TILE_BYTES;
+    const int pieces = t.row_bytes / 16;
+    if ((pieces & (pieces - 1)) == 0) {       // every full tile
+      const int sh = __ffs(pieces) - 1;
+#pragma unroll 1
+      for (int u = lane; u < t.rows << sh; u += 32) {
+        const int r = u >> sh, e = (u & (pieces - 1)) * 16;
+        tc::cp_async_16(dst + (size_t)r * t.dst_ld + e,
+                        src + (size_t)r * t.src_ld + e, true);
+      }
+    } else {
+#pragma unroll 1
+      for (int u = lane; u < t.rows * pieces; u += 32) {
+        const int r = u / pieces, e = (u - r * pieces) * 16;
+        tc::cp_async_16(dst + (size_t)r * t.dst_ld + e,
+                        src + (size_t)r * t.src_ld + e, true);
+      }
+    }
+    mbar_arrive_copies(full(s));
+#ifdef K6_PROFILE
+    if (lane == 0) {
+      K6_COUNT(9);
+      atomicAdd(&k6_cycles[10], (unsigned long long)(t1 - t0));
+      atomicAdd(&k6_cycles[11], (unsigned long long)(clock64() - t1));
+    }
+#endif
+  }
+  // The copies ahead of the first tile (this warp's turns among them).
+  __device__ void start() {
+    for (int h = warp; h < lead && h < total; h += warps) issue(h);
+  }
+  // A warp's next tile, held until released (every warp takes every tile,
+  // in order); first its turn to copy the tile `lead` ahead, if it is one.
+  __device__ const unsigned char* acquire() {
+    const int h = used + lead;
+    if (h < total && h % warps == warp) issue(h);
+    const int s = used % stages;
+#ifdef K6_PROFILE
+    const long long t0 = clock64();
+#endif
+    mbar_wait(full(s), (used / stages) & 1);
+#ifdef K6_PROFILE
+    if ((threadIdx.x & 31) == 0)
+      atomicAdd(&k6_cycles[8], (unsigned long long)(clock64() - t0));
+#endif
+    ++used;
+    return ring + (size_t)s * TILE_BYTES;
+  }
+  // This warp is done with its oldest held tile.
+  __device__ void release() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty(released % stages));
+    ++released;
+  }
+  // Releases every held tile and takes the next.
+  __device__ const unsigned char* next() {
+    while (released < used) release();
+    return acquire();
+  }
+};
+
+// One block of four chunks (128 channels of C) of a q pass for the warp's 16
+// rows: a0, a1 this lane's A fragments of the block's chunks (rows g and
+// g + 8, from x), the pass's first nq <= 4 n-tiles of 8 q channels, Wq^T's
+// 32 rows of the pass from the ring tile wt: q_frags' arithmetic with the
+// block summed from zero and added into the pass's f32 totals qa, qb (C
+// 384-1024 make chains of 12-32 mmas).
+__device__ __forceinline__ void q_block(const uint4 (&a0)[4],
+                                        const uint4 (&a1)[4], const bf16* wt,
+                                        int valid, int nq, float (&qa)[4][4],
+                                        float (&qb)[4][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bf16* w0 = wt + g * W_LD + 8 * t;
+  float pa[4][4], pb[4][4];
+  zero(pa);
+  zero(pb);
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (u < valid) {
+      uint4 w[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        if (nt < nq)
+          w[nt] = *reinterpret_cast<const uint4*>(w0 + nt * 8 * W_LD + 32 * u);
+      const uint32_t k0[4] = {a0[u].x, a1[u].x, a0[u].y, a1[u].y};
+      const uint32_t k1[4] = {a0[u].z, a1[u].z, a0[u].w, a1[u].w};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        if (nt < nq) mma_bf16(pa[nt], k0, w[nt].x, w[nt].y);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        if (nt < nq) mma_bf16(pb[nt], k1, w[nt].z, w[nt].w);
+    }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      qa[nt][e] += pa[nt][e];
+      qb[nt][e] += pb[nt][e];
+    }
+}
+
+// This lane's A fragments of chunks 4b .. 4b + 3 of x (x0, x1: rows g and
+// g + 8 at channel 8t), the first `valid` of them.
+__device__ __forceinline__ void x_chunks(const bf16* __restrict__ x0,
+                                         const bf16* __restrict__ x1, int b,
+                                         int valid, uint4 (&a0)[4],
+                                         uint4 (&a1)[4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (u < valid) {
+      a0[u] = __ldg(reinterpret_cast<const uint4*>(x0 + 32 * (4 * b + u)));
+      a1[u] = __ldg(reinterpret_cast<const uint4*>(x1 + 32 * (4 * b + u)));
+    }
+}
+
+// q pass p's split A fragments for the warp's 16 rows xr: its C blocks from
+// the ring, each block's x fragments loaded while the last block computes.
+template <class W>
+__device__ __forceinline__ void q_pass(const bf16* __restrict__ xr, W& w,
+                                       int p, uint32_t (&qh)[4][4],
+                                       uint32_t (&ql)[4][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int chunks = w.C / 32, nq = w.c8 / 8 - 4 * p;
+  const bf16* x0 = xr + (size_t)g * w.C + 8 * t;
+  const bf16* x1 = x0 + (size_t)8 * w.C;
+  float qa[4][4], qb[4][4];
+  zero(qa);
+  zero(qb);
+  uint4 a0[4], a1[4], n0[4], n1[4];
+  x_chunks(x0, x1, 0, min(4, chunks), a0, a1);
+#pragma unroll 1
+  for (int b = 0; b < w.cb; ++b) {
+    const int valid = min(4, chunks - 4 * b);
+    if (b + 1 < w.cb) x_chunks(x0, x1, b + 1, min(4, chunks - 4 * b - 4), n0, n1);
+    q_block(a0, a1, reinterpret_cast<const bf16*>(w.next()), valid, nq, qa,
+            qb);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      a0[u] = n0[u];
+      a1[u] = n1[u];
+    }
+  }
+  q_split(qa, qb, qh, ql);
+}
+
+// Two k-steps of logit_step_promoted at once (kk and kk + 1, A fragments
+// q0 and q1): each k-step's three mmas sum from zero in its own tile, the
+// two chains interleaved, then added into s in k order: the same sums.
+template <int NB>
+__device__ __forceinline__ void logit_step2_promoted(
+    float (&s)[NB][4], const float* kp, int valid, int kstride, int kk,
+    const uint32_t (&qh0)[4], const uint32_t (&ql0)[4],
+    const uint32_t (&qh1)[4], const uint32_t (&ql1)[4]) {
+  float t0[NB][4], t1[NB][4];
+  zero(t0);
+  zero(t1);
+  uint4 b0[NB], b1[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    if (j < valid) {
+      b0[j] = *reinterpret_cast<const uint4*>(kp + (size_t)j * 128 +
+                                              (size_t)kk * kstride);
+      b1[j] = *reinterpret_cast<const uint4*>(kp + (size_t)j * 128 +
+                                              (size_t)(kk + 1) * kstride);
+    }
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    if (j < valid) {
+      mma_tf32(t0[j], ql0, b0[j].x, b0[j].y);
+      mma_tf32(t1[j], ql1, b1[j].x, b1[j].y);
+    }
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    if (j < valid) {
+      mma_tf32(t0[j], qh0, b0[j].z, b0[j].w);
+      mma_tf32(t1[j], qh1, b1[j].z, b1[j].w);
+    }
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    if (j < valid) {
+      mma_tf32(t0[j], qh0, b0[j].x, b0[j].y);
+      mma_tf32(t1[j], qh1, b1[j].x, b1[j].y);
+    }
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] += t0[j][e];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] += t1[j][e];
+}
+
+// The logits of NB n-tiles of the warp's rows at the k-steps of one k tile
+// (kp: this lane's key g at k-step 0 of the tile, `steps` <= K_STEPS of
+// them), q's fragments by qf(k-step, qh, ql), added into s; PAIRS: two
+// k-steps at a time (logit_step2_promoted: fewer stalls, more registers).
+template <int NB, bool PAIRS = true, class QF>
+__device__ __forceinline__ void logit_tile(float (&s)[NB][4], const float* kp,
+                                           int valid, int steps, QF qf) {
+#pragma unroll
+  for (int kk = 0; kk < K_STEPS; kk += PAIRS ? 2 : 1)
+    if (PAIRS && kk + 1 < steps) {
+      uint32_t qh0[4], ql0[4], qh1[4], ql1[4];
+      qf(kk, qh0, ql0);
+      qf(kk + 1, qh1, ql1);
+      logit_step2_promoted<NB>(s, kp, valid, K_KEYS * 16, kk, qh0, ql0, qh1,
+                               ql1);
+    } else if (kk < steps) {
+      uint32_t qh0[4], ql0[4];
+      qf(kk, qh0, ql0);
+      logit_step_promoted<NB>(s, kp, valid, K_KEYS * 16, kk, qh0, ql0);
+    }
+}
+
+// o rounded to bf16 into this warp's o buffer ob (16 rows, row stride ldb):
 // channel 32J + 8t + 4s + 2h + e at column 32J + 16s + 8h + 2t + e, so that
 // ldmatrix of columns 32J + 16s .. + 15 is the A fragment of o Wo's k-step
 // 2J + s with the contraction permuted to match Wo^T's rows read as 16-byte
-// pieces from L2 (out_wide). Each k-step's logits sum from zero and are
-// added into the row's f32 logits (logit_acc's PROMOTE).
+// pieces (out_wide). o: OP accumulator n-tiles from channel ch0, the first
+// `valid` of them.
 template <int OP>
 __device__ __forceinline__ void o_to_buffer(const float (&o)[OP][4], bf16* ob,
                                             int ldb, int ch0, int valid) {
@@ -1446,89 +1854,135 @@ __device__ __forceinline__ void o_to_buffer(const float (&o)[OP][4], bf16* ob,
 }
 
 // out = f32(x) + gamma (o Wo), rounded once, for the warp's 16 rows, o from
-// the warp's buffer (o_to_buffer's columns) and Wo^T (C, c2) from L2. Per
-// group of 32 output channels: n-tile j's B column g is channel 8 (g / 2) +
-// 2j + g % 2 of the group (out_rows' permutation: a lane's accumulators are
-// 8 neighbouring channels); a lane's 16 bytes of that row at o channels
-// 32J + 8t .. + 7 are the B fragments of k-steps 2J and 2J + 1. Each pass of
-// 128 o channels sums from zero and is added into the f32 totals.
-__device__ __forceinline__ void out_wide(const bf16* ob, int ldb,
+// the warp's buffer (o_to_buffer's columns), Wo^T's tiles from the ring, two
+// groups of 32 output channels at a time. Per group: n-tile j's B column g is
+// channel 8 (g / 2) + 2j + g % 2 of the group (out_rows' permutation: a
+// lane's accumulators are 8 neighbouring channels); a lane's 16 bytes of
+// that row at o channels 32J + 8t .. + 7 are the B fragments of k-steps 2J
+// and 2J + 1. Each pass of 128 o channels (a tile a group) sums from zero
+// and is added into the group's f32 totals.
+template <class W>
+__device__ __forceinline__ void out_wide(const bf16* ob,
                                          const bf16* __restrict__ xr,
-                                         bf16* __restrict__ outr,
-                                         const TcCtx& c) {
+                                         bf16* __restrict__ outr, W& w) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int groups = c.C / 32, nk = c.c2 / 32;
-  const bf16* ap = ob + (size_t)(lane & 15) * ldb + (lane >> 4) * 8;
-  const size_t r0 = (size_t)g * c.C + 8 * t, r1 = r0 + (size_t)8 * c.C;
-  const float gm = c.gm;
+  const int groups = w.C / 32, nk = w.c2 / 32;
+  const bf16* ap = ob + (size_t)(lane & 15) * w.ldb + (lane >> 4) * 8;
+  const size_t r0 = (size_t)g * w.C + 8 * t, r1 = r0 + (size_t)8 * w.C;
+  const int brow = (8 * (g >> 1) + (g & 1)) * W_LD + 8 * t;
+  const float gm = w.gm;
 #pragma unroll 1
-  for (int G = 0; G < groups; ++G) {
-    const uint4 x0 = __ldg(reinterpret_cast<const uint4*>(xr + r0 + 32 * G));
-    const uint4 x1 = __ldg(reinterpret_cast<const uint4*>(xr + r1 + 32 * G));
-    const bf16* wp = c.wo_s +
-                     (size_t)(32 * G + 8 * (g >> 1) + (g & 1)) * c.ldo + 8 * t;
-    float y[4][4];
-    zero(y);
+  for (int G = 0; G < groups; G += 2) {
+    const int ng = G + 1 < groups ? 2 : 1;
+    uint4 xa[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (h < ng) {
+        xa[h][0] = __ldg(reinterpret_cast<const uint4*>(xr + r0 + 32 * (G + h)));
+        xa[h][1] = __ldg(reinterpret_cast<const uint4*>(xr + r1 + 32 * (G + h)));
+      }
+    float y[2][4][4];
+    zero(y[0]);
+    zero(y[1]);
 #pragma unroll 1
-    for (int P = 0; P < nk; P += 4) {
-      float yp[4][4];
-      zero(yp);
+    for (int P = 0; P < w.op; ++P) {
+      while (w.released < w.used) w.release();
+      const bf16* wp[2];
+      wp[0] = reinterpret_cast<const bf16*>(w.acquire()) + brow;
+      wp[1] = ng == 2 ? reinterpret_cast<const bf16*>(w.acquire()) + brow
+                      : wp[0];
+      float yp[2][4][4];
+      zero(yp[0]);
+      zero(yp[1]);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
-        if (P + jj < nk) {
-          const int J = P + jj;
-          uint4 b[4];
+        if (4 * P + jj < nk) {
+          const int J = 4 * P + jj;
+          uint4 b[2][4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            b[j] = __ldg(reinterpret_cast<const uint4*>(
-                wp + (size_t)2 * j * c.ldo + 32 * J));
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              b[h][j] = *reinterpret_cast<const uint4*>(wp[h] + 2 * j * W_LD +
+                                                        32 * jj);
           uint32_t a0[4], a1[4];
           ldmatrix_x4(a0, ap + 32 * J);
           ldmatrix_x4(a1, ap + 32 * J + 16);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(yp[j], a0, b[j].x, b[j].y);
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(yp[j], a1, b[j].z, b[j].w);
+            for (int j = 0; j < 4; ++j) mma_bf16(yp[h][j], a0, b[h][j].x, b[h][j].y);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma_bf16(yp[h][j], a1, b[h][j].z, b[h][j].w);
         }
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) y[j][e] += yp[j][e];
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) y[h][j][e] += yp[h][j][e];
     }
-    *reinterpret_cast<uint4*>(outr + r0 + 32 * G) =
-        make_uint4(residual(x0.x, gm, y[0][0], y[0][1]),
-                   residual(x0.y, gm, y[1][0], y[1][1]),
-                   residual(x0.z, gm, y[2][0], y[2][1]),
-                   residual(x0.w, gm, y[3][0], y[3][1]));
-    *reinterpret_cast<uint4*>(outr + r1 + 32 * G) =
-        make_uint4(residual(x1.x, gm, y[0][2], y[0][3]),
-                   residual(x1.y, gm, y[1][2], y[1][3]),
-                   residual(x1.z, gm, y[2][2], y[2][3]),
-                   residual(x1.w, gm, y[3][2], y[3][3]));
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (h < ng) {
+        const uint4 x0 = xa[h][0], x1 = xa[h][1];
+        const float (&v)[4][4] = y[h];
+        *reinterpret_cast<uint4*>(outr + r0 + 32 * (G + h)) =
+            make_uint4(residual(x0.x, gm, v[0][0], v[0][1]),
+                       residual(x0.y, gm, v[1][0], v[1][1]),
+                       residual(x0.z, gm, v[2][0], v[2][1]),
+                       residual(x0.w, gm, v[3][0], v[3][1]));
+        *reinterpret_cast<uint4*>(outr + r1 + 32 * (G + h)) =
+            make_uint4(residual(x1.x, gm, v[0][2], v[0][3]),
+                       residual(x1.y, gm, v[1][2], v[1][3]),
+                       residual(x1.z, gm, v[2][2], v[2][3]),
+                       residual(x1.w, gm, v[3][2], v[3][3]));
+      }
   }
 }
 
+// Mode 3: maps of at most WIDE_KEYS keys at widths one pass of the other
+// bodies does not hold (any c8 and c2, c2 % 32 == 0: the 4x4, 8x8 and 16x16
+// attention at C 384 and up). A row's logits stay in registers (at most
+// eight n-tiles of 8 keys, as mode 0's), formed in passes of 32 q channels:
+// each pass's q (its four n-tiles, block sums promoted), then its k-steps
+// over the k tiles of 32 keys, each k-step summed from zero and added into
+// the f32 logits in k order. attn v runs in passes of 64 o channels (a v^T
+// tile each), each pass's o rounded to bf16 into the warp's o buffer ob for
+// out_wide.
+template <class W>
 __device__ __forceinline__ void rows_wide(const bf16* __restrict__ xr,
-                                          bf16* __restrict__ outr,
-                                          const TcCtx& c, bf16* ob, int ldb) {
-  constexpr int QT = 4, NJ = WIDE_KEYS / 8, OP = 16;
+                                          bf16* __restrict__ outr, W& w,
+                                          bf16* ob) {
+  constexpr int NJ = WIDE_KEYS / 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int nq = c.c8 / 8, nj = c.kvn / 8, ks = c.kvn * 16, nt = c.c2 / 8;
+  const int nq = w.c8 / 8, nj = w.kvn / 8, nt = w.c2 / 8;
   K6_START();
-  const float* kp = c.k_s + (size_t)g * 16 + 4 * t;
   float s[NJ][4];
   zero(s);
 #pragma unroll 1
-  for (int q0 = 0; q0 < nq; q0 += QT) {
-    TcCtx cq = c;
-    cq.wq_s = c.wq_s + (size_t)q0 * 8 * c.ldq;
-    cq.c8 = c.c8 - 8 * q0;
-    uint32_t qh[QT][4], ql[QT][4];
-    q_frags<QT, true>(xr, cq, qh, ql);
-    logit_acc<QT, NJ, true>(s, kp + (size_t)q0 * ks, nj, ks, nq - q0, qh,
-                            ql);
+  for (int p = 0; p < w.qp; ++p) {
+    uint32_t qh[4][4], ql[4][4];
+    q_pass(xr, w, p, qh, ql);
+    auto qf = [&](int kk, uint32_t (&h)[4], uint32_t (&l)[4]) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        h[e] = qh[kk][e];
+        l[e] = ql[kk][e];
+      }
+    };
+#pragma unroll
+    for (int h = 0; h < NJ / 4; ++h)
+      if (h < w.kb) {
+        const float* kp = reinterpret_cast<const float*>(w.next()) + g * 16 +
+                          4 * t;
+        float (&sh)[4][4] = *reinterpret_cast<float (*)[4][4]>(s[4 * h]);
+        logit_tile<4>(sh, kp, nj - 4 * h, min(K_STEPS, nq - 4 * p), qf);
+      }
   }
-  if (c.keys != c.kvn) mask_keys<NJ>(s, 0, c.keys);
+  if (w.keys != w.kvn) mask_keys<NJ>(s, 0, w.keys);
   K6_LAP(2);
 
   float m[2] = {-INFINITY, -INFINITY};
@@ -1556,91 +2010,148 @@ __device__ __forceinline__ void rows_wide(const bf16* __restrict__ xr,
     }
   K6_LAP(3);
 
-  const bf16* vp = b_pair_row(c.v_s, c.ldv);
 #pragma unroll 1
-  for (int n0 = 0; n0 < nt; n0 += OP) {
-    float o[OP][4];
+  for (int v = 0; v < w.vp; ++v) {
+    const bf16* vp = b_pair_row(reinterpret_cast<const bf16*>(w.next()), V_LD);
+    float o[8][4];
     zero(o);
 #pragma unroll
     for (int kk = 0; kk < NJ / 2; ++kk)
       if (2 * kk < nj)
-        attn_v_step<OP / 2, false>(o, pa[kk], vp + (size_t)n0 * 8 * c.ldv,
-                                   16 * kk, (nt - n0) / 2, c.ldv);
-    o_to_buffer<OP>(o, ob, ldb, 8 * n0, nt - n0);
+        attn_v_step<4, false>(o, pa[kk], vp, 16 * kk, (nt - 8 * v) / 2, V_LD);
+    o_to_buffer<8>(o, ob, w.ldb, 64 * v, nt - 8 * v);
   }
   __syncwarp();                   // the o buffer, written by every lane
   K6_LAP(4);
-  out_wide(ob, ldb, xr, outr, c);
+  out_wide(ob, xr, outr, w);
   __syncwarp();                   // read by every lane before the next item
   K6_LAP(5);
 }
 
-// Mode 4: maps of more than WIDE_KEYS keys at widths past modes 0-2's (the
-// 32x32 attention at C 384-1024, 64x64 at C 384-512). q is formed as in
-// mode 3, in passes of 32 q channels with block sums promoted, and its split
-// A fragments go to this lane's slots of the warp's q buffer qb; the three
-// sweeps of mode 1 read them back one k-step at a time (logit_block_buf:
-// each k-step's three mmas from zero, added in f32, as mode 3's); the third
-// sweep writes attn's bf16
-// A fragments to this lane's slots of the attn buffer ab; attn v then runs in
-// passes of OP o n-tiles (64 channels), each over blocks of SWEEP_KEYS keys
-// summed from zero and added into f32 totals, v^T's fragments from L2, and
-// each pass's o goes rounded into the o buffer ob (o_to_buffer's columns)
-// for out_wide. Only ob is read by other lanes than the one that wrote it.
-template <int NB>
-__device__ __forceinline__ void logit_block_buf(float (&s)[NB][4],
-                                                const float* kp, int valid,
-                                                int kstride, int nq,
-                                                const uint4* qb) {
-  const int lane = threadIdx.x & 31;
-  zero(s);
+// q's split A fragments of all passes into this lane's slots of the warp's
+// q buffer qb ([c8 / 8][hi, lo][32 lanes] of 16 bytes), and a reader of
+// them by k-step for logit_tile.
+template <class W>
+__device__ __forceinline__ void q_to_buffer(const bf16* __restrict__ xr, W& w,
+                                            uint4* qb) {
+  const int lane = threadIdx.x & 31, nq = w.c8 / 8;
 #pragma unroll 1
-  for (int kk = 0; kk < nq; ++kk) {
-    const uint4 h = qb[(size_t)64 * kk + lane];
-    const uint4 l = qb[(size_t)64 * kk + 32 + lane];
-    const uint32_t qh[4] = {h.x, h.y, h.z, h.w};
-    const uint32_t ql[4] = {l.x, l.y, l.z, l.w};
-    logit_step_promoted<NB>(s, kp, valid, kstride, kk, qh, ql);
-  }
-}
-
-__device__ __forceinline__ void rows_wide_sweep(const bf16* __restrict__ xr,
-                                                bf16* __restrict__ outr,
-                                                const TcCtx& c,
-                                                unsigned char* wb, int ldb) {
-  constexpr int QT = 4, NB = 4, OP = 8, BJ = SWEEP_KEYS / 8;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int nq = c.c8 / 8, nj = c.kvn / 8, ks = c.kvn * 16, nt = c.c2 / 8;
-  uint4* qb = reinterpret_cast<uint4*>(wb);             // [nq][2][32]
-  uint4* ab = qb + (size_t)64 * nq;                     // [nj / 2][32]
-  bf16* ob = reinterpret_cast<bf16*>(ab + (size_t)16 * nj);
-  K6_START();
-#pragma unroll 1
-  for (int q0 = 0; q0 < nq; q0 += QT) {
-    TcCtx cq = c;
-    cq.wq_s = c.wq_s + (size_t)q0 * 8 * c.ldq;
-    cq.c8 = c.c8 - 8 * q0;
-    uint32_t qh[QT][4], ql[QT][4];
-    q_frags<QT, true>(xr, cq, qh, ql);
+  for (int p = 0; p < w.qp; ++p) {
+    uint32_t qh[4][4], ql[4][4];
+    q_pass(xr, w, p, qh, ql);
 #pragma unroll
-    for (int i = 0; i < QT; ++i)
-      if (q0 + i < nq) {
-        qb[(size_t)64 * (q0 + i) + lane] =
+    for (int i = 0; i < 4; ++i)
+      if (4 * p + i < nq) {
+        qb[(size_t)64 * (4 * p + i) + lane] =
             make_uint4(qh[i][0], qh[i][1], qh[i][2], qh[i][3]);
-        qb[(size_t)64 * (q0 + i) + 32 + lane] =
+        qb[(size_t)64 * (4 * p + i) + 32 + lane] =
             make_uint4(ql[i][0], ql[i][1], ql[i][2], ql[i][3]);
       }
   }
+}
+struct QBuffer {
+  const uint4* qb;
+  int k0;                         // the k tile's first k-step
+  __device__ void operator()(int kk, uint32_t (&h)[4], uint32_t (&l)[4]) const {
+    const int lane = threadIdx.x & 31;
+    const uint4 a = qb[(size_t)64 * (k0 + kk) + lane];
+    const uint4 b = qb[(size_t)64 * (k0 + kk) + 32 + lane];
+    h[0] = a.x; h[1] = a.y; h[2] = a.z; h[3] = a.w;
+    l[0] = b.x; l[1] = b.y; l[2] = b.z; l[3] = b.w;
+  }
+};
+
+// The logits of key block j0 (NB n-tiles of 8 keys) of the warp's rows: its
+// k tiles, q from the buffer; the padded keys masked.
+template <int NB, bool PAIRS, class W>
+__device__ __forceinline__ void logits_block(float (&s)[NB][4], W& w,
+                                             const uint4* qb, int j0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int nq = w.c8 / 8, nj = w.kvn / 8;
+  zero(s);
+#pragma unroll 1
+  for (int sg = 0; sg < w.qp; ++sg) {
+    const float* kp = reinterpret_cast<const float*>(w.next()) + g * 16 +
+                      4 * t;
+    logit_tile<NB, PAIRS>(s, kp, nj - j0, min(K_STEPS, nq - K_STEPS * sg),
+                          QBuffer{qb, K_STEPS * sg});
+  }
+  if (w.keys != w.kvn) mask_keys<NB>(s, 8 * j0, w.keys);
+}
+
+// attn v of the warp's rows in passes of 64 o channels, each over the v^T
+// tiles of 64 keys summed from zero and added into f32 totals, the attn A
+// fragment of k-step kk (16 keys) by af(kk); each pass's o rounded into the
+// o buffer ob. KB > 0: exactly KB key blocks, unrolled (af's k-steps known
+// when compiled: attn in registers).
+template <int KB, class W, class AF>
+__device__ __forceinline__ void attn_v_wide(W& w, bf16* ob, AF af) {
+  constexpr int BJ = 64 / 8;
+  const int nj = KB > 0 ? KB * BJ : w.kvn / 8, nt = w.c2 / 8;
+#pragma unroll 1
+  for (int v = 0; v < w.vp; ++v) {
+    const int n0 = 8 * v;
+    float o[8][4];
+    zero(o);
+    auto block = [&](int j0) {
+      const bf16* vp =
+          b_pair_row(reinterpret_cast<const bf16*>(w.next()), V_LD);
+      float ok[8][4];
+      zero(ok);
+#pragma unroll
+      for (int kk = 0; kk < BJ / 2; ++kk)
+        if (j0 + 2 * kk < nj) {
+          uint32_t a[4];
+          af(j0 / 2 + kk, a);
+          attn_v_step<4, false>(ok, a, vp, 16 * kk, (nt - n0) / 2, V_LD);
+        }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][e] += ok[i][e];
+    };
+    if constexpr (KB > 0) {
+#pragma unroll
+      for (int b = 0; b < KB; ++b) block(BJ * b);
+    } else {
+#pragma unroll 1
+      for (int j0 = 0; j0 < nj; j0 += BJ) block(j0);
+    }
+    o_to_buffer<8>(o, ob, w.ldb, 8 * n0, nt - n0);
+  }
+}
+
+// Mode 4: maps of more than WIDE_KEYS keys at widths past modes 0-2's (the
+// 32x32 attention at C 384-1024, 64x64 at C 384-512). q is formed as in
+// mode 3 and its split A fragments go to this lane's slots of the warp's q
+// buffer qb. Maps of RES_KEYS keys (32x32: rows_wide_resident) then form
+// each logit once and keep a row's RES_KEYS logits in registers, as mode 0;
+// larger maps take mode 1's three sweeps over the k tiles (each k-step's
+// three mmas from zero, added in f32, as mode 3's: the same bits each time),
+// the third writing attn's bf16 A fragments to this lane's slots of the attn
+// buffer ab. attn v (attn_v_wide) and out_wide follow, o rounded into the o
+// buffer ob over qb (the logits are done). Only ob is read by other lanes
+// than the one that wrote it.
+template <class W>
+__device__ __forceinline__ void rows_wide_sweep(const bf16* __restrict__ xr,
+                                                bf16* __restrict__ outr, W& w,
+                                                unsigned char* wb,
+                                                size_t qo_bytes) {
+  constexpr int NB = 4;
+  const int lane = threadIdx.x & 31;
+  const int nj = w.kvn / 8;
+  uint4* qb = reinterpret_cast<uint4*>(wb);             // [nq][2][32]
+  bf16* ob = reinterpret_cast<bf16*>(wb);               // [16][ldb], after
+  uint4* ab = reinterpret_cast<uint4*>(wb + qo_bytes);  // [nj / 2][32]
+  K6_START();
+  q_to_buffer(xr, w, qb);
   K6_LAP(1);
 
-  const float* kp = c.k_s + (size_t)g * 16 + 4 * t;
-  const bool masked = c.keys != c.kvn;
   float m[2] = {-INFINITY, -INFINITY};
 #pragma unroll 1
   for (int j0 = 0; j0 < nj; j0 += NB) {
     float s[NB][4];
-    logit_block_buf<NB>(s, kp + (size_t)j0 * 128, nj - j0, ks, nq, qb);
-    if (masked) mask_keys<NB>(s, 8 * j0, c.keys);
+    logits_block<NB, true>(s, w, qb, j0);
     block_max<NB>(s, nj - j0, m);
   }
   const float mb[2] = {-quad_max(m[0]) * LOG2E, -quad_max(m[1]) * LOG2E};
@@ -1650,8 +2161,7 @@ __device__ __forceinline__ void rows_wide_sweep(const bf16* __restrict__ xr,
 #pragma unroll 1
   for (int j0 = 0; j0 < nj; j0 += NB) {
     float s[NB][4];
-    logit_block_buf<NB>(s, kp + (size_t)j0 * 128, nj - j0, ks, nq, qb);
-    if (masked) mask_keys<NB>(s, 8 * j0, c.keys);
+    logits_block<NB, true>(s, w, qb, j0);
     float y0 = 0.f, y1 = 0.f;
 #pragma unroll
     for (int j = 0; j < NB; ++j)
@@ -1670,8 +2180,7 @@ __device__ __forceinline__ void rows_wide_sweep(const bf16* __restrict__ xr,
 #pragma unroll 1
   for (int j0 = 0; j0 < nj; j0 += NB) {
     float s[NB][4];
-    logit_block_buf<NB>(s, kp + (size_t)j0 * 128, nj - j0, ks, nq, qb);
-    if (masked) mask_keys<NB>(s, 8 * j0, c.keys);
+    logits_block<NB, true>(s, w, qb, j0);
 #pragma unroll
     for (int kk = 0; kk < NB / 2; ++kk)
       if (j0 + 2 * kk < nj) {
@@ -1688,42 +2197,169 @@ __device__ __forceinline__ void rows_wide_sweep(const bf16* __restrict__ xr,
                                                            a[3]);
       }
   }
-  const bf16* vp = c.v_s + (size_t)g * c.ldv + 2 * t;
-#pragma unroll 1
-  for (int n0 = 0; n0 < nt; n0 += OP) {
-    const bf16* vg = vp + (size_t)n0 * 8 * c.ldv;
-    float o[OP][4];
-    zero(o);
-#pragma unroll 1
-    for (int j0 = 0; j0 < nj; j0 += BJ) {
-      float ok[OP][4];
-      zero(ok);
-#pragma unroll
-      for (int kk = 0; kk < BJ / 2; ++kk)
-        if (j0 + 2 * kk < nj) {
-          const uint4 a4 = ab[(size_t)32 * (j0 / 2 + kk) + lane];
-          const uint32_t a[4] = {a4.x, a4.y, a4.z, a4.w};
-          attn_v_step<OP / 2, true>(ok, a, vg, 8 * j0 + 16 * kk,
-                                    (nt - n0) / 2, c.ldv);
-        }
-#pragma unroll
-      for (int i = 0; i < OP; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[i][e] += ok[i][e];
-    }
-    o_to_buffer<OP>(o, ob, ldb, 8 * n0, nt - n0);
-  }
+  attn_v_wide<0>(w, ob, [&](int k, uint32_t (&a)[4]) {
+    const uint4 a4 = ab[(size_t)32 * k + lane];
+    a[0] = a4.x; a[1] = a4.y; a[2] = a4.z; a[3] = a4.w;
+  });
   __syncwarp();                   // the o buffer, written by every lane
   K6_LAP(4);
-  out_wide(ob, ldb, xr, outr, c);
+  out_wide(ob, xr, outr, w);
   __syncwarp();                   // read by every lane before the next item
   K6_LAP(5);
 }
 
+// Mode 4 on maps of RES_KEYS keys: the logits formed once, block by block
+// of 32 keys as the sweeps form them, and kept in registers (lane (g, t):
+// keys 8j + 2t, + 1 of rows g and g + 8); the max, the sum of exp(l - m) by
+// blocks of 32 keys added in block order, and attn's A fragments, each
+// exp(l - m) evaluated once: what the three sweeps compute, on the same
+// values in the same order.
+template <class W>
+__device__ __forceinline__ void rows_wide_resident(const bf16* __restrict__ xr,
+                                                   bf16* __restrict__ outr,
+                                                   W& w, unsigned char* wb,
+                                                   size_t qo_bytes) {
+  constexpr int NB = 4, NJ = RES_KEYS / 8;
+  uint4* qb = reinterpret_cast<uint4*>(wb);
+  bf16* ob = reinterpret_cast<bf16*>(wb);
+  K6_START();
+  q_to_buffer(xr, w, qb);
+  K6_LAP(1);
+
+  float s[NJ / NB][NB][4];
+#pragma unroll
+  for (int b = 0; b < NJ / NB; ++b) logits_block<NB, false>(s[b], w, qb, NB * b);
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int b = 0; b < NJ / NB; ++b) block_max<NB>(s[b], NB, m);
+  const float mb[2] = {-quad_max(m[0]) * LOG2E, -quad_max(m[1]) * LOG2E};
+  K6_LAP(2);
+
+  float z0 = 0.f, z1 = 0.f;
+#pragma unroll
+  for (int b = 0; b < NJ / NB; ++b) {       // per block of 32 keys
+    float y0 = 0.f, y1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      float (&e)[4] = s[b][j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) e[i] = exp_shifted(e[i], mb[i >> 1]);
+      y0 += e[0];
+      y0 += e[1];
+      y1 += e[2];
+      y1 += e[3];
+    }
+    z0 += y0;
+    z1 += y1;
+  }
+  const float i0 = 1.f / quad_sum(z0), i1 = 1.f / quad_sum(z1);
+  uint32_t pa[NJ / 2][4];
+#pragma unroll
+  for (int kk = 0; kk < NJ / 2; ++kk) {
+    attn_frag(pa[kk], s[2 * kk / NB][2 * kk % NB],
+              s[(2 * kk + 1) / NB][(2 * kk + 1) % NB], i0, i1);
+    fence(pa[kk]);
+  }
+  K6_LAP(3);
+  attn_v_wide<RES_KEYS / 64>(w, ob, [&](int k, uint32_t (&a)[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[e] = pa[k][e];
+  });
+  __syncwarp();
+  K6_LAP(4);
+  out_wide(ob, xr, outr, w);
+  __syncwarp();
+  K6_LAP(5);
+}
+
+// The persistent loop of modes 3 and 4: this CTA's contiguous range of work
+// items (frame n, TQ queries from q0), a warp per 16 rows, all on one item. x, out (N, HW, C); wq_t (c8, C), wo_t
+// (C, c2): the transposed projections; kS and vT from attn_kv_kernel.
+template <int MODE, bool RES>
+__device__ __forceinline__ void fwd_wide(
+    const bf16* __restrict__ x, const bf16* __restrict__ wq_t,
+    const bf16* __restrict__ wo_t, const float* __restrict__ kS,
+    const bf16* __restrict__ vT, const float* __restrict__ gamma,
+    bf16* __restrict__ out, int N, int HW, int keys, int C, int c8, int c2,
+    int TQ) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kvn = keys_padded(keys), warps = blockDim.x / 32;
+  const WideLayout L = wide_layout(MODE, kvn, C, c8, c2, warps);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles = HW / TQ;
+  const long long items = (long long)N * tiles;
+  const int first = (int)(items * blockIdx.x / gridDim.x);
+  const int last = (int)(items * (blockIdx.x + 1) / gridDim.x);
+  constexpr bool resident = MODE == 4 && RES;   // kvn == RES_KEYS
+
+  Wide<MODE> w;
+  w.wq_t = wq_t;
+  w.wo_t = wo_t;
+  w.kS = kS;
+  w.vT = vT;
+  w.C = C;
+  w.c8 = c8;
+  w.c2 = c2;
+  w.kvn = kvn;
+  w.keys = keys;
+  w.ldb = L.ldb;
+  w.gm = __ldg(gamma);
+  w.qp = (c8 / 8 + K_STEPS - 1) / K_STEPS;
+  w.cb = (C + 127) / 128;
+  w.kb = (kvn + K_KEYS - 1) / K_KEYS;
+  w.sweeps = resident ? 1 : 3;
+  w.vp = (c2 + 63) / 64;
+  w.vb = (kvn + 63) / 64;
+  w.op = (c2 + 127) / 128;
+  w.per_item = wide_tiles(MODE, kvn, C, c8, c2);
+  w.bars = reinterpret_cast<uint64_t*>(smem);
+  TileEntry* table = reinterpret_cast<TileEntry*>(smem + BAR_BYTES);
+  w.table = table;
+  w.ring = smem + BAR_BYTES + L.table_bytes;
+  w.stages = L.stages;
+  w.lead = L.stages - 2;
+  w.first = first;
+  w.frame_items = tiles;
+  w.warps = warps;
+  w.warp = warp;
+  w.used = w.released = 0;
+  w.total = (last - first) * w.per_item;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L.stages; ++s) {
+      mbar_init(w.full(s), 32);
+      mbar_init(w.empty(s), warps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  w.fill_table(table);
+  __syncthreads();
+  w.start();
+  unsigned char* wb = w.ring + (size_t)L.stages * TILE_BYTES +
+                      (size_t)warp * L.warp_bytes;
+  for (int it = first; it < last; ++it) {
+    const int n = it / tiles, q0 = (it - n * tiles) * TQ;
+    K6_START();
+    if (it + 1 < last) {          // this warp's rows of the next item, into L2
+      const int n1 = (it + 1) / tiles, q1 = (it + 1 - n1 * tiles) * TQ;
+      prefetch_l2(x + ((size_t)n1 * HW + q1 + 16 * warp) * C, (size_t)32 * C,
+                  lane, 32);
+    }
+    K6_LAP(0);
+    if (lane == 0) K6_COUNT(6);
+    const size_t row0 = (size_t)n * HW + q0 + 16 * warp;
+    if constexpr (MODE == 3)
+      rows_wide(x + row0 * C, out + row0 * C, w, reinterpret_cast<bf16*>(wb));
+    else if constexpr (resident)
+      rows_wide_resident(x + row0 * C, out + row0 * C, w, wb, L.qo_bytes);
+    else
+      rows_wide_sweep(x + row0 * C, out + row0 * C, w, wb, L.qo_bytes);
+  }
+}
+
 // The persistent loop: this CTA's contiguous range of work items (frame n,
-// TQ queries from q0), a warp per 16 rows. x, out (N, HW, C); wq (C, c8),
-// wo (c2, C) as the module holds them (modes 3 and 4: transposed); kS and
-// vT from attn_kv_kernel (bf16 layout, keys_padded(keys) tokens a frame).
+// TQ queries from q0), a warp per 16 rows (modes 0-2). x, out (N, HW, C);
+// wq (C, c8), wo (c2, C) as the module holds them; kS and vT from
+// attn_kv_kernel (bf16 layout, keys_padded(keys) tokens a frame).
 template <int MODE, int OT>
 __device__ __forceinline__ void fwd_tc(
     const bf16* __restrict__ x, const bf16* __restrict__ wq,
@@ -1732,12 +2368,9 @@ __device__ __forceinline__ void fwd_tc(
     bf16* __restrict__ out, int N, int HW, int keys, int C, int c8, int c2,
     int TQ) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr bool kStaged = MODE != 2 && MODE != 4;  // v^T (and k) in smem
-  constexpr bool kWide = MODE >= 3;       // the weights read from L2
-  const int kvn = keys_padded(keys), warps = blockDim.x / 32;
-  const TcLayout L = MODE == 4 ? wide_sweep_layout(kvn, C, c8, c2, warps)
-                     : kWide   ? wide_layout(kvn, C, c8, c2, warps)
-                               : tc_layout(kvn, C, c8, c2, kStaged);
+  constexpr bool kStaged = MODE != 2;    // v^T (and k) in smem
+  const int kvn = keys_padded(keys);
+  const TcLayout L = tc_layout(kvn, C, c8, c2, kStaged);
   bf16* wq_s = reinterpret_cast<bf16*>(smem);
   bf16* wo_s = reinterpret_cast<bf16*>(smem + L.wo);
   bf16* v_s = reinterpret_cast<bf16*>(smem + L.v);
@@ -1752,17 +2385,14 @@ __device__ __forceinline__ void fwd_tc(
   // Wq^T from wq (C, c8); Wo^T from wo (c2, C), channel n to the row that
   // holds it in out_rows' permutation (row 8j + i of a group of 32 holds
   // channel 8 (i / 2) + 2j + i % 2)
-  if constexpr (!kWide) {
-    stage_transposed(wq_s, L.ldq, wq, C, c8, [](int n) { return n; });
-    stage_transposed(wo_s, L.ldo, wo, c2, C, [](int n) {
-      const int w = n & 31;
-      return (n & ~31) + 8 * ((w >> 1) & 3) + 2 * (w >> 3) + (w & 1);
-    });
-  }
+  stage_transposed(wq_s, L.ldq, wq, C, c8, [](int n) { return n; });
+  stage_transposed(wo_s, L.ldo, wo, c2, C, [](int n) {
+    const int w = n & 31;
+    return (n & ~31) + 8 * ((w >> 1) & 3) + 2 * (w >> 3) + (w & 1);
+  });
   __syncthreads();                // mode 2 without k staged has no other
-  TcCtx c{kWide ? wq : wq_s, kWide ? wo : wo_s, v_s, k_s, L.ldq, L.ldo,
-          kStaged ? L.ldv : kvn, kvn, C, c8, c2, __ldg(gamma), keys};
-  unsigned char* wb = smem + L.ob + (size_t)warp * L.warp_bytes;
+  TcCtx c{wq_s, wo_s, v_s, k_s, L.ldq, L.ldo, kStaged ? L.ldv : kvn, kvn, C,
+          c8, c2, __ldg(gamma), keys};
 
   int frame = -1;
   for (int it = first; it < last; ++it) {
@@ -1803,11 +2433,6 @@ __device__ __forceinline__ void fwd_tc(
     const size_t row0 = (size_t)n * HW + q0 + 16 * warp;
     if constexpr (MODE == 0)
       rows_resident<OT>(x + row0 * C, out + row0 * C, c);
-    else if constexpr (MODE == 3)
-      rows_wide(x + row0 * C, out + row0 * C, c,
-                reinterpret_cast<bf16*>(wb), L.ldb);
-    else if constexpr (MODE == 4)
-      rows_wide_sweep(x + row0 * C, out + row0 * C, c, wb, L.ldb);
     else
       rows_sweep<OT, !kStaged>(x + row0 * C, out + row0 * C, c);
   }
@@ -1826,18 +2451,23 @@ struct FwdThreads<bf16, V> {
   static constexpr int value = 32 * BodyOf<V>::kWarps;
 };
 
-template <typename T, int V>
+// RES: mode 4 on maps of RES_KEYS keys (rows_wide_resident), a kernel of
+// its own: one body's code in each.
+template <typename T, int V, bool RES = false>
 __global__ void __launch_bounds__(FwdThreads<T, V>::value, 1)
 attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wq,
                 const T* __restrict__ wo, const float* __restrict__ kT,
                 const T* __restrict__ vT, const float* __restrict__ gamma,
                 T* __restrict__ out, int N, int HW, int keys, int C, int c8,
                 int c2, int TQ) {
-  if constexpr (Traits<T>::kBf16)
+  if constexpr (!Traits<T>::kBf16)
+    fwd_f32<V>(x, wq, wo, kT, vT, gamma, out, HW, keys, C, c8, c2, TQ);
+  else if constexpr (BodyOf<V>::kMode >= 3)
+    fwd_wide<BodyOf<V>::kMode, RES>(x, wq, wo, kT, vT, gamma, out, N, HW,
+                                    keys, C, c8, c2, TQ);
+  else
     fwd_tc<BodyOf<V>::kMode, BodyOf<V>::kOT>(x, wq, wo, kT, vT, gamma,
                                              out, N, HW, keys, C, c8, c2, TQ);
-  else
-    fwd_f32<V>(x, wq, wo, kT, vT, gamma, out, HW, keys, C, c8, c2, TQ);
 }
 
 // ---- plans and launches ----------------------------------------------------
@@ -1881,9 +2511,8 @@ size_t fwd_smem(int dtype, int body, int tq, int H, int W, int C, int c8,
         (mode == 3 && kvn > WIDE_KEYS) || (mode >= 3 && c2 % 32) ||
         tq / 16 > BODY_TABLE[body][2])
       return 0;
-    bytes = mode == 4   ? wide_sweep_layout(kvn, C, c8, c2, tq / 16).total
-            : mode == 3 ? wide_layout(kvn, C, c8, c2, tq / 16).total
-                        : tc_layout(kvn, C, c8, c2, mode != 2).total;
+    bytes = mode >= 3 ? wide_layout(mode, kvn, C, c8, c2, tq / 16).total
+                      : tc_layout(kvn, C, c8, c2, mode != 2).total;
   }
   return bytes <= SMEM_MAX ? bytes : 0;
 }
@@ -1907,12 +2536,12 @@ int kv_launch(const void* x, const void* wk_t, const void* wv_t, float* kT,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int V>
+template <typename T, int V, bool RES = false>
 int fwd_launch(const void* x, const void* wq, const void* wo,
                const float* kT, const void* vT, const float* gamma, void* out,
                int N, int HW, int C, int c8, int c2, int tq, dim3 grid,
                int threads, size_t bytes, cudaStream_t stream) {
-  const auto kernel = attn_fwd_kernel<T, V>;
+  const auto kernel = attn_fwd_kernel<T, V, RES>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -1934,6 +2563,11 @@ int fwd_bf16(int body, const void* x, const void* wq, const void* wo,
     if (body != V)
       return fwd_bf16<V + 1>(body, x, wq, wo, kT, vT, gamma, out, N, HW, C,
                              c8, c2, tq, ctas, bytes, stream);
+    if constexpr (BodyOf<V>::kMode == 4)
+      if (keys_padded(HW / 4) == RES_KEYS)
+        return fwd_launch<bf16, V, true>(x, wq, wo, kT, vT, gamma, out, N, HW,
+                                         C, c8, c2, tq, dim3(ctas), 2 * tq,
+                                         bytes, stream);
     return fwd_launch<bf16, V>(x, wq, wo, kT, vT, gamma, out, N, HW, C, c8,
                                c2, tq, dim3(ctas), 2 * tq, bytes, stream);
   }
@@ -2022,13 +2656,13 @@ int spatial_attn_fwd(int dtype, int device, const void* x, const void* wq,
 }
 
 #ifdef K6_PROFILE
-// Copies the eight counters of the bf16 body (K6_PROFILE above) to `out`
+// Copies the twelve counters of the bf16 body (K6_PROFILE above) to `out`
 // and zeroes them.
 int spatial_attn_profile(unsigned long long* out) {
   cudaError_t e = cudaDeviceSynchronize();
-  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, k6_cycles, 64);
-  const unsigned long long zero[8] = {0};
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(k6_cycles, zero, 64);
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, k6_cycles, 96);
+  const unsigned long long zero[12] = {0};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(k6_cycles, zero, 96);
   return static_cast<int>(e);
 }
 #endif

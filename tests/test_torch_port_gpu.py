@@ -1122,11 +1122,16 @@ DOMAIN_SHAPES = [(3, 4, 4, 128), (4, 4, 4, 256), (4, 4, 4, 512),
                  (2, 4, 4, 2048), (2, 32, 32, 32), (2, 32, 32, 96),
                  (2, 16, 16, 80), (2, 16, 16, 768), (2, 8, 8, 1536),
                  (4, 32, 32, 384), (2, 32, 32, 1024), (1, 64, 64, 384)]
+# the wide bodies' ragged tiles: 24² (144 keys: a last k tile of 16 keys and
+# v^T tile of 16), 28×36 (252 keys padded to 256: mode 4's logits kept in
+# registers with 4 keys masked), 12² at C 768 (36 keys padded to 48: mode
+# 3's second k tile of 16 keys, 4 masked)
+WIDE_EDGE_SHAPES = [(2, 24, 24, 384), (2, 28, 36, 384), (2, 12, 12, 768)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,w,c", ATTN_SHAPES + WIDE_SHAPES
-                         + DOMAIN_SHAPES)
+                         + DOMAIN_SHAPES + WIDE_EDGE_SHAPES)
 def test_k6_kernel_matches_plain(cuda, dtype, n, h, w, c):
     args = _attn_inputs(n, h, w, c, dtype, cuda, seed=n + c)
     entry = _attn_entry(h, w)
@@ -1182,6 +1187,13 @@ BODY_SHAPES = [(4, 32, 32, 64), (3, 32, 32, 256), (2, 64, 64, 64),
                (2, 16, 16, 384), (3, 32, 32, 384), (1, 64, 64, 384)]
 
 
+# the wide bodies at the four wide calls of `--ch 96` (64²×384 and 32²×384 in
+# mode 4, 16²×768 and 8²×1536 in mode 3) at N 8: work items whose warps
+# share the ring's tiles, several items a CTA at the plan's grid
+WIDE_PLAN_SHAPES = [(8, 64, 64, 384), (8, 32, 32, 384), (8, 16, 16, 768),
+                    (8, 8, 8, 1536)]
+
+
 def _k6_tiles(n, h, w, c):
     """The query tiles the bf16 plan takes when forced."""
     out = []
@@ -1194,7 +1206,8 @@ def _k6_tiles(n, h, w, c):
     return out
 
 
-@pytest.mark.parametrize("n,h,w,c", BODY_SHAPES)
+@pytest.mark.parametrize("n,h,w,c", BODY_SHAPES + WIDE_PLAN_SHAPES
+                         + [(8, 24, 24, 384)])
 def test_k6_bf16_has_the_same_bits_under_every_plan(cuda, monkeypatch, n, h,
                                                     w, c):
     """A query's output does not depend on the work item's size, on the
@@ -1289,7 +1302,8 @@ def test_k6_bf16_refuses_what_its_bodies_do_not_hold(cuda, n, h, w, c, c8,
 
 @pytest.mark.parametrize("n,h,w,c", ATTN_SHAPES[:6] + ATTN_SHAPES[-2:]
                          + WIDE_SHAPES + [(96, 8, 8, 512), (192, 8, 8, 512)]
-                         + DOMAIN_SHAPES)
+                         + DOMAIN_SHAPES + WIDE_PLAN_SHAPES
+                         + WIDE_EDGE_SHAPES)
 def test_k6_bf16_differs_from_plain_on_at_most_half_a_percent(cuda, n, h, w,
                                                               c):
     """At the driven calls the bf16 kernel's output differs from the plain

@@ -15,10 +15,12 @@ kernel takes each of those shapes:
     K6 tolerances and the interpreted K6a/K6b of the reference (`interpret=
     True`, the bf16 `dot` shim of `tests/test_torch_port_attn.py`), as does
     the plain version itself at those shapes;
-  * mode 4 (`rows_wide_sweep`), the wide widths on maps of more than 64
-    keys: `_wide_sweep_view` (q and the logits in passes of 32 q channels,
-    attn·v in passes of 64 o channels summed over blocks of 64 keys, o·Wo in
-    passes of 128 o channels) against the plain version with 3×TF32 logits;
+  * mode 4 (`rows_wide_sweep`, and on 32² maps `rows_wide_resident`, which
+    forms each logit once with the sweeps' sums), the wide widths on maps of
+    more than 64 keys: `_wide_sweep_view` (q and the logits in passes of 32
+    q channels, attn·v in passes of 64 o channels summed over blocks of 64
+    keys, o·Wo in passes of 128 o channels) against the plain version with
+    3×TF32 logits; the ring of tiles the CTA's warps share moves no sum;
   * the attention op on 4² frames, and G at the repo's test scale with its
     attention at 16²×48 (c8 6, c2 24, C % 32 == 16), `attn_fused="on"`
     against the reference's interpreted Pallas route and against `"off"`
@@ -123,22 +125,54 @@ def test_plan_still_raises_for_odd_maps_and_unfit_tiles(dtype):
 
 @pytest.mark.parametrize("h,c,mode,warps", [
     (4, 128, 1, 1), (4, 512, 3, 1), (4, 2048, 3, 1), (8, 1536, 3, 4),
-    (16, 768, 3, 8), (32, 384, 4, 8), (32, 1024, 4, 4), (64, 384, 4, 4)])
+    (16, 768, 3, 8), (32, 384, 4, 8), (32, 1024, 4, 8), (64, 384, 4, 4)])
 def test_bf16_plan_picks_the_body_and_warps_that_fit(h, c, mode, warps):
     """The 4² map (keys padded to 16) in the narrow sweep or the wide body;
     the wide widths in the wide body (≤ 64 keys) or the wide sweep, with as
-    many warps a CTA as their buffers fit."""
+    many warps a CTA (16 query rows each, all on one work item) as their
+    buffers fit beside the ring of tiles the warps share."""
     p = ka.plan(torch.bfloat16, 4, h, h, c, c // 8, c // 2)
     assert ka.BODIES[p.body][0] == mode and p.tq == 16 * warps
     kvn = ka.keys_padded(h * h // 4)
     if mode == 3:
-        assert p.smem_bytes == ka._wide_smem(kvn, c // 8, c // 2, warps)
+        assert p.smem_bytes == ka._wide_smem(kvn, c, c // 8, c // 2, warps)
     if mode == 4:
-        assert p.smem_bytes == ka._wide_sweep_smem(kvn, c // 8, c // 2,
+        assert p.smem_bytes == ka._wide_sweep_smem(kvn, c, c // 8, c // 2,
                                                    warps)
-        assert ka._wide_sweep_smem(kvn, c // 8, c // 2,
+        assert ka._wide_sweep_smem(kvn, c, c // 8, c // 2,
                                    2 * warps) > ka.MAX_SMEM_BYTES or (
             2 * warps > ka.BODIES[p.body][2])
+
+
+def test_wide_bodies_fit_shared_memory_at_every_admitted_case():
+    """Over the 166 cases of the grid above, every one that takes mode 3 or
+    4 (the wide bodies) asks for at most 232,448 bytes of shared memory a
+    CTA: each warp's buffers and a ring of 3 to 8 tiles of 10,240 bytes,
+    as many as fit, with two 8-byte barriers for each of 8 stages and a
+    16-byte entry for each tile of a work item."""
+    modes = {3: 0, 4: 0}
+    for img in G_MULTS:
+        for ch in CHS:
+            for res, c in levels(img, ch):
+                if not reference_admits(res, c, 2):
+                    continue
+                p = ka.plan(torch.bfloat16, 2, res, res, c, c // 8, c // 2)
+                mode = ka.BODIES[p.body][0]
+                if mode < 3:
+                    continue
+                modes[mode] += 1
+                kvn, warps = ka.keys_padded(res * res // 4), p.tq // 16
+                layout = ka._wide_smem if mode == 3 else ka._wide_sweep_smem
+                assert p.smem_bytes == layout(kvn, p.c, p.c8, p.c2, warps)
+                attn = 32 * kvn if kvn != 256 else 0
+                own = warps * (32 * (p.c2 + 8) if mode == 3 else
+                               max(128 * p.c8, 32 * (p.c2 + 8)) + attn)
+                table = 16 * ka.wide_tiles(mode, kvn, p.c, p.c8, p.c2)
+                stages, rest = divmod(p.smem_bytes - own - 128 - table,
+                                      10240)
+                assert rest == 0 and 3 <= stages <= 8, (res, c, stages)
+                assert p.smem_bytes <= 232448, (res, c)
+    assert modes[3] > 0 and modes[4] > 0, modes
 
 
 @pytest.mark.parametrize("c,c8,c2,widths", [

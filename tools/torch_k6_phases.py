@@ -4,9 +4,11 @@
 
     python3 tools/torch_k6_phases.py        # from the repository root; one GPU
 
-At the three shapes the driven paths give its bodies (32²×64: logits in
-registers, C 64; 32²×256: in registers, C 256; 64²×64: three key sweeps)
-it prints one JSON line each with:
+At the three shapes the driven paths give its narrow bodies (32²×64:
+logits in registers, C 64; 32²×256: in registers, C 256; 64²×64: three
+key sweeps) and the five wide calls of `--ch 96` (mode 4: 32²×384 of P2,
+32²×1024, 64²×384; mode 3: 16²×768, 8²×1536) it prints one JSON line each
+with:
 
   * the profiler's view of one call (`chip_smoke.device_view`: the device
     µs of attn_kv_kernel and attn_fwd_kernel, None where it missed a
@@ -16,7 +18,16 @@ it prints one JSON line each with:
     frame change, shared by the CTA's warps); q = x Wq (x read from global
     memory); the logits (sweep body: the max sweep); the softmax (sweep: the
     sum sweep); attn v (sweep: the third sweep with its logits and exps);
-    o Wo with the residual and the store. From a build with -DK6_PROFILE
+    o Wo with the residual and the store. The wide bodies (modes 3 and 4)
+    stage nothing at a frame change (their "stage" is the next item's x
+    prefetch); mode 3 counts q with the logits; mode 4's logits are its
+    max sweep, or on 32² maps all of them formed once, and its attn_v holds
+    its third sweep where it has one. Theirs also, a warp item: `ring_wait`, the cycles a warp
+    waits for a tile of the ring of shared tiles; `turn_wait` and
+    `turn_issue`, the cycles it waits, at its turn to copy a tile, for the
+    stage to be released and then spends issuing the copies (all three
+    inside the phases' cycles); and `tiles`, a CTA item's. From a build
+    with -DK6_PROFILE
     (nvcc by hand, into a temporary directory), in which lane 0 of every
     warp adds clock64() laps to a device array. A warp's laps include the
     time it waits on the others sharing its SM sub-partition: the shares,
@@ -40,7 +51,9 @@ from dvdgan_tpu_torch.kernels import _build  # noqa: E402
 from dvdgan_tpu_torch.kernels import attention_spatial as k6  # noqa: E402
 
 PHASES = ("stage", "q", "logits", "softmax", "attn_v", "out")
-SHAPES = [(256, 32, 32, 64), (384, 32, 32, 256), (192, 64, 64, 64)]
+SHAPES = [(256, 32, 32, 64), (384, 32, 32, 256), (192, 64, 64, 64),
+          (96, 32, 32, 384), (32, 32, 32, 1024), (96, 64, 64, 384),
+          (96, 16, 16, 768), (96, 8, 8, 1536)]
 
 
 def build_profiled(tmp: str) -> ctypes.CDLL:
@@ -89,7 +102,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         lib = build_profiled(tmp)
         k6._lib = lambda: lib
-        counts = (ctypes.c_ulonglong * 8)()
+        counts = (ctypes.c_ulonglong * 12)()
         try:
             for n, h, w, c in SHAPES:
                 args = inputs(n, h, w, c, device)
@@ -102,12 +115,18 @@ def main() -> int:
                 items, frames = counts[6], counts[7]
                 per_item = {p: round(v / items)
                             for p, v in zip(PHASES, counts)}
+                wide = k6.BODIES[plan.body][0] >= 3
+                ring = ({"ring_wait": round(counts[8] / items),
+                         "tiles": counts[9] * (plan.tq // 16) // items,
+                         "turn_wait": round(counts[10] / items),
+                         "turn_issue": round(counts[11] / items)}
+                        if wide else {})
                 print(json.dumps({
                     "shape": [n, h, w, c], "body": k6.BODIES[plan.body],
                     "queries_per_item": plan.tq, "ctas": plan.ctas,
                     "warp_items": items, "frames_staged": frames,
                     "cycles_per_warp_item": per_item,
-                    "sum": sum(per_item.values()),
+                    "sum": sum(per_item.values()), **ring,
                     **rows[(n, h, w, c)]}), flush=True)
         finally:
             k6._lib = lib_of
