@@ -190,8 +190,8 @@ The default run, on one card:
    `step.sample` of its weights at batch 16, each eager and from a CUDA
    graph of 10 calls (`tools/torch_bench_sample.py`), ms a batch and
    device idle share, and one sample call traced under `profiling.trace`
-   and `scope("sample")`, the trace holding the scope and K1's kernels
-   (`time_serving`);
+   with spans on, the trace holding the span "dvdgan.sample" and K1's
+   kernels (`time_serving`);
 5. holds K2 against its plain version at the shapes the flagship step's G
    update gives it (the four levels, T=16, B=8), in f32 with TF32 off (atol
    1e-4 × max|ref| per output) and in bf16 (5e-2 × max|ref|), two runs
@@ -3439,8 +3439,8 @@ def time_serving(device, runs: dict[str, dict]) -> dict:
     from a CUDA graph of SCAN_STEPS calls (`tools/torch_bench_sample.py`),
     host ms a batch and the device idle share (1 − profiler kernel time /
     the unprofiled time) of each; then one sample call traced under
-    `profiling.trace` and `scope("sample")`: the trace must hold the
-    scope's range and K1's kernels."""
+    `profiling.trace` with spans on: the trace must hold the sampler's
+    span ("dvdgan.sample", `profiling.span`) and K1's kernels."""
     from dvdgan_tpu_torch import interop, serving
     from dvdgan_tpu_torch.train import step
     from dvdgan_tpu_torch.utils import profiling
@@ -3472,19 +3472,23 @@ def time_serving(device, runs: dict[str, dict]) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         z = torch.randn(batch, g_cfg.z_dim, device=device).bfloat16()
         y = torch.zeros(batch, dtype=torch.long, device=device)
-        with profiling.trace(tmp, device):
-            with profiling.scope("sample"):
+        profiling.enable(True)
+        try:
+            with profiling.trace(tmp, device):
                 step.sample(*trees, z, y, g_cfg)
+        finally:
+            profiling.enable(False)
         (path,) = [os.path.join(tmp, f) for f in os.listdir(tmp)]
         with open(path) as f:
             names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
     k1_names = sorted({n for n in names
                        if any(k in n for k in CONVGRU_KERNELS)})
-    print(f"trace of one sample call: {len(names)} event names, scope "
-          f"'sample' {'sample' in names}, K1 kernels {k1_names[:3]}",
+    span = profiling.PREFIX + "sample"
+    print(f"trace of one sample call: {len(names)} event names, span "
+          f"{span!r} {span in names}, K1 kernels {k1_names[:3]}",
           flush=True)
-    if "sample" not in names or not k1_names:
-        raise AssertionError("the sample trace lacks the scope or K1's "
+    if span not in names or not k1_names:
+        raise AssertionError("the sample trace lacks the span or K1's "
                              "kernels")
     return rows
 

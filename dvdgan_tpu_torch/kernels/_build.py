@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = ("convgru_seq", "convgru_bwd", "convgru_blocked", "convgru_cell",
-           "ups2x_fused", "attention_spatial")
+           "ups2x_fused", "attention_spatial", "span_mark")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 

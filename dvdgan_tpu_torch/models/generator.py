@@ -78,6 +78,7 @@ from dvdgan_tpu_torch.core import tree as tru
 from dvdgan_tpu_torch.models.config import GConfig
 from dvdgan_tpu_torch.ops import attention, convgru, layers, norm, resblocks
 from dvdgan_tpu_torch.ops import spectral_norm as sn
+from dvdgan_tpu_torch.utils.profiling import span
 
 
 def init(gen: torch.Generator, cfg: GConfig) -> tuple[dict, dict]:
@@ -272,7 +273,9 @@ def apply(params: dict, stats: dict, z: torch.Tensor, y: torch.Tensor,
     cond_frames, H, W, 3), cast to the compute dtype, and the video is the
     n_frames generated after it. time_major_out=True returns the internal
     (T, B, H, W, 3) layout. `group`: the data ranks' process group of
-    cross-replica BN (train mode only; None: this process's batch)."""
+    cross-replica BN (train mode only; None: this process's batch). Each
+    level is the span "g.<i>" and the output head "g.head"
+    (`utils/profiling.py:span`)."""
     b = z.shape[0]
     t = cfg.n_frames
     n = cfg.n_levels
@@ -299,25 +302,29 @@ def apply(params: dict, stats: dict, z: torch.Tensor, y: torch.Tensor,
         lvl = params["levels"][i]
         cond = torch.cat([chunks[i + 1], e], dim=-1)           # (B, cond)
         cond_tb = cond.repeat(t, 1)                            # row t·B + b
-        h0 = None
-        if enc_seqs[i] is not None:
-            # FP warm-up: the level's GRU over the encoded prefix; its last
-            # hidden state seeds the generation
-            h0 = convgru.convgru(lvl["gru"], enc_seqs[i], time_major=True)[-1]
-        # level 0's input is the seed broadcast over time: the GRU input
-        # conv runs once and broadcasts
-        x_seq, s = _level(lvl, stats["levels"][i], x_seq, h0, cond_tb, i == 0,
-                          params["attn"] if i == attn_idx else None, train,
-                          remat, cfg, group)
+        with span(f"g.{i}"):
+            h0 = None
+            if enc_seqs[i] is not None:
+                # FP warm-up: the level's GRU over the encoded prefix; its
+                # last hidden state seeds the generation
+                h0 = convgru.convgru(lvl["gru"], enc_seqs[i],
+                                     time_major=True)[-1]
+            # level 0's input is the seed broadcast over time: the GRU
+            # input conv runs once and broadcasts
+            x_seq, s = _level(lvl, stats["levels"][i], x_seq, h0, cond_tb,
+                              i == 0,
+                              params["attn"] if i == attn_idx else None,
+                              train, remat, cfg, group)
         new_stats_levels.append(s)
 
-    hw = x_seq.shape[2]
-    h = x_seq.reshape(t * b, hw, hw, x_seq.shape[-1])
-    h, s_out = norm.bn(params["out_bn"], stats["out_bn"], h, train=train,
-                       group=group)
-    h = torch.relu(h)
-    h = layers.conv2d(params["out_conv"], h)
-    video = torch.tanh(h.float()).to(dtype).reshape(t, b, hw, hw, 3)
+    with span("g.head"):
+        hw = x_seq.shape[2]
+        h = x_seq.reshape(t * b, hw, hw, x_seq.shape[-1])
+        h, s_out = norm.bn(params["out_bn"], stats["out_bn"], h, train=train,
+                           group=group)
+        h = torch.relu(h)
+        h = layers.conv2d(params["out_conv"], h)
+        video = torch.tanh(h.float()).to(dtype).reshape(t, b, hw, hw, 3)
     if not time_major_out:
         video = video.movedim(0, 1)
     return video, {"levels": new_stats_levels, "out_bn": s_out}

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from dvdgan_tpu_torch.core import tree as tru
+from dvdgan_tpu_torch.utils.profiling import span
 
 _EPS = 1e-12
 _SN_LEAF_NAMES = ("w", "emb")
@@ -75,7 +76,8 @@ def sn_normalize(params, sn_u: dict[str, torch.Tensor], update: bool,
     """(params with matching kernels divided by σ, new {path: u}).
 
     `update` selects whether the returned u advances (the owning model's
-    train step) or echoes the input (sampling, the non-updating phase)."""
+    train step) or echoes the input (sampling, the non-updating phase).
+    The pass is the span "sn"."""
     new_u: dict[str, torch.Tensor] = {}
 
     def norm_leaf(path: str, w):
@@ -86,5 +88,6 @@ def sn_normalize(params, sn_u: dict[str, torch.Tensor], update: bool,
         w_sn = w.float() / sigma
         return w_sn.to(compute_dtype if compute_dtype is not None else w.dtype)
 
-    params_sn = tru.map_with_path(norm_leaf, params)
+    with span("sn"):
+        params_sn = tru.map_with_path(norm_leaf, params)
     return params_sn, new_u

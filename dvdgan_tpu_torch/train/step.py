@@ -99,6 +99,8 @@ from dvdgan_tpu_torch.ops import spectral_norm as sn
 from dvdgan_tpu_torch.parallel import collectives, time_shard
 from dvdgan_tpu_torch.train import state as train_state
 from dvdgan_tpu_torch.train.state import TrainConfig
+from dvdgan_tpu_torch.utils import profiling
+from dvdgan_tpu_torch.utils.profiling import span
 
 
 _MASK64 = (1 << 64) - 1
@@ -256,8 +258,9 @@ def _global_norm(grads: Any) -> torch.Tensor:
 
 def _adam(grads: Any, model: dict, lr: float, tc: TrainConfig
           ) -> tuple[Any, dict]:
-    return train_state.adam_update(grads, model["opt"], model["params"], lr,
-                                   tc.beta1, tc.beta2)
+    with span("adam"):
+        return train_state.adam_update(grads, model["opt"], model["params"],
+                                       lr, tc.beta1, tc.beta2)
 
 
 def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
@@ -269,7 +272,10 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
     d_loss_s, d_loss_t, g_loss} and with `tc.log_grad_norms` {d_grad_norm,
     g_grad_norm}, as f32 scalars on the device; the D losses and norm are
     the last D step's). `group`, `time_group`: this rank's data and time
-    process groups (module docstring); B is then the rank's rows."""
+    process groups (module docstring); B is then the rank's rows. Its
+    phases are the spans (`utils/profiling.py:span`) "step.fakes" (G's
+    no-grad pass and the φ-pooling), "step.d" (each D update) and "step.g"
+    (G's update, EMA, the metrics' mean)."""
     if tc.fake_gen not in FAKE_GEN:
         raise ValueError(f"fake_gen must be one of {FAKE_GEN}, got "
                          f"{tc.fake_gen!r}")
@@ -297,7 +303,7 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
                                           pooled=pooled)(clip, yy)
 
     # ---- fakes for every D step, no grad ----------------------------------
-    with torch.no_grad():
+    with torch.no_grad(), span("step.fakes"):
         g_sn, _ = sn.sn_normalize(state["g"]["params"], state["g"]["sn_u"],
                                   update=False, compute_dtype=dtype)
         if tc.fake_gen == "pooled":     # one forward at batch d_steps·B
@@ -322,90 +328,97 @@ def train_step(state: dict, real: torch.Tensor, y: torch.Tensor, draws,
     ds, dt = state["ds"], state["dt"]
     metrics: dict[str, torch.Tensor] = {}
     for i in range(d_steps):
-        real_frames = take_frames(real_gen, draws.idx(3 * i + 1))
-        fake_frames = take_frames(fake_all[i * b:(i + 1) * b],
-                                  draws.idx(3 * i + 2))
-        fake_dt = fake_all_dt[i * b:(i + 1) * b]
-        if cf:      # the fake clip DT scores: the real prefix, then G's
-            fake_dt = torch.cat([cond_dt, fake_dt], dim=1)
+        with span("step.d"):
+            real_frames = take_frames(real_gen, draws.idx(3 * i + 1))
+            fake_frames = take_frames(fake_all[i * b:(i + 1) * b],
+                                      draws.idx(3 * i + 2))
+            fake_dt = fake_all_dt[i * b:(i + 1) * b]
+            if cf:      # the fake clip DT scores: the real prefix, then G's
+                fake_dt = torch.cat([cond_dt, fake_dt], dim=1)
 
-        # called right away, so the models it reads are this D step's
-        def d_loss_fn(d_params, rf, ff, rh, fh, yj):
-            ds_sn, ds_u = sn.sn_normalize(d_params["ds"], ds["sn_u"],
-                                          update=True, compute_dtype=dtype)
-            dt_sn, dt_u = sn.sn_normalize(d_params["dt"], dt["sn_u"],
-                                          update=True, compute_dtype=dtype)
-            n = rf.shape[0]
-            yy = torch.cat([yj, yj])
-            ds_both = discriminator.ds_apply(ds_sn, torch.cat([rf, ff]), yy,
-                                             ds_cfg)
-            dt_both = dt_score(dt_sn, torch.cat([rh, fh]), yy, pooled=True)
-            l_ds = losses.d_hinge(ds_both[:n], ds_both[n:])
-            l_dt = losses.d_hinge(dt_both[:n], dt_both[n:])
-            return l_ds + l_dt, (l_ds.detach(), l_dt.detach(), ds_u, dt_u)
+            # called right away, so the models it reads are this D step's
+            def d_loss_fn(d_params, rf, ff, rh, fh, yj):
+                ds_sn, ds_u = sn.sn_normalize(d_params["ds"], ds["sn_u"],
+                                              update=True, compute_dtype=dtype)
+                dt_sn, dt_u = sn.sn_normalize(d_params["dt"], dt["sn_u"],
+                                              update=True, compute_dtype=dtype)
+                n = rf.shape[0]
+                yy = torch.cat([yj, yj])
+                ds_both = discriminator.ds_apply(
+                    ds_sn, torch.cat([rf, ff]), yy, ds_cfg)
+                dt_both = dt_score(dt_sn, torch.cat([rh, fh]), yy, pooled=True)
+                l_ds = losses.d_hinge(ds_both[:n], ds_both[n:])
+                l_dt = losses.d_hinge(dt_both[:n], dt_both[n:])
+                return l_ds + l_dt, (l_ds.detach(), l_dt.detach(), ds_u, dt_u)
 
-        d_loss, auxes, grads = _accum_grads(
-            d_loss_fn, {"ds": ds["params"], "dt": dt["params"]},
-            (real_frames, fake_frames, real_dt, fake_dt, y), ka)
-        l_ds = torch.stack([a[0] for a in auxes]).mean()
-        l_dt = torch.stack([a[1] for a in auxes]).mean()
-        ds_u, dt_u = auxes[-1][2:]
-        grads = collectives.mean_tree(grads, grad_groups)
-        ds_params, ds_opt = _adam(grads["ds"], ds, tc.lr_d, tc)
-        dt_params, dt_opt = _adam(grads["dt"], dt, tc.lr_d, tc)
-        ds = {"params": ds_params, "sn_u": ds_u, "opt": ds_opt}
-        dt = {"params": dt_params, "sn_u": dt_u, "opt": dt_opt}
-        metrics.update(d_loss=d_loss, d_loss_s=l_ds, d_loss_t=l_dt)
-        if tc.log_grad_norms and i == d_steps - 1:
-            metrics["d_grad_norm"] = _global_norm(grads)
+            d_loss, auxes, grads = _accum_grads(
+                d_loss_fn, {"ds": ds["params"], "dt": dt["params"]},
+                (real_frames, fake_frames, real_dt, fake_dt, y), ka)
+            l_ds = torch.stack([a[0] for a in auxes]).mean()
+            l_dt = torch.stack([a[1] for a in auxes]).mean()
+            ds_u, dt_u = auxes[-1][2:]
+            grads = collectives.mean_tree(grads, grad_groups)
+            ds_params, ds_opt = _adam(grads["ds"], ds, tc.lr_d, tc)
+            dt_params, dt_opt = _adam(grads["dt"], dt, tc.lr_d, tc)
+            ds = {"params": ds_params, "sn_u": ds_u, "opt": ds_opt}
+            dt = {"params": dt_params, "sn_u": dt_u, "opt": dt_opt}
+            metrics.update(d_loss=d_loss, d_loss_s=l_ds, d_loss_t=l_dt)
+            if tc.log_grad_norms and i == d_steps - 1:
+                metrics["d_grad_norm"] = _global_norm(grads)
 
     # ---- G phase × 1 ------------------------------------------------------
-    z_g = draws.z(3 * d_steps)
-    idx_g = draws.idx(3 * d_steps + 1)
-    with torch.no_grad():
-        ds_sn, _ = sn.sn_normalize(ds["params"], ds["sn_u"], update=False,
-                                   compute_dtype=dtype)
-        dt_sn, _ = sn.sn_normalize(dt["params"], dt["sn_u"], update=False,
-                                   compute_dtype=dtype)
-    g = state["g"]
+    with span("step.g"):
+        z_g = draws.z(3 * d_steps)
+        idx_g = draws.idx(3 * d_steps + 1)
+        with torch.no_grad():
+            ds_sn, _ = sn.sn_normalize(ds["params"], ds["sn_u"], update=False,
+                                       compute_dtype=dtype)
+            dt_sn, _ = sn.sn_normalize(dt["params"], dt["sn_u"], update=False,
+                                       compute_dtype=dtype)
+        g = state["g"]
 
-    def g_loss_fn(g_params, z_j, idx_j, y_j, cond_j=None):
-        g_sn, g_u = sn.sn_normalize(g_params, g["sn_u"], update=True,
-                                    compute_dtype=dtype)
-        fake, g_stats = generator.apply(g_sn, g["stats"], z_j, y_j, g_cfg,
-                                        train=True, cond_video=cond_j,
-                                        group=group)
-        s_ds = discriminator.ds_apply(ds_sn, take_frames(fake, idx_j), y_j,
-                                      ds_cfg)
-        dt_in = fake if cond_j is None else torch.cat([cond_j, fake], dim=1)
-        s_dt = dt_score(dt_sn, dt_in, y_j)
-        g_loss = losses.g_hinge(s_ds) + losses.g_hinge(s_dt)
-        return g_loss, (g_u, tru.tree_map(torch.Tensor.detach, g_stats))
+        def g_loss_fn(g_params, z_j, idx_j, y_j, cond_j=None):
+            g_sn, g_u = sn.sn_normalize(g_params, g["sn_u"], update=True,
+                                        compute_dtype=dtype)
+            fake, g_stats = generator.apply(g_sn, g["stats"], z_j, y_j, g_cfg,
+                                            train=True, cond_video=cond_j,
+                                            group=group)
+            s_ds = discriminator.ds_apply(ds_sn, take_frames(fake, idx_j), y_j,
+                                          ds_cfg)
+            dt_in = (fake if cond_j is None
+                     else torch.cat([cond_j, fake], dim=1))
+            s_dt = dt_score(dt_sn, dt_in, y_j)
+            g_loss = losses.g_hinge(s_ds) + losses.g_hinge(s_dt)
+            return g_loss, (g_u, tru.tree_map(torch.Tensor.detach, g_stats))
 
-    fields = (z_g, idx_g, y) + ((cond,) if cf else ())
-    g_loss, auxes, g_grads = _accum_grads(g_loss_fn, g["params"], fields, ka)
-    g_u = auxes[-1][0]
-    # the running-stat update is linear in the batch moments: the mean over
-    # the micros is one update with the mean micro-moment
-    g_stats = auxes[0][1] if ka == 1 else tru.tree_map(
-        lambda *s: torch.stack(s).mean(0), *(a[1] for a in auxes))
-    g_grads = collectives.mean_tree(g_grads, grad_groups)
-    g_stats = collectives.mean_tree(g_stats, (time_group,))
-    g_params, g_opt = _adam(g_grads, g, tc.lr_g, tc)
-    step = state["step"]
-    new_state = {
-        "step": step + 1,
-        "g": {"params": g_params, "stats": g_stats, "sn_u": g_u,
-              "opt": g_opt},
-        "ds": ds,
-        "dt": dt,
-        "g_ema": train_state.ema_update(state["g_ema"], g_params,
-                                        tc.ema_decay, step, tc.ema_start),
-    }
-    metrics["g_loss"] = g_loss
-    if tc.log_grad_norms:
-        metrics["g_grad_norm"] = _global_norm(g_grads)
-    return new_state, collectives.mean_tree(metrics, grad_groups)
+        fields = (z_g, idx_g, y) + ((cond,) if cf else ())
+        g_loss, auxes, g_grads = _accum_grads(g_loss_fn, g["params"],
+                                              fields, ka)
+        g_u = auxes[-1][0]
+        # the running-stat update is linear in the batch moments: the mean over
+        # the micros is one update with the mean micro-moment
+        g_stats = auxes[0][1] if ka == 1 else tru.tree_map(
+            lambda *s: torch.stack(s).mean(0), *(a[1] for a in auxes))
+        g_grads = collectives.mean_tree(g_grads, grad_groups)
+        g_stats = collectives.mean_tree(g_stats, (time_group,))
+        g_params, g_opt = _adam(g_grads, g, tc.lr_g, tc)
+        step = state["step"]
+        with span("ema"):
+            g_ema = train_state.ema_update(state["g_ema"], g_params,
+                                           tc.ema_decay, step, tc.ema_start)
+        new_state = {
+            "step": step + 1,
+            "g": {"params": g_params, "stats": g_stats, "sn_u": g_u,
+                  "opt": g_opt},
+            "ds": ds,
+            "dt": dt,
+            "g_ema": g_ema,
+        }
+        metrics["g_loss"] = g_loss
+        if tc.log_grad_norms:
+            metrics["g_grad_norm"] = _global_norm(g_grads)
+        metrics = collectives.mean_tree(metrics, grad_groups)
+    return new_state, metrics
 
 
 def _copy_tree(dst: Any, src: Any) -> None:
@@ -458,7 +471,16 @@ class MultiStep:
     before and after, divided by K) and `comms` the collectives and bytes
     per step (`collectives.COUNTS` the same way): around the capture on
     the card, where a replay moves no host counter, and around each call
-    on the CPU.
+    on the CPU. `nodes` counts the captured graph's nodes by type
+    (`profiling.graph_nodes`), and `kernel_nodes` is its kernel nodes, less
+    the span markers, over K (also `profiling.COUNTERS.kernel_nodes`). With
+    spans on
+    (`profiling.enable`) the capture takes in a marker kernel where each
+    span of the steps begins and ends (the phases of `train_step`, `sn`,
+    `adam`, `ema`, G's levels), and `marks` lists what the
+    markers of one replay stand for, in order: (span, "B" | "E"). A graph
+    captured with spans off holds no marker, and spans switched on later
+    reach it only through a new capture.
 
     Under data or time parallelism (`group`, `time_group` of more than one
     rank; the draws folded by `shard`, as `train_step` takes them) the CPU
@@ -510,6 +532,9 @@ class MultiStep:
         self.metrics: dict[str, torch.Tensor] = {}
         self.launches: dict[str, int] = {}
         self.comms: dict[str, int] = {}
+        self.nodes: dict[str, int] = {}
+        self.kernel_nodes: Optional[float] = None
+        self.marks: list[tuple[str, str]] = []
         self.capture_s: Optional[float] = None   # warm-up + capture, host
 
     def _steps(self) -> dict[str, torch.Tensor]:
@@ -557,11 +582,17 @@ class MultiStep:
         with torch.cuda.stream(side):
             self.warm_up()
         train.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = self._tallies()
-        with torch.cuda.graph(graph, capture_error_mode=capture_mode()):
-            self.metrics = self._steps()
+        with profiling.recording_marks() as marks:
+            with torch.cuda.graph(graph, capture_error_mode=capture_mode()):
+                self.metrics = self._steps()
         self._per_step(before)
+        self.marks = marks
+        self.nodes = profiling.graph_nodes(graph)
+        self.kernel_nodes = (self.nodes["kernel"] - len(marks)) / self.k
+        profiling.COUNTERS.kernel_nodes = self.kernel_nodes
+        graph.instantiate()
         self.graph = graph
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
@@ -600,9 +631,21 @@ def sample(g_params_ema: dict, g_stats: dict, sn_u: dict, z: torch.Tensor,
     frozen u (one power iteration, u not stored back), everything in the
     compute dtype z.dtype. Returns (B, T, H, W, 3) in [-1, 1]: for FP the
     n_frames generated after the real prefix `cond_video` (B, cond_frames,
-    H, W, 3), which is not re-emitted."""
-    g_sn, _ = sn.sn_normalize(g_params_ema, sn_u, update=False,
-                              compute_dtype=z.dtype)
-    video, _ = generator.apply(g_sn, g_stats, z, y, g_cfg, train=False,
-                               cond_video=cond_video)
+    H, W, 3), which is not re-emitted. The span "sample" holds "sn" and
+    G's per level ("g.<i>", "g.head"); the host time of the call goes to
+    `profiling.COUNTERS`: the process's first call's to `sample_first_s`
+    (it builds the kernels and picks cuDNN's plans), every later call's
+    to `sample_issue_s`, `sample_calls`."""
+    t0 = time.perf_counter()
+    with span("sample"):
+        g_sn, _ = sn.sn_normalize(g_params_ema, sn_u, update=False,
+                                  compute_dtype=z.dtype)
+        video, _ = generator.apply(g_sn, g_stats, z, y, g_cfg, train=False,
+                                   cond_video=cond_video)
+    dt, c = time.perf_counter() - t0, profiling.COUNTERS
+    if c.sample_first_s is None:
+        c.sample_first_s = dt
+    else:
+        c.sample_issue_s += dt
+        c.sample_calls += 1
     return video

@@ -8,9 +8,11 @@ alternating G/D step (`train.step.train_step`) on the reference's schedule:
   * every `log_step` steps, the scalars of the interval that ended
     `log_step` steps earlier go to `out_dir/logs/scalars.jsonl` (and
     TensorBoard where it imports) with `steps_per_sec` over that interval,
-    and one line to stdout with the step's kernel launches (K1 … K6b,
-    counted around the train step alone); the last interval is written
-    when the loop ends;
+    and one line to stdout with the host ms a step spent waiting for the
+    next batch over the interval (`loader_wait_ms`), under K > 1 the kernel
+    nodes a step of the K-step graph (`kernels_per_step`), and the step's
+    kernel launches (K1 … K6b, counted around the train step alone); the
+    last interval is written when the loop ends;
   * every `sample_step` steps, EMA-G samples of a fixed z and y (and for
     DVD-GAN-FP a fixed real prefix, `cond_fixed`: the first cond_frames
     frames of dataset items 0 … n_show − 1) go to
@@ -55,7 +57,16 @@ during the capture and divided by K (`MultiStep.launches`, `.comms`): a
 replay moves no host counter.
 
 `--profile` traces steps 10 to 15 with torch.profiler into
-`out_dir/trace` (the window aligned to K; `utils/profiling.py`);
+`out_dir/trace` (the window aligned to K; `utils/profiling.py`), with
+spans on from before the K-step graph's capture, so that the graph holds
+the span markers and their list is written beside the trace
+(`steps_<a>_<b>.marks.json`, `MultiStep.marks`): the trace's device time
+splits by phase of the step. The loop's own spans are "train.wait" (the
+wait for the prefetched batch, counted in
+`profiling.COUNTERS.loader_wait_s`, whose change over a log interval the
+log line prints), "train.place" (on the prefetch
+thread), "train.call" (the batch handed over, the draws' fill, the step
+or the replay), "train.record" and "train.report";
 `--nan_check` turns on autograd's anomaly mode and checks every step's
 metrics, which reads the device each step (asked for); under K > 1 the
 graph cannot hold anomaly mode, so each call's stacked metrics are checked
@@ -108,6 +119,7 @@ from dvdgan_tpu_torch.train import state as train_state
 from dvdgan_tpu_torch.train import step as step_mod
 from dvdgan_tpu_torch.utils.config import Config
 from dvdgan_tpu_torch.utils import profiling
+from dvdgan_tpu_torch.utils.profiling import COUNTERS, span
 from dvdgan_tpu_torch.utils.logging import MetricWriter, NullWriter, step_line
 from dvdgan_tpu_torch.utils.media import save_batch_gifs, save_video_grid_png
 
@@ -247,13 +259,18 @@ class _Mark:
 
 class _Record(_Mark):
     """A step's metrics copied to pinned host memory without waiting for
-    the card, its kernel launches and its collectives (host integers)."""
+    the card, its kernel launches and its collectives (host integers);
+    at a log step also the host seconds waited for batches over the
+    interval it ends (`wait_s`) and the graph's kernel nodes a step."""
 
     def __init__(self, step: int, metrics: dict, launches: dict,
-                 device: torch.device, comms: Optional[dict] = None):
+                 device: torch.device, comms: Optional[dict] = None,
+                 kernel_nodes: Optional[float] = None):
         self.names = list(metrics)
         self.launches = launches
         self.comms = comms or {}
+        self.kernel_nodes = kernel_nodes
+        self.wait_s = 0.0
         values = torch.stack([metrics[k].detach().float()
                               for k in self.names])
         if device.type == "cuda":
@@ -368,14 +385,15 @@ class Trainer:
     def _place(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """Runs on the prefetch thread: the batch on the device in the
         compute dtype, copied on the side stream from pinned memory."""
-        clips, labels = (torch.from_numpy(a) for a in batch)
-        if self.side is None:
-            return clips.to(self.dtype), labels.long()
-        clips, labels = clips.pin_memory(), labels.pin_memory()
-        with torch.cuda.stream(self.side):
-            real = clips.to(self.device, non_blocking=True).to(self.dtype)
-            y = labels.to(self.device, non_blocking=True).long()
-        return real, y
+        with span("train.place"):
+            clips, labels = (torch.from_numpy(a) for a in batch)
+            if self.side is None:
+                return clips.to(self.dtype), labels.long()
+            clips, labels = clips.pin_memory(), labels.pin_memory()
+            with torch.cuda.stream(self.side):
+                real = clips.to(self.device, non_blocking=True).to(self.dtype)
+                y = labels.to(self.device, non_blocking=True).long()
+            return real, y
 
     def _multi_step(self) -> step_mod.MultiStep:
         """The K-step call, built at the first K-step loop. On the card its
@@ -418,6 +436,9 @@ class Trainer:
         if k > 1 and total % k:
             raise ValueError(f"total_step override {total} is not a "
                              f"multiple of steps_per_call {k}")
+        spans_were = profiling.enabled()
+        if c.profile:       # before the capture: the graph holds the marks
+            profiling.enable(True)
         multi = self._multi_step() if k > 1 else None
         bpe = max(self.loader.batches_per_epoch(), 1)
         data = self.loader.forever(self.start_step // bpe,
@@ -429,6 +450,7 @@ class Trainer:
         metrics: dict[str, torch.Tensor] = {}
         first = self.start_step
         launched = dict.fromkeys(launch_counts(), 0)    # over the run
+        wait_at = COUNTERS.loader_wait_s    # the loader's wait at the last log
         prof = None
         prof_start = self.start_step + k * max(1, 10 // k)
         prof_stop = prof_start + k * max(1, 5 // k)
@@ -438,44 +460,58 @@ class Trainer:
                     if c.profile and i == prof_start:
                         prof = profiling.start_trace(self.device)
                     if prof is not None and i == prof_stop:
-                        profiling.stop_trace(prof, os.path.join(
-                            self.out_dir, "trace",
-                            f"steps_{prof_start}_{i}.json"), self.device)
+                        path = os.path.join(self.out_dir, "trace",
+                                            f"steps_{prof_start}_{i}")
+                        profiling.stop_trace(prof, path + ".json",
+                                             self.device)
+                        if multi is not None:
+                            with open(path + ".marks.json", "w") as f:
+                                json.dump(multi.marks, f)
                         prof = None
                     if pending is not None:
-                        batch, pending = pending.result(), None
+                        t0 = time.perf_counter()
+                        with span("train.wait"):
+                            batch, pending = pending.result(), None
+                        COUNTERS.loader_wait_s += time.perf_counter() - t0
+                        COUNTERS.loader_wait_steps += k
                     else:
                         batch = self._place(self._next(data))
                     if i + k < total:       # the next call's batches meanwhile
                         pending = prefetch.submit(
                             lambda: self._place(self._next(data)))
-                    real, y = self._take(batch)
-                    if multi is not None:   # the call's metrics stacked (K,)
-                        self.state, out = multi(self.state, real, y, i)
-                        launches, comms = multi.launches, multi.comms
-                        metrics = {name: v[-1] for name, v in out.items()}
-                    else:
-                        comms_at = collectives.COUNTS.snapshot()
-                        draws = step_mod.TorchDraws(
-                            c.seed, i, self.batch, self.g_cfg.z_dim,
-                            self.g_cfg.n_frames, self.ds_cfg.k_frames,
-                            self.dtype, self.device, shard=self.shard)
-                        before = launch_counts()
-                        self.state, out = self.step_fn(self.state, real, y,
-                                                       draws)
-                        launches = {name: n - before[name]
-                                    for name, n in launch_counts().items()}
-                        comms = {name: v - comms_at[name] for name, v
-                                 in collectives.COUNTS.snapshot().items()}
-                        metrics = out
+                    with span("train.call"):
+                        real, y = self._take(batch)
+                        if multi is not None:   # the metrics stacked (K,)
+                            self.state, out = multi(self.state, real, y, i)
+                            launches, comms = multi.launches, multi.comms
+                            metrics = {name: v[-1] for name, v in out.items()}
+                        else:
+                            comms_at = collectives.COUNTS.snapshot()
+                            draws = step_mod.TorchDraws(
+                                c.seed, i, self.batch, self.g_cfg.z_dim,
+                                self.g_cfg.n_frames, self.ds_cfg.k_frames,
+                                self.dtype, self.device, shard=self.shard)
+                            before = launch_counts()
+                            self.state, out = self.step_fn(self.state, real,
+                                                           y, draws)
+                            launches = {name: n - before[name] for name, n
+                                        in launch_counts().items()}
+                            comms = {name: v - comms_at[name] for name, v
+                                     in collectives.COUNTS.snapshot().items()}
+                            metrics = out
                     step = i + k
                     for name, n in launches.items():
                         launched[name] += n * k
                     if c.nan_check:
                         _check_finite(out, step)
-                    record = _Record(step, metrics, launches, self.device,
-                                     comms if self.par is not None else None)
+                    with span("train.record"):
+                        record = _Record(
+                            step, metrics, launches, self.device,
+                            comms if self.par is not None else None,
+                            multi.kernel_nodes if multi is not None else None)
                     if step % c.log_step == 0:
+                        record.wait_s = COUNTERS.loader_wait_s - wait_at
+                        wait_at = COUNTERS.loader_wait_s
                         if lagged is not None:
                             since = self._report(lagged, since)
                         lagged = record
@@ -505,6 +541,7 @@ class Trainer:
                 data.close()
                 if prof is not None:
                     prof.stop()
+                profiling.enable(spans_were)
         self._flush_saver()
         if lagged is not None:          # the last interval, not yet written
             self._report(lagged, since)
@@ -523,17 +560,24 @@ class Trainer:
     def _report(self, rec: _Record, since: _Mark) -> _Record:
         """Writes `rec` (waiting on its event alone) with the steps/s of
         the interval since `since`; -> rec, the next interval's start."""
-        m = rec.metrics()
-        secs = rec.seconds_since(since)
-        sps = (rec.step - since.step) / secs if secs > 0 else 0.0
-        self.writer.scalars(m, rec.step)
-        self.writer.scalar("steps_per_sec", sps, rec.step)
-        if self.is_main:
-            print(" | ".join([step_line(rec.step, m, sps)]
-                             + [f"{k}_launches {n}"
-                                for k, n in rec.launches.items()]
-                             + [f"comm_{k} {n}"
-                                for k, n in rec.comms.items()]), flush=True)
+        with span("train.report"):
+            m = rec.metrics()
+            secs = rec.seconds_since(since)
+            steps = rec.step - since.step
+            sps = steps / secs if secs > 0 else 0.0
+            self.writer.scalars(m, rec.step)
+            self.writer.scalar("steps_per_sec", sps, rec.step)
+            if self.is_main:
+                wait_ms = rec.wait_s * 1e3 / max(steps, 1)
+                host = [f"loader_wait_ms {wait_ms:.4f}"]
+                if rec.kernel_nodes is not None:
+                    host.append(f"kernels_per_step {rec.kernel_nodes:g}")
+                print(" | ".join([step_line(rec.step, m, sps)] + host
+                                 + [f"{k}_launches {n}"
+                                    for k, n in rec.launches.items()]
+                                 + [f"comm_{k} {n}"
+                                    for k, n in rec.comms.items()]),
+                      flush=True)
         return rec
 
     def save(self, step: int) -> None:

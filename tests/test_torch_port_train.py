@@ -314,7 +314,7 @@ def test_train_cli_on_cpu_writes_state(tmp_path):
     launches = {f"{k}_launches" for k in ("k1", "k2", "k3", "k5a", "k5b",
                                           "k6a", "k6b")}
     for _, fields in lines:
-        assert set(fields) == {*LOSSES, "steps/s"} | launches
+        assert set(fields) == {*LOSSES, "steps/s", "loader_wait_ms"} | launches
         assert all(np.isfinite(fields[k]) for k in LOSSES)
         # CPU tensors take the plain versions: no kernel launches
         assert {fields[k] for k in launches} == {0}
